@@ -1,0 +1,20 @@
+"""Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
+
+  ws_step    — warm-start Euler sampling step (replaces the TPU kernel
+               ``ws_step_streamed_pallas``)
+  flash_attn — blockwise online-softmax attention (replaces
+               ``flash_attention_pallas``)
+
+Each wrapper launches its kernel for a CUDA tensor and takes its plain
+PyTorch version (``ref.py``) only for a CPU tensor. ``_build`` compiles
+``csrc/*.cu`` with ``nvcc`` on first use and counts launches.
+"""
+
+from repro_torch.kernels._build import launches
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.ws_step import (
+    make_ws_step_fn, ws_step, ws_step_ref, ws_step_ref_streamed,
+)
+
+__all__ = ["launches", "ws_step", "make_ws_step_fn", "ws_step_ref",
+           "ws_step_ref_streamed", "flash_attention", "flash_attention_ref"]

@@ -1,0 +1,94 @@
+"""``ws_step``: the wrapper around ``csrc/ws_step.cu``, with the
+``step_fn`` signature of the JAX package's ``kernels/ws_step/ops.py``.
+
+``ws_step(rng, logits, x_t, t, h, path)`` flattens ``(B, N, V)`` logits to
+rows, forms ``a = clip(h * velocity_scale(t), 0, 1)`` per row and draws
+the next token of every row with the threefry noise keyed by the step
+key's two words and the absolute ``(row, col)``. A CUDA tensor launches
+the kernel (or raises); a CPU tensor takes the plain streamed version on
+the same noise (``prng.threefry_gumbel``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch import prng
+from repro_torch.core.paths import WarmStartPath
+from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
+from repro_torch.kernels.ws_step.ref import ws_step_ref_streamed
+
+
+def seed_from_key(rng: torch.Tensor) -> Tuple[int, int]:
+    """The kernel's two uint32 seed words (the key data) of a step key."""
+    kd = prng.key_data(rng).reshape(-1)[:2].tolist()
+    return int(kd[0]), int(kd[1])
+
+
+def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
+            path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
+    """Fused next-token draw for one Euler step; tokens shaped like ``x_t``."""
+    if logits.ndim == 3:
+        b, n, v = logits.shape
+        r = b * n
+        lg = logits.reshape(r, v)
+        x = x_t.reshape(r)
+        tt = torch.as_tensor(t, dtype=torch.float32, device=logits.device)
+        tt = tt.reshape(-1, 1).expand(b, n).reshape(r)
+    elif logits.ndim == 2:
+        r, v = logits.shape
+        lg, x = logits, x_t
+        tt = torch.as_tensor(t, dtype=torch.float32, device=logits.device).expand(r)
+    else:
+        raise ValueError(f"logits must be (B, N, V) or (R, V), got {tuple(logits.shape)}")
+    hh = torch.as_tensor(h, dtype=torch.float32, device=logits.device)
+    a = torch.clamp(hh * path.velocity_scale(tt), 0.0, 1.0)
+    seed = seed_from_key(rng)
+
+    if logits.device.type == "cpu":
+        g = prng.threefry_gumbel(seed, r, v, device=logits.device)
+        out = ws_step_ref_streamed(lg, x, a, g, temperature=temperature)
+        return out.reshape(x_t.shape)
+    if logits.device.type != "cuda":
+        raise ValueError(f"ws_step runs on cuda or cpu, got {logits.device}")
+    lg = lg.contiguous()
+    if lg.dtype != torch.float32:
+        raise ValueError(f"logits must be float32, got {lg.dtype}")
+    if x.device != logits.device or x.shape != (r,):
+        raise ValueError(f"x_t must hold one token per row on {logits.device}")
+    x32 = x.to(torch.int32).contiguous()
+    a = a.contiguous()
+    out = torch.empty(r, dtype=torch.int32, device=logits.device)
+    _launch(lg, x32, a, out, seed, temperature)
+    _build.launches["ws_step"] += 1
+    return out.reshape(x_t.shape)
+
+
+def _launch(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, out: torch.Tensor, seed,
+            temperature: float) -> None:
+    """One launch of the kernel on checked, contiguous CUDA tensors (no count)."""
+    r, v = lg.shape
+    with torch.cuda.device(lg.device):
+        stream = torch.cuda.current_stream(lg.device).cuda_stream
+        rc = _build.library().ws_step_launch(lg.data_ptr(), x.data_ptr(), a.data_ptr(),
+                                             out.data_ptr(), r, v, seed[0], seed[1],
+                                             float(temperature), stream)
+    _build.check(rc, "ws_step")
+
+
+def make_ws_step_fn(path: WarmStartPath, *, temperature: float = 1.0, device="cuda"):
+    """``step_fn(rng, logits, x_t, t, h)`` for ``WarmStartServer(step_fn=...)``.
+
+    ``device`` is where the step will run (default the card, which raises
+    without one); logits on another device raise."""
+    dev = resolve_device(device)
+
+    def step_fn(rng, logits, x_t, t, h):
+        if logits.device.type != dev.type:
+            raise ValueError(f"ws_step built for {dev}, got logits on {logits.device}")
+        return ws_step(rng, logits, x_t, t, h, path, temperature=temperature)
+
+    return step_fn

@@ -1,0 +1,70 @@
+"""Plain PyTorch versions of the fused warm-start Euler sampling step (the
+JAX package's ``ws_step/ref.py``), fed by the kernel's threefry noise.
+
+Given backbone logits, the current token, the mixing weight
+``a = clip(h * velocity_scale(t), 0, 1)`` and Gumbel noise, the next
+token of the CTMC Euler step is
+
+    x_next = argmax_v log((1 - a) * onehot(x_t) + a * softmax(logits / T))[v] + g[v]
+
+``ws_step_ref`` materialises the probabilities; ``ws_step_ref_streamed``
+computes the decomposed score that ``csrc/ws_step.cu`` streams (the
+argmax of ``lg + g`` over ``v != x`` against the ``v == x`` score). The
+two agree except on floating-point near-ties at the argmax boundary;
+:func:`near_tie_rows` names the rows where that may happen.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MIN_PROB = 1e-30
+NEG = -1e30
+
+
+def ws_step_ref(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                gumbel: torch.Tensor, *, temperature: float = 1.0) -> torch.Tensor:
+    lf = logits.float() / temperature
+    p1 = torch.softmax(lf, dim=-1)
+    onehot = torch.nn.functional.one_hot(x_t.long(), logits.shape[-1]).float()
+    probs = (1.0 - a[:, None]) * onehot + a[:, None] * p1
+    score = torch.log(torch.clamp_min(probs, MIN_PROB)) + gumbel
+    return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def _decomposed(logits, x_t, a, gumbel, temperature):
+    lf = logits.float() / temperature
+    m = lf.max(dim=-1, keepdim=True).values
+    s = torch.exp(lf - m).sum(dim=-1, keepdim=True)
+    xi = x_t.long()[:, None]
+    cand = (lf + gumbel).scatter(-1, xi, NEG)
+    best, bidx = cand.max(dim=-1, keepdim=True)
+    aa = a.float()[:, None]
+    score_other = torch.log(torch.clamp_min(aa, MIN_PROB)) + best - m - torch.log(s)
+    lx = lf.gather(-1, xi)
+    gx = gumbel.gather(-1, xi)
+    p1x = torch.exp(lx - m) / s
+    score_x = torch.log(torch.clamp_min((1.0 - aa) + aa * p1x, MIN_PROB)) + gx
+    return cand, score_x, score_other, xi, bidx
+
+
+def ws_step_ref_streamed(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                         gumbel: torch.Tensor, *, temperature: float = 1.0) -> torch.Tensor:
+    """Full-width replica of the streamed kernel's decomposed score."""
+    _, score_x, score_other, xi, bidx = _decomposed(logits, x_t, a, gumbel, temperature)
+    return torch.where(score_x >= score_other, xi, bidx)[:, 0].to(torch.int32)
+
+
+def near_tie_rows(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                  gumbel: torch.Tensor, *, temperature: float = 1.0,
+                  tol: float = 1e-5) -> torch.Tensor:
+    """Rows whose draw hinges on two competing scores within ``tol``: the
+    keep-vs-move scores ``score_x``/``score_other``, or the best two
+    ``lg + g`` candidates over ``v != x``. Two correct implementations
+    that sum in different orders may disagree there, and only there."""
+    cand, score_x, score_other, _, _ = _decomposed(logits, x_t, a, gumbel, temperature)
+    keep_vs_move = (score_x - score_other).abs()[:, 0] <= tol
+    if cand.shape[-1] < 3:
+        return keep_vs_move
+    top2 = cand.topk(2, dim=-1).values
+    return keep_vs_move | ((top2[:, 0] - top2[:, 1]) <= tol)

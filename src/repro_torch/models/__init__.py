@@ -1,0 +1,5 @@
+"""The torch DiT backbone (dense attention configs)."""
+
+from repro_torch.models.model import Model, build_model
+
+__all__ = ["Model", "build_model"]

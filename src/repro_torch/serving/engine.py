@@ -1,0 +1,168 @@
+"""The one-shot warm-start generation engine (port of ``WarmStartServer``
+and ``PerNFECostModel`` of the JAX package's ``serving/engine.py``).
+
+``WarmStartServer.serve`` runs the paper's Fig. 1 generation: a draft at
+``t0``, then exactly ``warm_nfe(cold_nfe, t0)`` Euler refine steps of the
+DFM backbone, then the NFE guarantee gate. With
+``step_fn=make_ws_step_fn(path)`` every step is one ``ws_step`` kernel
+launch, and every backbone evaluation runs its attention through the
+``flash_attn`` kernel. The refine loop is a Python loop of eager launches
+(the JAX engine jits it into one dispatch; a CUDA graph is the port's
+counterpart, not built yet).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import prng
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import guarantees
+from repro_torch.core.paths import WarmStartPath
+from repro_torch.core.sampler import make_euler_one_step, refine_loop_inputs, scan_refine_loop
+from repro_torch.device import resolve_device
+
+
+class PerNFECostModel:
+    """Measured per-NFE refine cost: an EWMA per compile key
+    (``(seq_len, rows, nfe)`` here) plus a global per-NFE EWMA as the
+    fallback for unseen keys, and an EWMA of first-dispatch overhead so a
+    first dispatch is charged its set-up time."""
+
+    def __init__(self, alpha: float = 0.3):
+        if not (0.0 < alpha <= 1.0):
+            raise ValueError(f"alpha must be in (0, 1], got {alpha}")
+        self.alpha = alpha
+        self._per_key: Dict[Any, float] = {}
+        self._global: Optional[float] = None
+        self._compile: Optional[float] = None
+
+    def _ewma(self, old: Optional[float], new: float) -> float:
+        return new if old is None else (1 - self.alpha) * old + self.alpha * new
+
+    def observe(self, key, flow_time_s: float, nfe: int, *, compiled: bool = False) -> None:
+        """Fold one measured refine dispatch into the model; ``compiled``
+        marks a first dispatch of ``key``, which feeds the set-up EWMA."""
+        per_nfe = flow_time_s / max(nfe, 1)
+        if compiled:
+            base = self.estimate_s(key, nfe)
+            self._compile = self._ewma(self._compile, max(0.0, flow_time_s - (base or 0.0)))
+            return
+        self._per_key[key] = self._ewma(self._per_key.get(key), per_nfe)
+        self._global = self._ewma(self._global, per_nfe)
+
+    def per_nfe_s(self, key=None) -> Optional[float]:
+        """Best per-NFE estimate for ``key`` (global fallback); ``None``
+        until the first steady-state observation."""
+        if key is not None and key in self._per_key:
+            return self._per_key[key]
+        return self._global
+
+    def cost_for_nfe(self, nfe: int, key=None) -> Optional[float]:
+        """Measured seconds for exactly ``nfe`` steps (0 steps cost 0.0)."""
+        if nfe <= 0:
+            return 0.0
+        per = self.per_nfe_s(key)
+        return None if per is None else per * nfe
+
+    def estimate_s(self, key, nfe: int, *, include_compile: bool = False) -> Optional[float]:
+        """Estimated refine latency of an ``nfe``-step dispatch at ``key``;
+        ``None`` when nothing has been measured yet."""
+        per = self.per_nfe_s(key)
+        if per is None:
+            return None
+        est = per * max(nfe, 1)
+        if include_compile and key not in self._per_key and self._compile:
+            est += self._compile
+        return est
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class WarmStartServer:
+    """Batched warm-start serving engine (paper Fig. 1 bottom):
+      1. draft stage: ``draft_generate(key, num)`` makes x_{t0};
+      2. flow stage: ceil(cold_nfe * (1 - t0)) DFM Euler steps.
+
+    The NFE guarantee is enforced with
+    :class:`~repro_torch.core.guarantees.GuaranteeViolation`. The backbone
+    ``flow_model`` (a ``Model``) holds its own weights and must live on
+    ``device``.
+    """
+
+    flow_model: Any
+    flow_cfg: ModelConfig
+    draft_generate: Callable[[torch.Tensor, int], torch.Tensor]   # (key, num) -> tokens
+    path: WarmStartPath
+    cold_nfe: int
+    temperature: float = 1.0
+    step_fn: Optional[Callable] = None
+    # K > 1 (fused K-step blocks) needs the unported ws_fused kernel
+    fused_block: int = 1
+    cost_model: Optional[PerNFECostModel] = None
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.fused_block > 1:
+            raise NotImplementedError(
+                "fused_block > 1 needs the ws_fused kernel, which is not ported yet")
+        if self.flow_model.device.type != self.device.type:
+            raise ValueError(f"flow_model lives on {self.flow_model.device}, "
+                             f"server on {self.device}")
+        if self.cost_model is None:
+            self.cost_model = PerNFECostModel()
+        self._served_shapes = set()
+        self._one_step = make_euler_one_step(
+            self.path, temperature=self.temperature, step_fn=self.step_fn)
+
+    def _refine_loop(self, keys, x, ts, hs):
+        return scan_refine_loop(self.flow_model.dfm_apply, self._one_step, x, keys, ts, hs,
+                                fused_block=self.fused_block)
+
+    def serve(self, rng: torch.Tensor, num: int) -> Tuple[torch.Tensor, dict]:
+        k_draft, k_flow = prng.split(rng, 2)
+        t_draft0 = time.perf_counter()
+        x = self.draft_generate(k_draft, num)
+        _sync(self.device)
+        t_draft = time.perf_counter() - t_draft0
+
+        t0 = self.path.t0
+        n_steps = guarantees.warm_nfe(self.cold_nfe, t0)
+        keys, ts, hs = refine_loop_inputs(k_flow, t0, 1.0 / self.cold_nfe, n_steps,
+                                          device=self.device)
+
+        t_flow0 = time.perf_counter()
+        with torch.inference_mode():
+            x = self._refine_loop(keys, x, ts, hs)
+        _sync(self.device)
+        t_flow = time.perf_counter() - t_flow0
+        nfe = n_steps
+        backbone_evals = n_steps
+
+        guarantees.require_guarantee(self.cold_nfe, t0, nfe)
+        per_nfe = t_flow / max(backbone_evals, 1)
+        shape = (x.shape[-1], num, nfe)
+        self.cost_model.observe(shape, t_flow, backbone_evals,
+                                compiled=shape not in self._served_shapes)
+        self._served_shapes.add(shape)
+        report = {
+            "nfe": nfe,
+            "backbone_evals": backbone_evals,
+            "fused_block": self.fused_block,
+            "cold_nfe": self.cold_nfe,
+            "draft_time_s": t_draft,
+            "flow_time_s": t_flow,
+            "per_nfe_s": per_nfe,
+            "speedup_report": guarantees.speedup_report(
+                self.cold_nfe, t0, draft_cost_ratio=t_draft / max(per_nfe, 1e-9)),
+        }
+        return x, report
