@@ -31,7 +31,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (on-chip-measurement guide): HBM3 bytes/s and float32
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32
 # (non-tensor) operations/s, both at the full 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
