@@ -7,17 +7,23 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc`` with
 ``nvcc``, holds each kernel against its plain PyTorch version on the card,
 then serves the ``dfm_dit`` CONFIG backbone at full width (12 x 768,
-seq 256, 32 samples, random seeded weights) through ``WarmStartServer``
-with the ``ws_step`` kernel as its step and the ``flash_attn`` kernel in
-every attention, and checks the NFE guarantee, the launch counts and the
-tokens (against the plain CPU path on a small input). It prints the card,
-one ``{"kernels": [...]}`` line, one ``{"serve": ...}`` line and, last,
-``{"ok": true, "device": ...}``. Any failure raises and exits non-zero;
-without a CUDA device it exits 2 and prints no result.
+seq 256, 32 samples, random seeded weights) through ``WarmStartServer``:
+the draft stage is the KV-cached AR draft engine (``dfm_dit`` CONFIG run as
+a causal decoder, seed 1, 256 tokens per row after a shared 16-token
+prompt) through the ``qkv_rope``, ``attn_cached``, ``post_attn`` and
+``head`` kernels; the refine runs the ``ws_step`` kernel as its step and
+the ``flash_attn`` kernel in every attention. It checks the NFE guarantee,
+the launch counts, the draft engine's bit-exactness (batched prefill ==
+token scan, engine == oracle) and the tokens and logits against the plain
+CPU path. It prints the card, one ``{"serve": ...}`` line, one
+``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``. Any
+failure raises and exits non-zero; without a CUDA device it exits 2 and
+prints no result.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import pathlib
@@ -39,6 +45,12 @@ F32_OPS_PER_S = 67e12
 SEQ, NUM, COLD_NFE, T0, VOCAB = 256, 32, 64, 0.8, 27
 WS_TIE_TOL = 1e-5
 FLASH_TOL = 1e-4
+# the AR draft: a 16-token prompt shared by the rows, then SEQ tokens
+PROMPT, DRAFT_SEED = 16, 1
+MAX_LEN = PROMPT + SEQ - 1
+PROJ_TOL = 1e-4      # x max(1, max |plain|), for qkv_rope, post_attn and head
+ATTN_TOL = 1e-5      # absolute, for attn_cached
+DRAFT_KERNELS = ("qkv_rope", "attn_cached", "post_attn", "head")
 
 
 def fail(msg: str) -> None:
@@ -215,6 +227,293 @@ def measure_flash(b, s, h, d):
             "bound_by": by, "library_ms": library_ms}
 
 
+# -- draft_decode ------------------------------------------------------------------
+
+def draft_layer(g, d, f, h, kh, hd, *, norm, bias, gated):
+    """One layer's parameters in the JAX dict layout, on the card."""
+    def dense(i, o):
+        p = {"w": torch.randn((i, o), generator=g, device="cuda") / math.sqrt(i)}
+        if bias:
+            p["b"] = 0.1 * torch.randn(o, generator=g, device="cuda")
+        return p
+
+    def ln():
+        p = {"scale": 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda")}
+        if norm == "layernorm":
+            p["bias"] = 0.1 * torch.randn(d, generator=g, device="cuda")
+        return p
+
+    attn = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd), "wv": dense(d, kh * hd),
+            "wo": dense(h * hd, d)}
+    mlp = {"up": dense(d, f), "down": dense(f, d)}
+    if gated:
+        mlp["gate"] = dense(d, f)
+    return ln(), attn, ln(), mlp
+
+
+# (name, B, S, T, D, F, H, KH, hd, norm, bias, gated, act, rope): the main
+# path's decode and prefill shapes, then GQA + rmsnorm + gated + bias + no RoPE
+DRAFT_CASES = [
+    ("decode", NUM, 1, MAX_LEN, 768, 3072, 12, 12, 64, "layernorm", False, False, "gelu", True),
+    ("prefill", NUM, PROMPT, MAX_LEN, 768, 3072, 12, 12, 64, "layernorm", False, False, "gelu",
+     True),
+    ("gqa-rmsnorm-gated-bias-norope", 8, 4, 64, 512, 1376, 8, 2, 64, "rmsnorm", True, True,
+     "silu", False),
+]
+
+
+def draft_case_inputs(case, seed):
+    _, b, s, t, d, f, h, kh, hd, norm, bias, gated, act, rope = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ln1, attn_p, ln2, mlp_p = draft_layer(g, d, f, h, kh, hd, norm=norm, bias=bias, gated=gated)
+    x = torch.randn((b * s, d), generator=g, device="cuda")
+    kbuf = torch.randn((b, t, kh * hd), generator=g, device="cuda")
+    vbuf = torch.randn((b, t, kh * hd), generator=g, device="cuda")
+    return ln1, attn_p, ln2, mlp_p, x, kbuf, vbuf
+
+
+def check_draft_kernels(case, seed):
+    """Each draft kernel against its plain version on the same inputs; the
+    cursor sits so the chunk ends at the buffer's last row."""
+    from repro_torch.kernels.draft_decode import (
+        attn_cached, attn_cached_ref, head, head_ref, post_attn, post_attn_ref, qkv_rope,
+        qkv_rope_ref,
+    )
+
+    name, b, s, t, d, f, h, kh, hd, norm, bias, gated, act, rope = case
+    ln1, attn_p, ln2, mlp_p, x, kbuf, vbuf = draft_case_inputs(case, seed)
+    start = torch.tensor(t - s, dtype=torch.int32, device="cuda")
+    kw = dict(heads=h, kv_heads=kh, head_dim=hd)
+    qkw = dict(pos0=t - s, seq=s, norm=norm, eps=1e-6, use_rope=rope, theta=1e4, **kw)
+    kk, vk, kr, vr = kbuf.clone(), vbuf.clone(), kbuf.clone(), vbuf.clone()
+    pairs = {}
+    q = qkv_rope(x, ln1, attn_p, kk, vk, start, **qkw)
+    q_ref = qkv_rope_ref(x, ln1, attn_p, kr, vr, start, **qkw)
+    pairs["qkv_rope"] = [(q, q_ref), (kk, kr), (vk, vr)]
+    a = attn_cached(q_ref, kr, vr, start, pos0=t - s, seq=s, **kw)
+    a_ref = attn_cached_ref(q_ref, kr, vr, start, pos0=t - s, seq=s, **kw)
+    pairs["attn_cached"] = [(a, a_ref)]
+    out = post_attn(a_ref, x, attn_p, ln2, mlp_p, norm=norm, eps=1e-6, act=act)
+    out_ref = post_attn_ref(a_ref, x, attn_p, ln2, mlp_p, norm=norm, eps=1e-6, act=act)
+    pairs["post_attn"] = [(out, out_ref)]
+    w = torch.randn((d, VOCAB), generator=torch.Generator(device="cuda").manual_seed(seed),
+                    device="cuda")
+    if name.startswith("gqa"):
+        w = w.T.contiguous().T            # a tied head: the table, transposed
+    pairs["head"] = [(head(out_ref, ln1, w, norm=norm, eps=1e-6),
+                      head_ref(out_ref, ln1, w, norm=norm, eps=1e-6))]
+    torch.cuda.synchronize()
+    errs = {}
+    for k, ps in pairs.items():
+        abs_err = max(float((g - w_).abs().max()) for g, w_ in ps)
+        scale = max(1.0, max(float(w_.abs().max()) for _, w_ in ps))
+        limit = ATTN_TOL if k == "attn_cached" else PROJ_TOL * scale
+        errs[k] = {"abs": abs_err, "scale": scale, "limit": limit}
+    print(f"draft kernels {name} (B={b} S={s} T={t} D={d} F={f} H={h} KH={kh} hd={hd} "
+          f"{norm} bias={bias} gated={gated} {act} rope={rope}): max abs err "
+          + ", ".join(f"{k} {e['abs']:.3e} (limit {e['limit']:.1e})" for k, e in errs.items()))
+    for k, e in errs.items():
+        if not math.isfinite(e["abs"]) or e["abs"] > e["limit"]:
+            fail(f"{k} kernel disagrees with its plain version at {name}: {e}")
+    return errs
+
+
+def cycle(items):
+    """A function returning items[0], items[1], ... round and round."""
+    it = itertools.cycle(items)
+    return lambda: next(it)
+
+
+def measure_draft_kernels():
+    """Device time of each draft kernel at the main path's decode shape
+    (R = 32 rows, one token each, T = 271, the cursor at the last row so
+    every key is valid), its plain version, the wrapper call, the bound.
+    As in a decode step, which streams 12 layers' weights and caches
+    through the 50 MB L2, the timed launches cycle through 10 weight sets
+    (qkv_rope's 7.1 MB x 9 others between two uses of one set) and two
+    caches (53 MB each), so every launch reads them cold; the head's
+    83 KB cannot be pushed out this way and is timed warm."""
+    from repro_torch.kernels.draft_decode import (
+        attn_cached, attn_cached_ref, head, head_ref, ops, post_attn, post_attn_ref, qkv_rope,
+        qkv_rope_ref,
+    )
+
+    case = DRAFT_CASES[0]
+    _, b, s, t, d, f, h, kh, hd, norm, _, _, act, _ = case
+    sets = [draft_case_inputs(case, i) for i in range(10)]
+    ln1, attn_p, ln2, mlp_p, x, kbuf, vbuf = sets[0]
+    r, qd, kd = b * s, h * hd, kh * hd
+    start = torch.tensor(t - 1, dtype=torch.int32, device="cuda")
+    start_host = start.cpu()                        # the plain versions read it on the host
+    kw = dict(heads=h, kv_heads=kh, head_dim=hd)
+    qkw = dict(pos0=t - 1, seq=1, norm=norm, eps=1e-6, use_rope=True, theta=1e4, **kw)
+    akw = dict(pos0=t - 1, seq=1, **kw)
+    pkw = dict(norm=norm, eps=1e-6, act=act)
+    q = torch.empty((r, qd), device="cuda")
+    a = torch.empty((r, qd), device="cuda")
+    x1, u, out = torch.empty_like(x), torch.empty((r, f), device="cuda"), torch.empty_like(x)
+    w = torch.randn((d, VOCAB), device="cuda")
+    logits = torch.empty((r, VOCAB), device="cuda")
+    ops._launch_qkv_rope(x, ln1, attn_p, q, kbuf, vbuf, start, **qkw)
+    layer = cycle(sets)
+    caches = cycle([(z[5], z[6]) for z in sets[:2]])
+    res = {}
+
+    def entry(name, launch, call, plain, nbytes, nops, library=None):
+        bms, by = bound_ms(nbytes, nops)
+        res[name] = {"ms": graph_ms(launch, n=50), "call_ms": time_ms(call),
+                     "plain_ms": graph_ms(plain, n=3, reps=5), "bound_ms": bms,
+                     "bound_by": by, "library_ms": library() if library else None,
+                     "shape": {"rows": r, "T": t, "D": d, "F": f, "H": h, "KH": kh, "hd": hd}}
+
+    def qkv_launch():
+        z = layer()
+        ops._launch_qkv_rope(x, z[0], z[1], q, z[5], z[6], start, **qkw)
+
+    def qkv_call():
+        z = layer()
+        return qkv_rope(x, z[0], z[1], z[5], z[6], start, **qkw)
+
+    entry("qkv_rope", qkv_launch, qkv_call,
+          lambda: qkv_rope_ref(x, ln1, attn_p, kbuf, vbuf, start_host, **qkw),
+          4 * (d * (qd + 2 * kd) + 2 * d + r * d + r * (qd + 2 * kd)),
+          2.0 * r * d * (qd + 2 * kd) + 8.0 * r * d)
+
+    col = torch.arange(t, device="cuda")
+    mask = ((col <= t - 1) & (col < int(start_host) + s)).view(1, 1, 1, t)
+
+    def sdpa():
+        kv = caches()
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.view(b, s, h, hd).transpose(1, 2), kv[0].view(b, t, kh, hd).transpose(1, 2),
+            kv[1].view(b, t, kh, hd).transpose(1, 2), attn_mask=mask)
+
+    entry("attn_cached",
+          lambda: ops._launch_attn_cached(q, *caches(), start, a, **akw),
+          lambda: attn_cached(q, *caches(), start, **akw),
+          lambda: attn_cached_ref(q, kbuf, vbuf, start_host, **akw),
+          4 * (2 * b * t * kd + 2 * r * qd), 4.0 * r * h * t * hd + 3.0 * r * h * t,
+          library=lambda: graph_ms(sdpa))
+
+    def post(fn, *outs):
+        z = layer()
+        return fn(a, x, z[1], z[2], z[3], *outs, **pkw)
+
+    entry("post_attn",
+          lambda: post(ops._launch_post_attn, x1, u, out),
+          lambda: post(post_attn),
+          lambda: post_attn_ref(a, x, attn_p, ln2, mlp_p, **pkw),
+          4 * (qd * d + 2 * d * f + 2 * d + r * (qd + 2 * d)),
+          2.0 * r * (qd * d + 2 * d * f) + 10.0 * r * f)
+    entry("head",
+          lambda: ops._launch_head(out, ln1, w, logits, norm=norm, eps=1e-6),
+          lambda: head(out, ln1, w, norm=norm, eps=1e-6),
+          lambda: head_ref(out, ln1, w, norm=norm, eps=1e-6),
+          4 * (d * VOCAB + 2 * d + r * d + r * VOCAB), 2.0 * r * d * VOCAB + 8.0 * r * d)
+    for name, m in res.items():
+        print(f"{name} at decode shape: {m['ms'] * 1e3:.1f} us device (bound "
+              f"{m['bound_ms'] * 1e3:.2f} us, {m['bound_by']}), call {m['call_ms'] * 1e3:.1f} us, "
+              f"plain {m['plain_ms'] * 1e3:.1f} us"
+              + (f", library {m['library_ms'] * 1e3:.1f} us" if m["library_ms"] else ""))
+    return res
+
+
+def draft_engine(cfg=None):
+    """The AR draft engine over a seeded ``cfg`` model (default: the
+    full-width ``dfm_dit`` CONFIG) through the draft kernels."""
+    from repro_torch.configs.dfm_dit import CONFIG
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.models import Model
+
+    model = Model(cfg or CONFIG, device="cuda", seed=DRAFT_SEED)
+    return ARDraftEngine(TransformerDraftAdapter(model=model, decode_impl="kernel"),
+                         max_len=MAX_LEN)
+
+
+def draft_prompt(rows):
+    """The shared prompt, one numpy-seeded row repeated."""
+    import numpy as np
+
+    row = np.random.default_rng(7).integers(0, VOCAB, PROMPT).astype(np.int32)
+    return torch.from_numpy(np.tile(row, (rows, 1)))
+
+
+def check_prefill_equals_scan(engine):
+    """Full width: the 16-token batched prefill, 16 single-token calls and
+    chunks of 3 + 1 + 4 + 8 give the same logits and cache, bitwise."""
+    from repro_torch.kernels.draft_decode import DraftDecoder
+
+    model = engine.adapter.model
+    dec = DraftDecoder(model)
+    toks = draft_prompt(NUM).to("cuda")
+    runs = []
+    for split in ((PROMPT,), (1,) * PROMPT, (3, 1, 4, PROMPT - 8)):
+        cache, parts, pos = model.init_cache(NUM, MAX_LEN, torch.float32), [], 0
+        for w in split:
+            lg, cache = dec.forward_chunk(toks[:, pos:pos + w], cache, pos)
+            parts.append(lg)
+            pos += w
+        runs.append((torch.cat(parts, 1), cache["blocks"]["p0"]))
+    (ref, ref_cache), *others = runs
+    diffs = [int((lg != ref).sum()) + sum(int((c[k] != ref_cache[k]).sum())
+                                          for k in ("k", "v", "pos")) for lg, c in others]
+    print(f"full-width forward_chunk, {NUM} rows x {PROMPT} tokens: batched prefill vs 16 "
+          f"single-token calls, and vs chunks 3+1+4+8: {diffs} elements differ "
+          f"(logits and every cache leaf, bitwise)")
+    if any(diffs):
+        fail("batched prefill is not bitwise equal to the token scan on the card")
+
+
+def check_engine_equals_oracle():
+    """At smoke_config size: the engine on the card equals the cache-free
+    oracle bitwise, and again when the prefix is reused."""
+    from repro_torch import prng
+    from repro_torch.configs.dfm_dit import smoke_config
+    from repro_torch.drafting import ARDraftEngine, oracle_generate_rows
+
+    adapter = draft_engine(cfg=smoke_config()).adapter
+    keys = prng.split(prng.key(3), 3)
+    prompt = draft_prompt(3)[:, :3]
+    eng = ARDraftEngine(adapter, max_len=3 + 12 - 1)
+    out = [eng.generate_rows(keys, 12, prompt=prompt) for _ in range(2)]
+    ref = oracle_generate_rows(adapter, keys, 12, prompt=prompt, max_len=14)
+    diff = sum(int((o != ref).sum()) for o in out)
+    print(f"draft engine vs oracle (smoke config, 3 rows, prompt 3, 12 tokens, computed then "
+          f"reused prefix): {diff} tokens differ; stats {eng.stats.as_dict()}")
+    if diff or eng.stats.prefill_reuses != 1:
+        fail("the draft engine disagrees with its oracle on the card")
+
+
+def check_draft_logits_against_cpu(engine):
+    """Full width, teacher-forced: the 16-token prefill and 8 decode steps
+    on the card (kernels) against the plain CPU path on the same weights."""
+    from repro_torch.drafting import TransformerDraftAdapter
+    from repro_torch.models import Model
+
+    model = engine.adapter.model
+    cpu = Model(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    toks = torch.randint(0, VOCAB, (2, PROMPT + 8), generator=torch.Generator().manual_seed(4),
+                         dtype=torch.int32)
+    got, want = [], []
+    for adapter, out in ((engine.adapter, got),
+                         (TransformerDraftAdapter(model=cpu, decode_impl="kernel"), want)):
+        dev = adapter.model.device
+        cache = adapter.init_cache(2, MAX_LEN)
+        lg, cache = adapter.prefill_batched(toks[:, :PROMPT].to(dev), cache)
+        out.append(lg.cpu())
+        for i in range(PROMPT, PROMPT + 8):
+            lg, cache = adapter.decode_step(toks[:, i].to(dev), cache, i)
+            out.append(lg.cpu())
+    got, want = torch.stack(got), torch.stack(want)
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    print(f"full-width draft logits (2 rows, 16-token prefill + 8 teacher-forced steps), card "
+          f"kernels vs CPU plain: max abs err {err:.3e} (logits up to {scale:.2f}; limit 1e-3 "
+          f"relative)")
+    if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
+        fail(f"full-width draft logits disagree with the plain path: {err}")
+
+
 # -- the main path ---------------------------------------------------------------
 
 def check_small_serve_against_cpu():
@@ -264,7 +563,7 @@ def check_full_width_logits(model, tokens, t):
         fail(f"full-width logits disagree with the plain path: {err}")
 
 
-def main_path():
+def main_path(engine):
     from repro_torch import prng
     from repro_torch.configs.dfm_dit import CONFIG
     from repro_torch.core.guarantees import warm_nfe
@@ -272,20 +571,24 @@ def main_path():
     from repro_torch.kernels import launches
     from repro_torch.kernels.ws_step import make_ws_step_fn
     from repro_torch.models import Model
-    from repro_torch.serving import WarmStartServer, uniform_draft
+    from repro_torch.serving import WarmStartServer
 
     model = Model(CONFIG, device="cuda", seed=0)
     n_params = sum(p.numel() for p in model.parameters())
     path = WarmStartPath(t0=T0)
-    draft = uniform_draft(VOCAB, device="cuda")
+    prompt = draft_prompt(NUM)
     server = WarmStartServer(
         flow_model=model, flow_cfg=CONFIG,
-        draft_generate=lambda rng, num: draft(prng.split(rng, num), SEQ),
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
         path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
     nfe_want = warm_nfe(COLD_NFE, T0)
     if nfe_want != 13:
         fail(f"warm_nfe({COLD_NFE}, {T0}) = {nfe_want}, expected 13")
-    per_serve = {"ws_step": nfe_want, "flash_attn": nfe_want * CONFIG.num_layers}
+    steps = (SEQ - 1) * CONFIG.num_layers           # 255 decode steps x 12 layers
+    per_serve = {"ws_step": nfe_want, "flash_attn": nfe_want * CONFIG.num_layers,
+                 "qkv_rope": steps, "attn_cached": steps, "post_attn": steps, "head": SEQ - 1}
+    prefill = {"qkv_rope": CONFIG.num_layers, "attn_cached": CONFIG.num_layers,
+               "post_attn": CONFIG.num_layers, "head": 1}
 
     launches.clear()
     reports, last = [], None
@@ -293,9 +596,10 @@ def main_path():
         before = dict(launches)
         x, rep = server.serve(prng.key(100 + i), NUM)
         for name, n in per_serve.items():
+            want = n + (prefill.get(name, 0) if i == 0 else 0)
             grew = launches[name] - before.get(name, 0)
-            if grew != n:
-                fail(f"serve {i}: {name} launched {grew} times, expected {n}")
+            if grew != want:
+                fail(f"serve {i}: {name} launched {grew} times, expected {want}")
         if not (rep["nfe"] == rep["backbone_evals"] == nfe_want):
             fail(f"serve {i}: nfe {rep['nfe']} backbone_evals {rep['backbone_evals']}")
         if x.shape != (NUM, SEQ) or x.dtype != torch.int32 or x.device.type != "cuda":
@@ -305,24 +609,40 @@ def main_path():
         reports.append(rep)
         last = x
     counts = dict(launches)
+    stats = engine.stats.as_dict()
     print(f"main path: dfm_dit CONFIG ({n_params / 1e6:.1f}M params) x 3 serves of "
-          f"{NUM} x {SEQ}, t0={T0}, cold_nfe={COLD_NFE}: nfe 13 per serve, guarantee gate "
-          f"passed, launches {counts} (per serve {per_serve})")
+          f"{NUM} x {SEQ} drafted by the AR engine (prompt {PROMPT}, max_len {MAX_LEN}), "
+          f"t0={T0}, cold_nfe={COLD_NFE}: nfe 13 per serve, guarantee gate passed, launches "
+          f"{counts} (per serve {per_serve}, first serve adds {prefill}); draft stats {stats}")
+    if (stats["prefill_computes"], stats["prefill_reuses"]) != (1, 2):
+        fail(f"the draft engine's prefix pool: {stats}, expected 1 compute and 2 reuses")
 
     check_full_width_logits(model, last[:1], torch.full((1,), T0, device="cuda"))
     profile = profile_serve(server, prng.key(200))
+    draft_profile = profile_draft(engine, prng.key(201), prompt)
     steady = reports[1:]
     serve = {
         "config": CONFIG.name, "num": NUM, "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE,
         "nfe": nfe_want, "params": n_params,
+        "draft": {"config": CONFIG.name + " (causal decoder)", "seed": DRAFT_SEED,
+                  "prompt": PROMPT, "max_len": MAX_LEN, "decode_steps": SEQ - 1,
+                  "stats": stats},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
         "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
         "draft_ms": statistics.median(r["draft_time_s"] for r in steady) * 1e3,
         "flow_ms": statistics.median(r["flow_time_s"] for r in steady) * 1e3,
         "per_nfe_ms": statistics.median(r["per_nfe_s"] for r in steady) * 1e3,
         "samples_per_s": statistics.median(
             NUM / (r["draft_time_s"] + r["flow_time_s"]) for r in steady),
+        "speedup_report": {"draft_cost_ratio": statistics.median(
+            r["speedup_report"].draft_cost_ratio for r in steady),
+            "effective_speedup": statistics.median(
+                r["speedup_report"].effective_speedup for r in steady),
+            "nfe_speedup": steady[0]["speedup_report"].nfe_speedup},
+        "draft_ms_each": [r["draft_time_s"] * 1e3 for r in steady],
         "flow_ms_each": [r["flow_time_s"] * 1e3 for r in steady],
         "profile": profile,
+        "draft_profile": draft_profile,
     }
     return counts, per_serve, serve
 
@@ -332,6 +652,14 @@ def _category(name: str) -> str:
         return "flash_attn"
     if "ws_step_kernel" in name:
         return "ws_step"
+    if "qkv_rope_kernel" in name:
+        return "qkv_rope"
+    if "attn_cached_kernel" in name:
+        return "attn_cached"
+    if "proj_kernel<1, 2>" in name:          # the head's projection
+        return "head"
+    if "proj_kernel" in name:               # post_attn's three projections
+        return "post_attn"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul"
     return "other"
@@ -340,18 +668,43 @@ def _category(name: str) -> str:
 def profile_serve(server, key):
     """One more serve under ``torch.profiler``: device time by kernel and
     the device's busy share of the serve's wall time (profiler on)."""
+    holder = {}
+
+    def run():
+        holder["rep"] = server.serve(key, NUM)[1]
+
+    res = _profile(run, "serve")
+    if res.get("device_ms") is not None:
+        res["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+        res["draft_ms"] = holder["rep"]["draft_time_s"] * 1e3
+    return res
+
+
+def profile_draft(engine, key, prompt):
+    """The draft stage alone (one ``generate_rows``, prefix reused) under
+    ``torch.profiler``: its device time by kernel and busy share."""
+    from repro_torch import prng
+
+    def run():
+        engine.generate_rows(prng.split(key, NUM), SEQ, prompt)
+        torch.cuda.synchronize()
+
+    return _profile(run, "draft stage")
+
+
+def _profile(run, what):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, rep = server.serve(key, NUM)
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # kernels only: a host op (aten::mm) also carries its kernels' device time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     if not rows:
-        print("profile: the trace holds no device time (not measured)")
+        print(f"profile of the {what}: the trace holds no device time (not measured)")
         return {"device_ms": None}
     device_ms = sum(ms for _, ms, _ in rows)
     by_cat = {}
@@ -359,13 +712,13 @@ def profile_serve(server, key):
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
     top = sorted(rows, key=lambda r: -r[1])[:8]
     n_launch = sum(c for _, _, c in rows)
-    print(f"profile of one serve: device busy {device_ms:.1f} ms of {wall_ms:.1f} ms wall "
-          f"({device_ms / wall_ms:.1%}), {n_launch} kernel launches; by kind {by_cat}")
+    print(f"profile of the {what}: device busy {device_ms:.1f} ms of {wall_ms:.1f} ms wall "
+          f"({device_ms / wall_ms:.1%}), {n_launch} kernel launches; by kind "
+          + json.dumps({k: round(v, 3) for k, v in by_cat.items()}))
     for name, ms, count in top:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
     return {"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
-            "kernel_launches": n_launch,
-            "flow_ms": rep["flow_time_s"] * 1e3, "by_kind_ms": by_cat,
+            "kernel_launches": n_launch, "by_kind_ms": by_cat,
             "top": [[n[:100], ms, c] for n, ms, c in top]}
 
 
@@ -397,11 +750,17 @@ def main() -> int:
                   check_flash(2, 200, 8, 2, 64, True, None, 1),
                   check_flash(2, 300, 4, 4, 32, False, 37, 2),
                   check_flash(1, 130, 4, 4, 128, True, 50, 3)]
+    draft_errs = [check_draft_kernels(case, i) for i, case in enumerate(DRAFT_CASES)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
     flash_num = measure_flash(NUM, SEQ, 12, 64)
+    draft_num = measure_draft_kernels()
 
     check_small_serve_against_cpu()
-    counts, per_serve, serve = main_path()
+    check_engine_equals_oracle()
+    engine = draft_engine()
+    check_prefill_equals_scan(engine)
+    check_draft_logits_against_cpu(engine)
+    counts, per_serve, serve = main_path(engine)
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -410,6 +769,10 @@ def main() -> int:
     breakdown["rest_ms_per_nfe"] = (serve["per_nfe_ms"] - breakdown["flash_attn_ms_per_nfe"]
                                     - breakdown["ws_step_ms_per_nfe"])
     serve["breakdown_from_kernel_times"] = breakdown
+    serve["draft_kernel_ms_per_serve"] = {
+        name: per_serve[name] * draft_num[name]["ms"] for name in DRAFT_KERNELS}
+    serve["draft_bound_ms_per_serve"] = sum(
+        per_serve[name] * draft_num[name]["bound_ms"] for name in DRAFT_KERNELS)
     kernels = [
         {"name": "ws_step", "route": "cuda", "source": "src/repro_torch/csrc/ws_step.cu",
          "replaces": "src/repro/kernels/ws_step/kernel.py:213",
@@ -428,6 +791,22 @@ def main() -> int:
          "shape": [NUM, SEQ, 12, 64], **flash_num,
          "bound_us": flash_num["bound_ms"] * 1e3},
     ]
+    lines = {"qkv_rope": 210, "attn_cached": 249, "post_attn": 279, "head": 314}
+    for name in DRAFT_KERNELS:
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/draft_decode.cu",
+            "replaces": f"src/repro/kernels/draft_decode/kernel.py:{lines[name]}",
+            "tpu_kernel": f"{name}_pallas",
+            "launches": counts.get(name, 0), "launches_per_serve": per_serve[name],
+            "max_abs_err": max(e[name]["abs"] for e in draft_errs),
+            "tolerance": ("1e-5 abs" if name == "attn_cached"
+                          else "1e-4 x max(1, max|plain|)"),
+            **draft_num[name], "bound_us": draft_num[name]["bound_ms"] * 1e3})
+    in_serve = serve["profile"].get("by_kind_ms") or {}
+    for k in kernels:
+        # device ms a launch took inside the profiled (steady) serve
+        k["in_serve_ms"] = (in_serve[k["name"]] / k["launches_per_serve"]
+                            if k["name"] in in_serve else None)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")

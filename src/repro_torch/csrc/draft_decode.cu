@@ -1,0 +1,532 @@
+// Draft-transformer decode kernels (float32) for Hopper (sm_90a).
+//
+// Replace the TPU kernels of src/repro/kernels/draft_decode/kernel.py:
+//   qkv_rope    qkv_rope_pallas    (_qkv_rope_kernel):  ln1 -> q/k/v (+bias) -> RoPE
+//   attn_cached attn_cached_pallas (_attn_kernel):      one query token against the
+//               row's whole T = max_len KV buffer, mask col <= pos && col < end,
+//               direct softmax, (p @ v) / l
+//   post_attn   post_attn_pallas   (_post_attn_kernel): wo (+bias) -> residual -> ln2 ->
+//               up (gated or not; gelu/silu/relu) -> down (+bias) -> residual
+//   head        head_pallas        (_head_kernel):      final norm -> vocab projection
+// with the Pallas bodies' formulas: _norm_row's layernorm / rmsnorm (1 + scale),
+// _rope_row's theta^(-j/half) frequencies, NEG_INF = -2.3819763e38, the division by l
+// after p @ v, and query head h reading kv head h / (H / KH).
+//
+// The property that matters is batch invariance, the AR draft engine's contract:
+// a batched prefill of S tokens must give the same bits as S one-token decode
+// steps. On the TPU every token had its own grid program at fixed block shapes.
+// Here every output element's reduction runs in one fixed order that depends only
+// on the reduced length (D for the norms and q/k/v, H*hd for wo, F for down, T for
+// attention), never on the number of rows R, the batch B or the chunk length S:
+//   * one code path whatever R: the block shapes, the split of K and the order in
+//     which the split is summed are constants; R only sets the grid size;
+//   * no cuBLAS (its algorithm changes with M) and no atomics.
+//
+// Projections (qkv_rope, the three kernels of post_attn, head). A block of 256
+// threads = 8 warps owns 8 token rows and 32 output columns (qkv_rope: 32 RoPE
+// column pairs j, j + hd/2 of one head, so RoPE is applied in the block; the gated
+// MLP: the up and gate columns of one index). The block stages its 8 rows in shared
+// memory, transposed, and normalises them there when the kernel has a norm: warp w
+// normalises row w, each lane summing a strided set of columns in order, then a
+// fixed xor-butterfly. Warp w then takes the w-th contiguous eighth of K: each lane
+// walks its slice in order with one FMA chain per (row, column), reading the weight
+// column coalesced across the warp and the 8 rows as two float4 broadcasts. The 8
+// slice sums meet in shared memory and are added in slice order. post_attn is three
+// such kernels (wo + residual; ln2 + up/gate + act; down + residual), because ln2
+// needs the whole row after wo; its C entry point launches all three.
+//
+// attn_cached. A block of 256 threads owns one (token row, query head). Warp w
+// computes the scores of keys w, w + 8, ...: each lane takes hd/32 dims of q and k,
+// then an xor-butterfly sums the lanes. Every key's score is thus computed the same
+// way whichever warp takes it. The max (exact in any order), then p = exp(s - m) in
+// shared memory; then thread (slice, d) sums p[t] * v[t, d] and p[t] over the
+// slice-th contiguous quarter (hd = 64) of the T keys in order, and the slice sums
+// are added in slice order. All T = max_len keys are read whatever the position:
+// masked keys contribute exp(NEG_INF - m) = 0, so S = 1 and S = P sum the same
+// lanes in the same order.
+//
+// Cache. qkv_rope writes k and v straight into the layer's cache buffers
+// (B, T, KH*hd) at the cursor read from the device (*cache_pos, clamped as
+// dynamic_update_slice clamps), so the host never reads the cursor and no copy
+// runs between the kernels. attn_cached reads end = *cache_pos + S.
+//
+// Bounds on an H100 SXM at the main path's decode shape (R = 32 rows, T = 271,
+// dfm_dit CONFIG as the draft: D = 768, 12 heads of 64, F = 3072, V = 27):
+//   qkv_rope 7.1 MB of weights, 113 MFLOP: 2.1 us at 3.35 TB/s (bytes);
+//   attn_cached 53 MB of K/V, 27 MFLOP: 15.9 us (bytes);
+//   post_attn 21.2 MB of weights, 340 MFLOP: 6.3 us (bytes);
+//   head 83 KB, ~1.3 MFLOP: launch-bound.
+// This design reads each weight once per 8-row token tile (the other tiles find it
+// in the 50 MB L2) and reads the whole KV buffer; it does nothing yet about the
+// launch count (a CUDA graph of the decode step), tensor cores, or skipping masked
+// keys. Build without --use_fast_math: expf, tanhf, powf, sinf and cosf are the
+// accurate ones.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kTok = 8;                // token rows per projection block
+constexpr int kSlices = 8;             // contiguous slices of K, one per warp
+constexpr int kCols = 32;              // output columns (or pairs) per block, one per lane
+constexpr int kThreads = kSlices * 32;
+constexpr int kMaxSmem = 232448;       // an H100 block's dynamic shared memory limit
+constexpr float kNegInf = -2.3819763e38f;
+static_assert(kTok == kSlices, "warp w normalises row w");
+
+enum Norm { kLayerNorm = 0, kRmsNorm = 1 };
+enum Act { kGelu = 0, kSilu = 1, kRelu = 2 };
+enum Epi { kEpiResid = 0, kEpiAct = 1, kEpiPlain = 2 };
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float activate(int act, float x) {
+  if (act == kGelu) {  // jax.nn.gelu(approximate=True)
+    const float inner = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
+    return x * (0.5f * (1.0f + tanhf(inner)));
+  }
+  if (act == kSilu) return x / (1.0f + expf(-x));
+  return fmaxf(x, 0.0f);
+}
+
+// Stage rows r0 .. r0 + kTok - 1 of in (R, K) into xs (K, kTok), normalised when
+// ln_scale is given. Warp w owns row w; rows past R are zeros.
+__device__ void stage_rows(const float* __restrict__ in, int R, int K, int r0,
+                           float* __restrict__ xs, const float* __restrict__ ln_scale,
+                           const float* __restrict__ ln_bias, int norm, float eps) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = r0 + w;
+  if (r >= R) {
+    for (int k = lane; k < K; k += 32) xs[k * kTok + w] = 0.f;
+    return;
+  }
+  const float* row = in + static_cast<size_t>(r) * K;
+  if (ln_scale == nullptr) {
+    for (int k = lane; k < K; k += 32) xs[k * kTok + w] = row[k];
+    return;
+  }
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float v = row[k];
+    xs[k * kTok + w] = v;
+    s += norm == kLayerNorm ? v : v * v;
+  }
+  s = warp_sum(s);
+  float mu = 0.f, var;
+  if (norm == kLayerNorm) {
+    mu = s / K;
+    float s2 = 0.f;
+    for (int k = lane; k < K; k += 32) {
+      const float d = xs[k * kTok + w] - mu;
+      s2 += d * d;
+    }
+    var = warp_sum(s2) / K;
+  } else {
+    var = s / K;
+  }
+  const float inv = rsqrtf(var + eps);
+  for (int k = lane; k < K; k += 32) {
+    const float y = (xs[k * kTok + w] - mu) * inv;
+    xs[k * kTok + w] = norm == kLayerNorm ? y * ln_scale[k] + ln_bias[k]
+                                          : y * (1.0f + ln_scale[k]);
+  }
+}
+
+// acc[c][t] = sum over this warp's slice of K of xs[k][t] * wcol[c][k * ldk], in
+// order. The slice bounds depend on K only.
+template <int NC>
+__device__ __forceinline__ void dot_slice(const float* __restrict__ xs, int K,
+                                          const float* const* wcol, int ldk, bool valid,
+                                          float (&acc)[NC][kTok]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int t = 0; t < kTok; ++t) acc[c][t] = 0.f;
+  if (!valid) return;
+  const int chunk = (K + kSlices - 1) / kSlices;
+  const int k0 = (threadIdx.x / 32) * chunk;
+  const int k1 = min(K, k0 + chunk);
+  // unrolled deep so that 16 weight loads are in flight a warp: the loop is
+  // bound by load latency, not by the FMAs (whose order unrolling keeps)
+#pragma unroll 16
+  for (int k = k0; k < k1; ++k) {
+    const float4 xa = *reinterpret_cast<const float4*>(xs + k * kTok);
+    const float4 xb = *reinterpret_cast<const float4*>(xs + k * kTok + 4);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const float wv = __ldg(wcol[c] + static_cast<size_t>(k) * ldk);
+      acc[c][0] = fmaf(xa.x, wv, acc[c][0]);
+      acc[c][1] = fmaf(xa.y, wv, acc[c][1]);
+      acc[c][2] = fmaf(xa.z, wv, acc[c][2]);
+      acc[c][3] = fmaf(xa.w, wv, acc[c][3]);
+      acc[c][4] = fmaf(xb.x, wv, acc[c][4]);
+      acc[c][5] = fmaf(xb.y, wv, acc[c][5]);
+      acc[c][6] = fmaf(xb.z, wv, acc[c][6]);
+      acc[c][7] = fmaf(xb.w, wv, acc[c][7]);
+    }
+  }
+}
+
+// The slices' sums meet in red (kSlices, kTok, NC, kCols) and are added in slice
+// order; afterwards thread (warp t, lane) holds row r0 + t, column lane of the tile.
+template <int NC>
+__device__ __forceinline__ void sum_slices(float* __restrict__ red, const float (&acc)[NC][kTok],
+                                           float (&out)[NC]) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+  for (int t = 0; t < kTok; ++t)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) red[((w * kTok + t) * NC + c) * kCols + lane] = acc[c][t];
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    float s = red[((0 * kTok + w) * NC + c) * kCols + lane];
+    for (int sl = 1; sl < kSlices; ++sl) s += red[((sl * kTok + w) * NC + c) * kCols + lane];
+    out[c] = s;
+  }
+}
+
+template <int NC>
+constexpr int red_floats() { return kSlices * kTok * NC * kCols; }
+
+// -- qkv_rope ---------------------------------------------------------------------
+
+struct QkvArgs {
+  const float* x;
+  const float* ln_scale;
+  const float* ln_bias;
+  const float* w[3];   // wq (D, H*hd), wk, wv (D, KH*hd)
+  const float* b[3];   // biases or null
+  float* q;            // (R, H*hd)
+  float* cache[2];     // k, v buffers (B, T, KH*hd)
+  const int* cache_pos;
+  int R, S, T, D, H, KH, HD, pos0, norm, use_rope;
+  float eps, theta;
+};
+
+__global__ void __launch_bounds__(kThreads) qkv_rope_kernel(QkvArgs a) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* red = xs + a.D * kTok;
+  const int r0 = blockIdx.y * kTok;
+  stage_rows(a.x, a.R, a.D, r0, xs, a.ln_scale, a.ln_bias, a.norm, a.eps);
+  __syncthreads();
+
+  const int half = a.HD / 2;
+  const int lane = threadIdx.x % 32;
+  const int p = blockIdx.x * kCols + lane;          // RoPE pair (c1, c1 + half)
+  const bool valid = p < (a.H + 2 * a.KH) * half;
+  const int head = valid ? p / half : 0, j = p % half;
+  const int sec = head < a.H ? 0 : (head < a.H + a.KH ? 1 : 2);
+  const int lh = head - (sec == 0 ? 0 : (sec == 1 ? a.H : a.H + a.KH));
+  const int ncols = (sec == 0 ? a.H : a.KH) * a.HD;
+  const int c1 = lh * a.HD + j, c2 = c1 + half;
+  const float* const wcol[2] = {a.w[sec] + c1, a.w[sec] + c2};
+  float acc[2][kTok];
+  dot_slice<2>(xs, a.D, wcol, ncols, valid, acc);
+  float y[2];
+  sum_slices<2>(red, acc, y);
+
+  const int r = r0 + threadIdx.x / 32;
+  if (!valid || r >= a.R) return;
+  if (a.b[sec] != nullptr) {
+    y[0] += a.b[sec][c1];
+    y[1] += a.b[sec][c2];
+  }
+  const int bi = r / a.S, i = r % a.S;
+  if (a.use_rope && sec < 2) {
+    const float freq = powf(a.theta, -static_cast<float>(j) / static_cast<float>(half));
+    const float ang = static_cast<float>(a.pos0 + i) * freq;
+    const float sn = sinf(ang), cs = cosf(ang);
+    const float o1 = y[0] * cs - y[1] * sn;
+    const float o2 = y[1] * cs + y[0] * sn;
+    y[0] = o1;
+    y[1] = o2;
+  }
+  float* dst;
+  if (sec == 0) {
+    dst = a.q + static_cast<size_t>(r) * ncols;
+  } else {
+    const int w0 = min(max(*a.cache_pos, 0), a.T - a.S);
+    dst = a.cache[sec - 1] + (static_cast<size_t>(bi) * a.T + w0 + i) * ncols;
+  }
+  dst[c1] = y[0];
+  dst[c2] = y[1];
+}
+
+// -- projections of post_attn and head -----------------------------------------------
+
+struct ProjArgs {
+  const float* in;       // (R, K)
+  const float* ln_scale;  // norm of the input rows, or null
+  const float* ln_bias;
+  const float* w[2];     // (K, N) with strides (ldk, ldn); w[1]: the gate, or null
+  const float* b[2];
+  const float* resid;    // (R, N) for kEpiResid
+  float* out;            // (R, N)
+  int R, K, N, ldk, ldn, norm, act;
+  float eps;
+};
+
+template <int NC, int EPI>
+__global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* red = xs + a.K * kTok;
+  const int r0 = blockIdx.y * kTok;
+  stage_rows(a.in, a.R, a.K, r0, xs, a.ln_scale, a.ln_bias, a.norm, a.eps);
+  __syncthreads();
+
+  const int n = blockIdx.x * kCols + threadIdx.x % 32;
+  const bool valid = n < a.N;
+  const int nn = valid ? n : 0;
+  const float* wcol[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) wcol[c] = a.w[c] + static_cast<size_t>(nn) * a.ldn;
+  float acc[NC][kTok];
+  dot_slice<NC>(xs, a.K, wcol, a.ldk, valid, acc);
+  float y[NC];
+  sum_slices<NC>(red, acc, y);
+
+  const int r = r0 + threadIdx.x / 32;
+  if (!valid || r >= a.R) return;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    if (a.b[c] != nullptr) y[c] += a.b[c][n];
+  const size_t o = static_cast<size_t>(r) * a.N + n;
+  if (EPI == kEpiResid) {
+    a.out[o] = a.resid[o] + y[0];
+  } else if (EPI == kEpiAct) {
+    a.out[o] = NC == 2 ? activate(a.act, y[1]) * y[0] : activate(a.act, y[0]);
+  } else {
+    a.out[o] = y[0];
+  }
+}
+
+template <int NC, int EPI>
+int launch_proj(const ProjArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      proj_kernel<NC, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem = (static_cast<size_t>(a.K) * kTok + red_floats<NC>()) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.N + kCols - 1) / kCols, (a.R + kTok - 1) / kTok);
+  proj_kernel<NC, EPI><<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// -- attn_cached -------------------------------------------------------------------
+
+constexpr int kAttnThreads = 256;
+
+template <int HD>
+__global__ void __launch_bounds__(kAttnThreads)
+attn_cached_kernel(const float* __restrict__ q, const float* __restrict__ kc,
+                   const float* __restrict__ vc, const int* __restrict__ cache_pos,
+                   float* __restrict__ out, int S, int T, int H, int KH, int pos0,
+                   float scale) {
+  constexpr int kPer = HD / 32;               // dims of q and k per lane
+  constexpr int kPvSlices = kAttnThreads / HD;  // contiguous key slices of p @ v
+  extern __shared__ float4 smem4[];
+  float* sc = reinterpret_cast<float*>(smem4);  // T scores, then probabilities
+  float* part = sc + ((T + 3) & ~3);          // (kPvSlices, HD) partial sums
+  float* lpart = part + kPvSlices * HD;       // (kPvSlices) partial sums of p
+  float* wmax = lpart + kPvSlices;            // one max per warp
+
+  const int h = blockIdx.x, r = blockIdx.y;
+  const int b = r / S, pos = pos0 + r % S;
+  const int end = *cache_pos + S;
+  const int kvh = h / (H / KH);
+  const int ld = KH * HD;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+
+  float qv[kPer];
+  const float* qrow = q + static_cast<size_t>(r) * H * HD + h * HD + lane * kPer;
+#pragma unroll
+  for (int e = 0; e < kPer; ++e) qv[e] = qrow[e];
+  const float* kbase = kc + static_cast<size_t>(b) * T * ld + kvh * HD + lane * kPer;
+#pragma unroll 8
+  for (int t = w; t < T; t += kAttnThreads / 32) {
+    const float* krow = kbase + static_cast<size_t>(t) * ld;
+    float d = 0.f;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
+    d = warp_sum(d);
+    if (lane == 0) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+  }
+  __syncthreads();
+
+  float m = kNegInf;
+  for (int t = tid; t < T; t += kAttnThreads) m = fmaxf(m, sc[t]);
+  m = warp_max(m);
+  if (lane == 0) wmax[w] = m;
+  __syncthreads();
+  m = wmax[0];
+  for (int i = 1; i < kAttnThreads / 32; ++i) m = fmaxf(m, wmax[i]);
+  for (int t = tid; t < T; t += kAttnThreads) sc[t] = expf(sc[t] - m);
+  __syncthreads();
+
+  const int sl = tid / HD, d = tid % HD;
+  const int chunk = (T + kPvSlices - 1) / kPvSlices;
+  const int t0 = sl * chunk, t1 = min(T, t0 + chunk);
+  const float* vcol = vc + static_cast<size_t>(b) * T * ld + kvh * HD + d;
+  float acc = 0.f, l = 0.f;
+  for (int t = t0; t < t1; ++t) {
+    const float p = sc[t];
+    l += p;
+    acc = fmaf(p, vcol[static_cast<size_t>(t) * ld], acc);
+  }
+  part[sl * HD + d] = acc;
+  if (d == 0) lpart[sl] = l;
+  __syncthreads();
+  if (tid < HD) {
+    float o = part[tid], lsum = lpart[0];
+    for (int s = 1; s < kPvSlices; ++s) {
+      o += part[s * HD + tid];
+      lsum += lpart[s];
+    }
+    out[static_cast<size_t>(r) * H * HD + h * HD + tid] = o / lsum;
+  }
+}
+
+template <int HD>
+int launch_attn(const float* q, const float* kc, const float* vc, const int* cache_pos,
+                float* out, int R, int S, int T, int H, int KH, int pos0, float scale,
+                cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attn_cached_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem =
+      (((T + 3) & ~3) + (kAttnThreads / HD) * (HD + 1) + kAttnThreads / 32) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(H, R);
+  attn_cached_kernel<HD><<<grid, kAttnThreads, smem, stream>>>(q, kc, vc, cache_pos, out, S,
+                                                              T, H, KH, pos0, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int draft_qkv_rope_launch(const void* x, const void* ln_scale, const void* ln_bias,
+                                     const void* wq, const void* wk, const void* wv,
+                                     const void* bq, const void* bk, const void* bv, void* q,
+                                     void* kcache, void* vcache, const void* cache_pos, int R,
+                                     int S, int T, int D, int H, int KH, int HD, int pos0,
+                                     int norm, float eps, int use_rope, float theta,
+                                     void* stream) {
+  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0 || HD % 2 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qkv_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  QkvArgs a;
+  a.x = static_cast<const float*>(x);
+  a.ln_scale = static_cast<const float*>(ln_scale);
+  a.ln_bias = static_cast<const float*>(ln_bias);
+  a.w[0] = static_cast<const float*>(wq);
+  a.w[1] = static_cast<const float*>(wk);
+  a.w[2] = static_cast<const float*>(wv);
+  a.b[0] = static_cast<const float*>(bq);
+  a.b[1] = static_cast<const float*>(bk);
+  a.b[2] = static_cast<const float*>(bv);
+  a.q = static_cast<float*>(q);
+  a.cache[0] = static_cast<float*>(kcache);
+  a.cache[1] = static_cast<float*>(vcache);
+  a.cache_pos = static_cast<const int*>(cache_pos);
+  a.R = R; a.S = S; a.T = T; a.D = D; a.H = H; a.KH = KH; a.HD = HD; a.pos0 = pos0;
+  a.norm = norm; a.use_rope = use_rope; a.eps = eps; a.theta = theta;
+  const size_t smem = (static_cast<size_t>(D) * kTok + red_floats<2>()) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const int pairs = (H + 2 * KH) * (HD / 2);
+  const dim3 grid((pairs + kCols - 1) / kCols, (R + kTok - 1) / kTok);
+  qkv_rope_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const void* vcache,
+                                        const void* cache_pos, void* out, int R, int S, int T,
+                                        int H, int KH, int HD, int pos0, float scale,
+                                        void* stream) {
+  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(kcache);
+  const auto* vf = static_cast<const float*>(vcache);
+  const auto* cp = static_cast<const int*>(cache_pos);
+  auto* of = static_cast<float*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (HD) {
+    case 32: return launch_attn<32>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
+    case 64: return launch_attn<64>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
+    case 128: return launch_attn<128>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// post_attn: three kernels on the stream, x1 (R, D) and u (R, F) scratch from the caller.
+extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* wo,
+                                      const void* bo, const void* ln_scale, const void* ln_bias,
+                                      const void* wup, const void* bup, const void* wgate,
+                                      const void* bgate, const void* wdown, const void* bdown,
+                                      void* x1, void* u, void* out, int R, int D, int QD, int F,
+                                      int norm, float eps, int act, void* stream) {
+  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  ProjArgs p{};
+  p.in = static_cast<const float*>(a);
+  p.w[0] = static_cast<const float*>(wo);
+  p.b[0] = static_cast<const float*>(bo);
+  p.resid = static_cast<const float*>(x);
+  p.out = static_cast<float*>(x1);
+  p.R = R; p.K = QD; p.N = D; p.ldk = D; p.ldn = 1; p.norm = norm; p.eps = eps;
+  int rc = launch_proj<1, kEpiResid>(p, st);
+  if (rc != 0) return rc;
+
+  p = ProjArgs{};
+  p.in = static_cast<const float*>(x1);
+  p.ln_scale = static_cast<const float*>(ln_scale);
+  p.ln_bias = static_cast<const float*>(ln_bias);
+  p.w[0] = static_cast<const float*>(wup);
+  p.b[0] = static_cast<const float*>(bup);
+  p.w[1] = static_cast<const float*>(wgate);
+  p.b[1] = static_cast<const float*>(bgate);
+  p.out = static_cast<float*>(u);
+  p.R = R; p.K = D; p.N = F; p.ldk = F; p.ldn = 1; p.norm = norm; p.eps = eps; p.act = act;
+  rc = wgate != nullptr ? launch_proj<2, kEpiAct>(p, st) : launch_proj<1, kEpiAct>(p, st);
+  if (rc != 0) return rc;
+
+  p = ProjArgs{};
+  p.in = static_cast<const float*>(u);
+  p.w[0] = static_cast<const float*>(wdown);
+  p.b[0] = static_cast<const float*>(bdown);
+  p.resid = static_cast<const float*>(x1);
+  p.out = static_cast<float*>(out);
+  p.R = R; p.K = F; p.N = D; p.ldk = D; p.ldn = 1; p.norm = norm; p.eps = eps;
+  return launch_proj<1, kEpiResid>(p, st);
+}
+
+extern "C" int draft_head_launch(const void* x, const void* ln_scale, const void* ln_bias,
+                                 const void* w, int ldk, int ldn, void* out, int R, int D, int V,
+                                 int norm, float eps, void* stream) {
+  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  ProjArgs p{};
+  p.in = static_cast<const float*>(x);
+  p.ln_scale = static_cast<const float*>(ln_scale);
+  p.ln_bias = static_cast<const float*>(ln_bias);
+  p.w[0] = static_cast<const float*>(w);
+  p.out = static_cast<float*>(out);
+  p.R = R; p.K = D; p.N = V; p.ldk = ldk; p.ldn = ldn; p.norm = norm; p.eps = eps;
+  return launch_proj<1, kEpiPlain>(p, static_cast<cudaStream_t>(stream));
+}

@@ -1,0 +1,284 @@
+"""KV-cached autoregressive draft engine (port of the JAX package's
+``drafting/ar_engine.py``: ``TransformerDraftAdapter``, ``ARDraftEngine``,
+``DraftEngineStats``).
+
+The paper's draft stage: a causal transformer drafts ``seq_len`` tokens per
+row after a shared prompt, from a preallocated ``max_len`` KV cache.
+
+* **prefill + decode** — the prompt is consumed by one batched call
+  ("batched") or token by token ("scan"); then ``seq_len`` tokens are
+  sampled, each followed by one single-token decode step (the last needs
+  none). The JAX engine runs each phase as one jitted dispatch; here each
+  step is a Python loop of eager launches (a CUDA graph is later work).
+* **prefix reuse** — the post-prefill cache is pooled per row count;
+  a call with the same rows and prompt skips the prefill and just rewinds
+  the cache cursors to the prompt length (KV rows past it are masked by
+  cache validity, so the previous call's tokens never leak).
+* **in place** — the cache buffers are written in place where the JAX
+  engine donates them; a pooled cache is handed to the next decode and
+  re-pooled afterwards.
+* **row-keyed sampling** — token ``i`` of row ``b`` is
+  ``categorical(fold_in(keys[b], i), logits / temperature)``: a row depends
+  only on its own key and the prompt (pack-invariant, prefix-stable). The
+  Gumbel noise of all ``seq_len`` tokens is drawn up front in one batch
+  (:func:`row_gumbel`); the draws are the same.
+
+Bit-exactness contract (tested against ``ref.oracle_generate_rows``): the
+engine equals the cache-free full-recompute oracle bitwise. With
+``decode_impl="kernel"`` (or "auto" on a supported config) every forward
+runs through the batch-invariant ``draft_decode`` kernels, so the batched
+prefill equals the scan bitwise and is the default.
+
+Only positional (KV-cache) adapters exist in the port; the JAX package's
+``LSTMDraftAdapter`` (a recurrent-state substrate) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import prng
+from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
+
+
+def row_gumbel(keys: torch.Tensor, n: int, vocab: int, device) -> torch.Tensor:
+    """The sampling noise of ``n`` tokens: ``(B, n, V)`` float32 with
+    ``[b, i] = jax.random.gumbel(fold_in(keys[b], i), (V,))``."""
+    steps = torch.arange(n, dtype=torch.int64, device=keys.device)
+    return prng.gumbel(prng.fold_in(keys[:, None, :], steps), (vocab,), device=device)
+
+
+def sample_tokens(noise: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``categorical`` with its noise given: first argmax of ``noise +
+    logits / temperature`` over the last axis, int32."""
+    return torch.argmax(noise + logits / temperature, dim=-1).to(torch.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerDraftAdapter:
+    """A decoder-only causal ``repro_torch.models.Model`` as draft substrate.
+
+    The cache is ``Model.init_cache``'s tree (stacked ``(layers, B, T,
+    kv_heads, head_dim)`` k/v leaves and per-layer cursors ``pos``); cache
+    validity masks every position at or past a cursor, which is what makes
+    reusing a buffer across calls safe.
+
+    ``decode_impl``: "kernel" runs the ``draft_decode`` kernels (and raises
+    on a config outside their subset); "xla" the model's own plain-torch
+    ``decode_step``/``prefill`` (named after the JAX package's XLA path);
+    "auto" the kernels where the config and a float32 cache allow.
+    """
+
+    model: Any
+    cache_dtype: torch.dtype = torch.float32
+    decode_impl: str = "auto"
+
+    positional = True
+
+    @functools.cached_property
+    def _decoder(self) -> Optional[DraftDecoder]:
+        if self.decode_impl == "xla":
+            return None
+        if self.decode_impl == "kernel":
+            return DraftDecoder(model=self.model)   # raises if unsupported
+        if self.decode_impl != "auto":
+            raise ValueError(f"decode_impl must be auto|kernel|xla, got {self.decode_impl}")
+        supported = (draft_decode_supported(self.model.cfg)
+                     and self.cache_dtype == torch.float32)
+        return DraftDecoder(model=self.model) if supported else None
+
+    @property
+    def exact_batched_prefill(self) -> bool:
+        """True when ``prefill_batched`` is bit-identical to scanning."""
+        return self._decoder is not None
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return self.model.init_cache(batch, max_len, self.cache_dtype)
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, cache: dict, pos) -> Tuple[torch.Tensor, dict]:
+        """tok (B,) at position ``pos`` -> (logits (B, V) float32, cache)."""
+        if self._decoder is not None:
+            logits, cache = self._decoder.forward_chunk(tok[:, None], cache, pos)
+        else:
+            logits, cache = self.model.decode_step(tok[:, None], cache, pos)
+        return logits[:, 0].float(), cache
+
+    @torch.no_grad()
+    def prefill_batched(self, toks: torch.Tensor, cache: dict) -> Tuple[torch.Tensor, dict]:
+        """toks (B, P) from an empty (or rewound-to-0) cache -> (next-token
+        logits (B, V), cache)."""
+        if self._decoder is not None:
+            logits, cache = self._decoder.forward_chunk(toks, cache, 0)
+        else:
+            logits, cache = self.model.prefill({"tokens": toks}, cache)
+        return logits[:, -1].float(), cache
+
+    @staticmethod
+    def set_pos(cache: dict, pos: int) -> dict:
+        """Every cursor set to ``pos``: the zero-copy prefix rewind."""
+        return {group: {name: {k: torch.full_like(v, pos) if k == "pos" else v
+                               for k, v in leaves.items()}
+                        for name, leaves in cache[group].items()}
+                for group in ("blocks", "rem", "pre")}
+
+
+@dataclasses.dataclass
+class DraftEngineStats:
+    """Lifetime counters (prefill skips are the cache-reuse win)."""
+
+    prefill_computes: int = 0
+    prefill_reuses: int = 0
+    decode_dispatches: int = 0
+    tokens_generated: int = 0
+
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class _PoolEntry:
+    prefix_key: Tuple[bytes, int]    # (prompt fingerprint, prefix_len)
+    snapshot: dict                   # post-prefill cache
+    logits0: torch.Tensor            # (B, V) next-token logits after the prefix
+
+
+class ARDraftEngine:
+    """Row-keyed KV-cached AR draft generator.
+
+    ``generate_rows(keys (B, 2), seq_len) -> (B, seq_len)`` is the
+    scheduler's draft contract: row ``b`` depends only on ``keys[b]``.
+
+    Args:
+      adapter: a positional adapter (:class:`TransformerDraftAdapter`).
+      max_len: cache capacity; must cover ``prefix_len + seq_len - 1`` of
+        the largest request served.
+      temperature: sampling temperature.
+      bos: the prompt when ``generate_rows`` is called without one.
+      prefill_mode: "scan" (token by token, bit-exact on any adapter),
+        "batched" (one call; bit-exact iff ``adapter.exact_batched_prefill``)
+        or None to take "batched" where it is exact, else "scan".
+    """
+
+    def __init__(self, adapter, *, max_len: int, temperature: float = 1.0, bos: int = 0,
+                 prefill_mode: Optional[str] = None):
+        if not getattr(adapter, "positional", False):
+            raise ValueError("the port's engine takes positional (KV-cache) adapters only")
+        if prefill_mode is None:
+            prefill_mode = ("batched" if getattr(adapter, "exact_batched_prefill", False)
+                            else "scan")
+        if prefill_mode not in ("scan", "batched"):
+            raise ValueError(f"prefill_mode must be scan|batched, got {prefill_mode}")
+        self.adapter = adapter
+        self.max_len = max_len
+        self.temperature = temperature
+        self.bos = bos
+        self.prefill_mode = prefill_mode
+        self.stats = DraftEngineStats()
+        self._pool: Dict[int, _PoolEntry] = {}
+
+    @property
+    def device(self) -> torch.device:
+        return self.adapter.model.device
+
+    # ---- phases ----------------------------------------------------------
+
+    def _prefill(self, cache: dict, toks: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+        if self.prefill_mode == "batched":
+            return self.adapter.prefill_batched(toks, cache)
+        logits = None
+        for j in range(toks.shape[1]):
+            logits, cache = self.adapter.decode_step(toks[:, j], cache, j)
+        return logits, cache
+
+    def _decode(self, cache: dict, logits0: torch.Tensor, keys: torch.Tensor, start: int,
+                n_steps: int) -> Tuple[torch.Tensor, dict]:
+        """Sample ``n_steps`` tokens: token i from the current logits with
+        the row's key folded with i, then one decode step (none after the
+        last token)."""
+        noise = row_gumbel(keys, n_steps, logits0.shape[-1], logits0.device)
+        logits, toks = logits0, []
+        for i in range(n_steps):
+            tok = sample_tokens(noise[:, i], logits, self.temperature)
+            toks.append(tok)
+            if i < n_steps - 1:
+                logits, cache = self.adapter.decode_step(tok, cache, start + i)
+        return torch.stack(toks, dim=1), cache
+
+    # ---- prefix bookkeeping ------------------------------------------------
+
+    @staticmethod
+    def _fingerprint(prompt: torch.Tensor) -> Tuple[bytes, int]:
+        a = np.ascontiguousarray(prompt.cpu().numpy().astype(np.int32))
+        return hashlib.sha1(a.tobytes()).digest(), a.shape[1]
+
+    def _prefix_cache(self, b: int, prompt: torch.Tensor, key) -> Tuple[dict, torch.Tensor]:
+        """Post-prefill (cache, logits0): reused when the pool holds this
+        (rows, prefix), else recomputed into the pooled buffer (rewound to
+        0) or a new one. The entry is popped: its buffer goes to the decode
+        and ``generate_rows`` pools it again afterwards, so a failure in
+        between leaves no half-used cache in the pool."""
+        entry = self._pool.pop(b, None)
+        if entry is not None and entry.prefix_key == key:
+            self.stats.prefill_reuses += 1
+            return entry.snapshot, entry.logits0
+        if entry is not None:
+            cache = self.adapter.set_pos(entry.snapshot, 0)
+        else:
+            cache = self.adapter.init_cache(b, self.max_len)
+        logits0, cache = self._prefill(cache, prompt)
+        self.stats.prefill_computes += 1
+        return cache, logits0
+
+    # ---- generation ----------------------------------------------------------
+
+    @torch.no_grad()
+    def generate_rows(self, keys: torch.Tensor, seq_len: int,
+                      prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Row-keyed draft generation.
+
+        Args:
+          keys: (B, 2) PRNG keys (``repro_torch.prng``), one per row.
+          seq_len: tokens to generate.
+          prompt: optional (B, P) shared prefix; defaults to one BOS column.
+            Consecutive calls with the same (rows, prompt) skip the prefill.
+        Returns:
+          (B, seq_len) int32 draft tokens on the model's device (prompt not
+          included).
+        """
+        if seq_len < 1:
+            raise ValueError(f"seq_len must be >= 1, got {seq_len}")
+        keys = prng.key_data(keys)
+        b = keys.shape[0]
+        if prompt is None:
+            prompt = torch.full((b, 1), self.bos, dtype=torch.int32)
+        prompt = torch.as_tensor(prompt).to(device=self.device, dtype=torch.int32)
+        if prompt.shape[0] != b:
+            raise ValueError(f"prompt rows {prompt.shape[0]} != key rows {b}")
+        p = prompt.shape[1]
+        if p + seq_len - 1 > self.max_len:
+            raise ValueError(f"prefix {p} + seq_len {seq_len} - 1 exceeds cache capacity "
+                             f"max_len={self.max_len}")
+        fp = self._fingerprint(prompt)
+        cache, logits0 = self._prefix_cache(b, prompt, fp)
+        # the prefix KV rows < p are never overwritten, so a cursor rewind
+        # afterwards restores the post-prefill cache with no copy
+        toks, cache = self._decode(cache, logits0, keys, p, int(seq_len))
+        self._pool[b] = _PoolEntry(fp, self.adapter.set_pos(cache, p), logits0)
+        self.stats.decode_dispatches += 1
+        self.stats.tokens_generated += b * seq_len
+        return toks
+
+    def as_draft_fn(self) -> Callable[[torch.Tensor, int], torch.Tensor]:
+        """The scheduler's ``draft_fn(keys, seq_len)`` entry point."""
+        return self.generate_rows
+
+    def reset(self) -> None:
+        """Drop pooled prefix caches (frees device buffers)."""
+        self._pool.clear()

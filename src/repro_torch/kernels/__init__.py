@@ -4,6 +4,10 @@
                ``ws_step_streamed_pallas``)
   flash_attn — blockwise online-softmax attention (replaces
                ``flash_attention_pallas``)
+  draft_decode — batch-invariant decode-step kernels of the AR draft
+               transformer: qkv_rope, attn_cached, post_attn, head (replace
+               ``qkv_rope_pallas``, ``attn_cached_pallas``,
+               ``post_attn_pallas``, ``head_pallas``)
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version (``ref.py``) only for a CPU tensor. ``_build`` compiles
@@ -12,9 +16,11 @@ PyTorch version (``ref.py``) only for a CPU tensor. ``_build`` compiles
 
 from repro_torch.kernels._build import launches
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
 from repro_torch.kernels.ws_step import (
     make_ws_step_fn, ws_step, ws_step_ref, ws_step_ref_streamed,
 )
 
 __all__ = ["launches", "ws_step", "make_ws_step_fn", "ws_step_ref",
-           "ws_step_ref_streamed", "flash_attention", "flash_attention_ref"]
+           "ws_step_ref_streamed", "flash_attention", "flash_attention_ref",
+           "DraftDecoder", "draft_decode_supported"]

@@ -1,44 +1,100 @@
-"""GQA self-attention of the torch backbone (port of the no-cache branch of
-the JAX package's ``models/attention.py::gqa_attention``).
+"""GQA self-attention of the torch backbone (port of the JAX package's
+``models/attention.py::gqa_attention`` and ``init_gqa_cache``).
 
 Masking: ``mode="bidir"`` (the DFM denoiser) sees every position,
 ``mode="causal"`` only earlier ones.
-The JAX backbone computes this in XLA's einsum ``_sdpa``; here it runs
-through the ``flash_attn`` kernel (its plain version on the CPU), which
-the tests hold against ``_sdpa``. The mask (JAX ``attn_mask``) lives in
-the kernel and in ``kernels/flash_attn/ref.py::attention_mask``.
+Without a cache the JAX backbone computes this in XLA's einsum ``_sdpa``;
+here it runs through the ``flash_attn`` kernel (its plain version on the
+CPU), which the tests hold against ``_sdpa``. The mask (JAX ``attn_mask``)
+lives in the kernel and in ``kernels/flash_attn/ref.py::attention_mask``.
+
+With a cache (``forward_cached``, the AR decode/prefill path) the chunk's
+k/v are written into the cache buffers at the cache's cursor and the
+queries attend over the whole buffer under the causal and cache-validity
+masks, in plain torch as JAX's ``_sdpa`` does there (no Pallas kernel).
+The AR draft engine's fast path is ``kernels/draft_decode`` instead.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention
+from repro_torch.kernels.flash_attn.ref import NEG_INF
 from repro_torch.models.common import Dense
 from repro_torch.models.rope import apply_rope
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """``{"k", "v": (B, T, KH, hd) zeros, "pos": () int32 0}``."""
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, kh, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_len, kh, hd), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
 
 
 class GQAAttention(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        d, hd = cfg.d_model, cfg.head_dim
+        d, hd, bias = cfg.d_model, cfg.head_dim, cfg.use_bias
         self.h, self.kh, self.hd = cfg.num_heads, cfg.num_kv_heads, hd
-        self.wq = Dense(d, cfg.num_heads * hd, gen, device)
-        self.wk = Dense(d, cfg.num_kv_heads * hd, gen, device)
-        self.wv = Dense(d, cfg.num_kv_heads * hd, gen, device)
-        self.wo = Dense(cfg.num_heads * hd, d, gen, device,
+        self.wq = Dense(d, cfg.num_heads * hd, gen, device, bias=bias)
+        self.wk = Dense(d, cfg.num_kv_heads * hd, gen, device, bias=bias)
+        self.wv = Dense(d, cfg.num_kv_heads * hd, gen, device, bias=bias)
+        self.wo = Dense(cfg.num_heads * hd, d, gen, device, bias=bias,
                         stddev=0.02 / math.sqrt(2 * cfg.num_layers))
 
-    def forward(self, x: torch.Tensor, *, sin: torch.Tensor, cos: torch.Tensor,
-                mode: str) -> torch.Tensor:
+    def _qkv(self, x, sin, cos):
         b, s, _ = x.shape
-        q = apply_rope(self.wq(x).reshape(b, s, self.h, self.hd), sin, cos)
-        k = apply_rope(self.wk(x).reshape(b, s, self.kh, self.hd), sin, cos)
+        q = self.wq(x).reshape(b, s, self.h, self.hd)
+        k = self.wk(x).reshape(b, s, self.kh, self.hd)
         v = self.wv(x).reshape(b, s, self.kh, self.hd)
-        out = flash_attention(q, k, v, causal=mode == "causal",
+        if sin is not None:
+            q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, *, sin: Optional[torch.Tensor],
+                cos: Optional[torch.Tensor], mode: str,
+                window: Optional[int] = None) -> torch.Tensor:
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, sin, cos)
+        out = flash_attention(q, k, v, causal=mode == "causal", window=window,
                               scale=1.0 / math.sqrt(self.hd))
         return self.wo(out.reshape(b, s, self.h * self.hd))
+
+    def forward_cached(self, x: torch.Tensor, cache: dict, *, sin: Optional[torch.Tensor],
+                       cos: Optional[torch.Tensor], q_pos: torch.Tensor,
+                       window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+        """x (B, S, D) at positions ``q_pos`` (B, S) -> (out, new cache).
+
+        The chunk's k/v go into ``cache["k"]``/``cache["v"]`` in place (the
+        JAX engine donates those buffers); the returned cache holds the
+        same buffers and a new cursor ``pos + S``."""
+        b, s, _ = x.shape
+        q, k, v = self._qkv(x, sin, cos)
+        kbuf, vbuf = cache["k"], cache["v"]
+        t = kbuf.shape[1]
+        start = int(cache["pos"])
+        w0 = min(max(start, 0), t - s)   # dynamic_update_slice clamps the write to fit
+        kbuf[:, w0:w0 + s] = k.to(kbuf.dtype)
+        vbuf[:, w0:w0 + s] = v.to(vbuf.dtype)
+        k_pos = torch.arange(t, device=x.device)
+        mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos < start + s)
+        if window is not None:
+            mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+        g = self.h // self.kh
+        qh = q.reshape(b, s, self.kh, g, self.hd)
+        kf, vf = kbuf.to(x.dtype), vbuf.to(x.dtype)
+        scores = torch.einsum("bskgd,btkd->bkgst", qh, kf).float() * (1.0 / math.sqrt(self.hd))
+        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(vf.dtype)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, vf).reshape(b, s, self.h * self.hd)
+        new_cache = {"k": kbuf, "v": vbuf, "pos": cache["pos"] + s}
+        return self.wo(out), new_cache

@@ -24,17 +24,20 @@ def normal_init(gen: torch.Generator, shape, stddev: float, device) -> torch.Ten
 
 
 class Dense(nn.Module):
-    """``x @ w`` with ``w`` stored ``(in, out)`` as in JAX."""
+    """``x @ w (+ b)`` with ``w`` stored ``(in, out)`` as in JAX; the bias
+    (``bias=True``) starts at zero, as ``dense_init`` makes it."""
 
     def __init__(self, in_dim: int, out_dim: int, gen: torch.Generator, device, *,
-                 stddev: float | None = None):
+                 stddev: float | None = None, bias: bool = False):
         super().__init__()
         if stddev is None:
             stddev = 1.0 / math.sqrt(in_dim)
         self.w = nn.Parameter(normal_init(gen, (in_dim, out_dim), stddev, device))
+        self.b = nn.Parameter(torch.zeros(out_dim, device=device)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.w)
+        y = torch.matmul(x, self.w)
+        return y if self.b is None else y + self.b
 
 
 class LayerNorm(nn.Module):
@@ -52,11 +55,37 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
 
 
+class RMSNorm(nn.Module):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in float32, with the
+    zero-initialised (gemma-style) ``scale`` of the JAX ``rmsnorm``."""
+
+    def __init__(self, dim: int, eps: float, device):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps)
+        return (y * (1.0 + self.scale.float())).to(x.dtype)
+
+
+def make_norm(cfg: ModelConfig, device) -> nn.Module:
+    """``cfg.norm`` over ``d_model`` (JAX ``init_norm``/``apply_norm``)."""
+    if cfg.norm == "layernorm":
+        return LayerNorm(cfg.d_model, cfg.norm_eps, device)
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(cfg.d_model, cfg.norm_eps, device)
+    raise ValueError(f"unknown norm {cfg.norm!r}")
+
+
 def activation(name: str, x: torch.Tensor) -> torch.Tensor:
     if name == "silu":
         return F.silu(x)
     if name == "gelu":
         return F.gelu(x, approximate="tanh")   # jax.nn.gelu(approximate=True)
+    if name == "relu":
+        return F.relu(x)
     raise ValueError(name)
 
 
@@ -93,14 +122,20 @@ class TimeEmbed(nn.Module):
 
 
 class MLP(nn.Module):
-    """Plain ``up -> act -> down`` MLP (``cfg.mlp_gated`` False)."""
+    """``up -> act -> down`` MLP; with ``cfg.mlp_gated`` the hidden layer is
+    ``act(gate(x)) * up(x)``. Biases with ``cfg.use_bias``."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f, bias = cfg.d_model, cfg.d_ff, cfg.use_bias
         self.act = cfg.act
-        self.up = Dense(d, f, gen, device)
-        self.down = Dense(f, d, gen, device, stddev=0.02 / math.sqrt(2 * cfg.num_layers))
+        self.up = Dense(d, f, gen, device, bias=bias)
+        self.down = Dense(f, d, gen, device, bias=bias,
+                          stddev=0.02 / math.sqrt(2 * cfg.num_layers))
+        self.gate = Dense(d, f, gen, device, bias=bias) if cfg.mlp_gated else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(activation(self.act, self.up(x)))
+        up = self.up(x)
+        if self.gate is not None:
+            return self.down(activation(self.act, self.gate(x)) * up)
+        return self.down(activation(self.act, up))

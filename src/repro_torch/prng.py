@@ -160,6 +160,15 @@ def gumbel(keys: torch.Tensor, shape: Sequence[int], *, device=None) -> torch.Te
     return -torch.log(-torch.log(u))
 
 
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis: the first argmax of
+    ``gumbel(key, ...) + logits``. One key ``(2,)`` draws the noise for all
+    of ``logits`` at once; keys ``(B, 2)`` key row ``b`` of ``logits (B,
+    V)`` by ``keys[b]``, like ``vmap(categorical)``. int64 indices."""
+    noise = gumbel(keys, logits.shape[keys.ndim - 1:], device=logits.device)
+    return torch.argmax(noise + logits, dim=-1)
+
+
 def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
             *, device=None) -> torch.Tensor:
     """``jax.random.randint`` for int32 bounds and results."""

@@ -1,5 +1,6 @@
-"""The one-shot warm-start generation engine (port of ``WarmStartServer``
-and ``PerNFECostModel`` of the JAX package's ``serving/engine.py``).
+"""The one-shot warm-start generation engine (port of ``WarmStartServer``,
+``PerNFECostModel``, ``make_serve_step``, ``make_prefill_fn`` and
+``ar_generate`` of the JAX package's ``serving/engine.py``).
 
 ``WarmStartServer.serve`` runs the paper's Fig. 1 generation: a draft at
 ``t0``, then exactly ``warm_nfe(cold_nfe, t0)`` Euler refine steps of the
@@ -79,6 +80,45 @@ class PerNFECostModel:
         if include_compile and key not in self._per_key and self._compile:
             est += self._compile
         return est
+
+
+def make_serve_step(model, cfg: ModelConfig, *, global_window: Optional[int] = None,
+                    temperature: float = 1.0) -> Callable:
+    """serve_step(rng, tokens (B, 1), cache, pos) -> (next tokens (B, 1),
+    logits, new cache): one AR decode step of ``model`` and one draw of
+    ``categorical(rng, logits / temperature)`` for the whole batch."""
+
+    def serve_step(rng, tokens, cache, pos):
+        logits, cache = model.decode_step(tokens, cache, pos, global_window=global_window)
+        nxt = prng.categorical(rng, logits[:, -1].float() / temperature)
+        return nxt.to(torch.int32)[:, None], logits, cache
+
+    return serve_step
+
+
+def make_prefill_fn(model, cfg: ModelConfig, *, global_window: Optional[int] = None) -> Callable:
+    def prefill(batch, cache):
+        return model.prefill(batch, cache, global_window=global_window)
+    return prefill
+
+
+@torch.no_grad()
+def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, seq_len: int,
+                bos: int = 0, temperature: float = 1.0, extras: Optional[dict] = None,
+                dtype=torch.float32) -> torch.Tensor:
+    """Full AR generation (the AR baseline): from a BOS column, ``seq_len``
+    tokens by ``make_serve_step``, the key split once per step. (B, seq_len)."""
+    if cfg.is_encoder_decoder or extras:
+        raise NotImplementedError("ar_generate: encoder-decoder and extra inputs are not ported")
+    cache = model.init_cache(batch_size, seq_len + 1, dtype)
+    serve_step = make_serve_step(model, cfg, temperature=temperature)
+    tok = torch.full((batch_size, 1), bos, dtype=torch.int32, device=model.device)
+    out = []
+    for i in range(seq_len):
+        rng, sub = prng.split(rng, 2)
+        tok, _, cache = serve_step(sub, tok, cache, i)
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1)
 
 
 def _sync(device: torch.device) -> None:

@@ -12,9 +12,16 @@ import pytest
 import torch
 
 from repro_torch import prng
+from repro_torch.configs.dfm_dit import tiny_config
 from repro_torch.core.paths import WarmStartPath
+from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter, oracle_generate_rows
 from repro_torch.kernels import launches
+from repro_torch.kernels.draft_decode import (
+    DraftDecoder, attn_cached, attn_cached_ref, head, head_ref, post_attn, post_attn_ref,
+    qkv_rope, qkv_rope_ref,
+)
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.models import Model
 from repro_torch.kernels.ws_step import (
     near_tie_rows, seed_from_key, ws_step, ws_step_ref_streamed,
 )
@@ -75,3 +82,124 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="float32"):
         ws_step(prng.key(0), logits, torch.zeros(4, dtype=torch.int32, device=card), 0.5, 0.1,
                 WarmStartPath())
+
+
+# -- draft_decode ------------------------------------------------------------------------
+
+def _layer(g, d, f, h, kh, hd, *, norm, bias, gated, device):
+    def dense(i, o):
+        p = {"w": torch.randn((i, o), generator=g, device=device) / i ** 0.5}
+        if bias:
+            p["b"] = 0.1 * torch.randn(o, generator=g, device=device)
+        return p
+
+    def ln():
+        p = {"scale": 1.0 + 0.1 * torch.randn(d, generator=g, device=device)}
+        if norm == "layernorm":
+            p["bias"] = 0.1 * torch.randn(d, generator=g, device=device)
+        return p
+
+    attn = {"wq": dense(d, h * hd), "wk": dense(d, kh * hd), "wv": dense(d, kh * hd),
+            "wo": dense(h * hd, d)}
+    mlp = {"up": dense(d, f), "down": dense(f, d)}
+    if gated:
+        mlp["gate"] = dense(d, f)
+    return ln(), attn, ln(), mlp
+
+
+def _close(got, want, tol):
+    return float((got - want).abs().max()) <= tol * max(1.0, float(want.abs().max()))
+
+
+DRAFT_SHAPES = [
+    # b, s, t, d, f, h, kh, hd, norm, bias, gated, act, rope
+    (32, 1, 271, 768, 3072, 12, 12, 64, "layernorm", False, False, "gelu", True),
+    (4, 16, 40, 768, 3072, 12, 12, 64, "layernorm", False, False, "gelu", True),
+    (3, 5, 37, 96, 200, 8, 2, 32, "rmsnorm", True, True, "silu", False),
+    (2, 3, 19, 64, 96, 2, 1, 128, "rmsnorm", True, True, "relu", True),
+]
+
+
+@pytest.mark.parametrize("b,s,t,d,f,h,kh,hd,norm,bias,gated,act,rope", DRAFT_SHAPES)
+def test_draft_kernels_match_plain(card, b, s, t, d, f, h, kh, hd, norm, bias, gated, act,
+                                   rope):
+    g = torch.Generator(device=card).manual_seed(d + t)
+    ln1, attn_p, ln2, mlp_p = _layer(g, d, f, h, kh, hd, norm=norm, bias=bias, gated=gated,
+                                     device=card)
+    r = b * s
+    x = torch.randn((r, d), generator=g, device=card)
+    kbuf = torch.randn((b, t, kh * hd), generator=g, device=card)
+    vbuf = torch.randn((b, t, kh * hd), generator=g, device=card)
+    start = torch.tensor(t // 2 - s, dtype=torch.int32, device=card)
+    kw = dict(heads=h, kv_heads=kh, head_dim=hd)
+    rope_kw = dict(pos0=int(start), seq=s, norm=norm, eps=1e-6, use_rope=rope, theta=1e4, **kw)
+    before = dict(launches)
+    kk, vk, kr, vr = kbuf.clone(), vbuf.clone(), kbuf.clone(), vbuf.clone()
+    q = qkv_rope(x, ln1, attn_p, kk, vk, start, **rope_kw)
+    q_ref = qkv_rope_ref(x, ln1, attn_p, kr, vr, start, **rope_kw)
+    assert _close(q, q_ref, 1e-4) and _close(kk, kr, 1e-4) and _close(vk, vr, 1e-4)
+    a = attn_cached(q_ref, kr, vr, start, pos0=int(start), seq=s, **kw)
+    assert float((a - attn_cached_ref(q_ref, kr, vr, start, pos0=int(start), seq=s,
+                                      **kw)).abs().max()) <= 1e-5
+    out = post_attn(a, x, attn_p, ln2, mlp_p, norm=norm, eps=1e-6, act=act)
+    assert _close(out, post_attn_ref(a, x, attn_p, ln2, mlp_p, norm=norm, eps=1e-6, act=act),
+                  1e-4)
+    w = torch.randn((27, d), generator=g, device=card).T      # a tied (transposed) head
+    assert _close(head(out, ln1, w, norm=norm, eps=1e-6), head_ref(out, ln1, w, norm=norm,
+                                                                     eps=1e-6), 1e-4)
+    torch.cuda.synchronize()
+    for name in ("qkv_rope", "attn_cached", "post_attn", "head"):
+        assert launches[name] == before.get(name, 0) + 1
+
+
+def _draft_model(card, **kw):
+    cfg = tiny_config(vocab_size=27).replace(
+        num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, **kw)
+    return Model(cfg, device=card, seed=1)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(norm="rmsnorm", use_bias=True, mlp_gated=True,
+                                         tie_embeddings=True, rope_type="none")])
+def test_draft_kernels_batched_equals_scan_bitwise(card, kw):
+    model = _draft_model(card, **kw)
+    dec = DraftDecoder(model)
+    toks = torch.randint(0, 27, (5, 8), device=card,
+                         generator=torch.Generator(device=card).manual_seed(0))
+    runs = []
+    for split in ((8,), (1,) * 8, (3, 1, 4)):
+        cache, parts, pos = model.init_cache(5, 12, torch.float32), [], 0
+        for w in split:
+            lg, cache = dec.forward_chunk(toks[:, pos:pos + w], cache, pos)
+            parts.append(lg)
+            pos += w
+        runs.append((torch.cat(parts, 1), cache))
+    (ref, ref_cache), *others = runs
+    for lg, cache in others:
+        assert torch.equal(lg, ref)
+        for k in ("k", "v", "pos"):
+            assert torch.equal(cache["blocks"]["p0"][k], ref_cache["blocks"]["p0"][k])
+
+
+def test_draft_engine_equals_oracle_on_card(card):
+    adapter = TransformerDraftAdapter(model=_draft_model(card), decode_impl="kernel")
+    keys = prng.split(prng.key(3), 3)
+    prompt = torch.tensor([[1, 2, 3]] * 3, dtype=torch.int32)
+    eng = ARDraftEngine(adapter, max_len=14)
+    out = eng.generate_rows(keys, 12, prompt=prompt)
+    assert out.device.type == "cuda" and out.dtype == torch.int32
+    ref = oracle_generate_rows(adapter, keys, 12, prompt=prompt, max_len=14)
+    assert torch.equal(out, ref)
+    assert torch.equal(eng.generate_rows(keys, 12, prompt=prompt), ref)   # prefix reused
+    assert eng.stats.prefill_reuses == 1
+
+
+def test_draft_wrappers_reject_what_the_kernels_do_not_take(card):
+    x = torch.zeros(4, 64, device=card)
+    ln = {"scale": torch.zeros(64, device=card)}
+    with pytest.raises(ValueError, match="float32"):
+        head(x.half(), ln, torch.zeros(64, 27, device=card), norm="rmsnorm", eps=1e-6)
+    q = torch.zeros(4, 2 * 48, device=card)
+    buf = torch.zeros(4, 8, 2 * 48, device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_cached(q, buf, buf, torch.zeros((), dtype=torch.int32, device=card), pos0=0,
+                    seq=1, heads=2, kv_heads=2, head_dim=48)

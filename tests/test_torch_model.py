@@ -1,7 +1,11 @@
-"""The torch DiT backbone against the JAX package's ``Model``: checkpoint
-conversion, and ``dfm_apply`` logits at atol = rtol = 1e-4 on converted
-weights (attention through the flash kernel's plain version here, XLA's
-``_sdpa`` in JAX)."""
+"""The torch backbone against the JAX package's ``Model``: checkpoint
+conversion both ways, ``dfm_apply`` logits at atol = rtol = 1e-4 on
+converted weights (attention through the flash kernel's plain version
+here, XLA's ``_sdpa`` in JAX), and the AR serving entry points
+``init_cache``/``prefill``/``decode_step`` at 1e-5 on the draft configs
+(rmsnorm, bias, gated MLP, tied head, no RoPE, GQA)."""
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -101,9 +105,139 @@ def test_rope_and_time_embed_match_jax():
 
 def test_unsupported_configs_raise():
     cfg = dfm_dit.smoke_config()
-    for bad in (cfg.replace(norm="rmsnorm"), cfg.replace(pattern=("local",)),
-                cfg.replace(tie_embeddings=True), cfg.replace(dtype="bfloat16"),
-                cfg.replace(mlp_gated=True), cfg.replace(rope_type="none")):
+    for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("local",)),
+                cfg.replace(qk_norm=True), cfg.replace(dtype="bfloat16"),
+                cfg.replace(post_norms=True), cfg.replace(rope_type="mrope"),
+                cfg.replace(act="swish"), cfg.replace(family="moe")):
         with pytest.raises(NotImplementedError):
             check_supported(bad)
     check_supported(dfm_dit.CONFIG)
+    for good in (cfg.replace(norm="rmsnorm"), cfg.replace(tie_embeddings=True),
+                 cfg.replace(mlp_gated=True, use_bias=True, act="relu"),
+                 cfg.replace(rope_type="none")):
+        check_supported(good)
+
+
+DRAFT_VARIANTS = {
+    "dit": {},
+    "rmsnorm-gated-bias-tied": dict(norm="rmsnorm", mlp_gated=True, use_bias=True,
+                                    tie_embeddings=True, act="silu"),
+    "norope-relu-gqa-3layers": dict(rope_type="none", act="relu", num_heads=4,
+                                    num_kv_heads=1, num_layers=3),
+    # pattern of two: stacked p0/p1 leaves plus one remainder layer r0
+    "pattern2-remainder": dict(pattern=("attn", "attn"), num_layers=3),
+}
+
+
+def _draft_pair(name, seed=0):
+    kw = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, d_ff=64)
+    kw.update(DRAFT_VARIANTS[name])
+    jm = jax_build_model(jax_dfm_dit.tiny_config(vocab_size=13).replace(**kw))
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):   # biases and norm parameters start at 0 / 1
+        if jax.tree_util.keystr(path).endswith(("['b']", "['bias']", "['scale']")):
+            return x + 0.1 * jnp.asarray(rng.standard_normal(x.shape), jnp.float32)
+        return x
+
+    params = jax.tree_util.tree_map_with_path(leaf, jm.init(jax.random.key(seed)))
+    model = Model(dfm_dit.tiny_config(vocab_size=13).replace(**kw), device="cpu")
+    model.load_state_dict(jax_params_to_torch(_flatten(params)), strict=True)
+    return jm, params, model
+
+
+@pytest.mark.parametrize("name", sorted(DRAFT_VARIANTS))
+def test_convert_round_trip(name):
+    """JAX leaves -> state dict -> JAX leaves, equal; the tied config has
+    no head leaf and no torch head."""
+    jm, params, model = _draft_pair(name)
+    flat = _flatten(params)
+    state = {k: v.numpy() for k, v in model.state_dict().items()}
+    reps, n_pat = model.cfg.scan_split()[0], len(model.cfg.pattern)
+    back = {}
+    for k, v in state.items():
+        m = re.match(r"^blocks\.(\d+)\.(.+)$", k)
+        if m is None:
+            back[k.replace(".", "|")] = v
+            continue
+        layer, rest = int(m.group(1)), m.group(2).replace(".", "|")
+        if layer < reps * n_pat:   # slice layer // P of pattern position layer % P
+            back.setdefault(f"stack|blocks|p{layer % n_pat}|{rest}", [None] * reps)[
+                layer // n_pat] = v
+        else:
+            back[f"stack|rem|r{layer - reps * n_pat}|{rest}"] = v
+    back = {k: np.stack(v) if isinstance(v, list) else v for k, v in back.items()}
+    assert set(back) == set(flat)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(back[k], v)
+    tied = model.cfg.tie_embeddings
+    assert (model.head is None) == tied and any(k.startswith("head|") for k in flat) != tied
+    if name.startswith("rmsnorm"):
+        assert "stack|blocks|p0|mlp|gate|w" in flat and "stack|blocks|p0|attn|wq|b" in flat
+        assert "blocks.1.ln1.bias" not in model.state_dict()
+
+
+@pytest.mark.parametrize("name", sorted(DRAFT_VARIANTS))
+def test_prefill_and_decode_step_match_jax(name):
+    """A 4-token prefill then three decode steps through the model's own
+    cache path: logits and cache leaves within 1e-5, cursors exact."""
+    jm, params, model = _draft_pair(name, seed=1)
+    tok = np.random.default_rng(6).integers(0, 13, (2, 7)).astype(np.int32)
+    jcache = jm.init_cache(2, 10, jnp.float32)
+    cache = model.init_cache(2, 10, torch.float32)
+    want, jcache = jm.prefill(params, {"tokens": jnp.asarray(tok[:, :4])}, jcache)
+    with torch.no_grad():
+        got, cache = model.prefill({"tokens": torch.from_numpy(tok[:, :4])}, cache)
+        assert got.shape == (2, 1, 13)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+        for i in range(4, 7):
+            want, jcache = jm.decode_step(params, jnp.asarray(tok[:, i:i + 1]), jcache, i)
+            got, cache = model.decode_step(torch.from_numpy(tok[:, i:i + 1]), cache, i)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    jl = jax.tree_util.tree_leaves_with_path(jcache)
+    tl = jax.tree_util.tree_leaves_with_path(
+        jax.tree_util.tree_map(lambda t: t.numpy(), cache))
+    assert [jax.tree_util.keystr(p) for p, _ in jl] == [jax.tree_util.keystr(p) for p, _ in tl]
+    for (path, want), (_, got) in zip(jl, tl):
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+        if jax.tree_util.keystr(path).endswith("['pos']"):
+            assert (got == 7).all()
+
+
+def test_causal_forward_of_draft_configs_matches_jax():
+    for name in sorted(DRAFT_VARIANTS):
+        jm, params, model = _draft_pair(name, seed=2)
+        tok = np.random.default_rng(3).integers(0, 13, (2, 9)).astype(np.int32)
+        want, _ = jm.forward(params, {"tokens": jnp.asarray(tok)})
+        with torch.no_grad():
+            got = model(torch.from_numpy(tok)).numpy()
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_init_cache_layout_and_bf16_default():
+    model = Model(dfm_dit.smoke_config(), device="cpu")
+    cache = model.init_cache(3, 11)
+    leaves = cache["blocks"]["p0"]
+    assert set(cache) == {"blocks", "rem", "pre"} and not cache["rem"] and not cache["pre"]
+    assert leaves["k"].shape == leaves["v"].shape == (2, 3, 11, 4, 64)
+    assert leaves["k"].dtype == torch.bfloat16 and leaves["pos"].dtype == torch.int32
+    assert leaves["pos"].shape == (2,) and int(leaves["pos"].abs().sum()) == 0
+
+
+def test_decode_step_with_global_window_matches_jax():
+    """``global_window`` limits each query to the last W keys of the cache."""
+    jm, params, model = _draft_pair("dit", seed=4)
+    tok = np.random.default_rng(8).integers(0, 13, (2, 6)).astype(np.int32)
+    jcache = jm.init_cache(2, 8, jnp.float32)
+    cache = model.init_cache(2, 8, torch.float32)
+    _, jcache = jm.prefill(params, {"tokens": jnp.asarray(tok[:, :4])}, jcache, global_window=3)
+    with torch.no_grad():
+        _, cache = model.prefill({"tokens": torch.from_numpy(tok[:, :4])}, cache,
+                                 global_window=3)
+        for i in range(4, 6):
+            want, jcache = jm.decode_step(params, jnp.asarray(tok[:, i:i + 1]), jcache, i,
+                                          global_window=3)
+            got, cache = model.decode_step(torch.from_numpy(tok[:, i:i + 1]), cache, i,
+                                           global_window=3)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)

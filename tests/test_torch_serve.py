@@ -1,6 +1,7 @@
 """The port's one-shot serving path against the JAX package's: schedules,
-drafts, ``WarmStartServer.serve`` tokens and report counts, the guarantee
-gate, device defaults, and the import boundary of the port."""
+drafts, ``WarmStartServer.serve`` tokens and report counts (with a fixed
+draft and with the KV-cached AR draft engine), the guarantee gate, device
+defaults, and the import boundary of the port."""
 
 import ast
 import pathlib
@@ -14,6 +15,9 @@ import torch
 
 from repro.checkpoint.io import _flatten
 from repro.configs.dfm_dit import smoke_config as jax_smoke_config
+from repro.configs.dfm_dit import tiny_config as jax_tiny_config
+from repro.drafting import ARDraftEngine as JaxARDraftEngine
+from repro.drafting import TransformerDraftAdapter as JaxTransformerDraftAdapter
 from repro.core.paths import WarmStartPath as JaxPath
 from repro.core.sampler import refine_schedule as jax_refine_schedule
 from repro.kernels.ws_step import make_ws_step_fn as jax_make_ws_step_fn
@@ -23,11 +27,12 @@ from repro.serving.drafts import (
 )
 from repro.serving.engine import WarmStartServer as JaxWarmStartServer
 from repro_torch import prng
-from repro_torch.configs.dfm_dit import smoke_config
+from repro_torch.configs.dfm_dit import smoke_config, tiny_config
 from repro_torch.convert import jax_params_to_torch
 from repro_torch.core import sampler
 from repro_torch.core.guarantees import GuaranteeViolation, require_guarantee, warm_nfe
 from repro_torch.core.paths import WarmStartPath
+from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
 from repro_torch.kernels.ws_step import make_ws_step_fn
 from repro_torch.models import Model
 from repro_torch.serving import WarmStartServer, corruption_draft, uniform_draft
@@ -124,6 +129,45 @@ def test_serve_with_row_keyed_draft_and_argmax_final(servers_setup):
             WarmStartPath(t0=T0)), x0, keys[:1], ts[:1], hs[:1])
         last = torch.argmax(model.dfm_apply(one, ts[1].expand(2)), -1).to(torch.int32)
     torch.testing.assert_close(out, last)
+
+
+def test_serve_with_ar_draft_matches_jax(servers_setup):
+    """The paper's pipeline: a 2-layer causal transformer drafts each row
+    after a shared 3-token prompt (KV-cached engine, draft kernels' plain
+    versions here), then the DiT refines. Three serves: tokens equal JAX's,
+    report counts equal, the prefix is computed once and reused twice."""
+    jm, params, model, _ = servers_setup
+    kw = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, d_ff=64)
+    jdm = jax_build_model(jax_tiny_config().replace(**kw))
+    dparams = jdm.init(jax.random.key(1))
+    dmodel = Model(tiny_config().replace(**kw), device="cpu")
+    dmodel.load_state_dict(jax_params_to_torch(_flatten(dparams)), strict=True)
+    prompt = np.tile(np.random.default_rng(2).integers(0, 27, 3).astype(np.int32), (NUM, 1))
+    max_len = 3 + SEQ - 1
+    jeng = JaxARDraftEngine(JaxTransformerDraftAdapter(model=jdm), dparams, max_len=max_len)
+    eng = ARDraftEngine(TransformerDraftAdapter(model=dmodel, decode_impl="kernel"),
+                        max_len=max_len)
+    jpath, path = JaxPath(t0=T0), WarmStartPath(t0=T0)
+    jserver = JaxWarmStartServer(
+        flow_model=jm, flow_cfg=jm.cfg, flow_params=params,
+        draft_generate=lambda rng, num: jeng.generate_rows(
+            jax.random.split(rng, num), SEQ, prompt=jnp.asarray(prompt)),
+        path=jpath, cold_nfe=COLD_NFE, step_fn=jax_make_ws_step_fn(jpath))
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=model.cfg,
+        draft_generate=lambda rng, num: eng.generate_rows(
+            prng.split(rng, num), SEQ, prompt=torch.from_numpy(prompt)),
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path, device="cpu"),
+        device="cpu")
+    for seed in (11, 12, 13):
+        x_j, rep_j = jserver.serve(jax.random.key(seed), NUM)
+        x_t, rep_t = server.serve(prng.key(seed), NUM)
+        np.testing.assert_array_equal(np.asarray(x_j), x_t.numpy())
+        for k in ("nfe", "backbone_evals", "cold_nfe", "fused_block"):
+            assert rep_t[k] == rep_j[k]
+    assert eng.stats.as_dict() == jeng.stats.as_dict() == {
+        "prefill_computes": 1, "prefill_reuses": 2, "decode_dispatches": 3,
+        "tokens_generated": 3 * NUM * SEQ}
 
 
 def test_guarantee_violation_on_wrong_count(servers_setup, monkeypatch):
