@@ -514,6 +514,388 @@ def check_draft_logits_against_cpu(engine):
         fail(f"full-width draft logits disagree with the plain path: {err}")
 
 
+# -- ws_step per-row mode and ws_fused ------------------------------------------------
+
+FUSED_KS, FUSED_VS = (2, 4, 8), (VOCAB, 50257)
+
+
+def step_inputs(b, n, v, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = 3.0 * torch.randn((b, n, v), generator=g, device="cuda")
+    x = torch.randint(0, v, (b, n), generator=g, device="cuda", dtype=torch.int32)
+    return logits, x
+
+
+def rows_inputs(b, n, v, seed):
+    from repro_torch import prng
+
+    logits, x = step_inputs(b, n, v, seed)
+    keys = prng.split(prng.key(seed), b).to("cuda")
+    t = torch.linspace(0.5, 0.9, b, device="cuda")
+    h = torch.full((b,), 1.0 / COLD_NFE, device="cuda")
+    h[0] = 0.0                                  # an inactive request row: frozen
+    return keys, logits, x, t, h
+
+
+def check_ws_step_rows(b, n, v, seed):
+    """The per-row mode against its plain version (euler_step_probs and the
+    argmax with jax.random.gumbel noise per request row), tokens equal off
+    counted near ties; a = 0 rows unchanged."""
+    from repro_torch import prng
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_step import near_tie_rows, ws_step_rows, ws_step_rows_ref
+
+    path = WarmStartPath(t0=0.0)
+    keys, logits, x, t, h = rows_inputs(b, n, v, seed)
+    got = ws_step_rows(keys, logits, x, t, h, path)
+    a = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
+    want = ws_step_rows_ref(keys, logits, x, a)
+    g = prng.gumbel(keys, (n, v), device="cuda").reshape(b * n, v)
+    ties = near_tie_rows(logits.reshape(b * n, v), x.reshape(-1), a.repeat_interleave(n), g,
+                         tol=WS_TIE_TOL).reshape(b, n)
+    torch.cuda.synchronize()
+    mismatch = got != want
+    bad = mismatch & ~ties
+    frozen = bool(torch.equal(got[0], x[0]))
+    res = {"rows": b * n, "vocab": v, "mismatches": int(mismatch.sum()),
+           "near_ties": int(ties.sum()),
+           "max_abs_err": float((got - want)[~ties].abs().max()), "a0_frozen": frozen}
+    print(f"ws_step_rows B={b} N={n} V={v}: {res['mismatches']} mismatching tokens, "
+          f"{res['near_ties']} near-tie tokens, {int(bad.sum())} mismatches off the ties; "
+          f"a = 0 row unchanged: {frozen}")
+    if bool(bad.any()) or not frozen:
+        fail(f"ws_step_rows kernel disagrees with its plain version: {res}")
+    return res
+
+
+def measure_ws_step_rows(b, n, v):
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_step import ops, ws_step_rows, ws_step_rows_ref
+
+    path = WarmStartPath(t0=0.0)
+    keys, logits, x, t, h = rows_inputs(b, n, v, 5)
+    a = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
+    out = torch.empty((b, n), dtype=torch.int32, device="cuda")
+    ms = graph_ms(lambda: ops._launch_rows(logits, x, a, keys, out, 1.0), n=50)
+    call_ms = time_ms(lambda: ws_step_rows(keys, logits, x, t, h, path))
+    plain_ms = graph_ms(lambda: ws_step_rows_ref(keys, logits, x, a))
+    r = b * n
+    bms, by = bound_ms(r * v * 4 + 8 * r + 20 * b, WS_OPS_PER_ELEMENT * r * v)
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+
+
+def fused_case(layout, k, b, n, v, seed):
+    """Inputs of one ws_fused call: single-key or per-row keys, a padded
+    tail step (single) or an inactive request row and one entering
+    mid-block (per row)."""
+    from repro_torch import prng
+
+    logits, x = step_inputs(b, n, v, seed)
+    if layout == "single":
+        keys = prng.split(prng.key(seed), k)
+        ts = 0.5 + torch.arange(k, dtype=torch.float32) / 16
+        hs = torch.full((k,), 1 / 16)
+        hs[-1] = 0.0
+    else:
+        keys = prng.fold_in(prng.split(prng.key(seed), b)[None], torch.arange(k)[:, None])
+        ts = 0.5 + torch.arange(k, dtype=torch.float32)[:, None].expand(k, b) / 16
+        hs = torch.full((k, b), 1 / 16)
+        hs[:, 0] = 0.0
+        hs[: k // 2, 1] = 0.0
+    return keys.to("cuda"), logits, x, ts.to("cuda"), hs.to("cuda")
+
+
+def check_ws_fused(layout, k, v, seed):
+    """One launch of K steps against K composed launches, bitwise (single
+    key: K ws_step launches; per row: K one-step ws_fused launches with the
+    same counters), and against the plain version off the near ties met on
+    its path; a = 0 rows unchanged."""
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_fused import ws_fused_ref, ws_fused_steps
+    from repro_torch.kernels.ws_fused.ops import fused_inputs
+    from repro_torch.kernels.ws_step import ws_step
+
+    b, n = (32, 256) if v == VOCAB else (4, 16)
+    path = WarmStartPath(t0=0.0)
+    keys, logits, x, ts, hs = fused_case(layout, k, b, n, v, seed)
+    got = ws_fused_steps(keys, logits, x, ts, hs, path)
+    if layout == "single":
+        composed = x
+        for j in range(k):
+            composed = ws_step(keys[j].cpu(), logits, composed, ts[j], hs[j], path)
+        frozen = True
+    else:
+        composed = ws_fused_steps(keys, logits, x, ts, hs, path, impl="composed")
+        frozen = bool(torch.equal(got[0], x[0]))
+    seeds, lg, xr, a, key_group, a_group = fused_inputs(keys, logits, x, ts, hs, path)
+    want, ties = ws_fused_ref(seeds, lg, xr, a, key_group=key_group, a_group=a_group,
+                              tie_tol=WS_TIE_TOL)
+    torch.cuda.synchronize()
+    vs_composed = int((got != composed).sum())
+    flat = got.reshape(-1)
+    mismatch = flat != want
+    bad = mismatch & ~ties
+    res = {"layout": layout, "k": k, "rows": b * n, "vocab": v, "vs_composed": vs_composed,
+           "mismatches": int(mismatch.sum()), "near_ties": int(ties.sum()),
+           "max_abs_err": float((flat - want)[~ties].abs().max()), "a0_frozen": frozen}
+    print(f"ws_fused {layout} K={k} R={b * n} V={v}: {vs_composed} tokens differ from "
+          f"{k} composed launches (bitwise), {res['mismatches']} from the plain version "
+          f"({res['near_ties']} rows met a near tie, {int(bad.sum())} mismatches off them); "
+          f"a = 0 row unchanged: {frozen}")
+    if vs_composed or bool(bad.any()) or not frozen:
+        fail(f"ws_fused disagrees: {res}")
+    return res
+
+
+def measure_ws_fused(b, n, v, k):
+    """At the scheduler's layout (per-row keys and weights): the fused
+    launch, K one-step launches, the plain version, the bound."""
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_fused import ops, ws_fused_ref, ws_fused_steps
+    from repro_torch.kernels.ws_fused.ops import fused_inputs
+
+    path = WarmStartPath(t0=0.0)
+    keys, logits, x, ts, hs = fused_case("rows", k, b, n, v, 6)
+    seeds, lg, xr, a, key_group, a_group = fused_inputs(keys, logits, x, ts, hs, path)
+    xr = xr.contiguous()
+    out = torch.empty(b * n, dtype=torch.int32, device="cuda")
+
+    def composed():
+        cur = xr
+        for j in range(k):
+            ops._launch(lg, cur, a[j:j + 1], seeds[j:j + 1], out, key_group, a_group, 1.0)
+            cur = out
+
+    ms = graph_ms(lambda: ops._launch(lg, xr, a, seeds, out, key_group, a_group, 1.0), n=50)
+    composed_ms = graph_ms(composed, n=20)
+    call_ms = time_ms(lambda: ws_fused_steps(keys, logits, x, ts, hs, path))
+    plain_ms = graph_ms(lambda: ws_fused_ref(seeds, lg, xr, a, key_group=key_group,
+                                             a_group=a_group), n=3, reps=5)
+    r = b * n
+    bms, by = bound_ms(r * v * 4 + 8 * r + 20 * k * b, WS_OPS_PER_ELEMENT * k * r * v)
+    return {"ms": ms, "composed_ms": composed_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+# -- the scheduler ---------------------------------------------------------------------
+
+SCHED = dict(cold_nfe=COLD_NFE, default_t0=T0, max_rows=32, row_quantum=4, min_bucket=8,
+             max_bucket=256)
+# (seq_len, num_samples, t0 override): buckets 128 and 256, t0 0.8 (13 NFE),
+# 0.5 (32 NFE) and 0.9 (7 NFE)
+SCHED_REQUESTS = [(256, 8, None), (200, 4, None), (130, 6, None), (250, 2, 0.5),
+                  (90, 3, None), (65, 8, None), (256, 1, None), (180, 5, None),
+                  (120, 2, 0.9), (100, 4, 0.9), (240, 7, None), (77, 1, None),
+                  (256, 3, 0.5), (150, 2, None), (128, 6, None), (210, 8, None)]
+
+
+def sched_requests():
+    from repro_torch.serving import ServeRequest
+
+    return [ServeRequest(request_id=i, seq_len=L, num_samples=n, seed=1000 + 7 * i, t0=t0)
+            for i, (L, n, t0) in enumerate(SCHED_REQUESTS)]
+
+
+def expected_launches(report, prefills, layers, fused_block=1):
+    """Exact kernel launches of one scheduler run from its micro-batches:
+    per micro-batch, n refine steps (ceil(n / K) backbone evaluations with
+    fused blocks) and a draft of bucket_len tokens (bucket_len - 1 decode
+    steps), plus one 1-token prefill per prefix computed."""
+    want = {k: 0 for k in ("ws_step_rows", "ws_fused", "flash_attn") + DRAFT_KERNELS}
+    for b in report["batches"]:
+        n = b["nfe"]
+        evals = n if fused_block == 1 else -(-n // fused_block)
+        want["ws_step_rows" if fused_block == 1 else "ws_fused"] += evals
+        want["flash_attn"] += evals * layers
+        steps = b["bucket_len"] - 1
+        for name in ("qkv_rope", "attn_cached", "post_attn"):
+            want[name] += steps * layers
+        want["head"] += steps
+    for name in ("qkv_rope", "attn_cached", "post_attn"):
+        want[name] += prefills * layers
+    want["head"] += prefills
+    return want
+
+
+def run_counted(what, fn, engine, layers, fused_block=1):
+    """Run ``fn() -> (out, report)`` with the launch counts from 0 and gate
+    them against the run's micro-batches."""
+    from repro_torch.kernels import launches
+
+    pre = engine.stats.prefill_computes
+    launches.clear()
+    out, report = fn()
+    torch.cuda.synchronize()
+    got = dict(launches)
+    want = expected_launches(report, engine.stats.prefill_computes - pre, layers, fused_block)
+    if {k: got.get(k, 0) for k in want} != want or set(got) - set(want):
+        fail(f"{what}: launches {got}, expected {want}")
+    return out, report, got
+
+
+def busy_share(fn):
+    """Run ``fn`` under torch.profiler: the union of the kernels' device
+    intervals over the wall time (kernels of the draft and refine streams
+    that overlap count once), and their summed device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        print("profile of a scheduler run: the trace holds no device time (not measured)")
+        return {"busy_share": None}
+    busy, cur_s, cur_e, total = 0.0, *spans[0], 0.0
+    for s_, e_ in spans:
+        total += e_ - s_
+        if s_ > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s_, e_
+        else:
+            cur_e = max(cur_e, e_)
+    busy += cur_e - cur_s
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_sum_ms": total / 1e3,
+           "busy_share": busy / 1e3 / wall_ms, "kernels": len(spans)}
+    print(f"profile of a scheduler run: device busy {res['device_busy_ms']:.1f} ms of "
+          f"{wall_ms:.1f} ms wall ({res['busy_share']:.1%}; kernels' summed time "
+          f"{res['device_sum_ms']:.1f} ms, {len(spans)} kernels)")
+    return res
+
+
+def scheduler_path(model, engine):
+    """The continuous-batching scheduler at full width: the dfm_dit backbone
+    drafted by the full-width AR engine (BOS prompt), a fixed set of 16
+    requests of mixed lengths, samples, seeds and t0 overrides."""
+    import numpy as np
+
+    from repro_torch import prng
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels import launches
+    from repro_torch.serving import WarmStartScheduler, WarmStartServer
+
+    layers = model.cfg.num_layers
+    engine.reset()           # the scheduler's caches are allocated on its draft stream
+    draft_fn = engine.as_draft_fn()
+
+    def scheduler(**kw):
+        return WarmStartScheduler(flow_model=model, draft_fn=draft_fn, device="cuda",
+                                  **SCHED, **kw)
+
+    reqs = sched_requests()
+    sched = scheduler()
+    # the first run pays the draft engine's first prefills and the caches
+    run_counted("warm-up run", lambda: sched.serve_requests(reqs), engine, layers)
+    batch, rep_on, counts = run_counted("serve_requests (overlap on)",
+                                        lambda: sched.serve_requests(reqs), engine, layers)
+    streamed, rep_stream, _ = run_counted(
+        "serve_stream", lambda: (list(sched.serve_stream(reqs)), sched.stream_report),
+        engine, layers)
+    serial, rep_off, _ = run_counted(
+        "serve_requests (overlap off)",
+        lambda: scheduler(overlap=False).serve_requests(reqs), engine, layers)
+    alone_id = 7
+    alone, rep_alone, _ = run_counted(
+        "one request alone", lambda: scheduler().serve_requests([reqs[alone_id]]), engine,
+        layers)
+
+    stream_by_id = {c.request_id: c for c in streamed}
+    diffs = {"stream_vs_batch": 0, "overlap_off_vs_on": 0}
+    for rid, r in batch.items():
+        for name, other in (("stream_vs_batch", stream_by_id[rid]),
+                            ("overlap_off_vs_on", serial[rid])):
+            if other.tokens.shape != r.tokens.shape:
+                fail(f"{name}: request {rid} shape {other.tokens.shape} vs {r.tokens.shape}")
+            diffs[name] += int((other.tokens != r.tokens).sum())
+    diffs["alone_vs_packed"] = int((alone[alone_id].tokens != batch[alone_id].tokens).sum())
+    ledger = rep_stream["conservation"]
+    n_mb = rep_on["num_micro_batches"]
+    print(f"scheduler: {len(reqs)} requests, {rep_on['rows']} rows in {n_mb} micro-batches "
+          f"(buckets {sorted({b['bucket_len'] for b in rep_on['batches']})}, NFE "
+          f"{[b['nfe'] for b in rep_on['batches']]}); tokens differing: {diffs}; stream "
+          f"ledger {ledger}; launches per run {counts}")
+    if any(diffs.values()):
+        fail(f"scheduler runs disagree: {diffs}")
+    if not ledger["balanced"] or rep_stream["completed"] != len(reqs):
+        fail(f"serve_stream ledger: {ledger}, completed {rep_stream['completed']}")
+    for rid, r in batch.items():
+        t0 = SCHED_REQUESTS[rid][2] or T0
+        toks = r.tokens
+        if (r.nfe != warm_nfe(COLD_NFE, t0) or toks.shape != (SCHED_REQUESTS[rid][1],
+                                                              SCHED_REQUESTS[rid][0])
+                or toks.dtype != np.int32 or toks.min() < 0 or toks.max() >= VOCAB):
+            fail(f"request {rid}: nfe {r.nfe}, tokens {toks.shape} {toks.dtype}")
+    if rep_on["jit_cache"]["misses"] != 0 or rep_on["jit_cache"]["hits"] != n_mb:
+        fail(f"second run's jit_cache {rep_on['jit_cache']}")
+
+    # fused blocks: K = 2 draws per backbone evaluation
+    fused, rep_fused, fused_counts = run_counted(
+        "serve_requests (fused_block=2)",
+        lambda: scheduler(fused_block=2).serve_requests(reqs), engine, layers, fused_block=2)
+    prompt = draft_prompt(NUM)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=model.cfg,
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
+        path=path, cold_nfe=COLD_NFE, fused_block=2, device="cuda")
+    launches.clear()
+    x, rep_server = server.serve(prng.key(300), NUM)
+    torch.cuda.synchronize()
+    server_counts = dict(launches)
+    if (rep_server["nfe"], rep_server["backbone_evals"]) != (13, 7) or \
+            server_counts.get("ws_fused") != 7 or server_counts.get("flash_attn") != 7 * layers \
+            or x.shape != (NUM, SEQ) or int(x.min()) < 0 or int(x.max()) >= VOCAB:
+        fail(f"WarmStartServer(fused_block=2): {rep_server['nfe']} NFE, "
+             f"{rep_server['backbone_evals']} evals, launches {server_counts}")
+    print(f"fused_block=2: scheduler launches {fused_counts} (ceil(n/2) evaluations per "
+          f"micro-batch); WarmStartServer 32 x 256: nfe 13, backbone_evals 7, launches "
+          f"{server_counts}")
+
+    profile = busy_share(lambda: sched.serve_requests(reqs))
+    print(f"scheduler wall: overlap on {rep_on['wall_time_s']:.3f} s (draft "
+          f"{rep_on['draft_time_s']:.3f} s, flow {rep_on['flow_time_s']:.3f} s), overlap off "
+          f"{rep_off['wall_time_s']:.3f} s (draft {rep_off['draft_time_s']:.3f} s, flow "
+          f"{rep_off['flow_time_s']:.3f} s); {rep_on['samples_per_s']:.2f} samples/s")
+    report = {
+        "config": model.cfg.name, "draft": "AR engine, dfm_dit CONFIG as causal decoder, "
+        "BOS prompt", **SCHED, "requests": len(reqs), "rows": rep_on["rows"],
+        "micro_batches": n_mb, "nfe_per_micro_batch": [b["nfe"] for b in rep_on["batches"]],
+        "requests_per_s": rep_on["requests_per_s"], "samples_per_s": rep_on["samples_per_s"],
+        "draft_s": rep_on["draft_time_s"], "flow_s": rep_on["flow_time_s"],
+        "wall_s_overlap_on": rep_on["wall_time_s"], "wall_s_overlap_off": rep_off["wall_time_s"],
+        "draft_s_overlap_off": rep_off["draft_time_s"], "flow_s_overlap_off": rep_off["flow_time_s"],
+        "overlap_efficiency": rep_on["overlap_efficiency"],
+        # per micro-batch: rows, padded rows, bucket, NFE, draft ms and flow ms,
+        # overlap on and off
+        "micro_batches_on": [[b["rows"], b["padded_rows"], b["bucket_len"], b["nfe"],
+                              b["draft_time_s"] * 1e3, b["flow_time_s"] * 1e3]
+                             for b in rep_on["batches"]],
+        "micro_batches_off": [[b["rows"], b["padded_rows"], b["bucket_len"], b["nfe"],
+                               b["draft_time_s"] * 1e3, b["flow_time_s"] * 1e3]
+                              for b in rep_off["batches"]],
+        "stream_wall_s": rep_stream["wall_time_s"],
+        "stream_latency_s": rep_stream["latency_s"],
+        "fused_block_2": {"wall_s": rep_fused["wall_time_s"], "flow_s": rep_fused["flow_time_s"],
+                          "samples_per_s": rep_fused["samples_per_s"],
+                          "jit_cache_fused": rep_fused["jit_cache"]["fused"]},
+        "server_fused_block_2": {"flow_ms": rep_server["flow_time_s"] * 1e3,
+                                 "backbone_evals": rep_server["backbone_evals"]},
+        "jit_cache": {"hits": rep_on["jit_cache"]["hits"],
+                      "misses": rep_on["jit_cache"]["misses"]},
+        "launches_per_run": counts, "launches_fused_run": fused_counts,
+        "token_diffs": diffs, "conservation": ledger, "profile": profile,
+    }
+    counts_path = {"ws_step_rows": counts.get("ws_step_rows", 0),
+                   "ws_fused": fused_counts.get("ws_fused", 0) + server_counts.get("ws_fused", 0)}
+    return report, counts_path
+
+
 # -- the main path ---------------------------------------------------------------
 
 def check_small_serve_against_cpu():
@@ -644,7 +1026,7 @@ def main_path(engine):
         "profile": profile,
         "draft_profile": draft_profile,
     }
-    return counts, per_serve, serve
+    return counts, per_serve, serve, model
 
 
 def _category(name: str) -> str:
@@ -652,6 +1034,10 @@ def _category(name: str) -> str:
         return "flash_attn"
     if "ws_step_kernel" in name:
         return "ws_step"
+    if "ws_step_rows_kernel" in name:
+        return "ws_step_rows"
+    if "ws_fused_kernel" in name:
+        return "ws_fused"
     if "qkv_rope_kernel" in name:
         return "qkv_rope"
     if "attn_cached_kernel" in name:
@@ -751,7 +1137,18 @@ def main() -> int:
                   check_flash(2, 300, 4, 4, 32, False, 37, 2),
                   check_flash(1, 130, 4, 4, 128, True, 50, 3)]
     draft_errs = [check_draft_kernels(case, i) for i, case in enumerate(DRAFT_CASES)]
+    rows_checks = [check_ws_step_rows(NUM, SEQ, VOCAB, 0), check_ws_step_rows(4, 16, 50257, 1)]
+    fused_checks = [check_ws_fused(layout, k, v, 10 * k + i)
+                    for layout in ("single", "rows") for k in FUSED_KS
+                    for i, v in enumerate(FUSED_VS)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
+    rows_num = measure_ws_step_rows(NUM, SEQ, VOCAB)
+    fused_num = measure_ws_fused(NUM, SEQ, VOCAB, 4)
+    print(f"ws_step_rows at ({NUM}, {SEQ}, {VOCAB}): {rows_num['ms'] * 1e3:.2f} us device "
+          f"(bound {rows_num['bound_ms'] * 1e3:.2f} us, {rows_num['bound_by']}); ws_fused K=4 "
+          f"at ({NUM * SEQ}, {VOCAB}): {fused_num['ms'] * 1e3:.2f} us device, 4 one-step "
+          f"launches {fused_num['composed_ms'] * 1e3:.2f} us (bound "
+          f"{fused_num['bound_ms'] * 1e3:.2f} us, {fused_num['bound_by']})")
     flash_num = measure_flash(NUM, SEQ, 12, 64)
     draft_num = measure_draft_kernels()
 
@@ -760,7 +1157,8 @@ def main() -> int:
     engine = draft_engine()
     check_prefill_equals_scan(engine)
     check_draft_logits_against_cpu(engine)
-    counts, per_serve, serve = main_path(engine)
+    counts, per_serve, serve, model = main_path(engine)
+    sched, sched_counts = scheduler_path(model, engine)
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -802,15 +1200,38 @@ def main() -> int:
             "tolerance": ("1e-5 abs" if name == "attn_cached"
                           else "1e-4 x max(1, max|plain|)"),
             **draft_num[name], "bound_us": draft_num[name]["bound_ms"] * 1e3})
+    kernels += [
+        {"name": "ws_step_rows", "route": "cuda", "source": "src/repro_torch/csrc/ws_step.cu",
+         "replaces": "src/repro/kernels/ws_step/kernel.py:213",
+         "tpu_kernel": "ws_step_streamed_pallas (the scheduler's per-row mode; XLA in the "
+                       "JAX package, core/sampler.py:73)",
+         "launches": sched_counts["ws_step_rows"],
+         "launches_per_run": sched["launches_per_run"].get("ws_step_rows", 0),
+         "max_abs_err": max(c["max_abs_err"] for c in rows_checks),
+         "mismatches": sum(c["mismatches"] for c in rows_checks),
+         "near_ties": sum(c["near_ties"] for c in rows_checks),
+         "shape": [NUM, SEQ, VOCAB], **rows_num, "bound_us": rows_num["bound_ms"] * 1e3},
+        {"name": "ws_fused", "route": "cuda", "source": "src/repro_torch/csrc/ws_fused.cu",
+         "replaces": "src/repro/kernels/ws_fused/kernel.py:142",
+         "tpu_kernel": "ws_fused_streamed_pallas",
+         "launches": sched_counts["ws_fused"],
+         "max_abs_err": max(c["max_abs_err"] for c in fused_checks),
+         "vs_composed": sum(c["vs_composed"] for c in fused_checks),
+         "mismatches": sum(c["mismatches"] for c in fused_checks),
+         "near_ties": sum(c["near_ties"] for c in fused_checks),
+         "shape": [NUM * SEQ, VOCAB], "k": 4, **fused_num,
+         "bound_us": fused_num["bound_ms"] * 1e3},
+    ]
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
         k["in_serve_ms"] = (in_serve[k["name"]] / k["launches_per_serve"]
-                            if k["name"] in in_serve else None)
+                            if k["name"] in in_serve and "launches_per_serve" in k else None)
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")
     print(json.dumps({"serve": serve}))
+    print(json.dumps({"scheduler": sched}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -89,3 +89,53 @@ def require_guarantee(cold_nfe: int, t0: float, observed_nfe: int) -> None:
             f"steps, guaranteed {warm_nfe(cold_nfe, t0)} "
             f"(cold_nfe={cold_nfe}, t0={t0})"
         )
+
+
+def warm_nfe_rows(cold_nfe: int, t0_rows) -> list:
+    """Per-row guaranteed NFE for a heterogeneous-t0 micro-batch."""
+    return [warm_nfe(cold_nfe, float(t)) for t in t0_rows]
+
+
+def require_row_guarantees(
+    cold_nfe: int, t0_rows, observed_nfe_rows, *, bucket_len: int = -1,
+    rows: int = -1,
+) -> None:
+    """Per-row guarantee gate for adaptive-t0 serving.
+
+    Every row ``r`` of a micro-batch must have executed EXACTLY
+    ``warm_nfe(cold_nfe, t0_rows[r])`` backbone-using Euler updates — a
+    row exceeding its bound breaks the paper's guarantee, a row below it
+    means the masked scan skipped real work. The batch-level worst case
+    ``1/(1 - min t0)`` follows: the shared scan length equals the largest
+    per-row bound, which belongs to the smallest t0.
+    """
+    t0_rows = list(t0_rows)
+    observed = [int(o) for o in observed_nfe_rows]
+    if len(observed) != len(t0_rows):
+        raise GuaranteeViolation(
+            f"row guarantee check got {len(observed)} observed NFEs for "
+            f"{len(t0_rows)} rows"
+        )
+    for r, (t0, obs) in enumerate(zip(t0_rows, observed)):
+        if obs != warm_nfe(cold_nfe, t0):
+            where = (f"[micro-batch bucket_len={bucket_len} rows={rows}] "
+                     if bucket_len >= 0 else "")
+            raise GuaranteeViolation(
+                f"{where}per-row warm-start NFE guarantee violated at row "
+                f"{r}: observed {obs} steps, guaranteed "
+                f"{warm_nfe(cold_nfe, t0)} (cold_nfe={cold_nfe}, t0={t0})"
+            )
+
+
+def require_bucket_guarantee(
+    cold_nfe: int, t0: float, observed_nfe: int, *, bucket_len: int, rows: int
+) -> None:
+    """Per-micro-batch guarantee gate for the continuous-batching
+    scheduler: same invariant as :func:`require_guarantee`, with the
+    bucket identity attached so a violation names the offending batch."""
+    try:
+        require_guarantee(cold_nfe, t0, observed_nfe)
+    except GuaranteeViolation as e:
+        raise GuaranteeViolation(
+            f"[micro-batch bucket_len={bucket_len} rows={rows}] {e}"
+        ) from None

@@ -1,5 +1,5 @@
 """Euler CTMC sampling for warm-start discrete flow matching (torch port of
-the single-key serving loop of the JAX package's ``core/sampler.py``).
+the serving loops of the JAX package's ``core/sampler.py``).
 
 Starting at ``t = t0`` from draft samples, each step forms
 
@@ -12,9 +12,12 @@ package's) and the key is split once, one key per step; the loop itself
 is a Python loop over that schedule. ``kernels/ws_step`` provides the
 fused step (``step_fn``); this module holds the plain per-step path.
 
-The fused K-step block (``fused_block > 1``, the ``ws_fused`` kernel) and
-the per-row-keyed (``_rows``) functions belong to the scheduler slice of
-the port and are not here.
+The scheduler's loop is row-keyed (the ``_rows`` functions): every request
+row has its own flow key and enters the shared schedule at its own step,
+and its step keys ``fold_in(flow_keys[b], key_idx[i, b])`` are folded on
+the host once per micro-batch and uploaded in one copy. ``fused_block =
+K > 1`` runs K draws per backbone evaluation through the ``ws_fused``
+kernel (``fused_fn``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 
 
@@ -49,6 +53,31 @@ def categorical_from_probs(rng: torch.Tensor, probs: torch.Tensor) -> torch.Tens
     return torch.argmax(score, dim=-1).to(torch.int32)
 
 
+def categorical_from_probs_rows(keys: torch.Tensor, probs: torch.Tensor) -> torch.Tensor:
+    """Row-keyed Gumbel-max: ``keys (B, 2)``, ``probs (B, ...)``; row ``b``'s
+    noise is ``jax.random.gumbel(keys[b], probs.shape[1:])``, so a request's
+    draw depends on its own key alone."""
+    g = prng.gumbel(keys, probs.shape[1:], device=probs.device)
+    score = torch.log(torch.clamp_min(probs, 1e-30)) + g
+    return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def make_euler_one_step_rows(path: WarmStartPath, *, temperature: float = 1.0):
+    """Row-keyed Euler update ``one_step(keys (B, 2), logits, x_t, t (B,), h)``:
+    the probability update and ``categorical_from_probs_rows``, which the
+    ``ws_step`` kernel's per-row mode computes for a CUDA tensor
+    (:func:`repro_torch.kernels.ws_step.ws_step_rows`; its plain version
+    for a CPU tensor)."""
+    # imported here: the kernels package imports core.paths, so a top-level
+    # import would close a cycle when ``repro_torch.kernels`` loads first
+    from repro_torch.kernels.ws_step.ops import ws_step_rows
+
+    def one_step(keys, logits, x_t, t, h):
+        return ws_step_rows(keys, logits, x_t, t, h, path, temperature=temperature)
+
+    return one_step
+
+
 def refine_schedule(t0: float, cold_nfe_h: float, n: int):
     """Per-step ``(t, h)`` arrays for the warm-start Euler loop.
 
@@ -58,6 +87,124 @@ def refine_schedule(t0: float, cold_nfe_h: float, n: int):
     ts = (t0 + np.arange(n, dtype=np.float64) * cold_nfe_h).astype(np.float32)
     hs = np.minimum(np.float32(cold_nfe_h), np.float32(1.0) - ts).astype(np.float32)
     return ts, hs
+
+
+def refine_schedule_rows(t0_rows, cold_nfe_h: float, cold_nfe: int):
+    """Per-row schedule matrices for a heterogeneous-t0 micro-batch.
+
+    Every row takes the step size ``cold_nfe_h`` but enters the shared loop
+    at its own step: row ``r`` is inactive for the first ``n_max - n_r``
+    steps (``n_r = warm_nfe(cold_nfe, t0_rows[r])``) and then takes exactly
+    its ``n_r`` steps. ``key_idx`` is the row's local step counter, so the
+    keys a row sees do not depend on its neighbours; a batch whose rows
+    share one t0 reproduces :func:`refine_schedule` in every column.
+
+    Returns ``(ts, hs, active, key_idx, nfe_rows)``: ``(n_max, B)`` float32,
+    float32, bool, int32, and the per-row NFE ``(B,)`` int32.
+    """
+    t0_rows = np.asarray(t0_rows, np.float64)
+    if t0_rows.ndim != 1:
+        raise ValueError(f"t0_rows must be 1-D, got shape {t0_rows.shape}")
+    nfe_rows = np.array([guarantees.warm_nfe(cold_nfe, float(t)) for t in t0_rows], np.int32)
+    n_max = int(nfe_rows.max())
+    local = np.arange(n_max, dtype=np.int64)[:, None] - (n_max - nfe_rows)[None, :]
+    active = local >= 0
+    # same float path as refine_schedule: f64 accumulate, f32 cast, f32 h clip
+    ts = (t0_rows[None, :] + np.where(active, local, 0) * cold_nfe_h).astype(np.float32)
+    hs = np.where(active, np.minimum(np.float32(cold_nfe_h), np.float32(1.0) - ts),
+                  np.float32(0.0)).astype(np.float32)
+    key_idx = np.where(active, local, 0).astype(np.int32)
+    return ts, hs, active, key_idx, nfe_rows
+
+
+def distill_schedule_rows(t0_rows, num_steps: int):
+    """Per-row K-step schedule of the distilled tier: ``h_r = (1 - t0_r) / K``
+    with the final-step clip, every row active on every step. Same outputs
+    as :func:`refine_schedule_rows`. (The distilled tier itself is not
+    ported yet; the schedule is.)"""
+    if num_steps < 1:
+        raise ValueError(f"num_steps must be >= 1, got {num_steps}")
+    t0_rows = np.asarray(t0_rows, np.float64)
+    if t0_rows.ndim != 1:
+        raise ValueError(f"t0_rows must be 1-D, got shape {t0_rows.shape}")
+    if np.any(t0_rows < 0.0) or np.any(t0_rows >= 1.0):
+        raise ValueError(f"t0_rows must lie in [0, 1), got {t0_rows}")
+    b = t0_rows.shape[0]
+    h_rows = (1.0 - t0_rows) / num_steps
+    local = np.arange(num_steps, dtype=np.int64)[:, None]
+    ts = (t0_rows[None, :] + local * h_rows[None, :]).astype(np.float32)
+    hs = np.minimum(h_rows[None, :].astype(np.float32), np.float32(1.0) - ts).astype(np.float32)
+    active = np.ones((num_steps, b), dtype=bool)
+    key_idx = np.broadcast_to(np.arange(num_steps, dtype=np.int32)[:, None],
+                              (num_steps, b)).astype(np.int32)
+    nfe_rows = np.full((b,), num_steps, np.int32)
+    return ts, hs, active, key_idx, nfe_rows
+
+
+def _pad_blocks(arr: torch.Tensor, n: int, nf: int, pad_value) -> torch.Tensor:
+    """Pad a leading-``nf`` schedule array up to ``n`` steps (block tail)."""
+    if n == nf:
+        return arr
+    pad = torch.full((n - nf,) + tuple(arr.shape[1:]), pad_value, dtype=arr.dtype,
+                     device=arr.device)
+    return torch.cat([arr, pad], dim=0)
+
+
+def scan_refine_loop_rows(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                          one_step: Callable, x_init: torch.Tensor, flow_keys: torch.Tensor,
+                          ts, hs, active, key_idx, *, fused_block: int = 1,
+                          fused_fn: Optional[Callable] = None):
+    """Masked per-row refine loop: rows whose t0 (and NFE) differ, each on its
+    own slice of the shared schedule (see :func:`refine_schedule_rows`).
+
+    Args:
+      logits_fn: ``(tokens (B,N), t (B,)) -> logits (B,N,V)``.
+      one_step: row-keyed step (see :func:`make_euler_one_step_rows`).
+      x_init: (B, N) int32 draft state.
+      flow_keys: (B, 2) per-row keys (host); step ``i`` of row ``b`` draws
+        with ``fold_in(flow_keys[b], key_idx[i, b])``.
+      ts / hs / active / key_idx: ``(n, B)`` schedule matrices (numpy).
+      fused_block / fused_fn: with ``K > 1`` the loop runs ceil(n/K) blocks
+        of K draws against one backbone evaluation each; ``fused_fn`` gets
+        the block's folded keys ``(K, B, 2)``. Inactive steps carry ``h =
+        0``, which the kernel freezes bit for bit, and the tail block is
+        padded with ``t = 1, h = 0`` steps.
+
+    Rows on steps where ``active`` is False pass through unchanged; the
+    backbone still evaluates the whole batch at every step. The step keys
+    and the schedule go to the device in one copy each before the loop.
+    """
+    dev = x_init.device
+    fk = prng.key_data(flow_keys).cpu()
+    ts = torch.as_tensor(np.asarray(ts), dtype=torch.float32)
+    hs = torch.as_tensor(np.asarray(hs), dtype=torch.float32)
+    key_idx = torch.as_tensor(np.asarray(key_idx), dtype=torch.int64)
+    n = ts.shape[0]
+    x = x_init
+    if fused_block > 1:
+        if fused_fn is None:
+            raise ValueError("fused_block > 1 requires fused_fn "
+                             "(see repro_torch.kernels.make_ws_fused_fn)")
+        k = min(fused_block, n)
+        nb = -(-n // k)
+        bts = _pad_blocks(ts, nb * k, n, 1.0).reshape((nb, k) + tuple(ts.shape[1:])).to(dev)
+        bhs = _pad_blocks(hs, nb * k, n, 0.0).reshape((nb, k) + tuple(hs.shape[1:])).to(dev)
+        bidx = _pad_blocks(key_idx, nb * k, n, 0).reshape((nb, k) + tuple(key_idx.shape[1:]))
+        bkeys = prng.fold_in(fk[None, None], bidx).to(dev)       # (nb, K, B, 2)
+        for i in range(nb):
+            logits = logits_fn(x, bts[i, 0])
+            x = fused_fn(bkeys[i], logits, x, bts[i], bhs[i])
+        return x
+
+    act = np.asarray(active, dtype=bool)
+    step_keys = prng.fold_in(fk[None], key_idx).to(dev)          # (n, B, 2)
+    ts, hs = ts.to(dev), hs.to(dev)
+    act_d = torch.as_tensor(act).to(dev)
+    for i in range(n):
+        logits = logits_fn(x, ts[i])
+        x_next = one_step(step_keys[i], logits, x, ts[i], hs[i])
+        x = x_next if act[i].all() else torch.where(act_d[i][:, None], x_next, x)
+    return x
 
 
 def make_euler_one_step(path: WarmStartPath, *, temperature: float = 1.0,
@@ -87,7 +234,7 @@ def refine_loop_inputs(rng: torch.Tensor, t0: float, h: float, n: int, *, device
 def scan_refine_loop(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                      one_step: Callable, x_init: torch.Tensor, keys: torch.Tensor,
                      ts: torch.Tensor, hs: torch.Tensor, *, argmax_final: bool = False,
-                     fused_block: int = 1):
+                     fused_block: int = 1, fused_fn: Optional[Callable] = None):
     """The whole refine loop over ``(keys, t, h)``: one backbone evaluation
     and one ``one_step`` per schedule entry.
 
@@ -97,15 +244,35 @@ def scan_refine_loop(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Ten
       x_init: (B, N) int32 start state at ``ts[0]``.
       keys / ts / hs: leading-``n`` loop inputs (see :func:`refine_loop_inputs`).
       argmax_final: replace the last stochastic step with argmax(p1).
-      fused_block: must be 1; K > 1 (K draws per backbone evaluation) needs
-        the unported ``ws_fused`` kernel and raises.
+      fused_block / fused_fn: with ``K > 1`` the loop runs over ceil(n/K)
+        blocks: one backbone evaluation at the block's first step time and
+        K draws by ``fused_fn(keys (K, 2), logits, x, ts (K,), hs (K,))``
+        (the ``ws_fused`` kernel); the tail block is padded with ``h = 0``
+        steps, which the kernel freezes bit for bit. ``argmax_final`` keeps
+        its last step unfused on fresh logits.
     """
-    if fused_block > 1:
-        raise NotImplementedError(
-            "fused_block > 1 needs the ws_fused kernel, which is not ported yet")
     b = x_init.shape[0]
     n = ts.shape[0]
     x = x_init
+    if fused_block > 1:
+        if fused_fn is None:
+            raise ValueError("fused_block > 1 requires fused_fn "
+                             "(see repro_torch.kernels.make_ws_fused_fn)")
+        nf = n - 1 if argmax_final else n
+        if nf > 0:
+            k = min(fused_block, nf)
+            nb = -(-nf // k)
+            # h = 0 tail padding: frozen rows, any key/t; use the last ones
+            bts = _pad_blocks(ts[:nf], nb * k, nf, 1.0).reshape(nb, k)
+            bhs = _pad_blocks(hs[:nf], nb * k, nf, 0.0).reshape(nb, k)
+            bkeys = torch.cat([keys[:nf]] + [keys[nf - 1:nf]] * (nb * k - nf), dim=0)
+            bkeys = bkeys.reshape((nb, k) + tuple(keys.shape[1:])).to(x.device)
+            for i in range(nb):
+                logits = logits_fn(x, bts[i, 0].expand(b))
+                x = fused_fn(bkeys[i], logits, x, bts[i], bhs[i])
+        if argmax_final:
+            x = torch.argmax(logits_fn(x, ts[n - 1].expand(b)), dim=-1).to(torch.int32)
+        return x
     for i in range(n):
         tb = ts[i].expand(b)
         logits = logits_fn(x, tb)

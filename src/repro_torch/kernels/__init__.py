@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels for Hopper (``sm_90a``) and their wrappers.
 
   ws_step    — warm-start Euler sampling step (replaces the TPU kernel
-               ``ws_step_streamed_pallas``)
+               ``ws_step_streamed_pallas``), and its per-row mode for the
+               scheduler (``ws_step_rows``)
+  ws_fused   — K fused warm-start Euler steps on one logits buffer
+               (replaces ``ws_fused_streamed_pallas``)
   flash_attn — blockwise online-softmax attention (replaces
                ``flash_attention_pallas``)
   draft_decode — batch-invariant decode-step kernels of the AR draft
@@ -17,10 +20,11 @@ PyTorch version (``ref.py``) only for a CPU tensor. ``_build`` compiles
 from repro_torch.kernels._build import launches
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
+from repro_torch.kernels.ws_fused import make_ws_fused_fn, ws_fused_steps
 from repro_torch.kernels.ws_step import (
-    make_ws_step_fn, ws_step, ws_step_ref, ws_step_ref_streamed,
+    make_ws_step_fn, ws_step, ws_step_ref, ws_step_ref_streamed, ws_step_rows,
 )
 
-__all__ = ["launches", "ws_step", "make_ws_step_fn", "ws_step_ref",
-           "ws_step_ref_streamed", "flash_attention", "flash_attention_ref",
-           "DraftDecoder", "draft_decode_supported"]
+__all__ = ["launches", "ws_step", "ws_step_rows", "make_ws_step_fn", "ws_step_ref",
+           "ws_step_ref_streamed", "make_ws_fused_fn", "ws_fused_steps", "flash_attention",
+           "flash_attention_ref", "DraftDecoder", "draft_decode_supported"]

@@ -10,7 +10,9 @@ Gumbel noise needs the accurate ``logf`` to match its plain version.
 Each C entry point takes device pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
 a non-zero code. A failed build raises. ``launches`` counts kernel
-launches by kernel name; each wrapper adds one where it launches.
+launches by kernel name; each wrapper calls :func:`count` where it
+launches, under a lock, since the scheduler launches from its draft
+worker thread and its refine thread at once.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 launches: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log = ""
@@ -42,6 +45,11 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     # logits, x, a, out, rows, vocab, seed0, seed1, temperature, stream
     "ws_step_launch": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _P],
+    # logits, x, a (B,), keys (B, 2) int64, out, rows, vocab, group (N), temperature, stream
+    "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,
+    # steps, key_group, a_group, temperature, stream
+    "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
     # q, k, v, o, B, S, T, H, KH, D, scale, causal, window (<= 0: none), stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, ln scale, ln bias, wq, wk, wv, bq, bk, bv, q, k cache, v cache, cursor,
@@ -130,6 +138,12 @@ def library() -> ctypes.CDLL:
             lib.wsfm_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def count(name: str) -> None:
+    """Add one launch of ``name`` to ``launches`` (thread-safe)."""
+    with _count_lock:
+        launches[name] += 1
 
 
 def check(rc: int, name: str) -> None:

@@ -135,7 +135,7 @@ def qkv_rope(x: torch.Tensor, ln: dict, attn_p: dict, kbuf: torch.Tensor,
     _check_rows("qkv_rope", r, d, 2)
     q = torch.empty((r, heads * head_dim), dtype=torch.float32, device=dev)
     _launch_qkv_rope(x, ln, attn_p, q, kbuf, vbuf, start, **kw)
-    _build.launches["qkv_rope"] += 1
+    _build.count("qkv_rope")
     return q
 
 
@@ -181,7 +181,7 @@ def attn_cached(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
     _check_cursor("attn_cached", start, dev)
     out = torch.empty_like(q)
     _launch_attn_cached(q, kbuf, vbuf, start, out, **kw)
-    _build.launches["attn_cached"] += 1
+    _build.count("attn_cached")
     return out
 
 
@@ -221,7 +221,7 @@ def post_attn(a: torch.Tensor, x: torch.Tensor, attn_p: dict, ln: dict, mlp_p: d
     u = torch.empty((r, f), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
     _launch_post_attn(a, x, attn_p, ln, mlp_p, x1, u, out, norm=norm, eps=eps, act=act)
-    _build.launches["post_attn"] += 1
+    _build.count("post_attn")
     return out
 
 
@@ -257,7 +257,7 @@ def head(x: torch.Tensor, fn: dict, w: torch.Tensor, *, norm: str, eps: float) -
     _check_rows("head", r, d, 1)
     out = torch.empty((r, w.shape[1]), dtype=torch.float32, device=dev)
     _launch_head(x, fn, w, out, norm=norm, eps=eps)
-    _build.launches["head"] += 1
+    _build.count("head")
     return out
 
 

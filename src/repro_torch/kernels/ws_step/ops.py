@@ -7,6 +7,14 @@ the next token of every row with the threefry noise keyed by the step
 key's two words and the absolute ``(row, col)``. A CUDA tensor launches
 the kernel (or raises); a CPU tensor takes the plain streamed version on
 the same noise (``prng.threefry_gumbel``).
+
+``ws_step_rows(keys, logits, x_t, t, h, path)`` is the per-row mode that
+the scheduler's ``make_euler_one_step_rows`` runs: ``keys (B, 2)`` (one
+key per request row, ``prng``'s int64 key words), ``logits (B, N, V)``,
+``t``/``h`` per request row; row ``b``'s noise is
+``jax.random.gumbel(keys[b], (N, V))``, as the JAX package draws it in
+XLA. A CUDA tensor launches ``ws_step_rows_kernel`` (same file, same
+draw); a CPU tensor takes :func:`ws_step_rows_ref`.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from repro_torch import prng
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.ws_step.ref import ws_step_ref_streamed
+from repro_torch.kernels.ws_step.ref import ws_step_ref_streamed, ws_step_rows_ref
 
 
 def seed_from_key(rng: torch.Tensor) -> Tuple[int, int]:
@@ -63,7 +71,7 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
     a = a.contiguous()
     out = torch.empty(r, dtype=torch.int32, device=logits.device)
     _launch(lg, x32, a, out, seed, temperature)
-    _build.launches["ws_step"] += 1
+    _build.count("ws_step")
     return out.reshape(x_t.shape)
 
 
@@ -77,6 +85,52 @@ def _launch(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, out: torch.Tenso
                                              out.data_ptr(), r, v, seed[0], seed[1],
                                              float(temperature), stream)
     _build.check(rc, "ws_step")
+
+
+def ws_step_rows(keys: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
+                 path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
+    """Row-keyed next-token draw: ``keys (B, 2)``, ``logits (B, N, V)``,
+    ``x_t (B, N)``, ``t (B,)``, ``h`` scalar or ``(B,)``. (B, N) int32."""
+    if logits.ndim != 3:
+        raise ValueError(f"per-row keys need (B, N, V) logits, got {tuple(logits.shape)}")
+    b, n, v = logits.shape
+    keys = prng.key_data(keys)
+    if keys.shape != (b, 2):
+        raise ValueError(f"per-row keys must be (B={b}, 2), got {tuple(keys.shape)}")
+    if n * v >= 1 << 32:
+        raise NotImplementedError("random bits arrays of 2**32 elements or more")
+    dev = logits.device
+    tt = torch.as_tensor(t, dtype=torch.float32, device=dev).expand(b)
+    hh = torch.as_tensor(h, dtype=torch.float32, device=dev)
+    a = torch.clamp(hh * path.velocity_scale(tt), 0.0, 1.0)
+    if dev.type == "cpu":
+        return ws_step_rows_ref(keys, logits, x_t, a, temperature=temperature)
+    if dev.type != "cuda":
+        raise ValueError(f"ws_step_rows runs on cuda or cpu, got {dev}")
+    lg = logits.contiguous()
+    if lg.dtype != torch.float32:
+        raise ValueError(f"logits must be float32, got {lg.dtype}")
+    if x_t.device != dev or x_t.shape != (b, n):
+        raise ValueError(f"x_t must be (B, N) = ({b}, {n}) on {dev}")
+    x32 = x_t.to(torch.int32).contiguous()
+    kd = keys.to(device=dev, dtype=torch.int64).contiguous()
+    a = a.contiguous()
+    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _launch_rows(lg, x32, a, kd, out, temperature)
+    _build.count("ws_step_rows")
+    return out
+
+
+def _launch_rows(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, keys: torch.Tensor,
+                 out: torch.Tensor, temperature: float) -> None:
+    """One launch of the per-row kernel on checked CUDA tensors (no count)."""
+    b, n, v = lg.shape
+    with torch.cuda.device(lg.device):
+        stream = torch.cuda.current_stream(lg.device).cuda_stream
+        rc = _build.library().ws_step_rows_launch(
+            lg.data_ptr(), x.data_ptr(), a.data_ptr(), keys.data_ptr(), out.data_ptr(),
+            b * n, v, n, float(temperature), stream)
+    _build.check(rc, "ws_step_rows")
 
 
 def make_ws_step_fn(path: WarmStartPath, *, temperature: float = 1.0, device="cuda"):

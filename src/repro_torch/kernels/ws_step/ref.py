@@ -12,11 +12,18 @@ computes the decomposed score that ``csrc/ws_step.cu`` streams (the
 argmax of ``lg + g`` over ``v != x`` against the ``v == x`` score). The
 two agree except on floating-point near-ties at the argmax boundary;
 :func:`near_tie_rows` names the rows where that may happen.
+
+``ws_step_rows_ref`` is the plain version of the per-row mode (the JAX
+package's ``make_euler_one_step_rows``): ``euler_step_probs`` and a Gumbel
+argmax whose noise for request row ``b`` is ``jax.random.gumbel(keys[b],
+(N, V))``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch import prng
 
 MIN_PROB = 1e-30
 NEG = -1e30
@@ -30,6 +37,19 @@ def ws_step_ref(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
     probs = (1.0 - a[:, None]) * onehot + a[:, None] * p1
     score = torch.log(torch.clamp_min(probs, MIN_PROB)) + gumbel
     return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def ws_step_rows_ref(keys: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor,
+                     a: torch.Tensor, *, temperature: float = 1.0) -> torch.Tensor:
+    """Row-keyed draw: ``keys (B, 2)``, ``logits (B, N, V)``, ``x_t (B, N)``,
+    ``a (B,)``; the probabilities of ``core.sampler.euler_step_probs`` and
+    the argmax of ``categorical_from_probs_rows``. (B, N) int32."""
+    p1 = torch.softmax(logits.float() / temperature, dim=-1)
+    aa = a.float().reshape(-1, 1, 1)
+    onehot = torch.nn.functional.one_hot(x_t.long(), logits.shape[-1]).float()
+    probs = (1.0 - aa) * onehot + aa * p1
+    g = prng.gumbel(keys, logits.shape[1:], device=logits.device)
+    return torch.argmax(torch.log(torch.clamp_min(probs, MIN_PROB)) + g, dim=-1).to(torch.int32)
 
 
 def _decomposed(logits, x_t, a, gumbel, temperature):

@@ -187,10 +187,19 @@ def randint(keys: torch.Tensor, shape: Sequence[int], minval: int, maxval: int,
 
 # -- the ws_step kernel's counter-based noise ------------------------------------
 
+_F32_BELOW_ONE = 1.0 - 2.0 ** -24
+
+
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """uint32 bits -> standard Gumbel(0, 1) float32, u strictly in (0, 1)."""
+    """uint32 bits -> standard Gumbel(0, 1) float32, u strictly in (0, 1).
+
+    ``(bits >> 8) + 0.5`` rounds to 2**24 in float32 when ``bits >> 8`` is
+    0xFFFFFF, so u would be 1 and the noise +inf, as the JAX package's
+    ``gumbel_from_bits`` gives it (once in 2**24 elements; such a column
+    wins the draw whatever the mixing weight). u is clamped at the largest
+    float32 below 1, which changes that element only."""
     u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(torch.clamp_max(u, _F32_BELOW_ONE)))
 
 
 def threefry_gumbel(seed: Tuple[int, int], rows: int, cols: int, *,

@@ -1,13 +1,15 @@
 """The one-shot warm-start generation engine (port of ``WarmStartServer``,
-``PerNFECostModel``, ``make_serve_step``, ``make_prefill_fn`` and
-``ar_generate`` of the JAX package's ``serving/engine.py``).
+``PerNFECostModel``, ``DispatchFailure``, ``DispatchRetryPolicy``,
+``make_serve_step``, ``make_prefill_fn`` and ``ar_generate`` of the JAX
+package's ``serving/engine.py``).
 
 ``WarmStartServer.serve`` runs the paper's Fig. 1 generation: a draft at
 ``t0``, then exactly ``warm_nfe(cold_nfe, t0)`` Euler refine steps of the
 DFM backbone, then the NFE guarantee gate. With
 ``step_fn=make_ws_step_fn(path)`` every step is one ``ws_step`` kernel
 launch, and every backbone evaluation runs its attention through the
-``flash_attn`` kernel. The refine loop is a Python loop of eager launches
+``flash_attn`` kernel; with ``fused_block = K > 1`` each backbone
+evaluation feeds K draws in one ``ws_fused`` launch. The refine loop is a Python loop of eager launches
 (the JAX engine jits it into one dispatch; a CUDA graph is the port's
 counterpart, not built yet).
 """
@@ -26,18 +28,84 @@ from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import make_euler_one_step, refine_loop_inputs, scan_refine_loop
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ws_fused import make_ws_fused_fn
+
+
+class DispatchFailure(RuntimeError):
+    """A refine dispatch kept failing after its whole retry budget.
+
+    Raised by the scheduler's refine-dispatch wrapper once
+    :class:`DispatchRetryPolicy` is exhausted. The streaming loop
+    catches it, fails ONLY the affected micro-batch's requests with a
+    ``FAILED`` terminal status, and keeps serving; the batch path lets
+    it propagate so ``run()`` re-queues the unserved requests
+    (retryable by the caller). ``__cause__`` carries the last
+    underlying dispatch error.
+    """
+
+    def __init__(self, compile_key, attempts: int, last_error: Exception):
+        super().__init__(
+            f"refine dispatch for compile key {compile_key} failed "
+            f"{attempts} time(s) (retry budget exhausted): {last_error!r}")
+        self.compile_key = compile_key
+        self.attempts = attempts
+
+
+@dataclasses.dataclass(frozen=True)
+class DispatchRetryPolicy:
+    """Bounded exponential backoff for refine-dispatch faults.
+
+    A failed dispatch is retried up to ``max_retries`` times, sleeping
+    ``backoff_base_s * backoff_factor**attempt`` before attempt
+    ``attempt + 1`` — total worst-case added latency is
+    ``backoff_base_s * (factor**retries - 1) / (factor - 1)``, a bound
+    the SLO admission loop can reason about. ``max_retries = 0``
+    disables retrying (first failure is final).
+    """
+
+    max_retries: int = 3
+    backoff_base_s: float = 0.05
+    backoff_factor: float = 2.0
+
+    def __post_init__(self):
+        if self.max_retries < 0:
+            raise ValueError(
+                f"max_retries must be >= 0, got {self.max_retries}")
+        if self.backoff_base_s < 0.0:
+            raise ValueError(
+                f"backoff_base_s must be >= 0, got {self.backoff_base_s}")
+        if self.backoff_factor < 1.0:
+            raise ValueError(
+                f"backoff_factor must be >= 1, got {self.backoff_factor}")
+
+    @property
+    def attempts(self) -> int:
+        """Total dispatch attempts (1 initial + max_retries)."""
+        return self.max_retries + 1
+
+    def backoff_s(self, attempt: int) -> float:
+        """Sleep before retrying after failed attempt ``attempt`` (0-based)."""
+        return self.backoff_base_s * self.backoff_factor ** attempt
+
+    @property
+    def worst_case_backoff_s(self) -> float:
+        return sum(self.backoff_s(a) for a in range(self.max_retries))
 
 
 class PerNFECostModel:
-    """Measured per-NFE refine cost: an EWMA per compile key
-    (``(seq_len, rows, nfe)`` here) plus a global per-NFE EWMA as the
-    fallback for unseen keys, and an EWMA of first-dispatch overhead so a
-    first dispatch is charged its set-up time."""
+    """Measured per-NFE refine cost, the streaming admission loop's latency
+    oracle: an EWMA per compile key (the scheduler's ``(bucket_len,
+    padded_rows, n_steps)``, the one-shot server's ``(seq_len, rows, nfe)``)
+    plus a global per-NFE EWMA as the fallback for unseen keys, and an EWMA
+    of first-dispatch overhead so a first dispatch is charged its set-up
+    time. ``metrics`` (an ``obs.MetricsRegistry``, optional) gets the EWMAs
+    as gauges and an observation counter."""
 
-    def __init__(self, alpha: float = 0.3):
+    def __init__(self, alpha: float = 0.3, metrics=None):
         if not (0.0 < alpha <= 1.0):
             raise ValueError(f"alpha must be in (0, 1], got {alpha}")
         self.alpha = alpha
+        self.metrics = metrics
         self._per_key: Dict[Any, float] = {}
         self._global: Optional[float] = None
         self._compile: Optional[float] = None
@@ -49,12 +117,18 @@ class PerNFECostModel:
         """Fold one measured refine dispatch into the model; ``compiled``
         marks a first dispatch of ``key``, which feeds the set-up EWMA."""
         per_nfe = flow_time_s / max(nfe, 1)
+        if self.metrics is not None:
+            self.metrics.counter("cost_model.observations").inc()
         if compiled:
             base = self.estimate_s(key, nfe)
             self._compile = self._ewma(self._compile, max(0.0, flow_time_s - (base or 0.0)))
+            if self.metrics is not None:
+                self.metrics.gauge("cost_model.compile_s").set(self._compile)
             return
         self._per_key[key] = self._ewma(self._per_key.get(key), per_nfe)
         self._global = self._ewma(self._global, per_nfe)
+        if self.metrics is not None:
+            self.metrics.gauge("cost_model.per_nfe_s").set(self._global)
 
     def per_nfe_s(self, key=None) -> Optional[float]:
         """Best per-NFE estimate for ``key`` (global fallback); ``None``
@@ -145,16 +219,14 @@ class WarmStartServer:
     cold_nfe: int
     temperature: float = 1.0
     step_fn: Optional[Callable] = None
-    # K > 1 (fused K-step blocks) needs the unported ws_fused kernel
+    # K > 1: refine in fused K-step blocks, one backbone evaluation and one
+    # ws_fused launch per block (opt-in; see core/sampler.py)
     fused_block: int = 1
     cost_model: Optional[PerNFECostModel] = None
     device: Any = "cuda"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.fused_block > 1:
-            raise NotImplementedError(
-                "fused_block > 1 needs the ws_fused kernel, which is not ported yet")
         if self.flow_model.device.type != self.device.type:
             raise ValueError(f"flow_model lives on {self.flow_model.device}, "
                              f"server on {self.device}")
@@ -163,10 +235,12 @@ class WarmStartServer:
         self._served_shapes = set()
         self._one_step = make_euler_one_step(
             self.path, temperature=self.temperature, step_fn=self.step_fn)
+        self._fused_fn = (make_ws_fused_fn(self.path, temperature=self.temperature)
+                          if self.fused_block > 1 else None)
 
     def _refine_loop(self, keys, x, ts, hs):
         return scan_refine_loop(self.flow_model.dfm_apply, self._one_step, x, keys, ts, hs,
-                                fused_block=self.fused_block)
+                                fused_block=self.fused_block, fused_fn=self._fused_fn)
 
     def serve(self, rng: torch.Tensor, num: int) -> Tuple[torch.Tensor, dict]:
         k_draft, k_flow = prng.split(rng, 2)
@@ -185,8 +259,11 @@ class WarmStartServer:
             x = self._refine_loop(keys, x, ts, hs)
         _sync(self.device)
         t_flow = time.perf_counter() - t_flow0
+        # every guaranteed draw runs; fused blocks batch them into fewer
+        # backbone evaluations
         nfe = n_steps
-        backbone_evals = n_steps
+        backbone_evals = (n_steps if self.fused_block <= 1
+                          else -(-n_steps // self.fused_block))
 
         guarantees.require_guarantee(self.cold_nfe, t0, nfe)
         per_nfe = t_flow / max(backbone_evals, 1)

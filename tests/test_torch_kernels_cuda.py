@@ -22,8 +22,10 @@ from repro_torch.kernels.draft_decode import (
 )
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.models import Model
+from repro_torch.kernels.ws_fused import ws_fused_ref, ws_fused_steps
+from repro_torch.kernels.ws_fused.ops import fused_inputs
 from repro_torch.kernels.ws_step import (
-    near_tie_rows, seed_from_key, ws_step, ws_step_ref_streamed,
+    near_tie_rows, seed_from_key, ws_step, ws_step_ref_streamed, ws_step_rows, ws_step_rows_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -203,3 +205,99 @@ def test_draft_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         attn_cached(q, buf, buf, torch.zeros((), dtype=torch.int32, device=card), pos0=0,
                     seq=1, heads=2, kv_heads=2, head_dim=48)
+
+
+# -- the scheduler's per-row ws_step mode and ws_fused ---------------------------------------
+
+TIE_TOL = 1e-5
+
+
+def _step_inputs(card, b, n, v, seed):
+    rng = np.random.default_rng(seed)
+    logits = torch.from_numpy((3 * rng.standard_normal((b, n, v))).astype(np.float32)).to(card)
+    x = torch.from_numpy(rng.integers(0, v, (b, n)).astype(np.int32)).to(card)
+    return logits, x
+
+
+@pytest.mark.parametrize("b,n,v", [(32, 256, 27), (4, 16, 50257), (3, 7, 5)])
+def test_ws_step_rows_kernel_matches_plain(card, b, n, v):
+    """Tokens equal the plain version's off rows whose draw is a near tie
+    (keep-vs-move scores or the best two candidates within 1e-5)."""
+    logits, x = _step_inputs(card, b, n, v, b * n + v)
+    keys = prng.split(prng.key(b + v), b).to(card)
+    t = torch.linspace(0.5, 0.9, b, device=card)
+    h = torch.full((b,), 1 / 16, device=card)
+    h[0] = 0.0                                           # an inactive request row
+    path = WarmStartPath(0.0)
+    before = launches["ws_step_rows"]
+    got = ws_step_rows(keys, logits, x, t, h, path)
+    assert launches["ws_step_rows"] == before + 1
+    a = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
+    want = ws_step_rows_ref(keys, logits, x, a)
+    g = prng.gumbel(keys, (n, v), device=card).reshape(b * n, v)
+    ties = near_tie_rows(logits.reshape(b * n, v), x.reshape(-1), a.repeat_interleave(n), g,
+                         tol=TIE_TOL).reshape(b, n)
+    assert not bool(((got != want) & ~ties).any())
+    assert torch.equal(got[0], x[0])                     # a = 0 freezes the row
+
+
+def _fused_case(card, layout, k, b, n, v, seed):
+    logits, x = _step_inputs(card, b, n, v, seed)
+    if layout == "single":
+        keys = prng.split(prng.key(seed), k)
+        ts = 0.5 + torch.arange(k, dtype=torch.float32) / 16
+        hs = torch.full((k,), 1 / 16)
+        hs[-1] = 0.0                                     # a padded tail step
+    else:
+        keys = prng.fold_in(prng.split(prng.key(seed), b)[None], torch.arange(k)[:, None])
+        ts = 0.5 + torch.arange(k, dtype=torch.float32)[:, None].expand(k, b) / 16
+        hs = torch.full((k, b), 1 / 16)
+        hs[:, 0] = 0.0                                   # an inactive request row
+        hs[: k // 2, 1] = 0.0                            # a row entering mid-block
+    return keys.to(card), logits, x, ts.to(card), hs.to(card)
+
+
+@pytest.mark.parametrize("layout", ["single", "rows"])
+@pytest.mark.parametrize("k,v", [(2, 27), (4, 27), (8, 27), (4, 50257)])
+def test_ws_fused_kernel_equals_composed_bitwise(card, layout, k, v):
+    b, n = (8, 64) if v == 27 else (2, 8)
+    keys, logits, x, ts, hs = _fused_case(card, layout, k, b, n, v, k + v)
+    path = WarmStartPath(0.0)
+    before = launches["ws_fused"]
+    got = ws_fused_steps(keys, logits, x, ts, hs, path)
+    assert launches["ws_fused"] == before + 1
+    if layout == "single":
+        want = x
+        for j in range(k):
+            want = ws_step(keys[j].cpu(), logits, want, ts[j], hs[j], path)
+    else:
+        want = ws_fused_steps(keys, logits, x, ts, hs, path, impl="composed")
+        assert torch.equal(got[0], x[0])                 # a = 0 on every step: frozen
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["single", "rows"])
+@pytest.mark.parametrize("k,v", [(4, 27), (2, 50257)])
+def test_ws_fused_kernel_matches_plain(card, layout, k, v):
+    b, n = (8, 64) if v == 27 else (2, 8)
+    keys, logits, x, ts, hs = _fused_case(card, layout, k, b, n, v, 3 * k + v)
+    path = WarmStartPath(0.0)
+    got = ws_fused_steps(keys, logits, x, ts, hs, path).reshape(-1)
+    seeds, lg, xr, a, key_group, a_group = fused_inputs(keys, logits, x, ts, hs, path)
+    want, ties = ws_fused_ref(seeds, lg, xr, a, key_group=key_group, a_group=a_group,
+                              tie_tol=TIE_TOL)
+    assert not bool(((got != want) & ~ties).any())
+
+
+def test_ws_fused_and_rows_wrappers_reject_what_the_kernels_do_not_take(card):
+    logits, x = _step_inputs(card, 2, 4, 27, 0)
+    keys = prng.split(prng.key(0), 2).to(card)
+    path = WarmStartPath(0.0)
+    with pytest.raises(ValueError, match="float32"):
+        ws_step_rows(keys, logits.half(), x, 0.5, 0.1, path)
+    with pytest.raises(ValueError, match="hw_prng"):
+        ws_fused_steps(keys, logits, x, torch.zeros(2, device=card),
+                       torch.zeros(2, device=card), path, hw_prng=True)
+    with pytest.raises(ValueError, match="float32"):
+        ws_fused_steps(keys, logits.half(), x, torch.zeros(2, device=card),
+                       torch.zeros(2, device=card), path)

@@ -191,13 +191,24 @@ def test_guarantee_violation_on_wrong_count(servers_setup, monkeypatch):
 
 
 def test_fused_block_is_not_ported(servers_setup):
-    _, _, model, draft = servers_setup
-    with pytest.raises(NotImplementedError, match="ws_fused"):
-        WarmStartServer(flow_model=model, flow_cfg=model.cfg,
-                        draft_generate=lambda rng, num: torch.from_numpy(draft),
-                        path=WarmStartPath(t0=T0), cold_nfe=COLD_NFE, fused_block=2,
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ws_fused"):
+    """Ported since the scheduler slice: ``fused_block = 2`` serves through
+    ``ws_fused`` and equals the JAX server's tokens and counts (the name is
+    the one this test had when the kernel was missing)."""
+    jm, params, model, draft = servers_setup
+    jpath, path = JaxPath(t0=T0), WarmStartPath(t0=T0)
+    jserver = JaxWarmStartServer(
+        flow_model=jm, flow_cfg=jm.cfg, flow_params=params,
+        draft_generate=lambda rng, num: jnp.asarray(draft), path=jpath, cold_nfe=COLD_NFE,
+        fused_block=2)
+    server = WarmStartServer(flow_model=model, flow_cfg=model.cfg,
+                             draft_generate=lambda rng, num: torch.from_numpy(draft.copy()),
+                             path=path, cold_nfe=COLD_NFE, fused_block=2, device="cpu")
+    x_j, rep_j = jserver.serve(jax.random.key(12), NUM)
+    x_t, rep_t = server.serve(prng.key(12), NUM)
+    np.testing.assert_array_equal(np.asarray(x_j), x_t.numpy())
+    assert (rep_t["nfe"], rep_t["backbone_evals"]) == (rep_j["nfe"], rep_j["backbone_evals"])
+    assert (rep_t["nfe"], rep_t["backbone_evals"]) == (4, 2)
+    with pytest.raises(ValueError, match="fused_fn"):
         sampler.scan_refine_loop(None, None, torch.zeros(1, 2), None, torch.zeros(2),
                                  torch.zeros(2), fused_block=2)
 
