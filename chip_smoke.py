@@ -15,7 +15,14 @@ prompt) through the ``qkv_rope``, ``attn_cached``, ``post_attn`` and
 the ``flash_attn`` kernel in every attention. It checks the NFE guarantee,
 the launch counts, the draft engine's bit-exactness (batched prefill ==
 token scan, engine == oracle) and the tokens and logits against the plain
-CPU path. It prints the card, one ``{"serve": ...}`` line, one
+CPU path. It then serves 16 mixed requests through ``WarmStartScheduler``
+(``ws_step``'s per-row mode, ``ws_fused``), and runs the paper's generation
+API, ``WarmStartPipeline.generate``, on the same backbone drafted by the
+paper's §4.2 Text-8 LSTM (2 x 512, seed 2, through ``ARDraft``): 32 x 256
+at t0 = 0.8 (13 NFE, each a ``ws_step_gumbel`` launch: the default Euler
+step), the cold pipeline (64 NFE) and ``EulerSampler(fused_block=2)``, with
+exact launch counts, and the measured draft cost ratio. It prints the card,
+``{"serve": ...}``, ``{"scheduler": ...}`` and ``{"pipeline": ...}`` lines, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -182,6 +189,67 @@ def measure_ws_step(r, v):
     plain_ms = graph_ms(plain)
     nbytes = r * v * 4 + 3 * r * 4
     bms, by = bound_ms(nbytes, WS_OPS_PER_ELEMENT * r * v)
+    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": None}
+
+
+# -- ws_step_gumbel ----------------------------------------------------------------
+
+# per element, the function's own work: lg / T, the max, lg - m, exp, the sum,
+# the division, the mix (2 products and a sum), the clamp, log, + g and the
+# argmax's compare; counted against the float32 rate
+WS_GUMBEL_OPS_PER_ELEMENT = 13
+
+
+def gumbel_inputs(r, vp, valid_v, seed):
+    """Logits padded with zeros past ``valid_v`` (as the JAX package pads to
+    128 lanes), tokens, mixing weights (one row at a = 0) and the noise of
+    ``jax.random.gumbel`` for a seeded key, all on the card."""
+    from repro_torch import prng
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.zeros((r, vp), device="cuda")
+    logits[:, :valid_v] = 3.0 * torch.randn((r, valid_v), generator=g, device="cuda")
+    x = torch.randint(0, valid_v, (r, 1), generator=g, device="cuda", dtype=torch.int32)
+    a = torch.rand((r, 1), generator=g, device="cuda")
+    a[0] = 0.0
+    noise = prng.gumbel(prng.key(seed), (r, vp), device="cuda")
+    return logits, x, a, noise
+
+
+def check_ws_step_gumbel(r, vp, valid_v, seed):
+    from repro_torch.kernels.ws_step import near_tie_rows_probs, ws_step_gumbel, ws_step_gumbel_ref
+
+    args = gumbel_inputs(r, vp, valid_v, seed)
+    got = ws_step_gumbel(*args, valid_v=valid_v, row_block=8 if r % 8 == 0 else 1)
+    want = ws_step_gumbel_ref(*args, valid_v=valid_v)
+    ties = near_tie_rows_probs(*args, valid_v=valid_v, tol=WS_TIE_TOL)
+    torch.cuda.synchronize()
+    mismatch = (got != want)[:, 0]
+    bad = mismatch & ~ties
+    frozen = int(got[0, 0]) == int(args[1][0, 0])
+    res = {"rows": r, "vocab": vp, "valid_v": valid_v, "mismatches": int(mismatch.sum()),
+           "near_ties": int(ties.sum()),
+           "max_abs_err": float((got - want)[~ties].abs().max()), "a0_frozen": frozen}
+    print(f"ws_step_gumbel R={r} Vp={vp} valid_v={valid_v}: {res['mismatches']} mismatching "
+          f"rows, {res['near_ties']} near-tie rows (best two probability-space scores within "
+          f"{WS_TIE_TOL}), {int(bad.sum())} mismatches off the ties; a = 0 row unchanged: "
+          f"{frozen}")
+    if bool(bad.any()) or not frozen or int(got.max()) >= valid_v:
+        fail(f"ws_step_gumbel kernel disagrees with its plain version: {res}")
+    return res
+
+
+def measure_ws_step_gumbel(r, v):
+    from repro_torch.kernels.ws_step import ops, ws_step_gumbel, ws_step_gumbel_ref
+
+    logits, x, a, noise = gumbel_inputs(r, v, v, 0)
+    a.fill_(0.078125)                    # h * velocity_scale(t) at t = 0.8, h = 1/64
+    out = torch.empty((r, 1), dtype=torch.int32, device="cuda")
+    ms = graph_ms(lambda: ops._launch_gumbel(logits, x, a, noise, out, v, 1.0), n=50)
+    call_ms = time_ms(lambda: ws_step_gumbel(logits, x, a, noise, valid_v=v))
+    plain_ms = graph_ms(lambda: ws_step_gumbel_ref(logits, x, a, noise, valid_v=v))
+    bms, by = bound_ms(2 * r * v * 4 + 3 * r * 4, WS_GUMBEL_OPS_PER_ELEMENT * r * v)
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": None}
 
@@ -896,6 +964,253 @@ def scheduler_path(model, engine):
     return report, counts_path
 
 
+# -- the generation pipeline -----------------------------------------------------------
+
+# the paper's §4.2 Text-8 draft: a 2-layer, 512-hidden LSTM; and a small one
+LSTM_CFG = dict(vocab_size=VOCAB, hidden=512, num_layers=2, embed_dim=256)
+LSTM_SEED = 2
+SMALL_LSTM = dict(vocab_size=VOCAB, hidden=32, num_layers=2, embed_dim=16)
+
+
+def to_device(tree, device):
+    """An LSTM parameter tree (dicts and lists of tensors) on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
+def check_lstm_draft():
+    """At smoke size: ``LSTMModel.generate`` on the card equals the CPU's on
+    the same weights and key, and ``ARDraftEngine`` with
+    ``LSTMDraftAdapter`` equals the cache-free oracle on the card (computed,
+    then reused prefix)."""
+    from repro_torch import prng
+    from repro_torch.drafting import ARDraftEngine, LSTMDraftAdapter, oracle_generate_rows
+    from repro_torch.models import LSTMConfig, LSTMModel
+
+    lstm = LSTMModel(LSTMConfig(**SMALL_LSTM))
+    params = lstm.init(4, device="cuda")
+    got = lstm.generate(params, prng.key(9), 4, 32).cpu()
+    want = lstm.generate(to_device(params, "cpu"), prng.key(9), 4, 32)
+    vs_cpu = int((got != want).sum())
+    adapter = LSTMDraftAdapter(model=lstm, params=params)
+    keys = prng.split(prng.key(3), 3)
+    prompt = draft_prompt(3)[:, :3]
+    eng = ARDraftEngine(adapter, max_len=3 + 12 - 1)
+    out = [eng.generate_rows(keys, 12, prompt=prompt) for _ in range(2)]
+    ref = oracle_generate_rows(adapter, keys, 12, prompt=prompt, max_len=14)
+    vs_oracle = sum(int((o != ref).sum()) for o in out)
+    print(f"LSTM draft (2 x 32, smoke size): generate 4 x 32 on the card vs the CPU: {vs_cpu} "
+          f"tokens differ; engine with LSTMDraftAdapter vs oracle (3 rows, prompt 3, 12 "
+          f"tokens, computed then reused prefix): {vs_oracle} tokens differ; stats "
+          f"{eng.stats.as_dict()}")
+    if vs_cpu or vs_oracle or eng.stats.prefill_reuses != 1:
+        fail("the LSTM draft disagrees on the card")
+
+
+def check_small_pipeline_against_cpu():
+    """``WarmStartPipeline.generate`` on the card (default step: the
+    ws_step_gumbel kernel) against the plain CPU path, on the same seeded
+    backbone (smoke config), LSTM draft and key: 4 x 32 tokens, 4 steps.
+
+    Both runs record each step's input tokens and logits. The trajectories
+    must be equal; where a step's draws differ (first difference only: the
+    runs part there), every differing token must lie in a row that the
+    probability-space near-tie helper flags on that step's logits and noise."""
+    from repro_torch import prng
+    from repro_torch.configs.dfm_dit import smoke_config
+    from repro_torch.core import ARDraft, WarmStartPath, WarmStartPipeline
+    from repro_torch.core.sampler import refine_loop_inputs
+    from repro_torch.kernels.ws_step import near_tie_rows_probs
+    from repro_torch.models import LSTMConfig, LSTMModel, Model
+
+    cold, seq, num = 16, 32, 4
+    lstm = LSTMModel(LSTMConfig(**SMALL_LSTM))
+    lparams = lstm.init(4, device="cpu")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = Model(smoke_config(), device="cpu", seed=3).to(device)
+        seen = []
+
+        def model_fn(x, t, model=model, seen=seen):
+            lg = model.dfm_apply(x, t)
+            seen.append((x.cpu(), t.cpu(), lg.cpu()))
+            return lg
+
+        pipe = WarmStartPipeline(
+            model_fn=model_fn, draft=ARDraft(decode_fn=lstm.generate,
+                                             params=to_device(lparams, device), seq_len=seq),
+            path=WarmStartPath(t0=T0), cold_nfe=cold, vocab_size=VOCAB, seq_len=seq,
+            device=device)
+        x, _ = pipe.generate(prng.key(5), num)
+        runs[device] = [s_[0] for s_ in seen] + [x.cpu()], seen
+    (states_c, seen_c), (states_p, seen_p) = runs["cuda"], runs["cpu"]
+    n = len(seen_p)
+    keys, ts, hs = refine_loop_inputs(prng.split(prng.key(5), 2)[1], T0, 1.0 / cold, n)
+    path = WarmStartPath(t0=T0)
+    diff, ties, parted_at = 0, 0, None
+    if not torch.equal(states_c[0], states_p[0]):
+        fail("small pipeline: the LSTM drafts differ between the card and the CPU")
+    for i in range(n):
+        d = (states_c[i + 1] != states_p[i + 1]).reshape(-1)
+        if not bool(d.any()):
+            continue
+        x_in, t_in = seen_p[i][0], seen_p[i][1]
+        a = torch.clamp(hs[i] * path.velocity_scale(t_in), 0.0, 1.0)
+        a = a.reshape(-1, 1).expand(num, seq).reshape(-1, 1)
+        g = prng.gumbel(keys[i], (num, seq, VOCAB)).reshape(-1, VOCAB)
+        tie = torch.zeros_like(d)
+        for lg in (seen_p[i][2], seen_c[i][2]):
+            tie |= near_tie_rows_probs(lg.reshape(-1, VOCAB), x_in.reshape(-1, 1), a, g,
+                                       valid_v=VOCAB, tol=WS_TIE_TOL)
+        if bool((d & ~tie).any()):
+            fail(f"small pipeline: step {i} draws {int((d & ~tie).sum())} tokens differently "
+                 f"from the CPU off the near ties")
+        diff, ties, parted_at = int(d.sum()), int((d & tie).sum()), i
+        break
+    print(f"small pipeline (smoke config + LSTM 2 x 32 draft, 4 x 32 tokens, {n} steps): card "
+          f"vs CPU plain path: {diff} tokens differ"
+          + (f", all in near-tie rows, at step {parted_at} (the runs part there)" if diff
+             else ""))
+    return {"tokens_differ": diff, "near_tie_tokens": ties, "parted_at_step": parted_at}
+
+
+def pipeline_path(model):
+    """The paper's generation API at full width: ``WarmStartPipeline`` over
+    the dfm_dit backbone, drafted by the §4.2 Text-8 LSTM through
+    ``ARDraft(decode_fn=LSTMModel.generate)``, 32 x 256 at t0 = 0.8 and
+    cold_nfe = 64 (13 NFE, default Euler step), then the cold pipeline (no
+    draft, t0 = 0, 64 NFE) and ``EulerSampler(fused_block=2)``; exact
+    launch counts per run, and the draft cost measured against one NFE."""
+    from repro_torch import prng
+    from repro_torch.core import ARDraft, EulerSampler, WarmStartPath, WarmStartPipeline, warm_nfe
+    from repro_torch.kernels import launches
+    from repro_torch.models import LSTMConfig, LSTMModel
+    from repro_torch.serving import make_refine_step_fn
+
+    layers = model.cfg.num_layers
+    lstm = LSTMModel(LSTMConfig(**LSTM_CFG))
+    lparams = lstm.init(LSTM_SEED, device="cuda")
+    n_lstm = sum(p.numel() for p in [lparams["embed"]["table"], lparams["head"]["w"]]
+                 + [lp[k]["w"] for lp in lparams["layers"] for k in ("wx", "wh")])
+    draft_s, evals = [], []
+
+    def decode_fn(params, rng, num, seq_len):
+        """LSTMModel.generate, its time taken up to the card's end."""
+        t = time.perf_counter()
+        out = lstm.generate(params, rng, num, seq_len)
+        torch.cuda.synchronize()
+        draft_s.append(time.perf_counter() - t)
+        return out
+
+    def model_fn(x, t):
+        evals.append(1)
+        return model.dfm_apply(x, t)
+
+    path = WarmStartPath(t0=T0)
+    draft = ARDraft(decode_fn=decode_fn, params=lparams, seq_len=SEQ)
+    pipe = WarmStartPipeline(model_fn=model_fn, draft=draft, path=path, cold_nfe=COLD_NFE,
+                             vocab_size=VOCAB, seq_len=SEQ, device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    smp = pipe.sampler()
+    if not (smp.nfe == smp.backbone_evals == nfe == 13):
+        fail(f"pipeline sampler: nfe {smp.nfe}, backbone_evals {smp.backbone_evals}")
+
+    # the measured draft cost: one LSTM batch against one NFE at 32 x 256
+    refine = make_refine_step_fn(model, model.cfg, path)
+    x_cal = torch.randint(0, VOCAB, (NUM, SEQ), generator=torch.Generator().manual_seed(6),
+                          dtype=torch.int32).to("cuda")
+    t_cal = torch.full((NUM,), T0, device="cuda")
+
+    def nfe_fn():
+        with torch.no_grad():
+            return refine(prng.key(400), x_cal, t_cal, 1.0 / COLD_NFE)
+
+    cal = draft.calibrate_cost_ratio(nfe_fn, rng=prng.key(401), num=NUM, seq_len=SEQ)
+
+    def counted(what, fn, want, want_evals):
+        before, n0 = dict(launches), len(evals)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = {k: v - before.get(k, 0) for k, v in launches.items() if v != before.get(k, 0)}
+        if grew != want or len(evals) - n0 != want_evals:
+            fail(f"{what}: launches {grew}, {len(evals) - n0} backbone evaluations; expected "
+                 f"{want}, {want_evals}")
+        return out, wall
+
+    per_warm = {"ws_step_gumbel": nfe, "flash_attn": nfe * layers}
+    launches.clear()
+    warm = []
+    for i in range(3):
+        n_draft = len(draft_s)
+        (x, rep), wall = counted(f"warm generate {i}",
+                                 lambda i=i: pipe.generate(prng.key(500 + i), NUM), per_warm, nfe)
+        if (rep.warm_nfe, rep.cold_nfe) != (nfe, COLD_NFE) or len(draft_s) != n_draft + 1:
+            fail(f"warm generate {i}: report {rep}")
+        if x.shape != (NUM, SEQ) or x.dtype != torch.int32 or x.device.type != "cuda" \
+                or int(x.min()) < 0 or int(x.max()) >= VOCAB:
+            fail(f"warm generate {i}: tokens {tuple(x.shape)} {x.dtype} on {x.device}")
+        warm.append({"wall_ms": wall * 1e3, "draft_ms": draft_s[-1] * 1e3,
+                     "flow_ms": (wall - draft_s[-1]) * 1e3, "report": rep})
+    cold_pipe = WarmStartPipeline(model_fn=model_fn, draft=None, path=WarmStartPath(t0=0.0),
+                                  cold_nfe=COLD_NFE, vocab_size=VOCAB, seq_len=SEQ,
+                                  device="cuda")
+    (x_cold, rep_cold), cold_wall = counted(
+        "cold generate", lambda: cold_pipe.generate(prng.key(600), NUM),
+        {"ws_step_gumbel": COLD_NFE, "flash_attn": COLD_NFE * layers}, COLD_NFE)
+    if rep_cold.warm_nfe != COLD_NFE or rep_cold.nfe_speedup != 1.0 or x_cold.shape != (NUM, SEQ):
+        fail(f"cold generate: report {rep_cold}")
+    fused = EulerSampler(path=path, num_steps=COLD_NFE, fused_block=2)
+    x0 = lstm.generate(lparams, prng.key(700), NUM, SEQ)
+    (x_fused, st_fused), fused_wall = counted(
+        "EulerSampler(fused_block=2)", lambda: fused.sample(prng.key(701), model_fn, x0),
+        {"ws_fused": 7, "flash_attn": 7 * layers}, 7)
+    if (fused.nfe, fused.backbone_evals, st_fused.nfe) != (nfe, 7, 7):
+        fail(f"EulerSampler(fused_block=2): nfe {fused.nfe}, evals {fused.backbone_evals}")
+    counts = dict(launches)
+    profile = _profile(lambda: (pipe.generate(prng.key(800), NUM), torch.cuda.synchronize()),
+                       "pipeline generate")
+
+    def med(key):
+        return statistics.median(w[key] for w in warm[1:])
+
+    flow_ms = med("flow_ms")
+    rep = warm[-1]["report"]
+    res = {
+        "config": model.cfg.name, "draft": {"model": "LSTM (paper §4.2 Text-8)", **LSTM_CFG,
+                                            "seed": LSTM_SEED, "params": n_lstm},
+        "num": NUM, "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe,
+        "backbone_evals": smp.backbone_evals,
+        "warmup_generate_ms": warm[0]["wall_ms"],
+        "generate_ms": med("wall_ms"), "draft_ms": med("draft_ms"), "flow_ms": flow_ms,
+        "per_nfe_ms": flow_ms / nfe, "samples_per_s": NUM / (med("wall_ms") / 1e3),
+        "generate_ms_each": [w["wall_ms"] for w in warm[1:]],
+        "draft_ms_each": [w["draft_ms"] for w in warm[1:]],
+        "measured_cost": cal.as_dict(),
+        "draft_cost_ratio": rep.draft_cost_ratio,
+        "guaranteed_speedup": rep.guaranteed_factor, "nfe_speedup": rep.nfe_speedup,
+        "effective_speedup": rep.effective_speedup,
+        "cold": {"nfe": rep_cold.warm_nfe, "flow_ms": cold_wall * 1e3,
+                 "per_nfe_ms": cold_wall * 1e3 / COLD_NFE},
+        "fused_block_2": {"flow_ms": fused_wall * 1e3, "backbone_evals": st_fused.nfe},
+        "launches_per_warm_generate": per_warm, "launches_path": counts,
+        "profile": profile,
+    }
+    print(f"pipeline: {model.cfg.name} drafted by the LSTM ({n_lstm / 1e6:.2f}M params), "
+          f"{NUM} x {SEQ}, t0={T0}, cold_nfe={COLD_NFE}: {nfe} NFE per warm generate, guarantee "
+          f"gate passed, launches per warm generate {per_warm}; draft {res['draft_ms']:.1f} ms, "
+          f"flow {flow_ms:.1f} ms ({res['per_nfe_ms']:.2f} ms per NFE), draft_cost_ratio "
+          f"{rep.draft_cost_ratio:.3f} (best of 5: draft {cal.draft_time_s * 1e3:.2f} ms, one "
+          f"NFE {cal.nfe_time_s * 1e3:.2f} ms), effective speed-up "
+          f"{rep.effective_speedup:.2f}x of {rep.guaranteed_factor:.2f}x; cold (64 NFE) "
+          f"{cold_wall * 1e3:.1f} ms; fused_block=2 {fused_wall * 1e3:.1f} ms (7 evaluations)")
+    return res, counts
+
+
 # -- the main path ---------------------------------------------------------------
 
 def check_small_serve_against_cpu():
@@ -1036,6 +1351,8 @@ def _category(name: str) -> str:
         return "ws_step"
     if "ws_step_rows_kernel" in name:
         return "ws_step_rows"
+    if "ws_step_gumbel_kernel" in name:
+        return "ws_step_gumbel"
     if "ws_fused_kernel" in name:
         return "ws_fused"
     if "qkv_rope_kernel" in name:
@@ -1141,7 +1458,15 @@ def main() -> int:
     fused_checks = [check_ws_fused(layout, k, v, 10 * k + i)
                     for layout in ("single", "rows") for k in FUSED_KS
                     for i, v in enumerate(FUSED_VS)]
+    gumbel_checks = [check_ws_step_gumbel(NUM * SEQ, VOCAB, VOCAB, 0),
+                     check_ws_step_gumbel(8, 128, VOCAB, 1),
+                     check_ws_step_gumbel(64, 50257, 50257, 2),
+                     check_ws_step_gumbel(8, 262144, 262144, 3)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
+    gumbel_num = measure_ws_step_gumbel(NUM * SEQ, VOCAB)
+    print(f"ws_step_gumbel at ({NUM * SEQ}, {VOCAB}): {gumbel_num['ms'] * 1e3:.2f} us device "
+          f"(bound {gumbel_num['bound_ms'] * 1e3:.3f} us, {gumbel_num['bound_by']}), plain "
+          f"{gumbel_num['plain_ms'] * 1e3:.1f} us")
     rows_num = measure_ws_step_rows(NUM, SEQ, VOCAB)
     fused_num = measure_ws_fused(NUM, SEQ, VOCAB, 4)
     print(f"ws_step_rows at ({NUM}, {SEQ}, {VOCAB}): {rows_num['ms'] * 1e3:.2f} us device "
@@ -1154,11 +1479,15 @@ def main() -> int:
 
     check_small_serve_against_cpu()
     check_engine_equals_oracle()
+    check_lstm_draft()
+    small_pipe = check_small_pipeline_against_cpu()
     engine = draft_engine()
     check_prefill_equals_scan(engine)
     check_draft_logits_against_cpu(engine)
     counts, per_serve, serve, model = main_path(engine)
     sched, sched_counts = scheduler_path(model, engine)
+    pipe, pipe_counts = pipeline_path(model)
+    pipe["small_vs_cpu"] = small_pipe
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -1221,6 +1550,15 @@ def main() -> int:
          "near_ties": sum(c["near_ties"] for c in fused_checks),
          "shape": [NUM * SEQ, VOCAB], "k": 4, **fused_num,
          "bound_us": fused_num["bound_ms"] * 1e3},
+        {"name": "ws_step_gumbel", "route": "cuda", "source": "src/repro_torch/csrc/ws_step.cu",
+         "replaces": "src/repro/kernels/ws_step/kernel.py:289",
+         "tpu_kernel": "ws_step_pallas",
+         "launches": pipe_counts.get("ws_step_gumbel", 0),
+         "launches_per_warm_generate": pipe["launches_per_warm_generate"]["ws_step_gumbel"],
+         "max_abs_err": max(c["max_abs_err"] for c in gumbel_checks),
+         "mismatches": sum(c["mismatches"] for c in gumbel_checks),
+         "near_ties": sum(c["near_ties"] for c in gumbel_checks),
+         "shape": [NUM * SEQ, VOCAB], **gumbel_num, "bound_us": gumbel_num["bound_ms"] * 1e3},
     ]
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
@@ -1232,6 +1570,7 @@ def main() -> int:
             fail(f"{k['name']} was not launched on the main path")
     print(json.dumps({"serve": serve}))
     print(json.dumps({"scheduler": sched}))
+    print(json.dumps({"pipeline": pipe}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""JAX parameters -> the torch ``Model``'s state dict.
+"""JAX parameters -> the torch ``Model``'s state dict, and the LSTM's tree.
 
 The JAX package checkpoints a parameter tree as a flat numpy dict keyed by
 ``|``-joined tree paths (``checkpoint/io.py::_flatten``, the layout of its
@@ -12,6 +12,10 @@ Every other leaf maps by name: biases (``...|wq|b``), the gated MLP's
 ``mlp|gate|w`` and norms without a bias (rmsnorm: ``scale`` only) have
 torch parameters of the same path. A tied-embedding config has no
 ``head`` leaf and no torch ``head``: both read the embedding table.
+
+The LSTM draft (``models/lstm.py``) is functional in both packages: its
+flat leaves ``embed|table``, ``layers|{i}|wx|w``, ``layers|{i}|wh|w`` and
+``head|w`` become the same tree of torch tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 _BLOCK = re.compile(r"^stack\|blocks\|p(\d+)\|(.+)$")
+_LSTM_LAYER = re.compile(r"^layers\|(\d+)\|(wx|wh)\|w$")
 _REM = re.compile(r"^stack\|rem\|r(\d+)\|(.+)$")
 
 
@@ -55,3 +62,26 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
             out[name.replace("|", ".")] = torch.from_numpy(arr.copy())
     return out
 
+
+
+def jax_lstm_params_to_torch(flat: Mapping[str, np.ndarray], *, device="cuda") -> dict:
+    """``{"embed|table", "layers|i|wx|w", "layers|i|wh|w", "head|w"}`` -> the
+    ``LSTMModel`` parameter tree on ``device``. Any other leaf raises."""
+    dev = resolve_device(device)
+
+    def t(name):
+        return torch.from_numpy(np.array(flat[name], dtype=np.float32)).to(dev)
+
+    layer_ids = set()
+    for name in flat:
+        m = _LSTM_LAYER.match(name)
+        if m is not None:
+            layer_ids.add(int(m.group(1)))
+        elif name not in ("embed|table", "head|w"):
+            raise KeyError(f"leaf {name} has no counterpart in the torch LSTM")
+    if layer_ids != set(range(len(layer_ids))):
+        raise KeyError(f"LSTM layers {sorted(layer_ids)} are not 0..n-1")
+    return {"embed": {"table": t("embed|table")},
+            "layers": [{"wx": {"w": t(f"layers|{i}|wx|w")}, "wh": {"w": t(f"layers|{i}|wh|w")}}
+                       for i in range(len(layer_ids))],
+            "head": {"w": t("head|w")}}

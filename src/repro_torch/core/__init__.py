@@ -1,17 +1,29 @@
-"""Warm-start flow matching core: paths, the Euler sampler, guarantees."""
+"""Warm-start flow matching core: paths, the Euler sampler, guarantees,
+the drafts and the generation pipeline."""
 
 from repro_torch.core.guarantees import (
-    GuaranteeViolation, require_bucket_guarantee, require_guarantee,
-    require_row_guarantees, speedup_report, warm_nfe, warm_nfe_rows,
+    GuaranteeViolation, SpeedupReport, check_guarantee, require_bucket_guarantee,
+    require_guarantee, require_row_guarantees, speedup_report, warm_nfe, warm_nfe_rows,
 )
-from repro_torch.core.paths import WarmStartPath
+from repro_torch.core.paths import WarmStartPath, cold_start_path, mask_noise, uniform_noise
 from repro_torch.core.sampler import (
-    categorical_from_probs, euler_step_probs, make_euler_one_step,
-    refine_loop_inputs, refine_schedule, scan_refine_loop,
+    EulerSampler, SamplerStats, categorical_from_probs, categorical_from_probs_rows,
+    euler_step_probs, make_euler_one_step, make_euler_one_step_rows, make_refine_step,
+    refine_loop_inputs, refine_schedule, refine_schedule_rows, scan_refine_loop,
+    scan_refine_loop_rows,
 )
+from repro_torch.core.draft import ARDraft, CorruptionDraft, DraftModel, HistogramDraft
+from repro_torch.core.pipeline import WarmStartPipeline
 
-__all__ = ["GuaranteeViolation", "require_guarantee", "require_bucket_guarantee",
-           "require_row_guarantees", "speedup_report", "warm_nfe", "warm_nfe_rows",
-           "WarmStartPath", "categorical_from_probs",
-           "euler_step_probs", "make_euler_one_step", "refine_loop_inputs",
-           "refine_schedule", "scan_refine_loop"]
+__all__ = [
+    "WarmStartPath", "cold_start_path", "uniform_noise", "mask_noise",
+    "EulerSampler", "SamplerStats", "euler_step_probs", "categorical_from_probs",
+    "categorical_from_probs_rows", "make_euler_one_step", "make_euler_one_step_rows",
+    "make_refine_step", "refine_loop_inputs", "refine_schedule", "refine_schedule_rows",
+    "scan_refine_loop", "scan_refine_loop_rows",
+    "warm_nfe", "warm_nfe_rows", "speedup_report", "SpeedupReport", "check_guarantee",
+    "require_guarantee", "require_bucket_guarantee", "require_row_guarantees",
+    "GuaranteeViolation",
+    "DraftModel", "CorruptionDraft", "HistogramDraft", "ARDraft",
+    "WarmStartPipeline",
+]

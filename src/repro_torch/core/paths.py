@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from repro_torch import prng
+
 
 @dataclasses.dataclass(frozen=True)
 class WarmStartPath:
@@ -41,3 +43,19 @@ class WarmStartPath:
     def num_steps(self, h: float) -> int:
         """Euler steps needed to cover [t0, 1] at step size h."""
         return max(1, math.ceil((1.0 - self.t0) / h - 1e-9))
+
+
+def cold_start_path(eps: float = 1e-4) -> WarmStartPath:
+    """The standard DFM path (the paper's baseline)."""
+    return WarmStartPath(t0=0.0, eps=eps)
+
+
+def uniform_noise(rng: torch.Tensor, shape, vocab_size: int, *, device=None) -> torch.Tensor:
+    """x0 ~ Uniform([V]^N), the cold-start initial distribution:
+    ``jax.random.randint(rng, shape, 0, vocab_size)``'s draw, int32."""
+    return prng.randint(rng, shape, 0, vocab_size, device=device)
+
+
+def mask_noise(shape, mask_token: int, *, device=None) -> torch.Tensor:
+    """x0 = the mask token everywhere (Gat et al. 2024 variant), int32."""
+    return torch.full(tuple(shape), mask_token, dtype=torch.int32, device=device)

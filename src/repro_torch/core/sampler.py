@@ -10,7 +10,11 @@ and draws the next state from it, until ``t`` reaches 1. The ``(t, h)``
 schedule is computed on the host once (numpy, identical to the JAX
 package's) and the key is split once, one key per step; the loop itself
 is a Python loop over that schedule. ``kernels/ws_step`` provides the
-fused step (``step_fn``); this module holds the plain per-step path.
+fused step (``step_fn``). Without one, the default step is the
+probability update and a Gumbel-max draw with ``jax.random.gumbel``'s
+noise: on the CPU in plain torch (``euler_step_probs`` +
+``categorical_from_probs``), on the card through the ``ws_step_gumbel``
+kernel on the same noise.
 
 The scheduler's loop is row-keyed (the ``_rows`` functions): every request
 row has its own flow key and enters the shared schedule at its own step,
@@ -22,7 +26,8 @@ kernel (``fused_fn``).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -30,6 +35,11 @@ import torch
 from repro_torch import prng
 from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
+
+
+class SamplerStats(NamedTuple):
+    nfe: int                # backbone evaluations actually taken
+    final_t: float
 
 
 def euler_step_probs(logits: torch.Tensor, x_t: torch.Tensor, t: torch.Tensor,
@@ -210,16 +220,43 @@ def scan_refine_loop_rows(logits_fn: Callable[[torch.Tensor, torch.Tensor], torc
 def make_euler_one_step(path: WarmStartPath, *, temperature: float = 1.0,
                         step_fn: Optional[Callable] = None):
     """The single Euler update ``(rng, logits, x_t, t, h) -> x_next``:
-    probability update + categorical draw, or ``step_fn`` (the fused
-    ``ws_step`` kernel) when given."""
+    ``step_fn`` when given, else the probability update and a categorical
+    draw with ``jax.random.gumbel(rng, logits.shape)``'s noise.
+
+    That default runs as ``euler_step_probs`` + ``categorical_from_probs``
+    for CPU logits; for CUDA logits it is :func:`gumbel_step`, which draws
+    the same noise with torch ops (JAX draws it in XLA) and launches the
+    ``ws_step_gumbel`` kernel, which computes the same score."""
     if step_fn is not None:
         return step_fn
 
     def one_step(rng, logits, x_t, t, h):
-        probs = euler_step_probs(logits, x_t, t, h, path, temperature=temperature)
-        return categorical_from_probs(rng, probs)
+        if logits.device.type == "cpu":
+            probs = euler_step_probs(logits, x_t, t, h, path, temperature=temperature)
+            return categorical_from_probs(rng, probs)
+        return gumbel_step(rng, logits, x_t, t, h, path, temperature=temperature)
 
     return one_step
+
+
+def gumbel_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
+                path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
+    """The default Euler step through ``ws_step_gumbel``: the noise of
+    ``categorical_from_probs`` (``jax.random.gumbel(rng, logits.shape)``)
+    and ``a = clip(h * velocity_scale(t), 0, 1)`` per batch row, on the
+    flattened ``(B * N, V)`` rows. Tokens shaped like ``x_t``."""
+    # imported here, as in make_euler_one_step_rows (import cycle)
+    from repro_torch.kernels.ws_step.ops import ws_step_gumbel
+
+    v = logits.shape[-1]
+    g = prng.gumbel(rng, logits.shape, device=logits.device).reshape(-1, v)
+    a = torch.clamp(torch.as_tensor(h, dtype=torch.float32, device=logits.device)
+                    * path.velocity_scale(t), 0.0, 1.0)
+    a = a.reshape(a.shape + (1,) * (x_t.ndim - a.ndim)).expand(x_t.shape).reshape(-1, 1)
+    # one warp per row on the card: any row count, so no row block to divide
+    out = ws_step_gumbel(logits.reshape(-1, v), x_t.reshape(-1, 1), a, g, valid_v=v,
+                         row_block=1, temperature=temperature)
+    return out.reshape(x_t.shape)
 
 
 def refine_loop_inputs(rng: torch.Tensor, t0: float, h: float, n: int, *, device=None):
@@ -281,3 +318,91 @@ def scan_refine_loop(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Ten
         else:
             x = one_step(keys[i], logits, x, tb, hs[i])
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class EulerSampler:
+    """Fixed-step Euler CTMC sampler over ``t in [path.t0, 1]``.
+
+    Attributes:
+      path: probability path (carries t0).
+      num_steps: steps the *cold-start* sampler takes over [0, 1]; the
+        warm-start sampler takes ``ceil(num_steps * (1 - t0))`` of the same
+        size, the paper's guaranteed reduction.
+      temperature: softmax temperature on v_theta.
+      argmax_final: the last step takes argmax(p1) instead of a draw.
+      step_fn: replacement for the default step (:func:`make_euler_one_step`),
+        signature ``(rng, logits, x_t, t, h) -> x_next``.
+      fused_block: K > 1 runs the loop in blocks of K draws against one
+        backbone evaluation, through the ``ws_fused`` kernel; backbone
+        evaluations drop to ceil(nfe / K). Opt-in; 1 is the paper's loop.
+      jit: accepted for the JAX signature; the loop runs eagerly whatever
+        its value (capturing it in a CUDA graph is later work).
+    """
+
+    path: WarmStartPath
+    num_steps: int = 20
+    temperature: float = 1.0
+    argmax_final: bool = False
+    step_fn: Optional[Callable] = None
+    fused_block: int = 1
+    jit: bool = True
+
+    @property
+    def h(self) -> float:
+        return 1.0 / self.num_steps
+
+    @property
+    def nfe(self) -> int:
+        """Guaranteed function-evaluation count (see guarantees.py)."""
+        return self.path.num_steps(self.h)
+
+    @property
+    def backbone_evals(self) -> int:
+        """Backbone evaluations actually run (<= nfe; fused blocks share one
+        evaluation among ``fused_block`` draws)."""
+        if self.fused_block <= 1:
+            return self.nfe
+        nf = self.nfe - 1 if self.argmax_final else self.nfe
+        evals = -(-nf // self.fused_block) if nf > 0 else 0
+        return evals + (1 if self.argmax_final else 0)
+
+    def sample(self, rng: torch.Tensor, model_fn: Callable[[torch.Tensor, torch.Tensor],
+                                                           torch.Tensor],
+               x_init: torch.Tensor):
+        """Run the sampler on ``x_init``'s device.
+
+        Args:
+          rng: PRNG key ``(2,)`` (``repro_torch.prng``).
+          model_fn: ``(tokens (B,N), t (B,)) -> logits (B,N,V)``.
+          x_init: (B, N) int32: drafts at ``t = t0`` or noise at ``t = 0``.
+        Returns:
+          (x_final, SamplerStats)
+        """
+        keys, ts, hs = refine_loop_inputs(rng, self.path.t0, self.h, self.nfe,
+                                          device=x_init.device)
+        one_step = make_euler_one_step(self.path, temperature=self.temperature,
+                                       step_fn=self.step_fn)
+        fused_fn = None
+        if self.fused_block > 1:
+            from repro_torch.kernels.ws_fused import make_ws_fused_fn
+            fused_fn = make_ws_fused_fn(self.path, temperature=self.temperature)
+        with torch.no_grad():
+            x = scan_refine_loop(model_fn, one_step, x_init, keys, ts, hs,
+                                 argmax_final=self.argmax_final,
+                                 fused_block=self.fused_block, fused_fn=fused_fn)
+        return x, SamplerStats(nfe=self.backbone_evals, final_t=1.0)
+
+
+def make_refine_step(apply_fn: Callable, path: WarmStartPath, *, temperature: float = 1.0,
+                     step_fn: Optional[Callable] = None):
+    """One DFM refine step ``f(params, rng, x_t (B,N), t (B,), h) -> x_next``:
+    ``apply_fn(params, x_t, t)`` and the Euler update of
+    :func:`make_euler_one_step`."""
+    one_step = make_euler_one_step(path, temperature=temperature, step_fn=step_fn)
+
+    def refine_step(params, rng, x_t, t, h):
+        logits = apply_fn(params, x_t, t)
+        return one_step(rng, logits, x_t, t, h)
+
+    return refine_step

@@ -12,8 +12,17 @@
 // jax.random.gumbel(key_b, (N, V)), so a request's draw depends on its own
 // key alone, wherever it sits in the batch.
 //
-// The draw itself (ws_common.cuh draw_row) is the one ws_fused.cu runs K
-// times, so the two kernels agree bit for bit. One warp per row, lanes
+// ws_step_gumbel_kernel replaces the TPU kernel ws_step_pallas /
+// _ws_step_kernel (same file): the Euler step with its Gumbel noise drawn
+// beforehand into an (R, Vp) array (as jax.random.gumbel draws it in XLA for
+// the JAX package's default step, euler_step_probs + categorical_from_probs),
+// scored in probability space over the first valid_v columns:
+//   x' = argmax_v log(max((1 - a) [v == x] + a softmax(lg / T)_v, 1e-30)) + g_v.
+// That score is a different floating-point function from draw_row's streamed
+// decomposition, so it has its own three passes (max, sum, score + argmax).
+//
+// The draw of ws_step_kernel and ws_step_rows_kernel (ws_common.cuh
+// draw_row) is the one ws_fused.cu runs K times, so those agree bit for bit. One warp per row, lanes
 // stride the columns, so any V (27, 50257, 262144) runs without padding.
 // Build without --use_fast_math: logf must be the accurate one for the
 // Gumbel noise to match the plain version.
@@ -24,6 +33,11 @@
 // operations, so at V = 27 the float rate bounds it (0.37 us at R = 8192)
 // and the launch itself dominates; a CUDA graph of the refine loop is the
 // tool for that, later.
+//
+// ws_step_gumbel reads the noise as well: 8 bytes an element, plus 12 a
+// row, and about 20 operations an element (a division, expf, logf, the
+// mixing and the compares), so the bytes bound it (0.56 us at R = 8192,
+// V = 27); it too is launch-bound at that size.
 
 #include "ws_common.cuh"
 
@@ -63,6 +77,62 @@ __global__ void ws_step_rows_kernel(const float* __restrict__ logits,
   if (lane == 0) out[row] = next;
 }
 
+// logits, gumbel: (rows, vp); x, a, out: (rows,). Columns >= valid_v are
+// never read and never win (their score is -1e30 in the TPU kernel).
+__global__ void ws_step_gumbel_kernel(const float* __restrict__ logits,
+                                      const int32_t* __restrict__ x,
+                                      const float* __restrict__ a,
+                                      const float* __restrict__ gumbel,
+                                      int32_t* __restrict__ out, int rows, int vp, int valid_v,
+                                      float temperature) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * wsfm::kWarpsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;  // the whole warp leaves together
+  const float* lg = logits + static_cast<size_t>(row) * vp;
+  const float* g = gumbel + static_cast<size_t>(row) * vp;
+
+  // pass 1: max of lg / T (a max is exact in any order)
+  float m = wsfm::kNeg;
+  for (int v = lane; v < valid_v; v += 32) m = fmaxf(m, lg[v] / temperature);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+
+  // pass 2: s = sum of exp(lg / T - m); a xor butterfly leaves the same sum
+  // in every lane (each pair adds the same two values)
+  float s = 0.0f;
+  for (int v = lane; v < valid_v; v += 32)
+    s = __fadd_rn(s, expf(__fsub_rn(lg[v] / temperature, m)));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+
+  // pass 3: the score and its first argmax; every rounding as the plain
+  // version's separate operations take it (no contraction into an FMA)
+  const int xr = x[row];
+  const float ar = a[row];
+  const float keep = __fsub_rn(1.0f, ar);
+  float best = __int_as_float(static_cast<int>(0xff800000u));  // -inf
+  int bidx = valid_v;
+  for (int v = lane; v < valid_v; v += 32) {
+    const float p1 = __fdiv_rn(expf(__fsub_rn(lg[v] / temperature, m)), s);
+    const float probs = __fadd_rn(__fmul_rn(keep, v == xr ? 1.0f : 0.0f), __fmul_rn(ar, p1));
+    const float score = __fadd_rn(logf(fmaxf(probs, wsfm::kMinProb)), g[v]);
+    if (score > best) {  // strict: a lane's earlier column wins a tie
+      best = score;
+      bidx = v;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+    if (ob > best || (ob == best && oi < bidx)) {  // ties go to the lower column
+      best = ob;
+      bidx = oi;
+    }
+  }
+  if (lane == 0) out[row] = bidx;
+}
+
 int blocks_for(int rows) { return (rows + wsfm::kWarpsPerBlock - 1) / wsfm::kWarpsPerBlock; }
 
 }  // namespace
@@ -89,6 +159,19 @@ extern "C" int ws_step_rows_launch(const void* logits, const void* x, const void
       static_cast<const float*>(logits), static_cast<const int32_t*>(x),
       static_cast<const float*>(a), static_cast<const int64_t*>(keys),
       static_cast<int32_t*>(out), rows, vocab, group, temperature);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ws_step_gumbel_launch(const void* logits, const void* x, const void* a,
+                                     const void* gumbel, void* out, int rows, int vp,
+                                     int valid_v, float temperature, void* stream) {
+  if (rows <= 0 || vp <= 0 || valid_v <= 0 || valid_v > vp)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ws_step_gumbel_kernel<<<blocks_for(rows), wsfm::kWarpsPerBlock * 32, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),
+      static_cast<const float*>(a), static_cast<const float*>(gumbel),
+      static_cast<int32_t*>(out), rows, vp, valid_v, temperature);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 """KV-cached autoregressive draft engine (port of the JAX package's
-``drafting/ar_engine.py``: ``TransformerDraftAdapter``, ``ARDraftEngine``,
-``DraftEngineStats``).
+``drafting/ar_engine.py``: ``TransformerDraftAdapter``, ``LSTMDraftAdapter``,
+``ARDraftEngine``, ``DraftEngineStats``).
 
 The paper's draft stage: a causal transformer drafts ``seq_len`` tokens per
-row after a shared prompt, from a preallocated ``max_len`` KV cache.
+row after a shared prompt, from a preallocated ``max_len`` KV cache; or the
+paper's LSTM (§4.2), whose "cache" is its recurrent state.
 
 * **prefill + decode** — the prompt is consumed by one batched call
   ("batched") or token by token ("scan"); then ``seq_len`` tokens are
@@ -13,7 +14,9 @@ row after a shared prompt, from a preallocated ``max_len`` KV cache.
 * **prefix reuse** — the post-prefill cache is pooled per row count;
   a call with the same rows and prompt skips the prefill and just rewinds
   the cache cursors to the prompt length (KV rows past it are masked by
-  cache validity, so the previous call's tokens never leak).
+  cache validity, so the previous call's tokens never leak). A recurrent
+  adapter (``positional = False``) keeps the post-prefill state itself: its
+  steps make new tensors and never write the snapshot.
 * **in place** — the cache buffers are written in place where the JAX
   engine donates them; a pooled cache is handed to the next decode and
   re-pooled afterwards.
@@ -29,8 +32,11 @@ engine equals the cache-free full-recompute oracle bitwise. With
 runs through the batch-invariant ``draft_decode`` kernels, so the batched
 prefill equals the scan bitwise and is the default.
 
-Only positional (KV-cache) adapters exist in the port; the JAX package's
-``LSTMDraftAdapter`` (a recurrent-state substrate) is not ported.
+Adapter contract: ``device``, ``init_cache(batch, max_len)``,
+``decode_step(tok (B,), cache, pos) -> (logits (B, V), cache)``,
+``prefill_batched(toks (B, S), cache)``, ``positional`` (cursors in the
+cache, rewound by ``set_pos``) and ``exact_batched_prefill``. The adapter
+holds its model's parameters.
 """
 
 from __future__ import annotations
@@ -98,6 +104,10 @@ class TransformerDraftAdapter:
         """True when ``prefill_batched`` is bit-identical to scanning."""
         return self._decoder is not None
 
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
     def init_cache(self, batch: int, max_len: int) -> dict:
         return self.model.init_cache(batch, max_len, self.cache_dtype)
 
@@ -129,6 +139,47 @@ class TransformerDraftAdapter:
                 for group in ("blocks", "rem", "pre")}
 
 
+@dataclasses.dataclass(frozen=True)
+class LSTMDraftAdapter:
+    """``LSTMModel`` (the paper's §4.2 text draft) with its ``params`` as
+    draft substrate.
+
+    The "cache" is the recurrent state stacked ``(layers, B, hidden)`` for h
+    and c. Stepping is single-token by nature, so prefill and decode share
+    one code path and the oracle equivalence is exact by construction.
+    """
+
+    model: Any                       # repro_torch.models.LSTMModel
+    params: Any                      # its parameter tree
+
+    positional = False
+    # recurrent stepping IS the batched prefill: bit-exact by construction
+    exact_batched_prefill = True
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["embed"]["table"].device
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        cfg = self.model.cfg
+        z = torch.zeros((cfg.num_layers, batch, cfg.hidden), dtype=torch.float32,
+                        device=self.device)
+        return {"h": z, "c": z}
+
+    @torch.no_grad()
+    def decode_step(self, tok: torch.Tensor, cache: dict, pos) -> Tuple[torch.Tensor, dict]:
+        state = [(cache["h"][i], cache["c"][i]) for i in range(self.model.cfg.num_layers)]
+        logits, state = self.model.step(self.params, tok, state)
+        return logits.float(), {"h": torch.stack([h for h, _ in state]),
+                                "c": torch.stack([c for _, c in state])}
+
+    def prefill_batched(self, toks: torch.Tensor, cache: dict) -> Tuple[torch.Tensor, dict]:
+        logits = None
+        for j in range(toks.shape[1]):
+            logits, cache = self.decode_step(toks[:, j], cache, j)
+        return logits, cache
+
+
 @dataclasses.dataclass
 class DraftEngineStats:
     """Lifetime counters (prefill skips are the cache-reuse win)."""
@@ -156,7 +207,7 @@ class ARDraftEngine:
     scheduler's draft contract: row ``b`` depends only on ``keys[b]``.
 
     Args:
-      adapter: a positional adapter (:class:`TransformerDraftAdapter`).
+      adapter: :class:`TransformerDraftAdapter` or :class:`LSTMDraftAdapter`.
       max_len: cache capacity; must cover ``prefix_len + seq_len - 1`` of
         the largest request served.
       temperature: sampling temperature.
@@ -168,8 +219,6 @@ class ARDraftEngine:
 
     def __init__(self, adapter, *, max_len: int, temperature: float = 1.0, bos: int = 0,
                  prefill_mode: Optional[str] = None):
-        if not getattr(adapter, "positional", False):
-            raise ValueError("the port's engine takes positional (KV-cache) adapters only")
         if prefill_mode is None:
             prefill_mode = ("batched" if getattr(adapter, "exact_batched_prefill", False)
                             else "scan")
@@ -185,7 +234,7 @@ class ARDraftEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.adapter.model.device
+        return self.adapter.device
 
     # ---- phases ----------------------------------------------------------
 
@@ -220,20 +269,26 @@ class ARDraftEngine:
 
     def _prefix_cache(self, b: int, prompt: torch.Tensor, key) -> Tuple[dict, torch.Tensor]:
         """Post-prefill (cache, logits0): reused when the pool holds this
-        (rows, prefix), else recomputed into the pooled buffer (rewound to
-        0) or a new one. The entry is popped: its buffer goes to the decode
-        and ``generate_rows`` pools it again afterwards, so a failure in
-        between leaves no half-used cache in the pool."""
-        entry = self._pool.pop(b, None)
+        (rows, prefix), else recomputed.
+
+        Positional adapters: the entry is popped and its buffer (rewound to
+        0) recomputed in place; it goes to the decode and ``generate_rows``
+        pools it again afterwards, so a failure in between leaves no
+        half-used cache in the pool. Recurrent adapters: the entry stays
+        pooled, since decoding never writes it."""
+        positional = self.adapter.positional
+        entry = self._pool.pop(b, None) if positional else self._pool.get(b)
         if entry is not None and entry.prefix_key == key:
             self.stats.prefill_reuses += 1
             return entry.snapshot, entry.logits0
-        if entry is not None:
+        if entry is not None and positional:
             cache = self.adapter.set_pos(entry.snapshot, 0)
         else:
             cache = self.adapter.init_cache(b, self.max_len)
         logits0, cache = self._prefill(cache, prompt)
         self.stats.prefill_computes += 1
+        if not positional:
+            self._pool[b] = _PoolEntry(key, cache, logits0)
         return cache, logits0
 
     # ---- generation ----------------------------------------------------------
@@ -267,10 +322,11 @@ class ARDraftEngine:
                              f"max_len={self.max_len}")
         fp = self._fingerprint(prompt)
         cache, logits0 = self._prefix_cache(b, prompt, fp)
-        # the prefix KV rows < p are never overwritten, so a cursor rewind
-        # afterwards restores the post-prefill cache with no copy
         toks, cache = self._decode(cache, logits0, keys, p, int(seq_len))
-        self._pool[b] = _PoolEntry(fp, self.adapter.set_pos(cache, p), logits0)
+        if self.adapter.positional:
+            # the prefix KV rows < p are never overwritten, so a cursor
+            # rewind restores the post-prefill cache with no copy
+            self._pool[b] = _PoolEntry(fp, self.adapter.set_pos(cache, p), logits0)
         self.stats.decode_dispatches += 1
         self.stats.tokens_generated += b * seq_len
         return toks

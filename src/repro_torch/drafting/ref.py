@@ -31,7 +31,7 @@ def oracle_generate_rows(adapter, keys: torch.Tensor, seq_len: int, *,
     same row-keyed sampling rule ``fold_in(keys[b], i)``)."""
     keys = prng.key_data(keys)
     b = keys.shape[0]
-    device = adapter.model.device
+    device = adapter.device
     if prompt is None:
         prompt = torch.full((b, 1), bos, dtype=torch.int32)
     toks = torch.as_tensor(prompt).to(device=device, dtype=torch.int32)

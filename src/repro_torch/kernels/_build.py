@@ -47,6 +47,8 @@ _SIGNATURES = {
     "ws_step_launch": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _P],
     # logits, x, a (B,), keys (B, 2) int64, out, rows, vocab, group (N), temperature, stream
     "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # logits, x, a, gumbel, out, rows, padded vocab, valid vocab, temperature, stream
+    "ws_step_gumbel_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,
     # steps, key_group, a_group, temperature, stream
     "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _P],

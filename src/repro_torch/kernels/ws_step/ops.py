@@ -15,11 +15,18 @@ key per request row, ``prng``'s int64 key words), ``logits (B, N, V)``,
 ``jax.random.gumbel(keys[b], (N, V))``, as the JAX package draws it in
 XLA. A CUDA tensor launches ``ws_step_rows_kernel`` (same file, same
 draw); a CPU tensor takes :func:`ws_step_rows_ref`.
+
+``ws_step_gumbel(logits, x_t, a, gumbel, valid_v=...)`` wraps the port of
+the TPU kernel ``ws_step_pallas``: the step with its Gumbel noise given,
+scored in probability space. It is the default Euler step of
+``core.sampler.make_euler_one_step`` on the card, and ``ws_step``'s
+``impl="reference"``. A CUDA tensor launches ``ws_step_gumbel_kernel``
+(or raises); a CPU tensor takes :func:`ws_step_gumbel_ref`.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,7 +34,9 @@ from repro_torch import prng
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
-from repro_torch.kernels.ws_step.ref import ws_step_ref_streamed, ws_step_rows_ref
+from repro_torch.kernels.ws_step.ref import (
+    ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows_ref,
+)
 
 
 def seed_from_key(rng: torch.Tensor) -> Tuple[int, int]:
@@ -37,8 +46,14 @@ def seed_from_key(rng: torch.Tensor) -> Tuple[int, int]:
 
 
 def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
-            path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
-    """Fused next-token draw for one Euler step; tokens shaped like ``x_t``."""
+            path: WarmStartPath, *, temperature: float = 1.0,
+            impl: Optional[str] = None) -> torch.Tensor:
+    """Fused next-token draw for one Euler step; tokens shaped like ``x_t``.
+
+    ``impl``: None, "auto" or "streamed" run the streamed step with the
+    counter noise; "reference" draws ``jax.random.gumbel(rng, (R, V))``'s
+    noise and runs :func:`ws_step_gumbel` on it (the JAX dispatcher's
+    reference path)."""
     if logits.ndim == 3:
         b, n, v = logits.shape
         r = b * n
@@ -54,6 +69,13 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
         raise ValueError(f"logits must be (B, N, V) or (R, V), got {tuple(logits.shape)}")
     hh = torch.as_tensor(h, dtype=torch.float32, device=logits.device)
     a = torch.clamp(hh * path.velocity_scale(tt), 0.0, 1.0)
+    if impl == "reference":
+        g = prng.gumbel(rng, (r, v), device=logits.device)
+        out = ws_step_gumbel(lg, x.reshape(r, 1), a.reshape(r, 1), g, valid_v=v, row_block=1,
+                             temperature=temperature)
+        return out.reshape(x_t.shape)
+    if impl not in (None, "auto", "streamed"):
+        raise ValueError(f"unknown ws_step impl {impl!r}")
     seed = seed_from_key(rng)
 
     if logits.device.type == "cpu":
@@ -133,8 +155,10 @@ def _launch_rows(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, keys: torch
     _build.check(rc, "ws_step_rows")
 
 
-def make_ws_step_fn(path: WarmStartPath, *, temperature: float = 1.0, device="cuda"):
-    """``step_fn(rng, logits, x_t, t, h)`` for ``WarmStartServer(step_fn=...)``.
+def make_ws_step_fn(path: WarmStartPath, *, temperature: float = 1.0, device="cuda",
+                    impl: Optional[str] = None):
+    """``step_fn(rng, logits, x_t, t, h)`` for ``WarmStartServer(step_fn=...)``
+    or ``EulerSampler(step_fn=...)``; ``impl`` as in :func:`ws_step`.
 
     ``device`` is where the step will run (default the card, which raises
     without one); logits on another device raise."""
@@ -143,6 +167,59 @@ def make_ws_step_fn(path: WarmStartPath, *, temperature: float = 1.0, device="cu
     def step_fn(rng, logits, x_t, t, h):
         if logits.device.type != dev.type:
             raise ValueError(f"ws_step built for {dev}, got logits on {logits.device}")
-        return ws_step(rng, logits, x_t, t, h, path, temperature=temperature)
+        return ws_step(rng, logits, x_t, t, h, path, temperature=temperature, impl=impl)
 
     return step_fn
+
+
+def ws_step_gumbel(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                   gumbel: torch.Tensor, *, valid_v: int, row_block: int = 8,
+                   temperature: float = 1.0) -> torch.Tensor:
+    """The Euler step with its Gumbel noise given (the TPU kernel
+    ``ws_step_pallas``'s signature): ``logits (R, Vp)`` float32, ``x_t (R,
+    1)``, ``a (R, 1)`` float32 mixing weights, ``gumbel (R, Vp)`` float32;
+    the columns ``>= valid_v`` are padding. Returns ``(R, 1)`` int32.
+
+    ``R`` must be a multiple of ``row_block``, as the TPU kernel demands;
+    on the card one warp takes each row, so ``row_block`` changes nothing
+    else there."""
+    if logits.ndim != 2:
+        raise ValueError(f"logits must be (R, Vp), got {tuple(logits.shape)}")
+    r, vp = logits.shape
+    if tuple(x_t.shape) != (r, 1) or tuple(a.shape) != (r, 1):
+        raise ValueError(f"x_t and a must be (R, 1) = ({r}, 1), got {tuple(x_t.shape)} "
+                         f"and {tuple(a.shape)}")
+    if tuple(gumbel.shape) != (r, vp):
+        raise ValueError(f"gumbel must be (R, Vp) = ({r}, {vp}), got {tuple(gumbel.shape)}")
+    if row_block < 1 or r % row_block != 0:
+        raise ValueError(f"rows {r} must be a multiple of row_block {row_block}")
+    if not 0 < valid_v <= vp:
+        raise ValueError(f"valid_v must lie in [1, {vp}], got {valid_v}")
+    dev = logits.device
+    if dev.type == "cpu":
+        return ws_step_gumbel_ref(logits, x_t, a, gumbel, valid_v=valid_v,
+                                  temperature=temperature)
+    if dev.type != "cuda":
+        raise ValueError(f"ws_step_gumbel runs on cuda or cpu, got {dev}")
+    for name, arr in (("logits", logits), ("a", a), ("gumbel", gumbel)):
+        if arr.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {arr.dtype}")
+    if any(arr.device != dev for arr in (x_t, a, gumbel)):
+        raise ValueError(f"x_t, a and gumbel must lie on {dev} with the logits")
+    out = torch.empty((r, 1), dtype=torch.int32, device=dev)
+    _launch_gumbel(logits.contiguous(), x_t.to(torch.int32).contiguous(), a.contiguous(),
+                   gumbel.contiguous(), out, valid_v, temperature)
+    _build.count("ws_step_gumbel")
+    return out
+
+
+def _launch_gumbel(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, g: torch.Tensor,
+                   out: torch.Tensor, valid_v: int, temperature: float) -> None:
+    """One launch of ``ws_step_gumbel_kernel`` on checked CUDA tensors (no count)."""
+    r, vp = lg.shape
+    with torch.cuda.device(lg.device):
+        stream = torch.cuda.current_stream(lg.device).cuda_stream
+        rc = _build.library().ws_step_gumbel_launch(
+            lg.data_ptr(), x.data_ptr(), a.data_ptr(), g.data_ptr(), out.data_ptr(), r, vp,
+            valid_v, float(temperature), stream)
+    _build.check(rc, "ws_step_gumbel")

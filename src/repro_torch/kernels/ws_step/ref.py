@@ -17,6 +17,13 @@ two agree except on floating-point near-ties at the argmax boundary;
 package's ``make_euler_one_step_rows``): ``euler_step_probs`` and a Gumbel
 argmax whose noise for request row ``b`` is ``jax.random.gumbel(keys[b],
 (N, V))``.
+
+``ws_step_gumbel_ref`` is the plain version of the TPU kernel
+``ws_step_pallas`` (``_ws_step_kernel``): the probability-space score with
+Gumbel noise drawn beforehand, over the first ``valid_v`` of ``Vp``
+columns. :func:`near_tie_rows_probs` names its near-tie rows: that score
+is a different floating-point function from the streamed decomposition
+that :func:`near_tie_rows` measures.
 """
 
 from __future__ import annotations
@@ -88,3 +95,42 @@ def near_tie_rows(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
         return keep_vs_move
     top2 = cand.topk(2, dim=-1).values
     return keep_vs_move | ((top2[:, 0] - top2[:, 1]) <= tol)
+
+
+def _probs_scores(logits, x_t, a, gumbel, valid_v, temperature):
+    """``log(max(probs, 1e-30)) + g`` over ``(R, Vp)``, the columns
+    ``>= valid_v`` at ``NEG``, as ``_ws_step_kernel`` forms it."""
+    vp = logits.shape[-1]
+    valid = torch.arange(vp, device=logits.device) < valid_v
+    lg = torch.where(valid, logits.float() / temperature, NEG)
+    m = lg.max(dim=-1, keepdim=True).values
+    e = torch.exp(lg - m)
+    p1 = e / e.sum(dim=-1, keepdim=True)
+    onehot = (torch.arange(vp, device=logits.device) == x_t.reshape(-1, 1)).float()
+    aa = a.float().reshape(-1, 1)
+    probs = (1.0 - aa) * onehot + aa * p1
+    score = torch.log(torch.clamp_min(probs, MIN_PROB)) + gumbel
+    return torch.where(valid, score, NEG)
+
+
+def ws_step_gumbel_ref(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                       gumbel: torch.Tensor, *, valid_v: int,
+                       temperature: float = 1.0) -> torch.Tensor:
+    """``logits (R, Vp)``, ``x_t (R, 1)``, ``a (R, 1)``, ``gumbel (R, Vp)`` ->
+    ``(R, 1)`` int32: the first argmax of the probability-space score over
+    the valid columns."""
+    score = _probs_scores(logits, x_t, a, gumbel, valid_v, temperature)
+    return torch.argmax(score, dim=-1, keepdim=True).to(torch.int32)
+
+
+def near_tie_rows_probs(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
+                        gumbel: torch.Tensor, *, valid_v: int, temperature: float = 1.0,
+                        tol: float = 1e-5) -> torch.Tensor:
+    """``(R,)`` bool: rows whose best two probability-space scores lie
+    within ``tol``. Two correct implementations of ``ws_step_gumbel`` that
+    sum the softmax in different orders may disagree there, and only there."""
+    score = _probs_scores(logits, x_t, a, gumbel, valid_v, temperature)
+    if valid_v < 2:
+        return torch.zeros(score.shape[0], dtype=torch.bool, device=score.device)
+    top2 = score.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) <= tol

@@ -124,9 +124,15 @@ def random_bits(keys: torch.Tensor, shape: Sequence[int], device=None) -> torch.
     if n >= 1 << 32:
         raise NotImplementedError("random bits arrays of 2**32 elements or more")
     device = keys.device if device is None else torch.device(device)
+    ctr = torch.arange(n, dtype=torch.int64, device=device)
+    if keys.shape == (2,) and keys.device.type == "cpu":
+        # one host key: its words enter the hash as integers, with no copy to
+        # ``device`` (a blocking host-to-card copy waits for the stream: once
+        # per refine step on the default Euler step)
+        x0, x1 = threefry2x32(int(keys[0]), int(keys[1]), 0, ctr)
+        return (x0 ^ x1).reshape(shape)
     keys = keys.to(device)
     lead = keys.shape[:-1]
-    ctr = torch.arange(n, dtype=torch.int64, device=device)
     k0 = keys[..., 0].reshape(lead + (1,))
     k1 = keys[..., 1].reshape(lead + (1,))
     x0, x1 = threefry2x32(k0, k1, 0, ctr)

@@ -14,7 +14,7 @@ from repro_torch.serving.drafts import (
 )
 from repro_torch.serving.engine import (
     DispatchFailure, DispatchRetryPolicy, PerNFECostModel, WarmStartServer,
-    ar_generate, make_prefill_fn, make_serve_step,
+    ar_generate, make_prefill_fn, make_refine_step_fn, make_serve_step,
 )
 from repro_torch.serving.scheduler import (
     DEFAULT_CLASS_SLO_FACTOR, AdmissionQueue, CompletedRequest, QueueClosed,
@@ -22,7 +22,8 @@ from repro_torch.serving.scheduler import (
 )
 
 __all__ = [
-    "WarmStartServer", "ar_generate", "make_prefill_fn", "make_serve_step",
+    "WarmStartServer", "ar_generate", "make_prefill_fn", "make_refine_step_fn",
+    "make_serve_step",
     "PerNFECostModel", "DispatchFailure", "DispatchRetryPolicy",
     "ServeRequest", "MicroBatch", "RowSpan", "bucket_seq_len", "pad_rows",
     "pack_requests", "t0_bin", "usable_rows", "split_request",

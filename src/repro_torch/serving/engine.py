@@ -1,14 +1,14 @@
 """The one-shot warm-start generation engine (port of ``WarmStartServer``,
 ``PerNFECostModel``, ``DispatchFailure``, ``DispatchRetryPolicy``,
-``make_serve_step``, ``make_prefill_fn`` and ``ar_generate`` of the JAX
-package's ``serving/engine.py``).
+``make_serve_step``, ``make_prefill_fn``, ``make_refine_step_fn`` and
+``ar_generate`` of the JAX package's ``serving/engine.py``).
 
 ``WarmStartServer.serve`` runs the paper's Fig. 1 generation: a draft at
 ``t0``, then exactly ``warm_nfe(cold_nfe, t0)`` Euler refine steps of the
 DFM backbone, then the NFE guarantee gate. With
 ``step_fn=make_ws_step_fn(path)`` every step is one ``ws_step`` kernel
-launch, and every backbone evaluation runs its attention through the
-``flash_attn`` kernel; with ``fused_block = K > 1`` each backbone
+launch (with no ``step_fn``, one ``ws_step_gumbel`` launch), and every
+backbone evaluation runs its attention through the ``flash_attn`` kernel; with ``fused_block = K > 1`` each backbone
 evaluation feeds K draws in one ``ws_fused`` launch. The refine loop is a Python loop of eager launches
 (the JAX engine jits it into one dispatch; a CUDA graph is the port's
 counterpart, not built yet).
@@ -193,6 +193,23 @@ def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, 
         tok, _, cache = serve_step(sub, tok, cache, i)
         out.append(tok[:, 0])
     return torch.stack(out, dim=1)
+
+
+def make_refine_step_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
+                        temperature: float = 1.0, step_fn: Optional[Callable] = None,
+                        extras: Optional[dict] = None) -> Callable:
+    """One DFM Euler refine step over the full sequence, the flow stage's
+    unit: ``refine_step(rng, x_t (B,N), t (B,), h) -> x_next``. ``model``
+    holds its weights, so the step takes no ``params``."""
+    if cfg.is_encoder_decoder or extras:
+        raise NotImplementedError("make_refine_step_fn: extra inputs are not ported")
+    one_step = make_euler_one_step(path, temperature=temperature, step_fn=step_fn)
+
+    def refine_step(rng, x_t, t, h):
+        logits = model.dfm_apply(x_t, t)
+        return one_step(rng, logits, x_t, t, h)
+
+    return refine_step
 
 
 def _sync(device: torch.device) -> None:

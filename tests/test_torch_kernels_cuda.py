@@ -25,8 +25,10 @@ from repro_torch.models import Model
 from repro_torch.kernels.ws_fused import ws_fused_ref, ws_fused_steps
 from repro_torch.kernels.ws_fused.ops import fused_inputs
 from repro_torch.kernels.ws_step import (
-    near_tie_rows, seed_from_key, ws_step, ws_step_ref_streamed, ws_step_rows, ws_step_rows_ref,
+    near_tie_rows, near_tie_rows_probs, seed_from_key, ws_step, ws_step_gumbel,
+    ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows, ws_step_rows_ref,
 )
+from repro_torch.models import LSTMConfig, LSTMModel
 
 pytestmark = pytest.mark.cuda
 
@@ -301,3 +303,40 @@ def test_ws_fused_and_rows_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="float32"):
         ws_fused_steps(keys, logits.half(), x, torch.zeros(2, device=card),
                        torch.zeros(2, device=card), path)
+
+
+@pytest.mark.parametrize("r,vp,valid_v,temperature", [(8192, 27, 27, 1.0), (13, 640, 517, 0.7)])
+def test_ws_step_gumbel_kernel_matches_plain(card, r, vp, valid_v, temperature):
+    """The second case pads 517 columns to 640 with values that would win
+    every row if the kernel read them; 13 rows, no row block."""
+    rng = np.random.default_rng(r + vp)
+    logits = np.full((r, vp), 60.0, np.float32)
+    logits[:, :valid_v] = 3 * rng.standard_normal((r, valid_v))
+    x = rng.integers(0, valid_v, (r, 1)).astype(np.int32)
+    a = rng.uniform(size=(r, 1)).astype(np.float32)
+    a[0] = 0.0
+    g = rng.gumbel(size=(r, vp)).astype(np.float32)
+    args = [torch.from_numpy(z).to(card) for z in (logits, x, a, g)]
+    before = launches["ws_step_gumbel"]
+    got = ws_step_gumbel(*args, valid_v=valid_v, row_block=1, temperature=temperature)
+    assert launches["ws_step_gumbel"] == before + 1
+    want = ws_step_gumbel_ref(*args, valid_v=valid_v, temperature=temperature)
+    ties = near_tie_rows_probs(*args, valid_v=valid_v, temperature=temperature, tol=1e-5)
+    assert got.shape == (r, 1) and got.dtype == torch.int32
+    assert not bool(((got != want)[:, 0] & ~ties).any())
+    assert int(got[0, 0]) == int(x[0, 0]) and int(got.max()) < valid_v
+    with pytest.raises(ValueError):
+        ws_step_gumbel(*args, valid_v=valid_v, row_block=2 if r % 2 else 3)
+
+
+def test_lstm_generate_on_card_equals_cpu(card):
+    model = LSTMModel(LSTMConfig(vocab_size=27, hidden=32, num_layers=2, embed_dim=16))
+    params = model.init(5, device="cpu")
+    on_card = {"embed": {"table": params["embed"]["table"].to(card)},
+               "layers": [{k: {"w": lp[k]["w"].to(card)} for k in ("wx", "wh")}
+                          for lp in params["layers"]],
+               "head": {"w": params["head"]["w"].to(card)}}
+    got = model.generate(on_card, prng.key(9), 4, 16)
+    want = model.generate(params, prng.key(9), 4, 16)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
