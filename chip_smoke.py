@@ -44,10 +44,12 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and float32
-# (non-tensor) operations/s, both at the full 700 W power limit.
+# H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s, float32 (non-tensor)
+# operations/s and dense TF32 tensor-core operations/s, all at the full
+# 700 W power limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 SEQ, NUM, COLD_NFE, T0, VOCAB = 256, 32, 64, 0.8, 27
 WS_TIE_TOL = 1e-5
@@ -116,8 +118,8 @@ def graph_ms(fn, n: int = 20, reps: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, nops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -256,23 +258,23 @@ def measure_ws_step_gumbel(r, v):
 
 # -- flash_attn ------------------------------------------------------------------
 
-def flash_inputs(b, s, h, kh, d, seed):
+def flash_inputs(b, s, h, kh, d, seed, t=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, h, d), generator=g, device="cuda")
-    k = torch.randn((b, s, kh, d), generator=g, device="cuda")
-    v = torch.randn((b, s, kh, d), generator=g, device="cuda")
+    k = torch.randn((b, t or s, kh, d), generator=g, device="cuda")
+    v = torch.randn((b, t or s, kh, d), generator=g, device="cuda")
     return q, k, v
 
 
-def check_flash(b, s, h, kh, d, causal, window, seed):
+def check_flash(b, s, h, kh, d, causal, window, seed, t=None):
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 
-    q, k, v = flash_inputs(b, s, h, kh, d, seed)
+    q, k, v = flash_inputs(b, s, h, kh, d, seed, t)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     err = float((got - want).abs().max())
-    print(f"flash_attn B={b} S={s} H={h} KH={kh} D={d} causal={causal} window={window}: "
-          f"max abs err {err:.3e} (limit {FLASH_TOL})")
+    print(f"flash_attn B={b} S={s} T={t or s} H={h} KH={kh} D={d} causal={causal} "
+          f"window={window}: max abs err {err:.3e} (limit {FLASH_TOL})")
     if not math.isfinite(err) or err > FLASH_TOL:
         fail(f"flash_attn kernel disagrees with its plain version: {err}")
     return err
@@ -290,9 +292,35 @@ def measure_flash(b, s, h, d):
     qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
     library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
     nbytes = 4 * b * s * h * d * 4
-    bms, by = bound_ms(nbytes, 4.0 * b * h * s * s * d)
+    nops = 4.0 * b * h * s * s * d
+    # the function's bound: its products at the fastest rate that float32
+    # inputs reach (TF32 on the tensor cores). For reference only, printed:
+    # the floor of this kernel's 3xTF32 split (three TF32 products each) and
+    # of a kernel on the CUDA cores.
+    bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S)
+    split_ms, split_by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
+    f32_ms, f32_by = bound_ms(nbytes, nops)
+    print(f"flash_attn at ({b}, {s}, {h}, {d}): {ms * 1e3:.1f} us device, "
+          f"{nops / ms * 1e-9:.1f} TFLOP/s of the products ({3 * nops / ms * 1e-9:.1f} TF32 "
+          f"TFLOP/s of 3xTF32); bound {bms * 1e3:.1f} us ({by}); computed floors for "
+          f"reference: 3xTF32 on the tensor cores {split_ms * 1e3:.1f} us ({split_by}), "
+          f"float32 on the CUDA cores {f32_ms * 1e3:.1f} us ({f32_by}); plain "
+          f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us")
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms}
+
+
+def spill_bytes(build_log: str) -> dict:
+    """Spill stores + loads that ``ptxas -v`` reports, by kernel function."""
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[-1].strip()
+        elif name is not None and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name] = nums[1] + nums[2]   # stack frame, spill stores, spill loads
+            name = None
+    return out
 
 
 # -- draft_decode ------------------------------------------------------------------
@@ -1445,6 +1473,11 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
+    flash_spills = {k: v for k, v in spill_bytes(_build.build_log).items()
+                    if "flash_attn_kernel" in k}
+    print(f"flash_attn_kernel spill bytes (D = 32, 64, 128): {sorted(flash_spills.values())}")
+    if len(flash_spills) != 3 or any(flash_spills.values()):
+        fail(f"flash_attn_kernel must build for D = 32, 64, 128 without spills: {flash_spills}")
     _build.library()
 
     ws_checks = [check_ws_step(8192, 27, 1.0, 0), check_ws_step(64, 50257, 1.0, 1),
@@ -1452,7 +1485,12 @@ def main() -> int:
     flash_errs = [check_flash(32, SEQ, 12, 12, 64, False, None, 0),
                   check_flash(2, 200, 8, 2, 64, True, None, 1),
                   check_flash(2, 300, 4, 4, 32, False, 37, 2),
-                  check_flash(1, 130, 4, 4, 128, True, 50, 3)]
+                  check_flash(1, 130, 4, 4, 128, True, 50, 3),
+                  check_flash(2, 100, 4, 4, 64, False, None, 4, t=300),   # S != T
+                  check_flash(2, 77, 8, 2, 64, True, None, 5),     # tail not a multiple of 16
+                  check_flash(2, SEQ, 4, 4, 128, False, None, 6),  # D = 128, bidirectional
+                  check_flash(2, SEQ, 4, 4, 64, False, 5, 7),      # band narrower than a tile
+                  check_flash(3, 1, 2, 1, 32, False, None, 8)]     # S = 1
     draft_errs = [check_draft_kernels(case, i) for i, case in enumerate(DRAFT_CASES)]
     rows_checks = [check_ws_step_rows(NUM, SEQ, VOCAB, 0), check_ws_step_rows(4, 16, 50257, 1)]
     fused_checks = [check_ws_fused(layout, k, v, 10 * k + i)

@@ -11,32 +11,64 @@
 // transpose or GQA copy runs around the kernel. Query head h reads KV
 // head h / (H / KH).
 //
-// Design. Grid (B * H, ceil(S / 64)); a block of 128 threads owns 64 query
-// rows, two threads a row. Each thread keeps its half of the query row
-// and of the output accumulator in registers, interleaved in float2 pairs
-// (thread p of a row owns dims 4i + 2p and 4i + 2p + 1), so the two
-// threads of a row read neighbouring shared-memory banks. The block walks
-// 64-row key/value tiles staged through shared memory; for each key the
-// two halves of the dot product meet with one __shfl_xor_sync, and the
-// online softmax (m, l, acc) is updated every 16 keys. All arithmetic is
-// float32 FMA on the CUDA cores; no tensor cores (wgmma/TMA is later work).
+// Bounds on an H100 SXM at the DiT's shape (B = 32, H = 12, S = T = 256,
+// D = 64). Bytes: 4 * 25.2 MB of q, k, v, o is 30 us at 3.35 TB/s. The two
+// products are 4 * B * H * S * T * D = 6.4 GFLOP: 13 us at the card's 495
+// TFLOP/s dense TF32 tensor-core rate, so the function is bound by bytes
+// (30 us), and 96 us at the 67 TFLOP/s float32 rate outside the tensor
+// cores, the bound of a CUDA-core kernel. The tensor cores take float32
+// only as TF32 (10 mantissa bits), which misses the 1e-4 contract by 5x,
+// so this kernel runs each product as three TF32 products (3xTF32:
+// a_lo b_hi + a_hi b_lo + a_hi b_hi, with hi = tf32(x), lo = x - hi):
+// 19.3 G TF32 operations, 39 us at 495 TFLOP/s, the floor of this design
+// rather than of the function.
 //
-// Bound on an H100 SXM at the DiT's shape (B = 32, H = 12, S = T = 256,
-// D = 64): 4 * 25.2 MB = 101 MB of q, k, v, o is 30 us at 3.35 TB/s; the
-// two products are 4 * B * H * S * T * D = 6.4 GFLOP, 96 us at the card's
-// 67 TFLOP/s float32 (non-tensor) rate. It is bound by operations. This
-// kernel does nothing yet to reach that rate beyond keeping q and the
-// accumulator in registers and k/v tiles in shared memory.
+// Design.
+// - Grid (B * H, ceil(S / 64)); 4 warps own 16 query rows each (the M of
+//   mma.sync.m16n8k8). Both products are mma.sync TF32 with the 3xTF32
+//   split and float32 accumulators; Q is split once into hi/lo A fragments
+//   (registers for D <= 64, re-split from shared memory for D = 128).
+// - K/V tiles of 32 keys are double-buffered in shared memory: the 16-byte
+//   cp.async copies of tile j + 1 (zero-filled past T) are in flight while
+//   tile j computes. Rows are padded to D + 4 floats, so the B-fragment
+//   loads of both products hit 32 distinct banks.
+// - The online softmax works on the Q.K^T accumulator fragment: each
+//   thread holds 2 rows x 2 columns of each 8-key block, the row max meets
+//   over the quad of 4 lanes with two shuffles, each exp is computed once.
+//   The per-element mask test runs only in tiles that cross a mask edge.
+// - P is fed to P.V from the accumulator fragment without a shuffle: the
+//   A fragment's column k = t stands for key 2t and k = t + 4 for key
+//   2t + 1, and the V fragment reads its rows in the same order (a sum
+//   over keys does not depend on their order).
+//
+// What holds it at about a quarter of the TF32 rate (chip_smoke.py, H100
+// SXM at 700 W: 0.142 ms at the DiT's shape) is the CUDA-core work around
+// each mma: every warp splits every K and V element it reads (3 integer
+// and float operations each), and the softmax's exps. 64-key tiles, 128
+// rows over 8 warps, Q in shared memory for every D and K/V split once per
+// tile into shared memory were each as fast or slower on that card.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 2 * kBlockQ;
-constexpr int kChunk = 16;
+constexpr int kBlockK = 32;  // keys per tile
+constexpr int kWarps = kBlockQ / 16;
+constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -2.3819763e38f;
+
+template <int D>
+struct Tiles {
+  static_assert(D % 8 == 0 && D <= 128, "head_dim must be a multiple of 8, at most 128");
+  static constexpr bool kQInRegs = D <= 64;           // else the registers spill
+  static constexpr int kLd = D + 4;                   // padded row, in floats
+  static constexpr int kQFloats = kBlockQ * kLd;
+  static constexpr int kKVFloats = kBlockK * kLd;
+  static constexpr size_t kSmemBytes = (kQFloats + 4 * kKVFloats) * sizeof(float);
+};
 
 __device__ __forceinline__ bool block_runs(int q_start, int k_start, int causal, int window) {
   if (causal) {
@@ -47,6 +79,16 @@ __device__ __forceinline__ bool block_runs(int q_start, int k_start, int causal,
   if (window > 0) {
     return (k_start + kBlockK - 1 > q_start - window) && (k_start < q_start + kBlockQ + window);
   }
+  return true;
+}
+
+// True when every (row, key) of the tile attends: no per-element mask.
+__device__ __forceinline__ bool tile_full(int q_start, int k_start, int T, int causal,
+                                          int window) {
+  const int q_last = q_start + kBlockQ - 1, k_last = k_start + kBlockK - 1;
+  if (k_last >= T) return false;
+  if (causal) return k_last <= q_start && (window <= 0 || k_start > q_last - window);
+  if (window > 0) return max(k_last - q_start, q_last - k_start) < window;
   return true;
 }
 
@@ -62,106 +104,260 @@ __device__ __forceinline__ bool attends(int qi, int ki, int seq_q, int seq_k, in
   return ok;
 }
 
+// cvt.rna.tf32.f32 (round to nearest, ties away from zero) done with two
+// integer operations: the same bits as the conversion instruction, which
+// is slower here.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// hi = tf32(x) and lo = x - hi (exact). The tensor core reads a TF32
+// operand's top 19 bits, so lo is passed as it is and truncated there
+// (CUTLASS's 3xTF32 rounds its small part toward zero the same way). That
+// costs at most 2^-21 |x| an operand, beside 2^-22 for the dropped
+// a_lo b_lo term, and saves a conversion on every operand.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a_lo b_hi + a_hi b_lo + a_hi b_hi; a_lo b_lo (~2^-22 relative) is dropped.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// ROWS rows of D floats, from row0 of a (rows, stride) matrix into a
+// padded shared tile; rows at or past n are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, size_t stride, int row0,
+                                          int n, int tid) {
+  constexpr int kVecs = D / 4;
+  static_assert(ROWS * kVecs % kThreads == 0, "a tile is a whole number of copies a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kVecs / kThreads; ++i) {
+    const int idx = tid + i * kThreads;
+    const int r = idx / kVecs, c = 4 * (idx % kVecs);
+    const int row = row0 + r;
+    const bool valid = row < n;
+    cp_async16(dst + r * (D + 4) + c, src + static_cast<size_t>(valid ? row : n - 1) * stride + c,
+               valid);
+  }
+}
+
+// The A fragment of rows 16 w + g (+ 8), columns 8 ks + t (+ 4), split.
+template <int LD>
+__device__ __forceinline__ void q_fragment(const float* qw, int ks, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  const float* p = qw + 8 * ks;
+  split(p[0], hi[0], lo[0]);
+  split(p[8 * LD], hi[1], lo[1]);
+  split(p[4], hi[2], lo[2]);
+  split(p[8 * LD + 4], hi[3], lo[3]);
+}
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int T, int H,
                   int KH, float scale, int causal, int window) {
-  static_assert(D % 4 == 0 && D <= 128, "head_dim must be a multiple of 4, at most 128");
-  constexpr int kPairs = D / 4;  // float2 pairs each thread owns
+  using Cfg = Tiles<D>;
+  constexpr int BK = kBlockK, LD = Cfg::kLd;
+  constexpr int kDSteps = D / 8;   // k-steps of Q.K^T, n-blocks of P.V
+  constexpr int kKSteps = BK / 8;  // n-blocks of Q.K^T, k-steps of P.V
+  constexpr int kQRegs = Cfg::kQInRegs ? kDSteps : 1;
   extern __shared__ float4 smem4[];
-  float* ks = reinterpret_cast<float*>(smem4);  // (kBlockK, D)
-  float* vs = ks + kBlockK * D;                 // (kBlockK, D)
+  float* qs = reinterpret_cast<float*>(smem4);  // (kBlockQ, LD)
+  float* ks = qs + Cfg::kQFloats;               // 2 x (BK, LD)
+  float* vs = ks + 2 * Cfg::kKVFloats;          // 2 x (BK, LD)
 
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KH);
   const int q_start = blockIdx.y * kBlockQ;
-  const int tid = threadIdx.x;
-  const int part = tid & 1;
-  const int qi = q_start + (tid >> 1);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;  // the fragment's group and thread in group
+  const int row = q_start + 16 * warp + g;  // this thread's rows: row, row + 8
 
-  float2 qr[kPairs], acc[kPairs];
-  {
-    const float* qrow = q + ((static_cast<size_t>(b) * S + min(qi, S - 1)) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      qr[i] = qi < S ? *reinterpret_cast<const float2*>(qrow + 4 * i + 2 * part)
-                     : make_float2(0.f, 0.f);
-      acc[i] = make_float2(0.f, 0.f);
-    }
-  }
-  float m = kNegInf, l = 0.f;
+  const size_t kv_stride = static_cast<size_t>(KH) * D;
+  const float* kbase = k + (static_cast<size_t>(b) * T * KH + kvh) * D;
+  const float* vbase = v + (static_cast<size_t>(b) * T * KH + kvh) * D;
 
-  const int num_k_blocks = (T + kBlockK - 1) / kBlockK;
+  // the key blocks that run form one interval
+  const int num_k_blocks = (T + BK - 1) / BK;
+  int kb_begin = num_k_blocks, kb_end = 0;
   for (int kb = 0; kb < num_k_blocks; ++kb) {
-    const int k_start = kb * kBlockK;
-    if (!block_runs(q_start, k_start, causal, window)) continue;  // uniform in the block
-    __syncthreads();
-    for (int idx = tid; idx < kBlockK * (D / 4); idx += kThreads) {
-      const int r = idx / (D / 4), c = 4 * (idx % (D / 4));
-      const int kj = k_start + r;
-      float4 kv4 = make_float4(0.f, 0.f, 0.f, 0.f), vv4 = kv4;
-      if (kj < T) {
-        const size_t off = ((static_cast<size_t>(b) * T + kj) * KH + kvh) * D + c;
-        kv4 = *reinterpret_cast<const float4*>(k + off);
-        vv4 = *reinterpret_cast<const float4*>(v + off);
-      }
-      *reinterpret_cast<float4*>(ks + r * D + c) = kv4;
-      *reinterpret_cast<float4*>(vs + r * D + c) = vv4;
-    }
-    __syncthreads();
-
-    for (int j0 = 0; j0 < kBlockK; j0 += kChunk) {
-      float sc[kChunk];
-      float m_cur = kNegInf;
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float* krow = ks + (j0 + jj) * D + 2 * part;
-        float dot = 0.f;
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-          const float2 kk = *reinterpret_cast<const float2*>(krow + 4 * i);
-          dot = fmaf(qr[i].x, kk.x, dot);
-          dot = fmaf(qr[i].y, kk.y, dot);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        const float s = attends(qi, k_start + j0 + jj, S, T, causal, window) ? dot * scale
-                                                                             : kNegInf;
-        sc[jj] = s;
-        m_cur = fmaxf(m_cur, s);
-      }
-      const float m_new = fmaxf(m, m_cur);
-      const float alpha = expf(m - m_new);
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < kPairs; ++i) {
-        acc[i].x *= alpha;
-        acc[i].y *= alpha;
-      }
-#pragma unroll
-      for (int jj = 0; jj < kChunk; ++jj) {
-        const float p = expf(sc[jj] - m_new);
-        l += p;
-        const float* vrow = vs + (j0 + jj) * D + 2 * part;
-#pragma unroll
-        for (int i = 0; i < kPairs; ++i) {
-          const float2 vv = *reinterpret_cast<const float2*>(vrow + 4 * i);
-          acc[i].x = fmaf(p, vv.x, acc[i].x);
-          acc[i].y = fmaf(p, vv.y, acc[i].y);
-        }
-      }
-      m = m_new;
+    if (block_runs(q_start, kb * BK, causal, window)) {
+      kb_begin = min(kb_begin, kb);
+      kb_end = kb + 1;
     }
   }
 
-  if (qi < S) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * D;
+  const float* qw = qs + (16 * warp + g) * LD + t;
+  uint32_t qh[kQRegs][4], ql[kQRegs][4];
+  float acc[kDSteps][4];
 #pragma unroll
-    for (int i = 0; i < kPairs; ++i) {
-      *reinterpret_cast<float2*>(orow + 4 * i + 2 * part) =
-          make_float2(acc[i].x * inv, acc[i].y * inv);
+  for (int nd = 0; nd < kDSteps; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  if (kb_begin < kb_end) {  // uniform in the block; with no tile the output is 0
+    load_tile<D, kBlockQ>(qs, q + (static_cast<size_t>(b) * S * H + h) * D,
+                          static_cast<size_t>(H) * D, q_start, S, tid);
+    cp_async_commit();
+    load_tile<D, BK>(ks, kbase, kv_stride, kb_begin * BK, T, tid);
+    load_tile<D, BK>(vs, vbase, kv_stride, kb_begin * BK, T, tid);
+    cp_async_commit();
+    if constexpr (Cfg::kQInRegs) {
+      cp_async_wait<1>();  // Q has landed; the first K/V tile may still be in flight
+      __syncthreads();
+#pragma unroll
+      for (int kd = 0; kd < kDSteps; ++kd) q_fragment<LD>(qw, kd, qh[kd], ql[kd]);
+    }
+  }
+
+  for (int kb = kb_begin; kb < kb_end; ++kb) {
+    const int buf = (kb - kb_begin) & 1;
+    if (kb + 1 < kb_end) {
+      load_tile<D, BK>(ks + (buf ^ 1) * Cfg::kKVFloats, kbase, kv_stride, (kb + 1) * BK, T, tid);
+      load_tile<D, BK>(vs + (buf ^ 1) * Cfg::kKVFloats, vbase, kv_stride, (kb + 1) * BK, T, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* kt = ks + buf * Cfg::kKVFloats;
+    const float* vt = vs + buf * Cfg::kKVFloats;
+
+    // S = Q K^T for this warp's 16 rows and the tile's BK keys
+    float sc[kKSteps][4];
+#pragma unroll
+    for (int nk = 0; nk < kKSteps; ++nk) sc[nk][0] = sc[nk][1] = sc[nk][2] = sc[nk][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < kDSteps; ++kd) {
+      uint32_t ah[4], al[4];
+      if constexpr (Cfg::kQInRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          ah[i] = qh[kd][i];
+          al[i] = ql[kd][i];
+        }
+      } else {
+        q_fragment<LD>(qw, kd, ah, al);
+      }
+#pragma unroll
+      for (int nk = 0; nk < kKSteps; ++nk) {
+        const float* kr = kt + (8 * nk + g) * LD + 8 * kd + t;
+        uint32_t bh[2], bl[2];
+        split(kr[0], bh[0], bl[0]);
+        split(kr[4], bh[1], bl[1]);
+        mma_3xtf32(sc[nk], ah, al, bh, bl);
+      }
+    }
+
+    // scale, mask, online softmax; sc[nk][e] is row (e < 2 ? row : row + 8),
+    // key k_start + 8 nk + 2 t + (e & 1)
+    const int k_start = kb * BK;
+    const bool edge = !tile_full(q_start, k_start, T, causal, window);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nk = 0; nk < kKSteps; ++nk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float s = sc[nk][e] * scale;
+        if (edge && !attends(row + 8 * (e >> 1), k_start + 8 * nk + 2 * t + (e & 1), S, T,
+                             causal, window)) {
+          s = kNegInf;
+        }
+        sc[nk][e] = s;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = expf(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < kDSteps; ++nd) {
+      acc[nd][0] *= alpha[0];
+      acc[nd][1] *= alpha[0];
+      acc[nd][2] *= alpha[1];
+      acc[nd][3] *= alpha[1];
+    }
+
+    // O += P V: the A fragment's k = t is key 2 t, k = t + 4 is key 2 t + 1
+#pragma unroll
+    for (int nk = 0; nk < kKSteps; ++nk) {
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(sc[nk][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[nk][e] = p;
+      }
+      split(sc[nk][0], ph[0], pl[0]);
+      split(sc[nk][2], ph[1], pl[1]);
+      split(sc[nk][1], ph[2], pl[2]);
+      split(sc[nk][3], ph[3], pl[3]);
+      const float* vr = vt + (8 * nk + 2 * t) * LD + g;
+#pragma unroll
+      for (int nd = 0; nd < kDSteps; ++nd) {
+        uint32_t bh[2], bl[2];
+        split(vr[8 * nd], bh[0], bl[0]);
+        split(vr[LD + 8 * nd], bh[1], bl[1]);
+        mma_3xtf32(acc[nd], ph, pl, bh, bl);
+      }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this tile's buffer
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row + 8 * r;
+    if (qi < S) {
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * D + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < kDSteps; ++nd) {
+        *reinterpret_cast<float2*>(orow + 8 * nd) =
+            make_float2(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -169,7 +365,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch(const float* q, const float* k, const float* v, float* o, int B, int S, int T,
            int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t smem = 2 * kBlockK * D * sizeof(float);
+  constexpr size_t smem = Tiles<D>::kSmemBytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         flash_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -71,3 +71,64 @@ def test_flash_attention_wrapper_checks():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 1, 8, 4, 4, 16))
     torch.testing.assert_close(flash_attention(q, k, v, causal=False),
                                flash_attention_ref(q, k, v, causal=False, scale=0.25))
+
+
+# -- why the CUDA kernel splits each product into three TF32 products -------------------
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32`` in numpy: add half of the 13 dropped bits, then drop them."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tensor_core_operand(x):
+    """What the tensor core reads of a float32 register holding a TF32 operand: the
+    top 19 bits (the kernel passes the low part of its split unrounded)."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tc_matmul(a, b, split):
+    """a @ b as the kernel's mma.sync TF32 products with float32 accumulation: one
+    product of the rounded operands, or 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return ah @ bh
+    al, bl = _tensor_core_operand(a - ah), _tensor_core_operand(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _kernel_attention(q, k, v, split, block=32):
+    """Bidirectional attention in the kernel's order: 32-key tiles, online softmax in
+    float32, unnormalised P fed to the P.V product, one division at the end."""
+    scale = np.float32(1.0 / math.sqrt(q.shape[-1]))
+    qh, kh, vh = (np.ascontiguousarray(a.transpose(0, 2, 1, 3)) for a in (q, k, v))
+    b, h, s, d = qh.shape
+    m = np.full((b, h, s, 1), -2.3819763e38, np.float32)
+    l = np.zeros((b, h, s, 1), np.float32)
+    acc = np.zeros((b, h, s, d), np.float32)
+    for k0 in range(0, kh.shape[2], block):
+        kt, vt = kh[:, :, k0:k0 + block], vh[:, :, k0:k0 + block]
+        sc = _tc_matmul(qh, kt.transpose(0, 1, 3, 2), split) * scale
+        m_new = np.maximum(m, sc.max(-1, keepdims=True))
+        alpha = np.exp(m - m_new)
+        p = np.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdims=True)
+        acc = acc * alpha + _tc_matmul(p, vt, split)
+        m = m_new
+    return (acc / np.maximum(l, np.float32(1e-30))).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xTF32", "1xTF32"])
+def test_tf32_split_decides_the_kernels_accuracy(split):
+    """At the DiT's attention shape, 3xTF32 products stay within 1e-5 of the plain
+    float32 version (the kernel's contract is 1e-4); single TF32 products miss 1e-4."""
+    rng = np.random.default_rng(16)
+    q, k, v = (rng.standard_normal((2, 256, 12, 64)).astype(np.float32) for _ in range(3))
+    got = _kernel_attention(q, k, v, split)
+    want = flash_attention_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=False).numpy()
+    err = float(np.abs(got - want).max())
+    if split:
+        assert err <= 1e-5, err
+    else:
+        assert err > 1e-4, err

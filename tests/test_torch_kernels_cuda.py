@@ -59,15 +59,21 @@ def test_ws_step_kernel_matches_plain(card, r, v, temperature):
     assert not bool(((got != want) & ~ties).any())
 
 
-@pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
-    (4, 256, 12, 12, 64, False, None), (2, 200, 8, 2, 64, True, None),
-    (2, 300, 4, 4, 32, False, 37), (1, 130, 4, 4, 128, True, 50), (3, 1, 2, 1, 32, False, None),
+@pytest.mark.parametrize("b,s,t,h,kh,d,causal,window", [
+    (4, 256, 256, 12, 12, 64, False, None), (2, 200, 200, 8, 2, 64, True, None),
+    (2, 300, 300, 4, 4, 32, False, 37), (1, 130, 130, 4, 4, 128, True, 50),
+    (3, 1, 1, 2, 1, 32, False, None),
+    (2, 100, 300, 4, 4, 64, False, None),   # S != T
+    (2, 77, 77, 8, 2, 64, True, None),      # a tail that is not a multiple of 8 or 16
+    (2, 256, 256, 4, 4, 128, False, None),  # D = 128, bidirectional, whole tiles
+    (2, 256, 256, 4, 4, 64, False, 5),      # a band narrower than a tile
+    (2, 256, 256, 4, 2, 32, True, 5),       # a causal window narrower than a tile
 ])
-def test_flash_attention_kernel_matches_plain(card, b, s, h, kh, d, causal, window):
+def test_flash_attention_kernel_matches_plain(card, b, s, t, h, kh, d, causal, window):
     g = torch.Generator(device=card).manual_seed(s)
     q = torch.randn((b, s, h, d), generator=g, device=card)
-    k = torch.randn((b, s, kh, d), generator=g, device=card)
-    v = torch.randn((b, s, kh, d), generator=g, device=card)
+    k = torch.randn((b, t, kh, d), generator=g, device=card)
+    v = torch.randn((b, t, kh, d), generator=g, device=card)
     before = launches["flash_attn"]
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert launches["flash_attn"] == before + 1
