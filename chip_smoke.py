@@ -310,15 +310,19 @@ def measure_flash(b, s, h, d):
             "bound_by": by, "library_ms": library_ms}
 
 
-def spill_bytes(build_log: str) -> dict:
-    """Spill stores + loads that ``ptxas -v`` reports, by kernel function."""
+def ptxas_usage(build_log: str) -> dict:
+    """Spill bytes (stores + loads) and registers that ``ptxas -v`` reports,
+    by kernel function."""
     out, name = {}, None
     for line in build_log.splitlines():
         if "Function properties for" in line:
             name = line.split("Function properties for")[-1].strip()
+            out[name] = {}
         elif name is not None and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
-            out[name] = nums[1] + nums[2]   # stack frame, spill stores, spill loads
+            out[name]["spill"] = nums[1] + nums[2]   # stack frame, spill stores, spill loads
+        elif name is not None and "registers" in line and "Used" in line:
+            out[name]["registers"] = int(line.split("Used")[-1].split()[0])
             name = None
     return out
 
@@ -1387,10 +1391,10 @@ def _category(name: str) -> str:
         return "qkv_rope"
     if "attn_cached_kernel" in name:
         return "attn_cached"
-    if "proj_kernel<1, 2>" in name:          # the head's projection
-        return "head"
-    if "proj_kernel" in name:               # post_attn's three projections
+    if "post_attn_proj_kernel" in name:     # post_attn's three projections
         return "post_attn"
+    if "proj_kernel" in name:               # the head's projection
+        return "head"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul"
     return "other"
@@ -1473,11 +1477,14 @@ def main() -> int:
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
-    flash_spills = {k: v for k, v in spill_bytes(_build.build_log).items()
-                    if "flash_attn_kernel" in k}
-    print(f"flash_attn_kernel spill bytes (D = 32, 64, 128): {sorted(flash_spills.values())}")
-    if len(flash_spills) != 3 or any(flash_spills.values()):
-        fail(f"flash_attn_kernel must build for D = 32, 64, 128 without spills: {flash_spills}")
+    usage = ptxas_usage(_build.build_log)
+    # flash_attn at D = 32, 64, 128; post_attn's wo, down, up and gated up
+    for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4)):
+        found = {k: v for k, v in usage.items() if kernel in k}
+        print(f"{kernel}: spill bytes {[v.get('spill') for v in found.values()]}, registers "
+              f"{[v.get('registers') for v in found.values()]}")
+        if len(found) != count or any(v.get("spill") != 0 for v in found.values()):
+            fail(f"{kernel} must build its {count} instantiations without spills: {found}")
     _build.library()
 
     ws_checks = [check_ws_step(8192, 27, 1.0, 0), check_ws_step(64, 50257, 1.0, 1),

@@ -22,18 +22,48 @@
 //     which the split is summed are constants; R only sets the grid size;
 //   * no cuBLAS (its algorithm changes with M) and no atomics.
 //
-// Projections (qkv_rope, the three kernels of post_attn, head). A block of 256
-// threads = 8 warps owns 8 token rows and 32 output columns (qkv_rope: 32 RoPE
-// column pairs j, j + hd/2 of one head, so RoPE is applied in the block; the gated
-// MLP: the up and gate columns of one index). The block stages its 8 rows in shared
-// memory, transposed, and normalises them there when the kernel has a norm: warp w
-// normalises row w, each lane summing a strided set of columns in order, then a
-// fixed xor-butterfly. Warp w then takes the w-th contiguous eighth of K: each lane
-// walks its slice in order with one FMA chain per (row, column), reading the weight
-// column coalesced across the warp and the 8 rows as two float4 broadcasts. The 8
-// slice sums meet in shared memory and are added in slice order. post_attn is three
-// such kernels (wo + residual; ln2 + up/gate + act; down + residual), because ln2
-// needs the whole row after wo; its C entry point launches all three.
+// Projections of qkv_rope and head. A block of 256 threads = 8 warps owns 8 token rows
+// and 32 output columns (qkv_rope: 32 RoPE column pairs j, j + hd/2 of one head, so RoPE
+// is applied in the block). The block stages its 8 rows in shared memory, transposed,
+// and normalises them there: warp w normalises row w, each lane summing a strided set of
+// columns in order, then a fixed xor-butterfly. Warp w then takes the w-th contiguous
+// eighth of K: each lane walks its slice in order with one FMA chain per (row, column),
+// reading the weight column coalesced across the warp and the 8 rows as two float4
+// broadcasts. The 8 slice sums meet in shared memory and are added in slice order.
+//
+// post_attn (post_attn_proj_kernel, one launch for each of wo + residual; ln2 + up/gate
+// + act; down + residual, since ln2 needs the whole row after wo). Its bound at the
+// decode shape is the 21.2 MB of weights it must read, 6.43 us at 3.35 TB/s (its 340
+// MFLOP take 5.1 us at 67 TFLOP/s). It replaced three launches of an 8-row proj_kernel
+// that read every weight four times at R = 32 (three from L2), kept 16 loads in flight
+// a warp and gave wo and down 96 blocks for 132 SMs. Now:
+//   * a cluster of 8 blocks along grid x splits K: rank s takes the s-th contiguous
+//     slice, 4 * ceil(K / 32) wide (a function of K alone, 16-byte aligned); a slice
+//     may be short or empty when K is small;
+//   * a block owns 32 token rows x NT columns (wo: NT = 32, 24 x 8 = 192 blocks at the
+//     decode shape; down: 64, 12 x 8 = 96 blocks, faster than 192 blocks of 32 when
+//     timed on an H100; up: 128, 192 blocks; gated up: 64 up + 64 gate columns), so
+//     every weight is read once for 32 rows. Rows past R and columns past N are
+//     zero-filled;
+//   * before its one wait the block copies its weight slab (slice x NT) and its rows'
+//     slice (32 x slice) into shared memory with 16-byte cp.async.cg (4-byte copies
+//     when a stride or a pointer is not 16-byte aligned): one commit, one wait. For
+//     up, each block meanwhile computes its 32 rows' ln2 statistics over the whole
+//     row from global memory (L2; two passes of 192 blocks x 96 KB = 38 MB of L2 reads
+//     at the decode shape) in stage_rows' order, then normalises its own slice;
+//   * a thread owns 4 rows x 2 or 4 columns, each one FMA chain over the block's
+//     slice in increasing k, from 0, all chains independent;
+//   * the 8 partial tiles meet through distributed shared memory: after cluster.sync()
+//     rank s finalises rows 4s .. 4s + 3 of the tile, adding the 8 ranks' partials in
+//     rank order 0 .. 7, then the bias and the epilogue (residual; act, or act(gate) *
+//     up); a second cluster.sync() keeps every block's shared memory alive until the
+//     last remote read.
+// So every output's sum runs in an order that depends on K only. A block's copy, its
+// FMAs and its launch and cluster syncs run one after the other; waiting for the copy
+// in stages along k did not overlap them (all of it is in flight at once). Left for
+// later: ln2's statistics from the ranks' slices through DSMEM instead of from L2, a
+// pipeline that throttles the copy so it overlaps the FMAs, the tensor cores (3xTF32),
+// and programmatic dependent launch between the three projections.
 //
 // attn_cached. A block of 256 threads owns one (token row, query head). Warp w
 // computes the scores of keys w, w + 8, ...: each lane takes hd/32 dims of q and k,
@@ -54,15 +84,20 @@
 // dfm_dit CONFIG as the draft: D = 768, 12 heads of 64, F = 3072, V = 27):
 //   qkv_rope 7.1 MB of weights, 113 MFLOP: 2.1 us at 3.35 TB/s (bytes);
 //   attn_cached 53 MB of K/V, 27 MFLOP: 15.9 us (bytes);
-//   post_attn 21.2 MB of weights, 340 MFLOP: 6.3 us (bytes);
+//   post_attn 21.2 MB of weights, 340 MFLOP: 6.43 us (bytes);
 //   head 83 KB, ~1.3 MFLOP: launch-bound.
-// This design reads each weight once per 8-row token tile (the other tiles find it
-// in the 50 MB L2) and reads the whole KV buffer; it does nothing yet about the
-// launch count (a CUDA graph of the decode step), tensor cores, or skipping masked
+// qkv_rope reads each weight once per 8-row token tile (the other tiles find it in
+// the 50 MB L2), attn_cached the whole KV buffer; nothing here does anything yet about
+// the launch count (a CUDA graph of the decode step), tensor cores, or skipping masked
 // keys. Build without --use_fast_math: expf, tanhf, powf, sinf and cosf are the
 // accurate ones.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,7 +111,7 @@ static_assert(kTok == kSlices, "warp w normalises row w");
 
 enum Norm { kLayerNorm = 0, kRmsNorm = 1 };
 enum Act { kGelu = 0, kSilu = 1, kRelu = 2 };
-enum Epi { kEpiResid = 0, kEpiAct = 1, kEpiPlain = 2 };
+enum Epi { kEpiResid = 0, kEpiAct = 1 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -264,21 +299,18 @@ __global__ void __launch_bounds__(kThreads) qkv_rope_kernel(QkvArgs a) {
   dst[c2] = y[1];
 }
 
-// -- projections of post_attn and head -----------------------------------------------
+// -- head ------------------------------------------------------------------------------
 
 struct ProjArgs {
-  const float* in;       // (R, K)
-  const float* ln_scale;  // norm of the input rows, or null
+  const float* in;        // (R, K)
+  const float* ln_scale;  // final norm of the input rows
   const float* ln_bias;
-  const float* w[2];     // (K, N) with strides (ldk, ldn); w[1]: the gate, or null
-  const float* b[2];
-  const float* resid;    // (R, N) for kEpiResid
-  float* out;            // (R, N)
-  int R, K, N, ldk, ldn, norm, act;
+  const float* w;         // (K, N) with strides (ldk, ldn)
+  float* out;             // (R, N)
+  int R, K, N, ldk, ldn, norm;
   float eps;
 };
 
-template <int NC, int EPI>
 __global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
@@ -289,40 +321,270 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
 
   const int n = blockIdx.x * kCols + threadIdx.x % 32;
   const bool valid = n < a.N;
-  const int nn = valid ? n : 0;
-  const float* wcol[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) wcol[c] = a.w[c] + static_cast<size_t>(nn) * a.ldn;
-  float acc[NC][kTok];
-  dot_slice<NC>(xs, a.K, wcol, a.ldk, valid, acc);
-  float y[NC];
-  sum_slices<NC>(red, acc, y);
+  const float* const wcol[1] = {a.w + static_cast<size_t>(valid ? n : 0) * a.ldn};
+  float acc[1][kTok];
+  dot_slice<1>(xs, a.K, wcol, a.ldk, valid, acc);
+  float y[1];
+  sum_slices<1>(red, acc, y);
 
   const int r = r0 + threadIdx.x / 32;
   if (!valid || r >= a.R) return;
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    if (a.b[c] != nullptr) y[c] += a.b[c][n];
-  const size_t o = static_cast<size_t>(r) * a.N + n;
-  if (EPI == kEpiResid) {
-    a.out[o] = a.resid[o] + y[0];
-  } else if (EPI == kEpiAct) {
-    a.out[o] = NC == 2 ? activate(a.act, y[1]) * y[0] : activate(a.act, y[0]);
-  } else {
-    a.out[o] = y[0];
+  a.out[static_cast<size_t>(r) * a.N + n] = y[0];
+}
+
+// -- post_attn ---------------------------------------------------------------------------
+
+constexpr int kCluster = 8;    // blocks of a cluster along grid x, one slice of K each
+constexpr int kRowTile = 32;   // token rows of a post_attn block
+static_assert(kRowTile == 4 * kCluster, "rank s finalises rows 4s .. 4s + 3");
+
+// One rank's slice of K: a function of K alone, a multiple of 4 floats.
+__host__ __device__ constexpr int post_slice(int K) { return 4 * ((K + 31) / 32); }
+
+// Shared floats of a post_attn block: the weight slab (slice, W), the rows' slice
+// (32, slice + 4), the partial tile (32, W), the rows' mean and 1 / std (2 x 32).
+__host__ __device__ constexpr int post_smem_floats(int slice, int W) {
+  return slice * W + kRowTile * (slice + 4) + kRowTile * W + 2 * kRowTile;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Start copying the (rows, cols) tile at src (row stride lds) into dst (row stride ldd);
+// elements at or past (nr, nc) are zero-filled (their copy reads base, a valid address).
+// cols is a multiple of 4. vec: 16-byte copies, for lds, ldd, src and dst 16-byte aligned.
+template <int THREADS>
+__device__ __forceinline__ void copy_tile(float* dst, int ldd, const float* src, size_t lds,
+                                          int rows, int cols, int nr, int nc,
+                                          const float* base, bool vec) {
+  const int step = vec ? 4 : 1, per = cols / step;
+  for (int i = threadIdx.x; i < rows * per; i += THREADS) {
+    const int r = i / per, c = step * (i % per);
+    const bool ok = r < nr && c < nc;
+    const float* s = ok ? src + r * lds + c : base;
+    if (vec) {
+      cp_async16(dst + r * ldd + c, s, ok);
+    } else {
+      cp_async4(dst + r * ldd + c, s, ok);
+    }
   }
 }
 
-template <int NC, int EPI>
-int launch_proj(const ProjArgs& a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      proj_kernel<NC, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+struct PostArgs {
+  const float* in;        // (R, K)
+  const float* ln_scale;  // ln2 of the input rows (up), or null
+  const float* ln_bias;
+  const float* w[2];      // (K, N) row-major; w[1]: the gate, or null
+  const float* b[2];      // biases or null
+  const float* resid;     // (R, N) for kEpiResid
+  float* out;             // (R, N)
+  int R, K, N, norm, act, vec;
+  float eps;
+};
+
+// ln2's mean and 1 / std of the block's rows over the whole row (K), from global memory
+// (L2), each row in stage_rows' order: lane-strided sums in increasing k, the xor
+// butterfly, and a centred second pass for layernorm. A warp takes RPW rows at once so
+// that RPW independent loads a lane are in flight.
+template <int THREADS>
+__device__ __forceinline__ void row_stats(const PostArgs& a, int r0, float* mu, float* inv) {
+  constexpr int RPW = kRowTile / (THREADS / 32);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool ln = a.norm == kLayerNorm;
+  const float* row[RPW];
+#pragma unroll
+  for (int j = 0; j < RPW; ++j)   // rows past R read row R - 1; their results are unused
+    row[j] = a.in + static_cast<size_t>(min(r0 + w + j * (THREADS / 32), a.R - 1)) * a.K;
+  float s[RPW], m[RPW];
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) s[j] = 0.f;
+#pragma unroll 4
+  for (int k = lane; k < a.K; k += 32)
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const float v = row[j][k];
+      s[j] += ln ? v : v * v;
+    }
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) {
+    s[j] = warp_sum(s[j]);
+    m[j] = ln ? s[j] / a.K : 0.f;
+  }
+  if (ln) {
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) s[j] = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < a.K; k += 32)
+#pragma unroll
+      for (int j = 0; j < RPW; ++j) {
+        const float d = row[j][k] - m[j];
+        s[j] += d * d;
+      }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) s[j] = warp_sum(s[j]);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const int t = w + j * (THREADS / 32);
+      mu[t] = m[j];
+      inv[t] = rsqrtf(s[j] / a.K + a.eps);
+    }
+  }
+}
+
+// One projection of post_attn: out = epilogue(in @ w + b) for a 32-row x NT-column tile
+// per cluster of 8 blocks, each block summing one slice of K (see the note on top).
+template <int NT, int NC, int THREADS, int EPI>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(THREADS)
+post_attn_proj_kernel(PostArgs a) {
+  constexpr int W = NT * NC;              // slab columns: NT of w[0], then NT of w[1]
+  constexpr int TC = 8 * W / THREADS;     // columns a thread owns, beside 4 rows
+  static_assert((TC == 2 || TC == 4) && NT % TC == 0 && 4 * NT % THREADS == 0,
+                "a thread owns 4 rows x TC columns of one weight and whole output rows");
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slice = post_slice(a.K), xsld = slice + 4;
+  float* ws = reinterpret_cast<float*>(smem4);
+  float* xs = ws + slice * W;
+  float* part = xs + kRowTile * xsld;
+  float* mu = part + kRowTile * W;
+  float* inv = mu + kRowTile;
+  const int n0 = static_cast<int>(blockIdx.x) / kCluster * NT;
+  const int r0 = static_cast<int>(blockIdx.y) * kRowTile;
+  const int k0 = rank * slice;
+  const int len = max(0, min(a.K, k0 + slice) - k0);
+  const int len4 = (len + 3) & ~3;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const bool vec = a.vec != 0;
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+    copy_tile<THREADS>(ws + c * NT, W, a.w[c] + static_cast<size_t>(k0) * a.N + n0, a.N, len4,
+                       NT, a.K - k0, a.N - n0, a.w[c], vec);
+  copy_tile<THREADS>(xs, xsld, a.in + static_cast<size_t>(r0) * a.K + k0, a.K, kRowTile, len4,
+                     a.R - r0, a.K - k0, a.in, vec);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  if (a.ln_scale != nullptr) row_stats<THREADS>(a, r0, mu, inv);   // while the copy runs
+
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+  if (a.ln_scale != nullptr) {
+    const int nr = min(kRowTile, a.R - r0);
+    for (int i = tid; i < nr * len; i += THREADS) {
+      const int t = i / len, k = i % len;
+      float* p = xs + t * xsld + k;
+      const float y = (*p - mu[t]) * inv[t];
+      *p = a.norm == kLayerNorm ? y * a.ln_scale[k0 + k] + a.ln_bias[k0 + k]
+                                : y * (1.0f + a.ln_scale[k0 + k]);
+    }
+    __syncthreads();
+  }
+
+  // rows row0 + 4 i (i < 4) x slab columns col0 .. col0 + TC - 1; a warp covers 16
+  // rows x 8 column groups, so its x and w reads are one 64- and one TC * 32-byte run
+  const int row0 = (w % 2) * 16 + lane / 8;
+  const int col0 = (w / 2 * 8 + lane % 8) * TC;
+  float acc[4][TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+  const float* xp = xs + row0 * xsld;
+  const float* wp = ws + col0;
+#pragma unroll 2
+  for (int k = 0; k < len4; k += 4) {
+    float x[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(xp + 4 * i * xsld + k);
+      x[i][0] = v.x;
+      x[i][1] = v.y;
+      x[i][2] = v.z;
+      x[i][3] = v.w;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      float wv[TC];
+      if constexpr (TC == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(wp + (k + kk) * W);
+        wv[0] = v.x;
+        wv[1] = v.y;
+        wv[2] = v.z;
+        wv[3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(wp + (k + kk) * W);
+        wv[0] = v.x;
+        wv[1] = v.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(x[i][kk], wv[j], acc[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) part[(row0 + 4 * i) * W + col0 + j] = acc[i][j];
+  cluster.sync();
+
+  const float* rp[kCluster];
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) rp[q] = cluster.map_shared_rank(part, q);
+  for (int o = tid; o < 4 * NT; o += THREADS) {
+    const int t = 4 * rank + o / NT, c = o % NT;
+    float y[NC];
+#pragma unroll
+    for (int h = 0; h < NC; ++h) {
+      const int at = t * W + h * NT + c;
+      float s = rp[0][at];
+#pragma unroll
+      for (int q = 1; q < kCluster; ++q) s += rp[q][at];
+      y[h] = s;
+    }
+    const int r = r0 + t, n = n0 + c;
+    if (r >= a.R || n >= a.N) continue;
+#pragma unroll
+    for (int h = 0; h < NC; ++h)
+      if (a.b[h] != nullptr) y[h] += a.b[h][n];
+    const size_t at = static_cast<size_t>(r) * a.N + n;
+    if (EPI == kEpiResid) {
+      a.out[at] = a.resid[at] + y[0];
+    } else {
+      a.out[at] = NC == 2 ? activate(a.act, y[1]) * y[0] : activate(a.act, y[0]);
+    }
+  }
+  cluster.sync();   // no block leaves while another may still read its partials
+}
+
+template <int NT, int NC, int THREADS, int EPI>
+int launch_post(const PostArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(post_attn_proj_kernel<NT, NC, THREADS, EPI>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const size_t smem = (static_cast<size_t>(a.K) * kTok + red_floats<NC>()) * sizeof(float);
+  const size_t smem = post_smem_floats(post_slice(a.K), NT * NC) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((a.N + kCols - 1) / kCols, (a.R + kTok - 1) / kTok);
-  proj_kernel<NC, EPI><<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.N + NT - 1) / NT * kCluster, (a.R + kRowTile - 1) / kRowTile);
+  post_attn_proj_kernel<NT, NC, THREADS, EPI><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // -- attn_cached -------------------------------------------------------------------
@@ -475,7 +737,8 @@ extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const
   }
 }
 
-// post_attn: three kernels on the stream, x1 (R, D) and u (R, F) scratch from the caller.
+// post_attn: three cluster launches on the stream, x1 (R, D) and u (R, F) scratch from
+// the caller.
 extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* wo,
                                       const void* bo, const void* ln_scale, const void* ln_bias,
                                       const void* wup, const void* bup, const void* wgate,
@@ -484,17 +747,21 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
                                       int norm, float eps, int act, void* stream) {
   if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-  ProjArgs p{};
+  auto vec = [](const PostArgs& p) {
+    return p.K % 4 == 0 && p.N % 4 == 0 && aligned16(p.in) && aligned16(p.w[0]) &&
+           aligned16(p.w[1]);
+  };
+  PostArgs p{};
   p.in = static_cast<const float*>(a);
   p.w[0] = static_cast<const float*>(wo);
   p.b[0] = static_cast<const float*>(bo);
   p.resid = static_cast<const float*>(x);
   p.out = static_cast<float*>(x1);
-  p.R = R; p.K = QD; p.N = D; p.ldk = D; p.ldn = 1; p.norm = norm; p.eps = eps;
-  int rc = launch_proj<1, kEpiResid>(p, st);
+  p.R = R; p.K = QD; p.N = D; p.norm = norm; p.eps = eps; p.vec = vec(p);
+  int rc = launch_post<32, 1, 128, kEpiResid>(p, st);
   if (rc != 0) return rc;
 
-  p = ProjArgs{};
+  p = PostArgs{};
   p.in = static_cast<const float*>(x1);
   p.ln_scale = static_cast<const float*>(ln_scale);
   p.ln_bias = static_cast<const float*>(ln_bias);
@@ -503,30 +770,38 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
   p.w[1] = static_cast<const float*>(wgate);
   p.b[1] = static_cast<const float*>(bgate);
   p.out = static_cast<float*>(u);
-  p.R = R; p.K = D; p.N = F; p.ldk = F; p.ldn = 1; p.norm = norm; p.eps = eps; p.act = act;
-  rc = wgate != nullptr ? launch_proj<2, kEpiAct>(p, st) : launch_proj<1, kEpiAct>(p, st);
+  p.R = R; p.K = D; p.N = F; p.norm = norm; p.eps = eps; p.act = act; p.vec = vec(p);
+  rc = wgate != nullptr ? launch_post<64, 2, 256, kEpiAct>(p, st)
+                        : launch_post<128, 1, 256, kEpiAct>(p, st);
   if (rc != 0) return rc;
 
-  p = ProjArgs{};
+  p = PostArgs{};
   p.in = static_cast<const float*>(u);
   p.w[0] = static_cast<const float*>(wdown);
   p.b[0] = static_cast<const float*>(bdown);
   p.resid = static_cast<const float*>(x1);
   p.out = static_cast<float*>(out);
-  p.R = R; p.K = F; p.N = D; p.ldk = D; p.ldn = 1; p.norm = norm; p.eps = eps;
-  return launch_proj<1, kEpiResid>(p, st);
+  p.R = R; p.K = F; p.N = D; p.norm = norm; p.eps = eps; p.vec = vec(p);
+  return launch_post<64, 1, 128, kEpiResid>(p, st);
 }
 
 extern "C" int draft_head_launch(const void* x, const void* ln_scale, const void* ln_bias,
                                  const void* w, int ldk, int ldn, void* out, int R, int D, int V,
                                  int norm, float eps, void* stream) {
   if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   ProjArgs p{};
   p.in = static_cast<const float*>(x);
   p.ln_scale = static_cast<const float*>(ln_scale);
   p.ln_bias = static_cast<const float*>(ln_bias);
-  p.w[0] = static_cast<const float*>(w);
+  p.w = static_cast<const float*>(w);
   p.out = static_cast<float*>(out);
   p.R = R; p.K = D; p.N = V; p.ldk = ldk; p.ldn = ldn; p.norm = norm; p.eps = eps;
-  return launch_proj<1, kEpiPlain>(p, static_cast<cudaStream_t>(stream));
+  const size_t smem = (static_cast<size_t>(D) * kTok + red_floats<1>()) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((V + kCols - 1) / kCols, (R + kTok - 1) / kTok);
+  proj_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -32,10 +32,16 @@ from repro_torch.kernels.draft_decode.ref import (
 
 _NORM = {"layernorm": 0, "rmsnorm": 1}
 _ACT = {"gelu": 0, "silu": 1, "relu": 2}
-# the kernels' tiling (csrc/draft_decode.cu): 8 token rows x 32 columns per
-# block, K in 8 slices; a block stages its rows in at most this much smem
+# the kernels' tiling (csrc/draft_decode.cu): qkv_rope and head take 8 token
+# rows x 32 columns per block, K in 8 slices; a block stages its rows in at most
+# this much smem
 TOK, SLICES, COLS = 8, 8, 32
 MAX_SMEM = 232448
+# post_attn_proj_kernel: 32 token rows per cluster of 8 blocks, each block one
+# slice of 4 * ceil(K / 32) of K; slab widths (columns of weight a block holds)
+# for wo, up (gated: 64 up + 64 gate) and down
+POST_ROWS = 32
+POST_WIDTHS = {"wo": 32, "up": 128, "down": 64}
 MAX_GRID_Y = 65535
 ATTN_HEAD_DIMS = (32, 64, 128)
 
@@ -86,12 +92,23 @@ def _smem(k: int, nc: int) -> int:
     return (k * TOK + SLICES * TOK * nc * COLS) * 4
 
 
-def _check_rows(name: str, r: int, k: int, nc: int) -> None:
-    if r <= 0 or (r + TOK - 1) // TOK > MAX_GRID_Y:
+def _post_smem(k: int, width: int) -> int:
+    """Bytes of shared memory of a post_attn block: the weight slab, the rows'
+    slice (padded by 4), the partial tile and the rows' ln2 statistics."""
+    sl = 4 * -(-k // 32)
+    return (sl * width + POST_ROWS * (sl + 4) + POST_ROWS * width + 2 * POST_ROWS) * 4
+
+
+def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int) -> None:
+    if r <= 0 or -(-r // rows_per_block) > MAX_GRID_Y:
         raise ValueError(f"{name}: {r} rows is outside what one launch takes")
-    if _smem(k, nc) > MAX_SMEM:
-        raise ValueError(f"{name}: a reduced length of {k} needs {_smem(k, nc)} bytes of "
+    if smem > MAX_SMEM:
+        raise ValueError(f"{name}: a reduced length of {k} needs {smem} bytes of "
                          f"shared memory per block, more than {MAX_SMEM}")
+
+
+def _check_rows(name: str, r: int, k: int, nc: int) -> None:
+    _check_limits(name, r, TOK, k, _smem(k, nc))
 
 
 def _stream(device: torch.device) -> int:
@@ -201,22 +218,21 @@ def post_attn(a: torch.Tensor, x: torch.Tensor, attn_p: dict, ln: dict, mlp_p: d
               norm: str, eps: float, act: str) -> torch.Tensor:
     """wo (+b) -> residual -> ln2 -> up (gated when ``mlp_p`` has "gate") ->
     act -> down (+b) -> residual: a (R, H*hd), x (R, D) -> (R, D). On the
-    card: three kernels (wo + residual; ln2 + up/gate + act; down +
-    residual), one count."""
+    card: three cluster launches (wo + residual; ln2 + up/gate + act; down
+    + residual), one count."""
     dev = _device(x, "post_attn")
     if dev is None:
         return post_attn_ref(a, x, attn_p, ln, mlp_p, norm=norm, eps=eps, act=act)
     r, d = x.shape
     f = mlp_p["up"]["w"].shape[1]
-    gated = "gate" in mlp_p
     if a.shape[0] != r or attn_p["wo"]["w"].shape != (a.shape[1], d) \
             or mlp_p["down"]["w"].shape != (f, d):
         raise ValueError(f"post_attn: a {tuple(a.shape)} and x {tuple(x.shape)} do not fit "
                          f"the weights")
     _check("post_attn", dev, a, x, ln["scale"], ln.get("bias"),
            *(p.get(k) for p in (attn_p["wo"], *mlp_p.values()) for k in ("w", "b")))
-    for k, nc in ((a.shape[1], 1), (d, 2 if gated else 1), (f, 1)):
-        _check_rows("post_attn", r, k, nc)
+    for k, proj in ((a.shape[1], "wo"), (d, "up"), (f, "down")):
+        _check_limits("post_attn", r, POST_ROWS, k, _post_smem(k, POST_WIDTHS[proj]))
     x1 = torch.empty_like(x)
     u = torch.empty((r, f), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)

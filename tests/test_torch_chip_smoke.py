@@ -1,0 +1,68 @@
+"""CPU checks of ``chip_smoke.py``'s helpers and of its refusal without a card.
+
+``chip_smoke.py`` imports only torch at module level, so it loads on the CPU;
+it lives at the repository root, outside any package, so it is loaded by path.
+"""
+
+import importlib.util
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# kernel names as torch.profiler reports them
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::post_attn_proj_kernel<32, 1, 128, 0>"
+     "((anonymous namespace)::PostArgs)", "post_attn"),
+    ("void (anonymous namespace)::post_attn_proj_kernel<64, 1, 128, 0>"
+     "((anonymous namespace)::PostArgs)", "post_attn"),
+    ("(anonymous namespace)::proj_kernel((anonymous namespace)::ProjArgs)", "head"),
+    ("void (anonymous namespace)::flash_attn_kernel<64>(float const*, float const*)",
+     "flash_attn"),
+    ("(anonymous namespace)::qkv_rope_kernel((anonymous namespace)::QkvArgs)", "qkv_rope"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8", "matmul"),
+])
+def test_profiler_names_map_to_their_kernel(smoke, name, kind):
+    assert smoke._category(name) == kind
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN21post_attn_proj_kernelILi32ELi1ELi128ELi0EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN21post_attn_proj_kernelILi32ELi1ELi128ELi0EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z17flash_attn_kernelILi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z17flash_attn_kernelILi128EEvv
+    24 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 416 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel,registers,spill", [
+    ("_ZN21post_attn_proj_kernelILi32ELi1ELi128ELi0EEEv", 72, 0),
+    ("_Z17flash_attn_kernelILi128EEvv", 255, 20),
+])
+def test_ptxas_usage_reads_registers_and_spills(smoke, kernel, registers, spill):
+    assert smoke.ptxas_usage(PTXAS_LOG)[kernel] == {"spill": spill, "registers": registers}
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No CUDA device here: it exits 2 and prints no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    run = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 2
+    assert '"ok"' not in run.stdout

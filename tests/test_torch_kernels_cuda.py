@@ -127,6 +127,7 @@ DRAFT_SHAPES = [
     (4, 16, 40, 768, 3072, 12, 12, 64, "layernorm", False, False, "gelu", True),
     (3, 5, 37, 96, 200, 8, 2, 32, "rmsnorm", True, True, "silu", False),
     (2, 3, 19, 64, 96, 2, 1, 128, "rmsnorm", True, True, "relu", True),
+    (3, 11, 24, 128, 512, 4, 2, 32, "layernorm", True, False, "relu", True),  # R = 33
 ]
 
 
@@ -160,6 +161,35 @@ def test_draft_kernels_match_plain(card, b, s, t, d, f, h, kh, hd, norm, bias, g
     torch.cuda.synchronize()
     for name in ("qkv_rope", "attn_cached", "post_attn", "head"):
         assert launches[name] == before.get(name, 0) + 1
+
+
+# d, f, h, kh, hd, norm, bias, gated, act: the full-width ungated layer; a gated one
+# with bias whose up/gate (F = 200) and down (D = 96) leave partial column tiles; widths
+# that are not multiples of 4 (the kernel's 4-byte copies)
+POST_LAYERS = {
+    "full-width-layernorm-gelu": (768, 3072, 12, 12, 64, "layernorm", False, False, "gelu"),
+    "gated-rmsnorm-silu-bias": (96, 200, 8, 2, 32, "rmsnorm", True, True, "silu"),
+    "odd-widths-layernorm-relu": (90, 198, 8, 2, 32, "layernorm", True, False, "relu"),
+}
+
+
+@pytest.mark.parametrize("layer", sorted(POST_LAYERS))
+@pytest.mark.parametrize("r", [1, 7, 32, 33, 512])
+def test_post_attn_kernel_is_batch_invariant(card, r, layer):
+    """R rows in one call give each row's bits alone: the K split and the
+    order of its sums do not depend on R or on a row's place in its tile."""
+    d, f, h, kh, hd, norm, bias, gated, act = POST_LAYERS[layer]
+    g = torch.Generator(device=card).manual_seed(r + d)
+    _, attn_p, ln2, mlp_p = _layer(g, d, f, h, kh, hd, norm=norm, bias=bias, gated=gated,
+                                   device=card)
+    a = torch.randn((r, h * hd), generator=g, device=card)
+    x = torch.randn((r, d), generator=g, device=card)
+    kw = dict(norm=norm, eps=1e-6, act=act)
+    out = post_attn(a, x, attn_p, ln2, mlp_p, **kw)
+    alone = torch.cat([post_attn(a[i:i + 1], x[i:i + 1], attn_p, ln2, mlp_p, **kw)
+                       for i in range(r)])
+    assert torch.equal(out, alone)
+    assert _close(out, post_attn_ref(a, x, attn_p, ln2, mlp_p, **kw), 1e-4)
 
 
 def _draft_model(card, **kw):
