@@ -1478,8 +1478,10 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
-    # flash_attn at D = 32, 64, 128; post_attn's wo, down, up and gated up
-    for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4)):
+    # flash_attn and qkv_rope at head dims 32, 64, 128; post_attn's wo, down, up and
+    # gated up
+    for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4),
+                          ("qkv_rope_kernel", 3)):
         found = {k: v for k, v in usage.items() if kernel in k}
         print(f"{kernel}: spill bytes {[v.get('spill') for v in found.values()]}, registers "
               f"{[v.get('registers') for v in found.values()]}")

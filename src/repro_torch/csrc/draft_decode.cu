@@ -22,14 +22,53 @@
 //     which the split is summed are constants; R only sets the grid size;
 //   * no cuBLAS (its algorithm changes with M) and no atomics.
 //
-// Projections of qkv_rope and head. A block of 256 threads = 8 warps owns 8 token rows
-// and 32 output columns (qkv_rope: 32 RoPE column pairs j, j + hd/2 of one head, so RoPE
-// is applied in the block). The block stages its 8 rows in shared memory, transposed,
-// and normalises them there: warp w normalises row w, each lane summing a strided set of
-// columns in order, then a fixed xor-butterfly. Warp w then takes the w-th contiguous
-// eighth of K: each lane walks its slice in order with one FMA chain per (row, column),
-// reading the weight column coalesced across the warp and the 8 rows as two float4
-// broadcasts. The 8 slice sums meet in shared memory and are added in slice order.
+// qkv_rope (qkv_rope_kernel<hd>). Its bound at the decode shape is the 7.1 MB of
+// weights it must read, 2.1 us at 3.35 TB/s; its 113 MFLOP take 1.7 us at the 67 TFLOP/s
+// float32 rate of the CUDA cores, 0.7 us as 3xTF32 at the 495 TFLOP/s of the tensor
+// cores. It replaced an 8-row kernel on the CUDA cores that read every weight four times
+// at R = 32, normalised the same rows in each of its 144 blocks, walked K with 4-byte
+// loads (16 in flight a warp) and met its 8 slices through shared memory. Now:
+//   * a cluster of 8 blocks of 128 threads along grid x owns one head of q, k or v (hd
+//     columns, whole RoPE pairs j, j + hd / 2) x 32 token rows: (H + 2 KH) x 8 = 288
+//     blocks at the decode shape, one wave, and every weight is read once for 32 rows.
+//     Rows past R are zero-filled;
+//   * rank s takes the s-th contiguous slice of D, 8 * ceil(D / 64) wide (a function of
+//     D alone, whole k8 steps; the last may be short or empty). It copies its rows'
+//     slice (32 x slice) and ln1's scale and bias over it into shared memory with
+//     cp.async (16-byte copies when pointers and strides allow, else 4-byte), waits for
+//     them, then starts its weight slab (slice x hd) as a second commit group, so that
+//     the slab is in flight under the statistics (issued with the rows, it held the
+//     rows back). A slab that does not fit at once streams through two buffers of a
+//     fixed number of k rows (128, or 64 at hd = 128);
+//   * ln1's statistics come from the ranks' slices: each rank takes its slice's mean and
+//     centred sum of squares (rmsnorm: sum of squares) of every row, four lanes a row in
+//     a fixed order; after a cluster barrier each rank combines the 8 slices' statistics
+//     in rank order through distributed shared memory (layernorm: the mean from the
+//     slices' counts and means, then the centred sum of squares as
+//     sum_p M2_p + n_p (m_p - mean)^2), then normalises its own slice in place. No block
+//     reads a whole row;
+//   * the product runs on the tensor cores as 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh):
+//     4 warps, each on both 16-row halves x hd / 32 n8 blocks, k8 steps in increasing k
+//     from the slice's start;
+//   * the 8 partial tiles meet as in post_attn: rank s adds rows 4s .. 4s + 3 in rank
+//     order 0 .. 7 through DSMEM, adds the bias, applies RoPE with a thread on each
+//     pair, and stores q, or the k/v cache row at the cursor. The bias and the cursor
+//     are loaded while the copies run, RoPE's sines and cosines computed while the
+//     first cluster barrier completes, and the stores overlap the last barrier, which
+//     keeps every block's shared memory alive until the last remote read.
+// So every output's sum (statistics, slices, k8 steps, ranks) runs in an order that
+// depends on D alone, and the mma adds the products of a k8 step the same way for every
+// row. What holds it above its bound is the chain of phases a block runs one after the
+// other (copy, statistics, cluster barrier, normalisation, products, barrier, combine):
+// tools/qkv_rope_ablation.py times the kernel with each phase removed in turn.
+//
+// head (proj_kernel). A block of 256 threads = 8 warps owns 8 token rows and 32 output
+// columns. The block stages its 8 rows in shared memory, transposed, and normalises
+// them there: warp w normalises row w, each lane summing a strided set of columns in
+// order, then a fixed xor-butterfly. Warp w then takes the w-th contiguous eighth of K:
+// each lane walks its slice in order with one FMA chain per row, reading the weight
+// column coalesced across the warp and the 8 rows as two float4 broadcasts. The 8 slice
+// sums meet in shared memory and are added in slice order.
 //
 // post_attn (post_attn_proj_kernel, one launch for each of wo + residual; ln2 + up/gate
 // + act; down + residual, since ln2 needs the whole row after wo). Its bound at the
@@ -62,8 +101,8 @@
 // FMAs and its launch and cluster syncs run one after the other; waiting for the copy
 // in stages along k did not overlap them (all of it is in flight at once). Left for
 // later: ln2's statistics from the ranks' slices through DSMEM instead of from L2, a
-// pipeline that throttles the copy so it overlaps the FMAs, the tensor cores (3xTF32),
-// and programmatic dependent launch between the three projections.
+// pipeline that throttles the copy so it overlaps the FMAs, the tensor cores (3xTF32,
+// as qkv_rope), and programmatic dependent launch between the three projections.
 //
 // attn_cached. A block of 256 threads owns one (token row, query head). Warp w
 // computes the scores of keys w, w + 8, ...: each lane takes hd/32 dims of q and k,
@@ -86,24 +125,31 @@
 //   attn_cached 53 MB of K/V, 27 MFLOP: 15.9 us (bytes);
 //   post_attn 21.2 MB of weights, 340 MFLOP: 6.43 us (bytes);
 //   head 83 KB, ~1.3 MFLOP: launch-bound.
-// qkv_rope reads each weight once per 8-row token tile (the other tiles find it in
-// the 50 MB L2), attn_cached the whole KV buffer; nothing here does anything yet about
-// the launch count (a CUDA graph of the decode step), tensor cores, or skipping masked
-// keys. Build without --use_fast_math: expf, tanhf, powf, sinf and cosf are the
-// accurate ones.
+// attn_cached reads the whole KV buffer; nothing here does anything yet about the
+// launch count (a CUDA graph of the decode step) or skipping masked keys. Build without
+// --use_fast_math: expf, tanhf, powf, sinf and cosf are the accurate ones.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tf32_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kTok = 8;                // token rows per projection block
+using wsfm::cp_async16;
+using wsfm::cp_async4;
+using wsfm::cp_async_commit;
+using wsfm::cp_async_wait;
+using wsfm::mma_3xtf32;
+using wsfm::split;
+
+constexpr int kTok = 8;                // token rows per head block
 constexpr int kSlices = 8;             // contiguous slices of K, one per warp
-constexpr int kCols = 32;              // output columns (or pairs) per block, one per lane
+constexpr int kCols = 32;              // output columns per block, one per lane
 constexpr int kThreads = kSlices * 32;
 constexpr int kMaxSmem = 232448;       // an H100 block's dynamic shared memory limit
 constexpr float kNegInf = -2.3819763e38f;
@@ -177,16 +223,13 @@ __device__ void stage_rows(const float* __restrict__ in, int R, int K, int r0,
   }
 }
 
-// acc[c][t] = sum over this warp's slice of K of xs[k][t] * wcol[c][k * ldk], in
-// order. The slice bounds depend on K only.
-template <int NC>
+// acc[t] = sum over this warp's slice of K of xs[k][t] * wcol[k * ldk], in order. The
+// slice bounds depend on K only.
 __device__ __forceinline__ void dot_slice(const float* __restrict__ xs, int K,
-                                          const float* const* wcol, int ldk, bool valid,
-                                          float (&acc)[NC][kTok]) {
+                                          const float* __restrict__ wcol, int ldk, bool valid,
+                                          float (&acc)[kTok]) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int t = 0; t < kTok; ++t) acc[c][t] = 0.f;
+  for (int t = 0; t < kTok; ++t) acc[t] = 0.f;
   if (!valid) return;
   const int chunk = (K + kSlices - 1) / kSlices;
   const int k0 = (threadIdx.x / 32) * chunk;
@@ -197,107 +240,31 @@ __device__ __forceinline__ void dot_slice(const float* __restrict__ xs, int K,
   for (int k = k0; k < k1; ++k) {
     const float4 xa = *reinterpret_cast<const float4*>(xs + k * kTok);
     const float4 xb = *reinterpret_cast<const float4*>(xs + k * kTok + 4);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const float wv = __ldg(wcol[c] + static_cast<size_t>(k) * ldk);
-      acc[c][0] = fmaf(xa.x, wv, acc[c][0]);
-      acc[c][1] = fmaf(xa.y, wv, acc[c][1]);
-      acc[c][2] = fmaf(xa.z, wv, acc[c][2]);
-      acc[c][3] = fmaf(xa.w, wv, acc[c][3]);
-      acc[c][4] = fmaf(xb.x, wv, acc[c][4]);
-      acc[c][5] = fmaf(xb.y, wv, acc[c][5]);
-      acc[c][6] = fmaf(xb.z, wv, acc[c][6]);
-      acc[c][7] = fmaf(xb.w, wv, acc[c][7]);
-    }
+    const float wv = __ldg(wcol + static_cast<size_t>(k) * ldk);
+    acc[0] = fmaf(xa.x, wv, acc[0]);
+    acc[1] = fmaf(xa.y, wv, acc[1]);
+    acc[2] = fmaf(xa.z, wv, acc[2]);
+    acc[3] = fmaf(xa.w, wv, acc[3]);
+    acc[4] = fmaf(xb.x, wv, acc[4]);
+    acc[5] = fmaf(xb.y, wv, acc[5]);
+    acc[6] = fmaf(xb.z, wv, acc[6]);
+    acc[7] = fmaf(xb.w, wv, acc[7]);
   }
 }
 
-// The slices' sums meet in red (kSlices, kTok, NC, kCols) and are added in slice
-// order; afterwards thread (warp t, lane) holds row r0 + t, column lane of the tile.
-template <int NC>
-__device__ __forceinline__ void sum_slices(float* __restrict__ red, const float (&acc)[NC][kTok],
-                                           float (&out)[NC]) {
+// The slices' sums meet in red (kSlices, kTok, kCols) and are added in slice order;
+// the result is thread (warp t, lane)'s: row r0 + t, column lane of the tile.
+__device__ __forceinline__ float sum_slices(float* __restrict__ red, const float (&acc)[kTok]) {
   const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
-  for (int t = 0; t < kTok; ++t)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) red[((w * kTok + t) * NC + c) * kCols + lane] = acc[c][t];
+  for (int t = 0; t < kTok; ++t) red[(w * kTok + t) * kCols + lane] = acc[t];
   __syncthreads();
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    float s = red[((0 * kTok + w) * NC + c) * kCols + lane];
-    for (int sl = 1; sl < kSlices; ++sl) s += red[((sl * kTok + w) * NC + c) * kCols + lane];
-    out[c] = s;
-  }
+  float s = red[w * kCols + lane];
+  for (int sl = 1; sl < kSlices; ++sl) s += red[(sl * kTok + w) * kCols + lane];
+  return s;
 }
 
-template <int NC>
-constexpr int red_floats() { return kSlices * kTok * NC * kCols; }
-
-// -- qkv_rope ---------------------------------------------------------------------
-
-struct QkvArgs {
-  const float* x;
-  const float* ln_scale;
-  const float* ln_bias;
-  const float* w[3];   // wq (D, H*hd), wk, wv (D, KH*hd)
-  const float* b[3];   // biases or null
-  float* q;            // (R, H*hd)
-  float* cache[2];     // k, v buffers (B, T, KH*hd)
-  const int* cache_pos;
-  int R, S, T, D, H, KH, HD, pos0, norm, use_rope;
-  float eps, theta;
-};
-
-__global__ void __launch_bounds__(kThreads) qkv_rope_kernel(QkvArgs a) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* red = xs + a.D * kTok;
-  const int r0 = blockIdx.y * kTok;
-  stage_rows(a.x, a.R, a.D, r0, xs, a.ln_scale, a.ln_bias, a.norm, a.eps);
-  __syncthreads();
-
-  const int half = a.HD / 2;
-  const int lane = threadIdx.x % 32;
-  const int p = blockIdx.x * kCols + lane;          // RoPE pair (c1, c1 + half)
-  const bool valid = p < (a.H + 2 * a.KH) * half;
-  const int head = valid ? p / half : 0, j = p % half;
-  const int sec = head < a.H ? 0 : (head < a.H + a.KH ? 1 : 2);
-  const int lh = head - (sec == 0 ? 0 : (sec == 1 ? a.H : a.H + a.KH));
-  const int ncols = (sec == 0 ? a.H : a.KH) * a.HD;
-  const int c1 = lh * a.HD + j, c2 = c1 + half;
-  const float* const wcol[2] = {a.w[sec] + c1, a.w[sec] + c2};
-  float acc[2][kTok];
-  dot_slice<2>(xs, a.D, wcol, ncols, valid, acc);
-  float y[2];
-  sum_slices<2>(red, acc, y);
-
-  const int r = r0 + threadIdx.x / 32;
-  if (!valid || r >= a.R) return;
-  if (a.b[sec] != nullptr) {
-    y[0] += a.b[sec][c1];
-    y[1] += a.b[sec][c2];
-  }
-  const int bi = r / a.S, i = r % a.S;
-  if (a.use_rope && sec < 2) {
-    const float freq = powf(a.theta, -static_cast<float>(j) / static_cast<float>(half));
-    const float ang = static_cast<float>(a.pos0 + i) * freq;
-    const float sn = sinf(ang), cs = cosf(ang);
-    const float o1 = y[0] * cs - y[1] * sn;
-    const float o2 = y[1] * cs + y[0] * sn;
-    y[0] = o1;
-    y[1] = o2;
-  }
-  float* dst;
-  if (sec == 0) {
-    dst = a.q + static_cast<size_t>(r) * ncols;
-  } else {
-    const int w0 = min(max(*a.cache_pos, 0), a.T - a.S);
-    dst = a.cache[sec - 1] + (static_cast<size_t>(bi) * a.T + w0 + i) * ncols;
-  }
-  dst[c1] = y[0];
-  dst[c2] = y[1];
-}
+constexpr int kRedFloats = kSlices * kTok * kCols;
 
 // -- head ------------------------------------------------------------------------------
 
@@ -321,15 +288,13 @@ __global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
 
   const int n = blockIdx.x * kCols + threadIdx.x % 32;
   const bool valid = n < a.N;
-  const float* const wcol[1] = {a.w + static_cast<size_t>(valid ? n : 0) * a.ldn};
-  float acc[1][kTok];
-  dot_slice<1>(xs, a.K, wcol, a.ldk, valid, acc);
-  float y[1];
-  sum_slices<1>(red, acc, y);
+  float acc[kTok];
+  dot_slice(xs, a.K, a.w + static_cast<size_t>(valid ? n : 0) * a.ldn, a.ldk, valid, acc);
+  const float y = sum_slices(red, acc);
 
   const int r = r0 + threadIdx.x / 32;
   if (!valid || r >= a.R) return;
-  a.out[static_cast<size_t>(r) * a.N + n] = y[0];
+  a.out[static_cast<size_t>(r) * a.N + n] = y;
 }
 
 // -- post_attn ---------------------------------------------------------------------------
@@ -345,20 +310,6 @@ __host__ __device__ constexpr int post_slice(int K) { return 4 * ((K + 31) / 32)
 // (32, slice + 4), the partial tile (32, W), the rows' mean and 1 / std (2 x 32).
 __host__ __device__ constexpr int post_smem_floats(int slice, int W) {
   return slice * W + kRowTile * (slice + 4) + kRowTile * W + 2 * kRowTile;
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
 }
 
 // Start copying the (rows, cols) tile at src (row stride lds) into dst (row stride ldd);
@@ -476,10 +427,10 @@ post_attn_proj_kernel(PostArgs a) {
                        NT, a.K - k0, a.N - n0, a.w[c], vec);
   copy_tile<THREADS>(xs, xsld, a.in + static_cast<size_t>(r0) * a.K + k0, a.K, kRowTile, len4,
                      a.R - r0, a.K - k0, a.in, vec);
-  asm volatile("cp.async.commit_group;" ::: "memory");
+  cp_async_commit();
   if (a.ln_scale != nullptr) row_stats<THREADS>(a, r0, mu, inv);   // while the copy runs
 
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  cp_async_wait<0>();
   __syncthreads();
   if (a.ln_scale != nullptr) {
     const int nr = min(kRowTile, a.R - r0);
@@ -587,6 +538,319 @@ bool aligned16(const void* p) {
   return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+// -- qkv_rope ---------------------------------------------------------------------
+
+struct QkvArgs {
+  const float* x;
+  const float* ln_scale;
+  const float* ln_bias;
+  const float* w[3];   // wq (D, H*hd), wk, wv (D, KH*hd)
+  const float* b[3];   // biases or null
+  float* q;            // (R, H*hd)
+  float* cache[2];     // k, v buffers (B, T, KH*hd)
+  const int* cache_pos;
+  int R, S, T, D, H, KH, pos0, norm, use_rope, vec;
+  float eps, theta;
+};
+
+constexpr int kQkvThreads = 128;   // 4 warps, each on HD / 32 of the tile's n8 blocks
+
+// One rank's slice of D: a function of D alone, a multiple of 8 (the k8 steps).
+__host__ __device__ constexpr int qkv_slice(int D) { return 8 * ((D + 63) / 64); }
+
+template <int HD>
+struct QkvTile {
+  static constexpr int kWld = HD + 8;                 // slab row: B fragments hit 32 banks
+  static constexpr int kChunk = HD <= 64 ? 128 : 64;  // k rows of a stage, if the slab is staged
+  static constexpr int kNt = HD / 32;                 // n8 blocks of a warp
+  // rows of the slab's buffer: the whole slice, or two stages
+  static __host__ __device__ constexpr int slab_rows(int slice) {
+    return slice <= kChunk ? slice : 2 * kChunk;
+  }
+  // shared floats: the rows' slice (32, slice + 4), ln1's scale and bias over the
+  // slice (2, slice), the slab, the partial tile (32, kWld), the rows' statistics over
+  // the slice (2 x 32)
+  static __host__ __device__ constexpr int smem_floats(int D) {
+    return (kRowTile + 2) * qkv_slice(D) + 4 * kRowTile +
+           (slab_rows(qkv_slice(D)) + kRowTile) * kWld + 2 * kRowTile;
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// ln1 -> q/k/v (+bias) -> RoPE for a 32-row x one-head tile per cluster of 8 blocks,
+// rank s summing the s-th slice of D (see the note on top).
+template <int HD>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kQkvThreads)
+qkv_rope_kernel(QkvArgs a) {
+  using Tile = QkvTile<HD>;
+  constexpr int WLD = Tile::kWld, CH = Tile::kChunk, NT = Tile::kNt, HALF = HD / 2;
+  constexpr int kLanes = kQkvThreads / kRowTile;   // lanes on a row's statistics
+  constexpr int kPairs = (4 * HALF + kQkvThreads - 1) / kQkvThreads;   // a thread's pairs
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slice = qkv_slice(a.D), xld = slice + 4;
+  float* xs = reinterpret_cast<float*>(smem4);
+  float* lns = xs + kRowTile * xld;    // ln1's scale, then its bias, over the slice
+  float* ws = lns + 2 * slice;
+  float* part = ws + Tile::slab_rows(slice) * WLD;
+  float* stats = part + kRowTile * WLD;
+  const int head = static_cast<int>(blockIdx.x) / kCluster;   // of H + 2 KH: q, k, v
+  const int sec = head < a.H ? 0 : (head < a.H + a.KH ? 1 : 2);
+  const int lh = head - (sec == 0 ? 0 : (sec == 1 ? a.H : a.H + a.KH));
+  const int ncols = (sec == 0 ? a.H : a.KH) * HD;
+  const int r0 = static_cast<int>(blockIdx.y) * kRowTile;
+  const int k0 = rank * slice;
+  const int len = max(0, min(a.D, k0 + slice) - k0);
+  const int len8 = (len + 7) & ~7;
+  const int nch = (len8 + CH - 1) / CH;
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const bool vec = a.vec != 0, ln = a.norm == kLayerNorm;
+  const float* wsrc = a.w[sec] + static_cast<size_t>(k0) * ncols + lh * HD;
+  auto copy_chunk = [&](int c) {
+    copy_tile<kQkvThreads>(ws + (c & 1) * CH * WLD, WLD,
+                           wsrc + static_cast<size_t>(c) * CH * ncols, ncols,
+                           min(CH, len8 - c * CH), HD, a.D - k0 - c * CH, HD, a.w[sec], vec);
+  };
+
+  copy_tile<kQkvThreads>(xs, xld, a.x + static_cast<size_t>(r0) * a.D + k0, a.D, kRowTile, len8,
+                         a.R - r0, a.D - k0, a.x, vec);
+  copy_tile<kQkvThreads>(lns, slice, a.ln_scale + k0, 0, 1, len8, 1, a.D - k0, a.ln_scale, vec);
+  if (ln) {
+    copy_tile<kQkvThreads>(lns + slice, slice, a.ln_bias + k0, 0, 1, len8, 1, a.D - k0,
+                           a.ln_bias, vec);
+  }
+  cp_async_commit();
+
+  // this thread's pairs of the epilogue, o = tid + e kQkvThreads: row 4 rank + o / HALF,
+  // columns j, j + HALF of the head. Their bias and the cursor are loaded now, while the
+  // copies run
+  int tt[kPairs], j[kPairs];
+  bool mine[kPairs];
+  float bias[kPairs][2];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    const int o = tid + e * kQkvThreads;
+    tt[e] = 4 * rank + o / HALF;
+    j[e] = o % HALF;
+    mine[e] = o < 4 * HALF && r0 + tt[e] < a.R;
+    const bool b = mine[e] && a.b[sec] != nullptr;
+    bias[e][0] = b ? a.b[sec][lh * HD + j[e]] : 0.f;
+    bias[e][1] = b ? a.b[sec][lh * HD + j[e] + HALF] : 0.f;
+  }
+  const int w0 = min(max(*a.cache_pos, 0), a.T - a.S);
+
+  cp_async_wait<0>();   // the rows have landed; then the slab, in flight under the statistics
+  __syncthreads();
+  if (nch > 0) copy_chunk(0);
+  cp_async_commit();
+
+  // ln1's statistics of the 32 rows over this slice: lanes kLanes t .. kLanes t + kLanes - 1
+  // own row t, lane q summing k = q, q + kLanes, ... in order, then a fixed butterfly;
+  // layernorm keeps the slice's mean and centred sum of squares, rmsnorm its sum of squares
+  const int t = tid / kLanes, qd = tid % kLanes;
+  float* xr = xs + t * xld;
+  float s = 0.f, m2 = 0.f;
+#pragma unroll 4
+  for (int k = qd; k < len; k += kLanes) {
+    const float v = xr[k];
+    s += ln ? v : v * v;
+  }
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  if (ln) {
+    s = len > 0 ? s / static_cast<float>(len) : 0.f;
+#pragma unroll 4
+    for (int k = qd; k < len; k += kLanes) {
+      const float d = xr[k] - s;
+      m2 += d * d;
+    }
+#pragma unroll
+    for (int o = 1; o < kLanes; o <<= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+  }
+  if (qd == 0) {
+    stats[t] = s;
+    stats[kRowTile + t] = m2;
+  }
+  cluster_arrive();
+  // RoPE's rotation of this thread's pairs, computed while the cluster meets
+  const bool rot = a.use_rope && sec < 2;
+  float sn[kPairs], cs[kPairs];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    sn[e] = 0.f;
+    cs[e] = 1.f;
+    if (mine[e] && rot) {
+      const float freq = powf(a.theta, -static_cast<float>(j[e]) / static_cast<float>(HALF));
+      const float ang = static_cast<float>(a.pos0 + (r0 + tt[e]) % a.S) * freq;
+      sn[e] = sinf(ang);
+      cs[e] = cosf(ang);
+    }
+  }
+  cluster_wait();
+
+  // the 8 slices' statistics in rank order through DSMEM, then this slice normalised in
+  // place. Layernorm: mu = sum_p n_p m_p / D, and the centred sum of squares
+  // sum_p (M2_p + n_p (m_p - mu)^2); rmsnorm: sum_p of the sums of squares
+  float rs[kCluster], rm2[kCluster], nb[kCluster];
+#pragma unroll
+  for (int p = 0; p < kCluster; ++p) {   // every remote read in flight at once
+    const float* st = cluster.map_shared_rank(stats, p);
+    rs[p] = st[t];
+    rm2[p] = st[kRowTile + t];
+    nb[p] = static_cast<float>(max(0, min(a.D, (p + 1) * slice) - p * slice));
+  }
+  float mu = 0.f, ss = 0.f;
+  if (ln) {
+#pragma unroll
+    for (int p = 0; p < kCluster; ++p) mu += nb[p] * rs[p];
+    mu /= static_cast<float>(a.D);
+#pragma unroll
+    for (int p = 0; p < kCluster; ++p) {
+      const float d = rs[p] - mu;
+      ss += rm2[p] + nb[p] * (d * d);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kCluster; ++p) ss += rs[p];
+  }
+  const float inv = rsqrtf(ss / static_cast<float>(a.D) + a.eps);
+  for (int kb = qd; kb < len; kb += 4 * kLanes) {   // 4 elements' loads before their stores
+    float v[4], sc[4], bs[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = min(kb + u * kLanes, len8 - 1);
+      v[u] = xr[k];
+      sc[u] = lns[k];
+      bs[u] = lns[slice + k];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float y = (v[u] - mu) * inv;
+      if (kb + u * kLanes < len) {
+        xr[kb + u * kLanes] = ln ? y * sc[u] + bs[u] : y * (1.0f + sc[u]);
+      }
+    }
+  }
+
+  // the product on the tensor cores: 3xTF32 mma.sync.m16n8k8, warp w on both 16-row
+  // halves of the tile x the w-th NT n8 blocks, k8 steps in increasing k from the slice's
+  // start
+  const int g = lane / 4, tq = lane % 4, n0 = w * NT * 8;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    if (c + 1 < nch) {
+      copy_chunk(c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // the chunk, and the normalised rows, are visible to every warp
+    const float* xa = xs + g * xld + c * CH + tq;
+    const float* wb = ws + (c & 1) * CH * WLD + tq * WLD + n0 + g;
+    const int kn = min(CH, len8 - c * CH);
+#pragma unroll 4
+    for (int kk = 0; kk < kn; kk += 8) {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float* p = xa + 16 * mt * xld + kk;
+        split(p[0], ah[mt][0], al[mt][0]);
+        split(p[8 * xld], ah[mt][1], al[mt][1]);
+        split(p[4], ah[mt][2], al[mt][2]);
+        split(p[8 * xld + 4], ah[mt][3], al[mt][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* p = wb + kk * WLD + 8 * nt;
+        uint32_t bh[2], bl[2];
+        split(p[0], bh[0], bl[0]);
+        split(p[4 * WLD], bh[1], bl[1]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh, bl);
+      }
+    }
+    __syncthreads();   // the next chunk's copy overwrites this buffer
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float* p = part + (16 * mt + g) * WLD + n0 + 8 * nt + 2 * tq;
+      *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(p + 8 * WLD) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  cluster.sync();
+
+  // rank s finalises rows 4s .. 4s + 3: the 8 partials in rank order, the bias, RoPE on
+  // each pair (j, j + HD / 2), and the store of q or of the k/v cache row at the cursor
+  float y[kPairs][2];
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    y[e][0] = y[e][1] = 0.f;
+    if (tid + e * kQkvThreads < 4 * HALF) {
+      float v[kCluster][2];
+#pragma unroll
+      for (int p = 0; p < kCluster; ++p) {   // every remote read in flight at once
+        const float* rp = cluster.map_shared_rank(part, p) + tt[e] * WLD + j[e];
+        v[p][0] = rp[0];
+        v[p][1] = rp[HALF];
+      }
+      y[e][0] = v[0][0];
+      y[e][1] = v[0][1];
+#pragma unroll
+      for (int p = 1; p < kCluster; ++p) {
+        y[e][0] += v[p][0];
+        y[e][1] += v[p][1];
+      }
+    }
+  }
+  cluster_arrive();   // the last remote read is done; no block leaves before all are
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    if (!mine[e]) continue;
+    float y0 = y[e][0] + bias[e][0], y1 = y[e][1] + bias[e][1];
+    if (rot) {
+      const float o1 = y0 * cs[e] - y1 * sn[e];
+      const float o2 = y1 * cs[e] + y0 * sn[e];
+      y0 = o1;
+      y1 = o2;
+    }
+    const int r = r0 + tt[e], i = r % a.S, c1 = lh * HD + j[e];
+    float* dst = sec == 0 ? a.q + static_cast<size_t>(r) * ncols
+                          : a.cache[sec - 1] + (static_cast<size_t>(r / a.S) * a.T + w0 + i) * ncols;
+    dst[c1] = y0;
+    dst[c1 + HALF] = y1;
+  }
+  cluster_wait();
+}
+
+template <int HD>
+int launch_qkv(const QkvArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      qkv_rope_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t smem = static_cast<size_t>(QkvTile<HD>::smem_floats(a.D)) * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((a.H + 2 * a.KH) * kCluster, (a.R + kRowTile - 1) / kRowTile);
+  qkv_rope_kernel<HD><<<grid, kQkvThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // -- attn_cached -------------------------------------------------------------------
 
 constexpr int kAttnThreads = 256;
@@ -686,12 +950,9 @@ extern "C" int draft_qkv_rope_launch(const void* x, const void* ln_scale, const 
                                      int S, int T, int D, int H, int KH, int HD, int pos0,
                                      int norm, float eps, int use_rope, float theta,
                                      void* stream) {
-  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0 || HD % 2 != 0) {
+  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      qkv_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   QkvArgs a;
   a.x = static_cast<const float*>(x);
   a.ln_scale = static_cast<const float*>(ln_scale);
@@ -706,14 +967,17 @@ extern "C" int draft_qkv_rope_launch(const void* x, const void* ln_scale, const 
   a.cache[0] = static_cast<float*>(kcache);
   a.cache[1] = static_cast<float*>(vcache);
   a.cache_pos = static_cast<const int*>(cache_pos);
-  a.R = R; a.S = S; a.T = T; a.D = D; a.H = H; a.KH = KH; a.HD = HD; a.pos0 = pos0;
+  a.R = R; a.S = S; a.T = T; a.D = D; a.H = H; a.KH = KH; a.pos0 = pos0;
   a.norm = norm; a.use_rope = use_rope; a.eps = eps; a.theta = theta;
-  const size_t smem = (static_cast<size_t>(D) * kTok + red_floats<2>()) * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int pairs = (H + 2 * KH) * (HD / 2);
-  const dim3 grid((pairs + kCols - 1) / kCols, (R + kTok - 1) / kTok);
-  qkv_rope_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  a.vec = D % 4 == 0 && aligned16(x) && aligned16(ln_scale) && aligned16(ln_bias) &&
+          aligned16(wq) && aligned16(wk) && aligned16(wv);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (HD) {
+    case 32: return launch_qkv<32>(a, st);
+    case 64: return launch_qkv<64>(a, st);
+    case 128: return launch_qkv<128>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const void* vcache,
@@ -799,7 +1063,7 @@ extern "C" int draft_head_launch(const void* x, const void* ln_scale, const void
   p.w = static_cast<const float*>(w);
   p.out = static_cast<float*>(out);
   p.R = R; p.K = D; p.N = V; p.ldk = ldk; p.ldn = ldn; p.norm = norm; p.eps = eps;
-  const size_t smem = (static_cast<size_t>(D) * kTok + red_floats<1>()) * sizeof(float);
+  const size_t smem = (static_cast<size_t>(D) * kTok + kRedFloats) * sizeof(float);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((V + kCols - 1) / kCols, (R + kTok - 1) / kTok);
   proj_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);

@@ -32,18 +32,21 @@ from repro_torch.kernels.draft_decode.ref import (
 
 _NORM = {"layernorm": 0, "rmsnorm": 1}
 _ACT = {"gelu": 0, "silu": 1, "relu": 2}
-# the kernels' tiling (csrc/draft_decode.cu): qkv_rope and head take 8 token
-# rows x 32 columns per block, K in 8 slices; a block stages its rows in at most
-# this much smem
+# the kernels' tiling (csrc/draft_decode.cu): head takes 8 token rows x 32
+# columns per block, K in 8 slices; a block stages its rows in at most this
+# much smem
 TOK, SLICES, COLS = 8, 8, 32
 MAX_SMEM = 232448
-# post_attn_proj_kernel: 32 token rows per cluster of 8 blocks, each block one
-# slice of 4 * ceil(K / 32) of K; slab widths (columns of weight a block holds)
-# for wo, up (gated: 64 up + 64 gate) and down
-POST_ROWS = 32
+# qkv_rope_kernel and post_attn_proj_kernel: 32 token rows per cluster of 8
+# blocks, each block one slice of K (qkv_rope: 8 * ceil(D / 64), post_attn:
+# 4 * ceil(K / 32))
+CLUSTER_ROWS = 32
+# post_attn's slab widths (columns of weight a block holds) for wo, up (gated:
+# 64 up + 64 gate) and down
 POST_WIDTHS = {"wo": 32, "up": 128, "down": 64}
 MAX_GRID_Y = 65535
-ATTN_HEAD_DIMS = (32, 64, 128)
+# the head dims qkv_rope and attn_cached are built for
+HEAD_DIMS = (32, 64, 128)
 
 
 def draft_decode_supported(cfg) -> bool:
@@ -88,15 +91,28 @@ def _check_cursor(name: str, start: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name}: the cache cursor must be one int32 on {device}")
 
 
-def _smem(k: int, nc: int) -> int:
-    return (k * TOK + SLICES * TOK * nc * COLS) * 4
+def _head_smem(k: int) -> int:
+    return (k * TOK + SLICES * TOK * COLS) * 4
+
+
+def _qkv_smem(d: int, head_dim: int) -> int:
+    """Bytes of shared memory of a qkv_rope block: the rows' slice (padded by
+    4), ln1's scale and bias over the slice, the weight slab (the whole
+    slice, or two stages of 128 k rows, 64 at head_dim 128; rows padded by
+    8), the partial tile and the rows' ln1 statistics over the slice."""
+    sl = 8 * -(-d // 64)
+    stage = 128 if head_dim <= 64 else 64
+    slab = sl if sl <= stage else 2 * stage
+    return (CLUSTER_ROWS * (sl + 4) + 2 * sl + (slab + CLUSTER_ROWS) * (head_dim + 8)
+            + 2 * CLUSTER_ROWS) * 4
 
 
 def _post_smem(k: int, width: int) -> int:
     """Bytes of shared memory of a post_attn block: the weight slab, the rows'
     slice (padded by 4), the partial tile and the rows' ln2 statistics."""
     sl = 4 * -(-k // 32)
-    return (sl * width + POST_ROWS * (sl + 4) + POST_ROWS * width + 2 * POST_ROWS) * 4
+    return (sl * width + CLUSTER_ROWS * (sl + 4) + CLUSTER_ROWS * width
+            + 2 * CLUSTER_ROWS) * 4
 
 
 def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int) -> None:
@@ -105,10 +121,6 @@ def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int) -> 
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: a reduced length of {k} needs {smem} bytes of "
                          f"shared memory per block, more than {MAX_SMEM}")
-
-
-def _check_rows(name: str, r: int, k: int, nc: int) -> None:
-    _check_limits(name, r, TOK, k, _smem(k, nc))
 
 
 def _stream(device: torch.device) -> int:
@@ -143,13 +155,15 @@ def qkv_rope(x: torch.Tensor, ln: dict, attn_p: dict, kbuf: torch.Tensor,
     r, d = x.shape
     kd = kv_heads * head_dim
     if r % seq or kbuf.shape != (r // seq, kbuf.shape[1], kd) or vbuf.shape != kbuf.shape \
-            or seq > kbuf.shape[1] or head_dim % 2:
+            or seq > kbuf.shape[1]:
         raise ValueError(f"qkv_rope: x {tuple(x.shape)} with seq {seq} does not fit the "
                          f"cache {tuple(kbuf.shape)} of {kv_heads} heads of {head_dim}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"qkv_rope: head_dim {head_dim} not in {HEAD_DIMS}")
     _check("qkv_rope", dev, x, ln["scale"], ln.get("bias"), kbuf, vbuf,
            *(attn_p[n].get(f) for n in ("wq", "wk", "wv") for f in ("w", "b")))
     _check_cursor("qkv_rope", start, dev)
-    _check_rows("qkv_rope", r, d, 2)
+    _check_limits("qkv_rope", r, CLUSTER_ROWS, d, _qkv_smem(d, head_dim))
     q = torch.empty((r, heads * head_dim), dtype=torch.float32, device=dev)
     _launch_qkv_rope(x, ln, attn_p, q, kbuf, vbuf, start, **kw)
     _build.count("qkv_rope")
@@ -189,8 +203,8 @@ def attn_cached(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
             or vbuf.shape != kbuf.shape or seq > kbuf.shape[1]:
         raise ValueError(f"attn_cached: q {tuple(q.shape)} with seq {seq} does not fit the "
                          f"cache {tuple(kbuf.shape)}")
-    if head_dim not in ATTN_HEAD_DIMS:
-        raise ValueError(f"attn_cached: head_dim {head_dim} not in {ATTN_HEAD_DIMS}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"attn_cached: head_dim {head_dim} not in {HEAD_DIMS}")
     if not 0 < r <= MAX_GRID_Y or (kbuf.shape[1] + 300) * 4 > MAX_SMEM:
         raise ValueError(f"attn_cached: {r} rows or a {kbuf.shape[1]}-key cache is outside "
                          f"what one launch takes")
@@ -232,7 +246,7 @@ def post_attn(a: torch.Tensor, x: torch.Tensor, attn_p: dict, ln: dict, mlp_p: d
     _check("post_attn", dev, a, x, ln["scale"], ln.get("bias"),
            *(p.get(k) for p in (attn_p["wo"], *mlp_p.values()) for k in ("w", "b")))
     for k, proj in ((a.shape[1], "wo"), (d, "up"), (f, "down")):
-        _check_limits("post_attn", r, POST_ROWS, k, _post_smem(k, POST_WIDTHS[proj]))
+        _check_limits("post_attn", r, CLUSTER_ROWS, k, _post_smem(k, POST_WIDTHS[proj]))
     x1 = torch.empty_like(x)
     u = torch.empty((r, f), dtype=torch.float32, device=dev)
     out = torch.empty_like(x)
@@ -270,7 +284,7 @@ def head(x: torch.Tensor, fn: dict, w: torch.Tensor, *, norm: str, eps: float) -
     _check("head", dev, x, fn["scale"], fn.get("bias"))
     if w.device != dev or w.dtype != torch.float32:
         raise ValueError(f"head: w must be float32 on {dev}")
-    _check_rows("head", r, d, 1)
+    _check_limits("head", r, TOK, d, _head_smem(d))
     out = torch.empty((r, w.shape[1]), dtype=torch.float32, device=dev)
     _launch_head(x, fn, w, out, norm=norm, eps=eps)
     _build.count("head")

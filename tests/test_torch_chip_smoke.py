@@ -33,6 +33,8 @@ def smoke():
     ("void (anonymous namespace)::flash_attn_kernel<64>(float const*, float const*)",
      "flash_attn"),
     ("(anonymous namespace)::qkv_rope_kernel((anonymous namespace)::QkvArgs)", "qkv_rope"),
+    ("void (anonymous namespace)::qkv_rope_kernel<64>((anonymous namespace)::QkvArgs)",
+     "qkv_rope"),
     ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8", "matmul"),
 ])
 def test_profiler_names_map_to_their_kernel(smoke, name, kind):
@@ -66,3 +68,17 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert run.returncode == 2
     assert '"ok"' not in run.stdout
+
+
+def test_qkv_rope_ablation_cuts_every_phase_out_of_the_kernel():
+    """tools/qkv_rope_ablation.py patches the kernel's source by text: each
+    variant's anchors are still in csrc/draft_decode.cu, and each changes it."""
+    spec = importlib.util.spec_from_file_location("qkv_rope_ablation",
+                                                  ROOT / "tools" / "qkv_rope_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "draft_decode.cu").read_text()
+    assert tool.variant_source(text, "base") == text
+    for name in tool.VARIANTS:
+        if name != "base":
+            assert tool.variant_source(text, name) != text

@@ -192,6 +192,80 @@ def test_post_attn_kernel_is_batch_invariant(card, r, layer):
     assert _close(out, post_attn_ref(a, x, attn_p, ln2, mlp_p, **kw), 1e-4)
 
 
+# d, h, kh, hd, norm, bias, rope, unaligned: the full-width layer; head dims 32 and 128
+# (D = 640: the slab of 80 k rows streams in two stages of 64); GQA; rmsnorm with bias
+# at D = 90 (short and empty slices, 4-byte copies); no RoPE; D = 520, not a multiple
+# of 64; D = 2056 (three stages of up to 128 k rows); x as a view 4 bytes off a 16-byte
+# boundary (4-byte copies)
+QKV_LAYERS = {
+    "full-width-layernorm": (768, 12, 12, 64, "layernorm", False, True, False),
+    "hd32": (256, 8, 8, 32, "layernorm", False, True, False),
+    "hd128-staged": (640, 4, 2, 128, "layernorm", True, True, False),
+    "gqa": (512, 8, 2, 64, "layernorm", False, True, False),
+    "rmsnorm-bias-d90": (90, 4, 2, 32, "rmsnorm", True, True, False),
+    "no-rope": (256, 4, 2, 64, "layernorm", False, False, False),
+    "d520": (520, 4, 4, 64, "layernorm", True, True, False),
+    "d2056-staged": (2056, 2, 1, 64, "rmsnorm", False, True, False),
+    "unaligned-view": (192, 4, 2, 32, "layernorm", False, True, True),
+}
+
+
+def _qkv_case(card, layer, b, r, t, seed):
+    d, h, kh, hd, norm, bias, rope, unaligned = QKV_LAYERS[layer]
+    g = torch.Generator(device=card).manual_seed(seed)
+    ln1, attn_p, _, _ = _layer(g, d, 8, h, kh, hd, norm=norm, bias=bias, gated=False,
+                               device=card)
+    x = torch.randn((r, d), generator=g, device=card)
+    if unaligned:
+        x = torch.cat([torch.zeros(1, device=card), x.reshape(-1)])[1:].view(r, d)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    kbuf = torch.randn((b, t, kh * hd), generator=g, device=card)
+    kw = dict(norm=norm, eps=1e-6, use_rope=rope, theta=1e4, heads=h, kv_heads=kh, head_dim=hd)
+    return ln1, attn_p, x, kbuf, kw
+
+
+@pytest.mark.parametrize("layer", sorted(QKV_LAYERS))
+@pytest.mark.parametrize("r", [1, 7, 32, 33, 512])
+def test_qkv_rope_kernel_is_batch_invariant(card, r, layer):
+    """A prefill of R tokens in one call gives each token's bits alone (one
+    call per token at its own position and cursor), for q and the k/v cache
+    rows: the K split, the statistics and the order of their sums do not
+    depend on R or on a row's place in its tile."""
+    ln1, attn_p, x, kbuf, kw = _qkv_case(card, layer, 1, r, r + 3, r + 7)
+    vbuf = torch.randn_like(kbuf)
+    kb, vb = kbuf.clone(), vbuf.clone()
+    start = torch.zeros((), dtype=torch.int32, device=card)
+    q = qkv_rope(x, ln1, attn_p, kb, vb, start, pos0=0, seq=r, **kw)
+    ka, va = kbuf.clone(), vbuf.clone()
+    alone = torch.cat([
+        qkv_rope(x[i:i + 1], ln1, attn_p, ka, va, torch.tensor(i, dtype=torch.int32, device=card),
+                 pos0=i, seq=1, **kw) for i in range(r)])
+    assert torch.equal(q, alone) and torch.equal(kb, ka) and torch.equal(vb, va)
+    kr, vr = kbuf.clone(), vbuf.clone()
+    q_ref = qkv_rope_ref(x, ln1, attn_p, kr, vr, start, pos0=0, seq=r, **kw)
+    assert _close(q, q_ref, 1e-4) and _close(kb, kr, 1e-4) and _close(vb, vr, 1e-4)
+
+
+@pytest.mark.parametrize("cursor", [-3, 5, 40])
+def test_qkv_rope_kernel_clamps_the_cursor(card, cursor):
+    """k/v land at clamp(*cache_pos, 0, T - S) + i, as dynamic_update_slice
+    clamps: a cursor below 0 writes from row 0, one past T - S from T - S."""
+    b, s, t = 2, 3, 10
+    ln1, attn_p, x, kbuf, kw = _qkv_case(card, "gqa", b, b * s, t, cursor + 50)
+    vbuf = torch.randn_like(kbuf)
+    start = torch.tensor(cursor, dtype=torch.int32, device=card)
+    kk, vk, kr, vr = kbuf.clone(), vbuf.clone(), kbuf.clone(), vbuf.clone()
+    q = qkv_rope(x, ln1, attn_p, kk, vk, start, pos0=7, seq=s, **kw)
+    q_ref = qkv_rope_ref(x, ln1, attn_p, kr, vr, start, pos0=7, seq=s, **kw)
+    assert _close(q, q_ref, 1e-4) and _close(kk, kr, 1e-4) and _close(vk, vr, 1e-4)
+    w0 = min(max(cursor, 0), t - s)
+    untouched = torch.ones(t, dtype=torch.bool, device=card)
+    untouched[w0:w0 + s] = False
+    assert torch.equal(kk[:, untouched], kbuf[:, untouched])
+    assert torch.equal(vk[:, untouched], vbuf[:, untouched])
+    assert not torch.equal(kk[:, w0:w0 + s], kbuf[:, w0:w0 + s])
+
+
 def _draft_model(card, **kw):
     cfg = tiny_config(vocab_size=27).replace(
         num_layers=2, d_model=64, num_heads=4, num_kv_heads=2, d_ff=128, **kw)
@@ -243,6 +317,11 @@ def test_draft_wrappers_reject_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         attn_cached(q, buf, buf, torch.zeros((), dtype=torch.int32, device=card), pos0=0,
                     seq=1, heads=2, kv_heads=2, head_dim=48)
+    attn_p = {n: {"w": torch.zeros(64, 2 * 48, device=card)} for n in ("wq", "wk", "wv")}
+    with pytest.raises(ValueError, match="head_dim"):
+        qkv_rope(x, ln, attn_p, buf, buf, torch.zeros((), dtype=torch.int32, device=card),
+                 pos0=0, seq=1, norm="rmsnorm", eps=1e-6, use_rope=True, theta=1e4, heads=2,
+                 kv_heads=2, head_dim=48)
 
 
 # -- the scheduler's per-row ws_step mode and ws_fused ---------------------------------------
