@@ -195,6 +195,81 @@ def measure_ws_step(r, v):
             "bound_by": by, "library_ms": None}
 
 
+WS_LANES = (2, 4, 8, 16, 32)    # the lanes a row the ws_step kernels admit; 32 is draw_row's
+
+
+def lanes_inputs(r, v, seed):
+    """Both modes' inputs at (r, v): the single-key step, and the per-row
+    step as (r / n, n, v) with one key and weight per request row."""
+    from repro_torch import prng
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_step import seed_from_key
+
+    path = WarmStartPath(t0=T0)
+    logits, x, t = ws_inputs(r, v, seed)
+    a = torch.clamp(path.velocity_scale(t) / COLD_NFE, 0.0, 1.0)
+    a[0] = 0.0                                 # a frozen row
+    n = 256 if r % 256 == 0 else 16
+    keys = prng.key_data(prng.split(prng.key(seed), r // n)).to("cuda", torch.int64)
+    return logits, x, a, seed_from_key(prng.key(seed)), n, keys
+
+
+def check_ws_lanes(r, v, seed):
+    """ws_step and ws_step_rows at every admissible lanes a row, the
+    kernel's own choice (lanes = 0) among them, against one warp a row
+    (draw_row's layout): the tokens must be equal, bitwise."""
+    from repro_torch.kernels.ws_step import ops
+
+    logits, x, a, seed_w, n, keys = lanes_inputs(r, v, seed)
+    b = r // n
+    outs = {}
+    for lanes in (0,) + WS_LANES:
+        step = torch.empty(r, dtype=torch.int32, device="cuda")
+        rows = torch.empty((b, n), dtype=torch.int32, device="cuda")
+        ops._launch(logits, x, a, step, seed_w, 1.0, lanes=lanes)
+        ops._launch_rows(logits.view(b, n, v), x.view(b, n), a[:b].contiguous(), keys, rows,
+                         1.0, lanes=lanes)
+        outs[lanes] = (step, rows.reshape(-1))
+    torch.cuda.synchronize()
+    ref = outs[32]
+    differ = {lanes: int((o[0] != ref[0]).sum()) + int((o[1] != ref[1]).sum())
+              for lanes, o in outs.items()}
+    chosen = ops.lanes_for(v)
+    print(f"ws_step lanes a row at ({r}, {v}): the kernels take {chosen}; tokens differing from "
+          f"32 lanes a row (both modes, bitwise), by lanes (0 = the kernels' choice): {differ}")
+    if any(differ.values()):
+        fail(f"the grouped ws_step draw differs from draw_row's: {differ}")
+    return {"rows": r, "vocab": v, "lanes": chosen, "differ": sum(differ.values())}
+
+
+def measure_ws_lanes(r, v):
+    """Device time of both modes at each lanes a row, (r, v) as in
+    check_ws_lanes (the per-row mode as (r / 256, 256, v))."""
+    from repro_torch.kernels.ws_step import ops
+
+    logits, x, a, seed_w, n, keys = lanes_inputs(r, v, 5)
+    b = r // n
+    step = torch.empty(r, dtype=torch.int32, device="cuda")
+    rows = torch.empty((b, n), dtype=torch.int32, device="cuda")
+    lg3, x2, ab = logits.view(b, n, v), x.view(b, n), a[:b].contiguous()
+    res = {"ws_step": {}, "ws_step_rows": {}}
+    for lanes in WS_LANES:
+        res["ws_step"][lanes] = graph_ms(
+            lambda: ops._launch(logits, x, a, step, seed_w, 1.0, lanes=lanes), n=50)
+        res["ws_step_rows"][lanes] = graph_ms(
+            lambda: ops._launch_rows(lg3, x2, ab, keys, rows, 1.0, lanes=lanes), n=50)
+    print(f"ws_step by lanes a row at ({r}, {v}), us device: "
+          + json.dumps({k: {g: round(ms * 1e3, 3) for g, ms in d.items()} for k, d in res.items()}))
+    return res
+
+
+def launch_floor_ms():
+    """This card's device time per launch of the least kernel: a CUDA graph
+    of one-element in-place adds."""
+    one = torch.zeros(1, device="cuda")
+    return graph_ms(lambda: one.add_(1.0), n=50)
+
+
 # -- ws_step_gumbel ----------------------------------------------------------------
 
 # per element, the function's own work: lg / T, the max, lg - m, exp, the sum,
@@ -424,6 +499,9 @@ def cycle(items):
     return lambda: next(it)
 
 
+HEAD_COLD_SETS = 650       # x 83 KB = 54 MB of head weights, more than the 50 MB L2
+
+
 def measure_draft_kernels():
     """Device time of each draft kernel at the main path's decode shape
     (R = 32 rows, one token each, T = 271, the cursor at the last row so
@@ -431,8 +509,10 @@ def measure_draft_kernels():
     As in a decode step, which streams 12 layers' weights and caches
     through the 50 MB L2, the timed launches cycle through 10 weight sets
     (qkv_rope's 7.1 MB x 9 others between two uses of one set) and two
-    caches (53 MB each), so every launch reads them cold; the head's
-    83 KB cannot be pushed out this way and is timed warm."""
+    caches (53 MB each), so every launch reads them cold. The head is timed
+    warm (one weight set) and cold: a graph of HEAD_COLD_SETS launches, each
+    on its own weight set (54 MB in all, more than the L2), as a decode
+    step finds it after 12 layers' weights."""
     from repro_torch.kernels.draft_decode import (
         attn_cached, attn_cached_ref, head, head_ref, ops, post_attn, post_attn_ref, qkv_rope,
         qkv_rope_ref,
@@ -510,6 +590,12 @@ def measure_draft_kernels():
           lambda: head(out, ln1, w, norm=norm, eps=1e-6),
           lambda: head_ref(out, ln1, w, norm=norm, eps=1e-6),
           4 * (d * VOCAB + 2 * d + r * d + r * VOCAB), 2.0 * r * d * VOCAB + 8.0 * r * d)
+    heads = cycle([torch.randn((d, VOCAB), device="cuda") for _ in range(HEAD_COLD_SETS)])
+    res["head"]["cold_ms"] = graph_ms(
+        lambda: ops._launch_head(out, ln1, heads(), logits, norm=norm, eps=1e-6),
+        n=HEAD_COLD_SETS, reps=5)
+    print(f"head at decode shape, cold ({HEAD_COLD_SETS} weight sets): "
+          f"{res['head']['cold_ms'] * 1e3:.2f} us device")
     for name, m in res.items():
         print(f"{name} at decode shape: {m['ms'] * 1e3:.1f} us device (bound "
               f"{m['bound_ms'] * 1e3:.2f} us, {m['bound_by']}), call {m['call_ms'] * 1e3:.1f} us, "
@@ -1393,7 +1479,7 @@ def _category(name: str) -> str:
         return "attn_cached"
     if "post_attn_proj_kernel" in name:     # post_attn's three projections
         return "post_attn"
-    if "proj_kernel" in name:               # the head's projection
+    if "proj_kernel" in name:               # the head's projection, head_proj_kernel
         return "head"
     if "gemm" in name.lower() or "cutlass" in name.lower():
         return "matmul"
@@ -1479,9 +1565,11 @@ def main() -> int:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
     # flash_attn and qkv_rope at head dims 32, 64, 128; post_attn's wo, down, up and
-    # gated up
+    # gated up; the head at 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
+    # ws_step_rows at 2, 4, 8, 16, 32 lanes a row
     for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4),
-                          ("qkv_rope_kernel", 3)):
+                          ("qkv_rope_kernel", 3), ("head_proj_kernel", 8),
+                          ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5)):
         found = {k: v for k, v in usage.items() if kernel in k}
         print(f"{kernel}: spill bytes {[v.get('spill') for v in found.values()]}, registers "
               f"{[v.get('registers') for v in found.values()]}")
@@ -1509,7 +1597,11 @@ def main() -> int:
                      check_ws_step_gumbel(8, 128, VOCAB, 1),
                      check_ws_step_gumbel(64, 50257, 50257, 2),
                      check_ws_step_gumbel(8, 262144, 262144, 3)]
+    lanes_checks = [check_ws_lanes(NUM * SEQ, VOCAB, 0), check_ws_lanes(64, 50257, 1)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
+    lanes_num = measure_ws_lanes(NUM * SEQ, VOCAB)
+    floor_ms = launch_floor_ms()
+    print(f"launch floor (graph of one-element adds): {floor_ms * 1e3:.2f} us device a launch")
     gumbel_num = measure_ws_step_gumbel(NUM * SEQ, VOCAB)
     print(f"ws_step_gumbel at ({NUM * SEQ}, {VOCAB}): {gumbel_num['ms'] * 1e3:.2f} us device "
           f"(bound {gumbel_num['bound_ms'] * 1e3:.3f} us, {gumbel_num['bound_by']}), plain "
@@ -1556,7 +1648,8 @@ def main() -> int:
          "mismatches": sum(c["mismatches"] for c in ws_checks),
          "near_ties": sum(c["near_ties"] for c in ws_checks),
          "shape": [NUM * SEQ, VOCAB], **ws_num,
-         "bound_us": ws_num["bound_ms"] * 1e3},
+         "bound_us": ws_num["bound_ms"] * 1e3, "lanes": lanes_checks[0]["lanes"],
+         "ms_by_lanes": lanes_num["ws_step"], "lanes_checks": lanes_checks},
         {"name": "flash_attn", "route": "cuda", "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:94",
          "tpu_kernel": "flash_attention_pallas",
@@ -1586,7 +1679,8 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in rows_checks),
          "mismatches": sum(c["mismatches"] for c in rows_checks),
          "near_ties": sum(c["near_ties"] for c in rows_checks),
-         "shape": [NUM, SEQ, VOCAB], **rows_num, "bound_us": rows_num["bound_ms"] * 1e3},
+         "shape": [NUM, SEQ, VOCAB], **rows_num, "bound_us": rows_num["bound_ms"] * 1e3,
+         "lanes": lanes_checks[0]["lanes"], "ms_by_lanes": lanes_num["ws_step_rows"]},
         {"name": "ws_fused", "route": "cuda", "source": "src/repro_torch/csrc/ws_fused.cu",
          "replaces": "src/repro/kernels/ws_fused/kernel.py:142",
          "tpu_kernel": "ws_fused_streamed_pallas",
@@ -1615,6 +1709,7 @@ def main() -> int:
     for k in kernels:
         if k["launches"] <= 0:
             fail(f"{k['name']} was not launched on the main path")
+        k["launch_floor_ms"] = floor_ms
     print(json.dumps({"serve": serve}))
     print(json.dumps({"scheduler": sched}))
     print(json.dumps({"pipeline": pipe}))

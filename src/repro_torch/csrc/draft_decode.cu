@@ -62,13 +62,38 @@
 // other (copy, statistics, cluster barrier, normalisation, products, barrier, combine):
 // tools/qkv_rope_ablation.py times the kernel with each phase removed in turn.
 //
-// head (proj_kernel). A block of 256 threads = 8 warps owns 8 token rows and 32 output
-// columns. The block stages its 8 rows in shared memory, transposed, and normalises
-// them there: warp w normalises row w, each lane summing a strided set of columns in
-// order, then a fixed xor-butterfly. Warp w then takes the w-th contiguous eighth of K:
-// each lane walks its slice in order with one FMA chain per row, reading the weight
-// column coalesced across the warp and the 8 rows as two float4 broadcasts. The 8 slice
-// sums meet in shared memory and are added in slice order.
+// head (head_proj_kernel<rt, tied>). Its bound at the decode shape is the 191 KB it must
+// move (83 KB of weights, the rows in and the logits out), 0.057 us at 3.35 TB/s; its
+// 1.3 MFLOP take 0.02 us at 67 TFLOP/s. It replaced an 8-row kernel on a (ceil(V / 32),
+// ceil(R / 8)) grid: 4 blocks at the decode shape on 132 SMs, one warp a row for the
+// statistics, the rows staged with 4-byte loads into a transposed layout with 8-way bank
+// conflicts, and 4-byte weight loads from device memory, 16 in flight a warp. Now:
+//   * a block of 256 threads owns rt token rows x nt columns, (rt, nt) a function of
+//     (D, V) alone (head_tiling): nt = 32 unless D x 32 floats exceed 112 KB; rt doubles
+//     (to 8) while the grid at 32 rows still fills the 132 SMs. So the decode shape
+//     (V = 27) launches 32 blocks of one row, and at V = 50257 a block takes 8 rows, so
+//     the weight is read ceil(R / 8) times, by blocks that are neighbours along grid x
+//     (the re-reads come from L2);
+//   * the block copies its rows and the norm's scale and bias into shared memory with
+//     cp.async (16-byte copies when the strides and the pointers allow), then its weight
+//     slab, a second commit group: for a row-major w with V <= nt the slab is w itself,
+//     one run of memory a K slice; for a tied head (the table transposed) the copy runs
+//     along k, a row of the table a column;
+//   * once the rows are in, all 256 threads take the rows' statistics, in an order that
+//     depends on D alone (thread t takes k = 4t + 1024i, then the warps' butterflies, then
+//     the 8 warps in order), and normalise them in place, rows contiguous, while the slab
+//     is still arriving;
+//   * then thread (q, n) sums the q-th slice of K (256 / nt slices, a multiple of 4 long)
+//     for column n and each of the block's rows, one FMA chain a row in increasing k, on
+//     the CUDA cores; the slices' sums meet in shared memory and are added in slice order.
+// So every logit's sum depends on D and V alone, never on R or on the row's place in its
+// tile. What holds it above its bound at the decode shape (tools/head_ablation.py): the
+// launch, the slab's 83 KB into one SM (about 55 GB/s an SM with cp.async) and the
+// products' 98 KB of shared-memory reads, one after the other. Tried and dropped, by
+// their times on an H100: a cluster of 4 blocks splitting K (128 blocks, but its launch
+// and two cluster barriers cost more than the quarter slab saved), the slab by one bulk
+// copy a slice (the Tensor Memory Accelerator: no faster than cp.async with the rows
+// copied first), 512 threads a block (slower).
 //
 // post_attn (post_attn_proj_kernel, one launch for each of wo + residual; ln2 + up/gate
 // + act; down + residual, since ln2 needs the whole row after wo). Its bound at the
@@ -89,7 +114,7 @@
 //     when a stride or a pointer is not 16-byte aligned): one commit, one wait. For
 //     up, each block meanwhile computes its 32 rows' ln2 statistics over the whole
 //     row from global memory (L2; two passes of 192 blocks x 96 KB = 38 MB of L2 reads
-//     at the decode shape) in stage_rows' order, then normalises its own slice;
+//     at the decode shape) in row_stats' order, then normalises its own slice;
 //   * a thread owns 4 rows x 2 or 4 columns, each one FMA chain over the block's
 //     slice in increasing k, from 0, all chains independent;
 //   * the 8 partial tiles meet through distributed shared memory: after cluster.sync()
@@ -124,7 +149,7 @@
 //   qkv_rope 7.1 MB of weights, 113 MFLOP: 2.1 us at 3.35 TB/s (bytes);
 //   attn_cached 53 MB of K/V, 27 MFLOP: 15.9 us (bytes);
 //   post_attn 21.2 MB of weights, 340 MFLOP: 6.43 us (bytes);
-//   head 83 KB, ~1.3 MFLOP: launch-bound.
+//   head 191 KB (83 KB of weights), ~1.3 MFLOP: 0.057 us (bytes), launch-bound.
 // attn_cached reads the whole KV buffer; nothing here does anything yet about the
 // launch count (a CUDA graph of the decode step) or skipping masked keys. Build without
 // --use_fast_math: expf, tanhf, powf, sinf and cosf are the accurate ones.
@@ -132,6 +157,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "tf32_mma.cuh"
@@ -147,13 +173,8 @@ using wsfm::cp_async_wait;
 using wsfm::mma_3xtf32;
 using wsfm::split;
 
-constexpr int kTok = 8;                // token rows per head block
-constexpr int kSlices = 8;             // contiguous slices of K, one per warp
-constexpr int kCols = 32;              // output columns per block, one per lane
-constexpr int kThreads = kSlices * 32;
 constexpr int kMaxSmem = 232448;       // an H100 block's dynamic shared memory limit
 constexpr float kNegInf = -2.3819763e38f;
-static_assert(kTok == kSlices, "warp w normalises row w");
 
 enum Norm { kLayerNorm = 0, kRmsNorm = 1 };
 enum Act { kGelu = 0, kSilu = 1, kRelu = 2 };
@@ -180,121 +201,288 @@ __device__ __forceinline__ float activate(int act, float x) {
   return fmaxf(x, 0.0f);
 }
 
-// Stage rows r0 .. r0 + kTok - 1 of in (R, K) into xs (K, kTok), normalised when
-// ln_scale is given. Warp w owns row w; rows past R are zeros.
-__device__ void stage_rows(const float* __restrict__ in, int R, int K, int r0,
-                           float* __restrict__ xs, const float* __restrict__ ln_scale,
-                           const float* __restrict__ ln_bias, int norm, float eps) {
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = r0 + w;
-  if (r >= R) {
-    for (int k = lane; k < K; k += 32) xs[k * kTok + w] = 0.f;
-    return;
-  }
-  const float* row = in + static_cast<size_t>(r) * K;
-  if (ln_scale == nullptr) {
-    for (int k = lane; k < K; k += 32) xs[k * kTok + w] = row[k];
-    return;
-  }
-  float s = 0.f;
-  for (int k = lane; k < K; k += 32) {
-    const float v = row[k];
-    xs[k * kTok + w] = v;
-    s += norm == kLayerNorm ? v : v * v;
-  }
-  s = warp_sum(s);
-  float mu = 0.f, var;
-  if (norm == kLayerNorm) {
-    mu = s / K;
-    float s2 = 0.f;
-    for (int k = lane; k < K; k += 32) {
-      const float d = xs[k * kTok + w] - mu;
-      s2 += d * d;
-    }
-    var = warp_sum(s2) / K;
-  } else {
-    var = s / K;
-  }
-  const float inv = rsqrtf(var + eps);
-  for (int k = lane; k < K; k += 32) {
-    const float y = (xs[k * kTok + w] - mu) * inv;
-    xs[k * kTok + w] = norm == kLayerNorm ? y * ln_scale[k] + ln_bias[k]
-                                          : y * (1.0f + ln_scale[k]);
-  }
-}
-
-// acc[t] = sum over this warp's slice of K of xs[k][t] * wcol[k * ldk], in order. The
-// slice bounds depend on K only.
-__device__ __forceinline__ void dot_slice(const float* __restrict__ xs, int K,
-                                          const float* __restrict__ wcol, int ldk, bool valid,
-                                          float (&acc)[kTok]) {
-#pragma unroll
-  for (int t = 0; t < kTok; ++t) acc[t] = 0.f;
-  if (!valid) return;
-  const int chunk = (K + kSlices - 1) / kSlices;
-  const int k0 = (threadIdx.x / 32) * chunk;
-  const int k1 = min(K, k0 + chunk);
-  // unrolled deep so that 16 weight loads are in flight a warp: the loop is
-  // bound by load latency, not by the FMAs (whose order unrolling keeps)
-#pragma unroll 16
-  for (int k = k0; k < k1; ++k) {
-    const float4 xa = *reinterpret_cast<const float4*>(xs + k * kTok);
-    const float4 xb = *reinterpret_cast<const float4*>(xs + k * kTok + 4);
-    const float wv = __ldg(wcol + static_cast<size_t>(k) * ldk);
-    acc[0] = fmaf(xa.x, wv, acc[0]);
-    acc[1] = fmaf(xa.y, wv, acc[1]);
-    acc[2] = fmaf(xa.z, wv, acc[2]);
-    acc[3] = fmaf(xa.w, wv, acc[3]);
-    acc[4] = fmaf(xb.x, wv, acc[4]);
-    acc[5] = fmaf(xb.y, wv, acc[5]);
-    acc[6] = fmaf(xb.z, wv, acc[6]);
-    acc[7] = fmaf(xb.w, wv, acc[7]);
-  }
-}
-
-// The slices' sums meet in red (kSlices, kTok, kCols) and are added in slice order;
-// the result is thread (warp t, lane)'s: row r0 + t, column lane of the tile.
-__device__ __forceinline__ float sum_slices(float* __restrict__ red, const float (&acc)[kTok]) {
-  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int t = 0; t < kTok; ++t) red[(w * kTok + t) * kCols + lane] = acc[t];
-  __syncthreads();
-  float s = red[w * kCols + lane];
-  for (int sl = 1; sl < kSlices; ++sl) s += red[(sl * kTok + w) * kCols + lane];
-  return s;
-}
-
-constexpr int kRedFloats = kSlices * kTok * kCols;
-
 // -- head ------------------------------------------------------------------------------
 
-struct ProjArgs {
-  const float* in;        // (R, K)
-  const float* ln_scale;  // final norm of the input rows
-  const float* ln_bias;
-  const float* w;         // (K, N) with strides (ldk, ldn)
-  float* out;             // (R, N)
-  int R, K, N, ldk, ldn, norm;
-  float eps;
+constexpr int kHeadThreads = 256;
+constexpr int kHeadMaxRows = 8;        // token rows a block may own
+constexpr int kHeadSlabBytes = 114688; // NT halves (to 4) until D x NT floats fit in this
+constexpr int kCardSms = 132;          // H100 SXM: the grid the tiling aims to fill
+constexpr int kRefRows = 32;           // at this many rows (the decode batch)
+
+// The smallest value >= v that is congruent to r modulo 32.
+constexpr int up_to_mod32(int v, int r) { return v + ((r - v % 32) % 32 + 32) % 32; }
+
+// A head block's tiling, a function of (D, V) alone: rt token rows x nt columns; 256
+// threads, thread t on column t % nt and K slice t / nt (s = 256 / nt slices of sl, a
+// multiple of 4, the last short or empty). Shared memory holds the weight slab in
+// either layout (slab floats, the larger of the two), the block's rows normalised
+// (rt x ldx, ldx = s * sl, zero past D), the norm's scale and bias (2 x ldx) and the
+// partial sums (s x rt x nt).
+//   row-major w (strides (V, 1)): slice q's rows at q * sst, row kk of it at kk * ldw;
+//     ldw = V when V <= nt (one column tile: a slice of the slab is one run of w),
+//     else nt. sst = nt (mod 32) for nt < 32, so the 32 / nt slices a warp reads fall
+//     in distinct banks;
+//   tied (strides (1, D)): column n at n * ld, along k; ld = 4 (mod 32), so the
+//     float4 reads of 8 columns (a quarter warp) fall in distinct banks.
+struct HeadTiling {
+  int rt, nt, s, sl, ldx, ldw, sst, ld, slab;
+  size_t smem;
 };
 
-__global__ void __launch_bounds__(kThreads) proj_kernel(ProjArgs a) {
+HeadTiling head_tiling(int D, int V) {
+  HeadTiling t{};
+  t.nt = 32;
+  while (t.nt > 4 && static_cast<long>(D) * t.nt * 4 > kHeadSlabBytes) t.nt /= 2;
+  t.s = kHeadThreads / t.nt;
+  t.sl = 4 * ((D + 4 * t.s - 1) / (4 * t.s));
+  t.ldx = t.s * t.sl;
+  t.ldw = V <= t.nt ? V : t.nt;
+  t.sst = up_to_mod32(t.sl * t.ldw, t.nt % 32);
+  t.ld = up_to_mod32(t.ldx, 4);
+  t.slab = std::max(t.s * t.sst, t.nt * t.ld);
+  // rows double while the grid at kRefRows rows still fills the card; fewer when the
+  // shared memory does not take them
+  const int tiles = (V + t.nt - 1) / t.nt;
+  t.rt = 1;
+  while (t.rt < kHeadMaxRows && tiles * ((kRefRows + 2 * t.rt - 1) / (2 * t.rt)) >= kCardSms)
+    t.rt *= 2;
+  auto smem = [&](int rt) {
+    return (static_cast<size_t>(t.slab) + static_cast<size_t>(rt + 2) * t.ldx +
+            static_cast<size_t>(t.s) * rt * t.nt) * sizeof(float);
+  };
+  while (t.rt > 1 && smem(t.rt) > kMaxSmem) t.rt /= 2;
+  t.smem = smem(t.rt);
+  return t;
+}
+
+struct HeadArgs {
+  const float* x;         // (R, D)
+  const float* ln_scale;  // the final norm
+  const float* ln_bias;   // or null
+  const float* w;         // (D, V): row-major, or the (V, D) table transposed (tied)
+  float* out;             // (R, V)
+  int R, D, V, norm;
+  float eps;
+  HeadTiling t;
+  int vec;                // 16-byte copies of the slab
+  int xvec;               // 16-byte copies of the rows and the norm's parameters
+};
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok, bool vec) {
+  if (vec) {
+    cp_async16(dst, src, ok);
+  } else {
+    cp_async4(dst, src, ok);
+  }
+}
+
+// Final norm -> vocab projection for rt token rows x nt columns (see the note on top).
+template <int RT, bool TIED>
+__global__ void __launch_bounds__(kHeadThreads, 1) head_proj_kernel(HeadArgs a) {
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  float* red = xs + a.K * kTok;
-  const int r0 = blockIdx.y * kTok;
-  stage_rows(a.in, a.R, a.K, r0, xs, a.ln_scale, a.ln_bias, a.norm, a.eps);
+  const HeadTiling t = a.t;
+  float* ws = reinterpret_cast<float*>(smem4);
+  float* xs = ws + t.slab;
+  float* ps = xs + RT * t.ldx;        // the norm's scale, then its bias
+  float* red = ps + 2 * t.ldx;
+  const int tid = threadIdx.x;
+  const int r0 = static_cast<int>(blockIdx.x) * RT;
+  const int n0 = static_cast<int>(blockIdx.y) * t.nt;
+  const bool ln = a.norm == kLayerNorm;
+
+  // 1. the copies, zeros past D, R and V: the rows and the norm's parameters (the first
+  // commit group, waited for first), then the weight slab (the second, waited for after
+  // the normalisation). Each loop walks runs of memory with a thread stride, so a copy
+  // costs no division.
+  {
+    const bool vec = a.xvec != 0;
+    const int step = vec ? 4 : 1;
+    for (int r = 0; r < RT + 2; ++r) {
+      const float* src = r < RT ? a.x + static_cast<size_t>(r0 + r) * a.D
+                                : r == RT ? a.ln_scale : a.ln_bias;
+      const int len = (r < RT ? r0 + r < a.R : r == RT || ln) ? a.D : 0;
+      for (int k = step * tid; k < t.ldx; k += step * kHeadThreads)
+        cp_async(xs + r * t.ldx + k, k < len ? src + k : a.x, k < len, vec);
+    }
+  }
+  cp_async_commit();
+  const bool vec = a.vec != 0;
+  const int step = vec ? 4 : 1;
+  if (TIED) {          // column n is row n0 + n of the table
+    for (int n = 0; n < t.nt; ++n) {
+      const int len = n0 + n < a.V ? a.D : 0;
+      const float* src = a.w + static_cast<size_t>(n0 + n) * a.D;
+      for (int k = step * tid; k < t.ldx; k += step * kHeadThreads)
+        cp_async(ws + n * t.ld + k, k < len ? src + k : a.w, k < len, vec);
+    }
+  } else if (a.V <= t.nt) {   // slice q's rows are one run of sl * V floats of w
+    const int run = t.sl * a.V;
+    for (int q = 0; q < t.s; ++q) {
+      const int len = min(run, max(0, a.D * a.V - q * run));
+      const float* src = a.w + static_cast<size_t>(q) * run;
+      for (int c = step * tid; c < run; c += step * kHeadThreads)
+        cp_async(ws + q * t.sst + c, c < len ? src + c : a.w, c < len, vec);
+    }
+  } else {             // rows of nt columns at stride V; nt / step is a power of two
+    const int per = t.nt / step, shift = __ffs(per) - 1;
+    for (int q = 0; q < t.s; ++q) {
+      for (int i = tid; i < t.sl * per; i += kHeadThreads) {
+        const int kk = i >> shift, n = step * (i & (per - 1)), k = q * t.sl + kk;
+        const bool ok = k < a.D && n0 + n < a.V;
+        cp_async(ws + q * t.sst + kk * t.nt + n,
+                 ok ? a.w + static_cast<size_t>(k) * a.V + n0 + n : a.w, ok, vec);
+      }
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
   __syncthreads();
 
-  const int n = blockIdx.x * kCols + threadIdx.x % 32;
-  const bool valid = n < a.N;
-  float acc[kTok];
-  dot_slice(xs, a.K, a.w + static_cast<size_t>(valid ? n : 0) * a.ldn, a.ldk, valid, acc);
-  const float y = sum_slices(red, acc);
+  // 2. the rows' statistics, by all the block's threads: thread t takes k = 4t + 1024i .. 4t + 1024i + 3 of each row in
+  // increasing i, the xor butterfly adds a warp's lanes, and the 8 warps' sums are
+  // added in warp order (through red, free until the products): an order that depends
+  // on D alone. Then each thread normalises its own elements in place. Rows past R
+  // stay zeros.
+  const int warp = tid / 32, lane = tid % 32;
+  constexpr int kWarps = kHeadThreads / 32;
+  float mu[RT], inv[RT];
+  {
+    float acc[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      acc[r] = 0.f;
+      for (int k = 4 * tid; k < t.ldx; k += 4 * kHeadThreads) {
+        const float4 v = *reinterpret_cast<const float4*>(xs + r * t.ldx + k);
+        acc[r] += ln ? v.x : v.x * v.x;
+        acc[r] += ln ? v.y : v.y * v.y;
+        acc[r] += ln ? v.z : v.z * v.z;
+        acc[r] += ln ? v.w : v.w * v.w;
+      }
+      acc[r] = warp_sum(acc[r]);
+      if (lane == 0) red[warp * RT + r] = acc[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float sum = red[r];
+      for (int w = 1; w < kWarps; ++w) sum += red[w * RT + r];
+      mu[r] = ln ? sum / a.D : 0.f;
+      inv[r] = sum / a.D;   // rmsnorm's variance
+    }
+    if (ln) {
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        acc[r] = 0.f;
+        auto sq = [&](float e, int k) { return k < a.D ? (e - mu[r]) * (e - mu[r]) : 0.f; };
+        for (int k = 4 * tid; k < t.ldx; k += 4 * kHeadThreads) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + r * t.ldx + k);
+          acc[r] += sq(v.x, k);
+          acc[r] += sq(v.y, k + 1);
+          acc[r] += sq(v.z, k + 2);
+          acc[r] += sq(v.w, k + 3);
+        }
+        acc[r] = warp_sum(acc[r]);
+        if (lane == 0) red[(kWarps + warp) * RT + r] = acc[r];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        float sum = red[kWarps * RT + r];
+        for (int w = 1; w < kWarps; ++w) sum += red[(kWarps + w) * RT + r];
+        inv[r] = sum / a.D;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    inv[r] = rsqrtf(inv[r] + a.eps);
+    if (r0 + r >= a.R) continue;
+    auto normed = [&](float e, int k) {
+      if (k >= a.D) return e;
+      const float y = (e - mu[r]) * inv[r];
+      return ln ? y * ps[k] + ps[t.ldx + k] : y * (1.0f + ps[k]);
+    };
+    for (int k = 4 * tid; k < t.ldx; k += 4 * kHeadThreads) {
+      float* xr = xs + r * t.ldx + k;
+      const float4 v = *reinterpret_cast<const float4*>(xr);
+      *reinterpret_cast<float4*>(xr) = make_float4(normed(v.x, k), normed(v.y, k + 1),
+                                                   normed(v.z, k + 2), normed(v.w, k + 3));
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
 
-  const int r = r0 + threadIdx.x / 32;
-  if (!valid || r >= a.R) return;
-  a.out[static_cast<size_t>(r) * a.N + n] = y;
+  // 3. thread (q, n) sums slice q of K for column n and each of the block's rows: one
+  // FMA chain a row, in increasing k from the slice's start
+  const int n = tid % t.nt, q = tid / t.nt;
+  const int k0 = q * t.sl;
+  const int len4 = (min(t.sl, max(0, a.D - k0)) + 3) & ~3;
+  float acc[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) acc[r] = 0.f;
+  const float* xk = xs + k0;
+  if (TIED) {
+    const float* wk = ws + n * t.ld + k0;
+#pragma unroll 4
+    for (int kk = 0; kk < len4; kk += 4) {
+      const float4 w4 = *reinterpret_cast<const float4*>(wk + kk);
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float4 x4 = *reinterpret_cast<const float4*>(xk + r * t.ldx + kk);
+        acc[r] = fmaf(x4.x, w4.x, acc[r]);
+        acc[r] = fmaf(x4.y, w4.y, acc[r]);
+        acc[r] = fmaf(x4.z, w4.z, acc[r]);
+        acc[r] = fmaf(x4.w, w4.w, acc[r]);
+      }
+    }
+  } else {
+    const float* wk = ws + q * t.sst + n;
+    const int ldw = t.ldw;
+#pragma unroll 4
+    for (int kk = 0; kk < len4; kk += 4) {
+      const float w0 = wk[kk * ldw], w1 = wk[(kk + 1) * ldw];
+      const float w2 = wk[(kk + 2) * ldw], w3 = wk[(kk + 3) * ldw];
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float4 x4 = *reinterpret_cast<const float4*>(xk + r * t.ldx + kk);
+        acc[r] = fmaf(x4.x, w0, acc[r]);
+        acc[r] = fmaf(x4.y, w1, acc[r]);
+        acc[r] = fmaf(x4.z, w2, acc[r]);
+        acc[r] = fmaf(x4.w, w3, acc[r]);
+      }
+    }
+  }
+
+  // 4. the slices' sums meet in red and are added in slice order
+#pragma unroll
+  for (int r = 0; r < RT; ++r) red[(q * RT + r) * t.nt + n] = acc[r];
+  __syncthreads();
+  for (int i = tid; i < RT * t.nt; i += kHeadThreads) {
+    const int r = i / t.nt, c = i % t.nt;
+    float y = red[i];
+    for (int p = 1; p < t.s; ++p) y += red[p * RT * t.nt + i];
+    if (r0 + r < a.R && n0 + c < a.V) a.out[static_cast<size_t>(r0 + r) * a.V + n0 + c] = y;
+  }
+}
+
+template <int RT, bool TIED>
+int launch_head(const HeadArgs& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      head_proj_kernel<RT, TIED>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((a.R + RT - 1) / RT, (a.V + a.t.nt - 1) / a.t.nt);
+  head_proj_kernel<RT, TIED><<<grid, kHeadThreads, a.t.smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool TIED>
+int launch_head_rows(const HeadArgs& a, cudaStream_t stream) {
+  switch (a.t.rt) {
+    case 1: return launch_head<1, TIED>(a, stream);
+    case 2: return launch_head<2, TIED>(a, stream);
+    case 4: return launch_head<4, TIED>(a, stream);
+    default: return launch_head<8, TIED>(a, stream);
+  }
 }
 
 // -- post_attn ---------------------------------------------------------------------------
@@ -345,7 +533,7 @@ struct PostArgs {
 };
 
 // ln2's mean and 1 / std of the block's rows over the whole row (K), from global memory
-// (L2), each row in stage_rows' order: lane-strided sums in increasing k, the xor
+// (L2), each row in a fixed order: lane-strided sums in increasing k, the xor
 // butterfly, and a centred second pass for layernorm. A warp takes RPW rows at once so
 // that RPW independent loads a lane are in flight.
 template <int THREADS>
@@ -1052,20 +1240,23 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
 extern "C" int draft_head_launch(const void* x, const void* ln_scale, const void* ln_bias,
                                  const void* w, int ldk, int ldn, void* out, int R, int D, int V,
                                  int norm, float eps, void* stream) {
-  if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  ProjArgs p{};
-  p.in = static_cast<const float*>(x);
-  p.ln_scale = static_cast<const float*>(ln_scale);
-  p.ln_bias = static_cast<const float*>(ln_bias);
-  p.w = static_cast<const float*>(w);
-  p.out = static_cast<float*>(out);
-  p.R = R; p.K = D; p.N = V; p.ldk = ldk; p.ldn = ldn; p.norm = norm; p.eps = eps;
-  const size_t smem = (static_cast<size_t>(D) * kTok + kRedFloats) * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((V + kCols - 1) / kCols, (R + kTok - 1) / kTok);
-  proj_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (R <= 0 || D <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool row_major = ldn == 1 && ldk == V;
+  const bool tied = !row_major && ldk == 1 && ldn == D;
+  if (!row_major && !tied) return static_cast<int>(cudaErrorInvalidValue);
+  HeadArgs a{};
+  a.t = head_tiling(D, V);
+  if (a.t.smem > kMaxSmem || (V + a.t.nt - 1) / a.t.nt > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.x = static_cast<const float*>(x);
+  a.ln_scale = static_cast<const float*>(ln_scale);
+  a.ln_bias = static_cast<const float*>(ln_bias);
+  a.w = static_cast<const float*>(w);
+  a.out = static_cast<float*>(out);
+  a.R = R; a.D = D; a.V = V; a.norm = norm; a.eps = eps;
+  const bool whole = tied ? D % 4 == 0 : V <= a.t.nt ? (D * V) % 4 == 0 : V % 4 == 0;
+  a.vec = whole && aligned16(w);
+  a.xvec = D % 4 == 0 && aligned16(x) && aligned16(ln_scale) && aligned16(ln_bias);
+  auto st = static_cast<cudaStream_t>(stream);
+  return tied ? launch_head_rows<true>(a, st) : launch_head_rows<false>(a, st);
 }

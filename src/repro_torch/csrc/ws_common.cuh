@@ -158,4 +158,110 @@ __device__ __forceinline__ int draw_row(const float* __restrict__ lrow, int voca
   return __shfl_sync(0xffffffffu, next, 0);
 }
 
+// draw_row's draw with G lanes a row (G a power of two, 2 <= G <= 32), so a
+// warp draws 32 / G rows; the tokens equal draw_row's bit for bit.
+//
+// draw_row gives lane l a leaf, the online (m, s, best, bidx, lg_x, g_x) over
+// columns l, l + 32, ..., and merges leaf i with leaf i ^ off at off = 16, 8,
+// 4, 2, 1. Its merge is symmetric (the products and sums are pinned, fadd
+// commutes, ties go to the lower column), so the result depends on the
+// tree's shape alone, not on which lane computes which node. Here lane j of a
+// group holds leaves j, j + G, ..., j + 32 - G (leaf t of the lane is leaf
+// j + G t) and walks their columns in rounds, one column of every leaf a
+// round, so the leaves' hashes and logs run side by side. It merges the
+// levels off = 16 .. G in registers (leaf i with leaf i ^ off is leaf t with
+// leaf t ^ (off / G); only the chain that ends in leaf 0 is kept), then the
+// levels off = G / 2 .. 1 by __shfl_xor_sync inside the group. At G = 32 this
+// is draw_row's own layout. Every lane of the warp must call it (the shuffles
+// take the full mask); each lane of a group gets its row's token.
+template <int G, class Noise>
+__device__ __forceinline__ int draw_row_grouped(const float* __restrict__ lrow, int vocab,
+                                                int xr, float ar, float temperature,
+                                                const Noise& noise, int j) {
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "G lanes a row, a power of two");
+  constexpr int L = 32 / G;   // leaves a lane holds
+  float m[L], s[L], best[L], lg_x[L], g_x[L];
+  int bidx[L];
+#pragma unroll
+  for (int t = 0; t < L; ++t) {
+    m[t] = kNeg;
+    s[t] = 0.0f;
+    best[t] = kNeg;
+    lg_x[t] = 0.0f;
+    g_x[t] = 0.0f;
+    bidx[t] = 0;
+  }
+  for (int base = j; base < vocab; base += 32) {
+#pragma unroll
+    for (int t = 0; t < L; ++t) {
+      // draw_row's update of leaf j + G t with column col, as selects: a column
+      // past the row reads the last one and leaves the leaf as it was, so the
+      // L updates are straight-line code the compiler can interleave
+      const int col = base + G * t;
+      const bool ok = col < vocab;
+      const int c = ok ? col : vocab - 1;
+      const float lg = __fdiv_rn(lrow[c], temperature);
+      const float g = noise(c);
+      const float m_new = ok ? fmaxf(m[t], lg) : m[t];
+      const float s_new = __fadd_rn(__fmul_rn(s[t], expf(m[t] - m_new)), expf(lg - m_new));
+      s[t] = ok ? s_new : s[t];
+      m[t] = m_new;
+      const bool is_x = ok && col == xr;
+      lg_x[t] = is_x ? lg : lg_x[t];
+      g_x[t] = is_x ? g : g_x[t];
+      const float cand = __fadd_rn(lg, g);
+      const bool take = ok && col != xr && cand > best[t];  // strict, as draw_row
+      best[t] = take ? cand : best[t];
+      bidx[t] = take ? col : bidx[t];
+    }
+  }
+
+  // levels off = 16 .. G: leaf t takes leaf t + h (= t ^ h for t < h), h = off / G
+  constexpr int kLevels = G == 32 ? 0 : G == 16 ? 1 : G == 8 ? 2 : G == 4 ? 3 : 4;
+#pragma unroll
+  for (int level = 0; level < kLevels; ++level) {
+    const int h = (L / 2) >> level;
+#pragma unroll
+    for (int t = 0; t < h; ++t) {
+      const int o = t + h;
+      const float m_new = fmaxf(m[t], m[o]);
+      s[t] = __fadd_rn(__fmul_rn(s[t], expf(m[t] - m_new)), __fmul_rn(s[o], expf(m[o] - m_new)));
+      m[t] = m_new;
+      if (best[o] > best[t] || (best[o] == best[t] && bidx[o] < bidx[t])) {
+        best[t] = best[o];
+        bidx[t] = bidx[o];
+      }
+      lg_x[t] = __fadd_rn(lg_x[t], lg_x[o]);
+      g_x[t] = __fadd_rn(g_x[t], g_x[o]);
+    }
+  }
+
+  // levels off = G / 2 .. 1: draw_row's butterfly, inside the group
+  float mm = m[0], ss = s[0], bb = best[0], lx = lg_x[0], gx = g_x[0];
+  int bi = bidx[0];
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const float m_o = __shfl_xor_sync(0xffffffffu, mm, off);
+    const float s_o = __shfl_xor_sync(0xffffffffu, ss, off);
+    const float b_o = __shfl_xor_sync(0xffffffffu, bb, off);
+    const int i_o = __shfl_xor_sync(0xffffffffu, bi, off);
+    const float m_new = fmaxf(mm, m_o);
+    ss = __fadd_rn(__fmul_rn(ss, expf(mm - m_new)), __fmul_rn(s_o, expf(m_o - m_new)));
+    mm = m_new;
+    if (b_o > bb || (b_o == bb && i_o < bi)) {
+      bb = b_o;
+      bi = i_o;
+    }
+    lx = __fadd_rn(lx, __shfl_xor_sync(0xffffffffu, lx, off));
+    gx = __fadd_rn(gx, __shfl_xor_sync(0xffffffffu, gx, off));
+  }
+
+  const float score_other =
+      __fsub_rn(__fsub_rn(__fadd_rn(logf(fmaxf(ar, kMinProb)), bb), mm), logf(ss));
+  const float p1x = __fdiv_rn(expf(lx - mm), ss);
+  const float px = __fadd_rn(1.0f - ar, __fmul_rn(ar, p1x));
+  const float score_x = __fadd_rn(logf(fmaxf(px, kMinProb)), gx);
+  return score_x >= score_other ? xr : bi;
+}
+
 }  // namespace wsfm

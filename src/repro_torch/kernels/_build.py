@@ -43,10 +43,14 @@ build_log = ""
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
-    # logits, x, a, out, rows, vocab, seed0, seed1, temperature, stream
-    "ws_step_launch": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _P],
-    # logits, x, a (B,), keys (B, 2) int64, out, rows, vocab, group (N), temperature, stream
-    "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # logits, x, a, out, rows, vocab, seed0, seed1, temperature, lanes a row (0: the
+    # choice from vocab), stream
+    "ws_step_launch": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _P],
+    # logits, x, a (B,), keys (B, 2) int64, out, rows, vocab, group (N), temperature,
+    # lanes a row, stream
+    "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # vocab -> the lanes a row ws_step and ws_step_rows take for it
+    "ws_step_lanes": [_I],
     # logits, x, a, gumbel, out, rows, padded vocab, valid vocab, temperature, stream
     "ws_step_gumbel_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
     # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,

@@ -32,10 +32,13 @@ from repro_torch.kernels.draft_decode.ref import (
 
 _NORM = {"layernorm": 0, "rmsnorm": 1}
 _ACT = {"gelu": 0, "silu": 1, "relu": 2}
-# the kernels' tiling (csrc/draft_decode.cu): head takes 8 token rows x 32
-# columns per block, K in 8 slices; a block stages its rows in at most this
-# much smem
-TOK, SLICES, COLS = 8, 8, 32
+# head_proj_kernel's tiling (csrc/draft_decode.cu head_tiling), a function of
+# (D, V) alone: 256 threads; NT columns a block (32, halved down to 4 while D x
+# NT floats exceed HEAD_SLAB_BYTES), 256 / NT slices of K; RT token rows a block
+# (doubled up to 8 while ceil(V / NT) x ceil(32 / (2 RT)) blocks still fill the
+# card's 132 SMs, halved while the shared memory does not take them)
+HEAD_THREADS, HEAD_MAX_ROWS, HEAD_SLAB_BYTES = 256, 8, 114688
+CARD_SMS, REF_ROWS = 132, 32
 MAX_SMEM = 232448
 # qkv_rope_kernel and post_attn_proj_kernel: 32 token rows per cluster of 8
 # blocks, each block one slice of K (qkv_rope: 8 * ceil(D / 64), post_attn:
@@ -45,6 +48,7 @@ CLUSTER_ROWS = 32
 # 64 up + 64 gate) and down
 POST_WIDTHS = {"wo": 32, "up": 128, "down": 64}
 MAX_GRID_Y = 65535
+MAX_GRID_X = 2 ** 31 - 1
 # the head dims qkv_rope and attn_cached are built for
 HEAD_DIMS = (32, 64, 128)
 
@@ -91,8 +95,35 @@ def _check_cursor(name: str, start: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name}: the cache cursor must be one int32 on {device}")
 
 
-def _head_smem(k: int) -> int:
-    return (k * TOK + SLICES * TOK * COLS) * 4
+def _up_to_mod32(v: int, r: int) -> int:
+    """The smallest value >= v congruent to r modulo 32."""
+    return v + (r - v) % 32
+
+
+def _head_tiling(d: int, v: int) -> tuple:
+    """(RT, NT) of a head block at (D, V), as the kernel picks them."""
+    nt = 32
+    while nt > 4 and d * nt * 4 > HEAD_SLAB_BYTES:
+        nt //= 2
+    tiles = -(-v // nt)
+    rt = 1
+    while rt < HEAD_MAX_ROWS and tiles * -(-REF_ROWS // (2 * rt)) >= CARD_SMS:
+        rt *= 2
+    while rt > 1 and _head_smem(d, v, rt, nt) > MAX_SMEM:
+        rt //= 2
+    return rt, nt
+
+
+def _head_smem(d: int, v: int, rt: int, nt: int) -> int:
+    """Bytes of dynamic shared memory of a head block: the weight slab (the
+    larger of its row-major and tied layouts), the rows normalised, the
+    norm's scale and bias, and the partial sums of the 256 / NT slices of K."""
+    s = HEAD_THREADS // nt
+    sl = 4 * -(-d // (4 * s))
+    ldx = s * sl
+    sst = _up_to_mod32(sl * (v if v <= nt else nt), nt % 32)
+    slab = max(s * sst, nt * _up_to_mod32(ldx, 4))
+    return (slab + (rt + 2) * ldx + s * rt * nt) * 4
 
 
 def _qkv_smem(d: int, head_dim: int) -> int:
@@ -115,8 +146,9 @@ def _post_smem(k: int, width: int) -> int:
             + 2 * CLUSTER_ROWS) * 4
 
 
-def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int) -> None:
-    if r <= 0 or -(-r // rows_per_block) > MAX_GRID_Y:
+def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int,
+                  max_blocks: int = MAX_GRID_Y) -> None:
+    if r <= 0 or -(-r // rows_per_block) > max_blocks:
         raise ValueError(f"{name}: {r} rows is outside what one launch takes")
     if smem > MAX_SMEM:
         raise ValueError(f"{name}: a reduced length of {k} needs {smem} bytes of "
@@ -284,7 +316,10 @@ def head(x: torch.Tensor, fn: dict, w: torch.Tensor, *, norm: str, eps: float) -
     _check("head", dev, x, fn["scale"], fn.get("bias"))
     if w.device != dev or w.dtype != torch.float32:
         raise ValueError(f"head: w must be float32 on {dev}")
-    _check_limits("head", r, TOK, d, _head_smem(d))
+    rt, nt = _head_tiling(d, w.shape[1])
+    if -(-w.shape[1] // nt) > MAX_GRID_Y:
+        raise ValueError(f"head: {w.shape[1]} columns is outside what one launch takes")
+    _check_limits("head", r, rt, d, _head_smem(d, w.shape[1], rt, nt), max_blocks=MAX_GRID_X)
     out = torch.empty((r, w.shape[1]), dtype=torch.float32, device=dev)
     _launch_head(x, fn, w, out, norm=norm, eps=eps)
     _build.count("head")

@@ -98,15 +98,23 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
 
 
 def _launch(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, out: torch.Tensor, seed,
-            temperature: float) -> None:
-    """One launch of the kernel on checked, contiguous CUDA tensors (no count)."""
+            temperature: float, *, lanes: int = 0) -> None:
+    """One launch of the kernel on checked, contiguous CUDA tensors (no count).
+    ``lanes`` forces the lanes a row (2, 4, 8, 16 or 32; 0: the kernel's
+    choice from V), for the tests: the tokens are the same at every one."""
     r, v = lg.shape
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
         rc = _build.library().ws_step_launch(lg.data_ptr(), x.data_ptr(), a.data_ptr(),
                                              out.data_ptr(), r, v, seed[0], seed[1],
-                                             float(temperature), stream)
+                                             float(temperature), int(lanes), stream)
     _build.check(rc, "ws_step")
+
+
+def lanes_for(vocab: int) -> int:
+    """The lanes a row that the ``ws_step`` and ``ws_step_rows`` kernels take
+    at this vocabulary (the card's library answers)."""
+    return int(_build.library().ws_step_lanes(int(vocab)))
 
 
 def ws_step_rows(keys: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
@@ -144,14 +152,15 @@ def ws_step_rows(keys: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t,
 
 
 def _launch_rows(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, keys: torch.Tensor,
-                 out: torch.Tensor, temperature: float) -> None:
-    """One launch of the per-row kernel on checked CUDA tensors (no count)."""
+                 out: torch.Tensor, temperature: float, *, lanes: int = 0) -> None:
+    """One launch of the per-row kernel on checked CUDA tensors (no count);
+    ``lanes`` as in :func:`_launch`."""
     b, n, v = lg.shape
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
         rc = _build.library().ws_step_rows_launch(
             lg.data_ptr(), x.data_ptr(), a.data_ptr(), keys.data_ptr(), out.data_ptr(),
-            b * n, v, n, float(temperature), stream)
+            b * n, v, n, float(temperature), int(lanes), stream)
     _build.check(rc, "ws_step_rows")
 
 

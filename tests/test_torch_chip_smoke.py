@@ -30,6 +30,14 @@ def smoke():
     ("void (anonymous namespace)::post_attn_proj_kernel<64, 1, 128, 0>"
      "((anonymous namespace)::PostArgs)", "post_attn"),
     ("(anonymous namespace)::proj_kernel((anonymous namespace)::ProjArgs)", "head"),
+    ("void (anonymous namespace)::head_proj_kernel<1, false>((anonymous namespace)::HeadArgs)",
+     "head"),
+    ("void (anonymous namespace)::head_proj_kernel<8, true>((anonymous namespace)::HeadArgs)",
+     "head"),
+    ("void (anonymous namespace)::ws_step_kernel<4>(float const*, int const*, float const*, "
+     "int*, int, int, unsigned int, unsigned int, float)", "ws_step"),
+    ("void (anonymous namespace)::ws_step_rows_kernel<32>(float const*, int const*, "
+     "float const*, long const*, int*, int, int, int, float)", "ws_step_rows"),
     ("void (anonymous namespace)::flash_attn_kernel<64>(float const*, float const*)",
      "flash_attn"),
     ("(anonymous namespace)::qkv_rope_kernel((anonymous namespace)::QkvArgs)", "qkv_rope"),
@@ -75,6 +83,20 @@ def test_qkv_rope_ablation_cuts_every_phase_out_of_the_kernel():
     variant's anchors are still in csrc/draft_decode.cu, and each changes it."""
     spec = importlib.util.spec_from_file_location("qkv_rope_ablation",
                                                   ROOT / "tools" / "qkv_rope_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "draft_decode.cu").read_text()
+    assert tool.variant_source(text, "base") == text
+    for name in tool.VARIANTS:
+        if name != "base":
+            assert tool.variant_source(text, name) != text
+
+
+def test_head_ablation_cuts_every_phase_out_of_the_kernel():
+    """tools/head_ablation.py patches the kernel's source by text: each variant's
+    anchors are still in csrc/draft_decode.cu, and each changes it."""
+    spec = importlib.util.spec_from_file_location("head_ablation",
+                                                  ROOT / "tools" / "head_ablation.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     text = (ROOT / "src" / "repro_torch" / "csrc" / "draft_decode.cu").read_text()

@@ -21,7 +21,7 @@ from repro_torch.configs.dfm_dit import tiny_config
 from repro_torch.convert import jax_params_to_torch
 from repro_torch.drafting import TransformerDraftAdapter
 from repro_torch.kernels.draft_decode import (
-    DraftDecoder, attn_cached, draft_decode_supported, head, post_attn, qkv_rope,
+    DraftDecoder, attn_cached, draft_decode_supported, head, ops, post_attn, qkv_rope,
 )
 from repro_torch.models import Model
 
@@ -291,3 +291,48 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         head(x, {"scale": torch.zeros(4, device="meta")}, torch.zeros(4, 3, device="meta"),
              norm="rmsnorm", eps=1e-6)
+
+
+# (D, V) -> (RT, NT, bytes of shared memory), as csrc/draft_decode.cu head_tiling picks
+# them: the decode shape (one row a block, 32 blocks at 32 rows), the tied 50257 head
+# (8 rows a block), D = 2056 (8 columns a block so the slab fits), small D at V = 257
+# and 1000 (2 and 4 rows a block: the grid at 32 rows still fills 132 SMs), D = 7200
+# (4 columns, and one row: two rows' shared memory would not fit)
+HEAD_TILINGS = [
+    (768, 27, 1, 32, 109056), (768, 50257, 8, 32, 137728), (2056, 27, 1, 8, 97792),
+    (2056, 50257, 8, 8, 165888), (64, 1000, 4, 32, 14336), (90, 257, 2, 32, 16384),
+    (7200, 1000, 1, 4, 214016),
+]
+
+
+@pytest.mark.parametrize("d,v,rt,nt,smem", HEAD_TILINGS)
+def test_head_tiling_and_shared_memory(d, v, rt, nt, smem):
+    assert ops._head_tiling(d, v) == (rt, nt)
+    assert ops._head_smem(d, v, rt, nt) == smem <= ops.MAX_SMEM
+    blocks_at_32_rows = -(-32 // rt) * -(-v // nt)
+    assert blocks_at_32_rows >= 32
+    # the rows may not double once more and still fill the card (or fit), or are at 8
+    assert (rt == ops.HEAD_MAX_ROWS or -(-v // nt) * -(-32 // (2 * rt)) < ops.CARD_SMS
+            or ops._head_smem(d, v, 2 * rt, nt) > ops.MAX_SMEM)
+
+
+def test_head_limits_follow_the_tiling():
+    """The wrapper's checks: a D whose slab, rows and partial sums take more
+    than a block's shared memory is refused; the row tiles lie along grid x,
+    so R may reach RT x (2^31 - 1), and the column tiles along y."""
+    rt, nt = ops._head_tiling(12000, 27)
+    assert (rt, nt) == (1, 4) and ops._head_smem(12000, 27, rt, nt) > ops.MAX_SMEM
+    limit = ops.MAX_GRID_X
+    with pytest.raises(ValueError, match="shared memory"):
+        ops._check_limits("head", 32, rt, 12000, ops._head_smem(12000, 27, rt, nt),
+                          max_blocks=limit)
+    rt, nt = ops._head_tiling(768, 50257)
+    smem = ops._head_smem(768, 50257, rt, nt)
+    ops._check_limits("head", rt * limit, rt, 768, smem, max_blocks=limit)
+    with pytest.raises(ValueError, match="rows"):
+        ops._check_limits("head", rt * limit + 1, rt, 768, smem, max_blocks=limit)
+    with pytest.raises(ValueError, match="rows"):
+        ops._check_limits("head", 0, rt, 768, smem, max_blocks=limit)
+    # the other kernels keep their rows along grid y
+    with pytest.raises(ValueError, match="rows"):
+        ops._check_limits("post_attn", 32 * ops.MAX_GRID_Y + 1, 32, 768, 1024)

@@ -20,6 +20,7 @@ from repro_torch.kernels.draft_decode import (
     DraftDecoder, attn_cached, attn_cached_ref, head, head_ref, post_attn, post_attn_ref,
     qkv_rope, qkv_rope_ref,
 )
+from repro_torch.kernels.draft_decode import ops as draft_ops
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.models import Model
 from repro_torch.kernels.ws_fused import ws_fused_ref, ws_fused_steps
@@ -28,6 +29,7 @@ from repro_torch.kernels.ws_step import (
     near_tie_rows, near_tie_rows_probs, seed_from_key, ws_step, ws_step_gumbel,
     ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows, ws_step_rows_ref,
 )
+from repro_torch.kernels.ws_step import ops as ws_ops
 from repro_torch.models import LSTMConfig, LSTMModel
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +59,43 @@ def test_ws_step_kernel_matches_plain(card, r, v, temperature):
     want = ws_step_ref_streamed(logits, x, a, g, temperature=temperature)
     ties = near_tie_rows(logits, x, a, g, temperature=temperature, tol=1e-5)
     assert not bool(((got != want) & ~ties).any())
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+@pytest.mark.parametrize("v", [1, 2, 27, 31, 32, 33, 64, 100, 257, 1000, 50257])
+@pytest.mark.parametrize("r", [1, 7, 8192])
+def test_ws_step_group_sizes_agree_bitwise(card, r, v, temperature):
+    """Both ws_step modes at every admissible lanes a row (and the kernels'
+    own choice, lanes = 0) give the tokens of 32 lanes a row, draw_row's
+    layout, bit for bit; rows 1 and 7 leave the last warp part empty. Row 0
+    has a = 0 (kept), the last row's token is the last column."""
+    g = torch.Generator(device=card).manual_seed(r + v)
+    logits = 3.0 * torch.randn((r, v), generator=g, device=card)
+    x = torch.randint(0, v, (r,), generator=g, device=card, dtype=torch.int32)
+    x[-1] = v - 1
+    a = torch.rand((r,), generator=g, device=card)
+    a[0] = 0.0
+    seed = seed_from_key(prng.key(v))
+    b, n = (32, 256) if r == 8192 else (r, 1)
+    keys = prng.key_data(prng.split(prng.key(r), b)).to(card, torch.int64)
+    ab = a[::n].contiguous()
+    outs = {}
+    for lanes in (0, 2, 4, 8, 16, 32):
+        step = torch.empty(r, dtype=torch.int32, device=card)
+        rows = torch.empty((b, n), dtype=torch.int32, device=card)
+        ws_ops._launch(logits, x, a, step, seed, temperature, lanes=lanes)
+        ws_ops._launch_rows(logits.view(b, n, v), x.view(b, n), ab, keys, rows, temperature,
+                            lanes=lanes)
+        outs[lanes] = (step, rows.reshape(-1))
+    for lanes, (step, rows) in outs.items():
+        assert torch.equal(step, outs[32][0]), lanes
+        assert torch.equal(rows, outs[32][1]), lanes
+    assert int(outs[0][0][0]) == int(x[0]) and int(outs[0][1][0]) == int(x[0])
+    assert ws_ops.lanes_for(v) in (2, 4, 8, 16, 32)
+    noise = prng.threefry_gumbel(seed, r, v, device=card)
+    want = ws_step_ref_streamed(logits, x, a, noise, temperature=temperature)
+    ties = near_tie_rows(logits, x, a, noise, temperature=temperature, tol=1e-5)
+    assert not bool(((outs[0][0] != want) & ~ties).any())
 
 
 @pytest.mark.parametrize("b,s,t,h,kh,d,causal,window", [
@@ -264,6 +303,34 @@ def test_qkv_rope_kernel_clamps_the_cursor(card, cursor):
     assert torch.equal(kk[:, untouched], kbuf[:, untouched])
     assert torch.equal(vk[:, untouched], vbuf[:, untouched])
     assert not torch.equal(kk[:, w0:w0 + s], kbuf[:, w0:w0 + s])
+
+
+@pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("v", [27, 1000, 50257])
+@pytest.mark.parametrize("d", [64, 90, 768, 2056])
+@pytest.mark.parametrize("r", [1, 7, 32, 33, 512])
+def test_head_kernel_is_batch_invariant(card, r, d, v, tied, norm):
+    """R rows in one call give each row's logits alone, bitwise, whatever
+    R, the row's place in its tile of (RT, NT) = head_tiling(D, V) and the
+    weights' layout (tied: the (V, D) table transposed, read through its
+    strides); and within 1e-4 x max(1, max|plain|) of the plain version."""
+    g = torch.Generator(device=card).manual_seed(r + d + v)
+    x = torch.randn((r, d), generator=g, device=card)
+    fn = {"scale": 0.1 * torch.randn(d, generator=g, device=card)}
+    if norm == "layernorm":
+        fn["scale"] += 1.0
+        fn["bias"] = 0.1 * torch.randn(d, generator=g, device=card)
+    w = (torch.randn((v, d), generator=g, device=card).T if tied
+         else torch.randn((d, v), generator=g, device=card)) / d ** 0.5
+    before = launches["head"]
+    out = head(x, fn, w, norm=norm, eps=1e-6)
+    assert launches["head"] == before + 1
+    alone = torch.cat([head(x[i:i + 1], fn, w, norm=norm, eps=1e-6) for i in range(r)])
+    assert torch.equal(out, alone)
+    assert _close(out, head_ref(x, fn, w, norm=norm, eps=1e-6), 1e-4)
+    rt, nt = draft_ops._head_tiling(d, v)
+    assert rt in (1, 2, 4, 8) and nt in (4, 8, 16, 32)
 
 
 def _draft_model(card, **kw):

@@ -142,3 +142,127 @@ def test_make_ws_step_fn_cpu_and_device_checks():
     with pytest.raises(ValueError):
         ws_step(prng.key(0), torch.zeros(4, 5, device="meta"),
                 torch.zeros(4, dtype=torch.int32, device="meta"), 0.5, 0.1, WarmStartPath())
+
+
+# -- the grouped draw's identity (csrc/ws_common.cuh draw_row_grouped) -------------------
+#
+# draw_row gives lane l the leaf (m, s, best, bidx, lg_x, g_x) over columns l, l + 32, ...
+# and merges leaf i with leaf i ^ off at off = 16, 8, 4, 2, 1 (an xor butterfly: every
+# lane merges its partner's node into its own). draw_row_grouped<G> gives lane j of a
+# group of G the leaves j, j + G, ..., merges the levels off >= G in registers and the
+# levels off < G by shuffles inside the group. A float32 replica of both must agree bit
+# for bit, since draw_row's merge is symmetric.
+
+NEG_LEAF = -1e30
+
+
+def _leaves(lg, g, x):
+    """draw_row's 32 leaves of each row: float32 (rows, 32) fields and int bidx."""
+    rows, v = lg.shape
+    m = torch.full((rows, 32), NEG_LEAF)
+    s = torch.zeros(rows, 32)
+    best = torch.full((rows, 32), NEG_LEAF)
+    bidx = torch.zeros(rows, 32, dtype=torch.int64)
+    lg_x, g_x = torch.zeros(rows, 32), torch.zeros(rows, 32)
+    for base in range(0, v, 32):
+        cols = torch.arange(base, min(base + 32, v))
+        k = cols - base
+        lgc, gc = lg[:, cols], g[:, cols]
+        m_new = torch.maximum(m[:, k], lgc)
+        s[:, k] = s[:, k] * torch.exp(m[:, k] - m_new) + torch.exp(lgc - m_new)
+        m[:, k] = m_new
+        is_x = cols[None, :] == x[:, None]
+        lg_x[:, k] = torch.where(is_x, lgc, lg_x[:, k])
+        g_x[:, k] = torch.where(is_x, gc, g_x[:, k])
+        cand = lgc + gc
+        take = ~is_x & (cand > best[:, k])
+        best[:, k] = torch.where(take, cand, best[:, k])
+        bidx[:, k] = torch.where(take, cols[None, :].expand_as(take), bidx[:, k])
+    return [m, s, best, bidx, lg_x, g_x]
+
+
+def _merge(a, b):
+    """draw_row's merge of node b into node a (each a list of same-shaped fields)."""
+    m_a, s_a, b_a, i_a, lx_a, gx_a = a
+    m_b, s_b, b_b, i_b, lx_b, gx_b = b
+    m = torch.maximum(m_a, m_b)
+    s = s_a * torch.exp(m_a - m) + s_b * torch.exp(m_b - m)
+    take = (b_b > b_a) | ((b_b == b_a) & (i_b < i_a))
+    return [m, s, torch.where(take, b_b, b_a), torch.where(take, i_b, i_a), lx_a + lx_b,
+            gx_a + gx_b]
+
+
+def _butterfly(leaves):
+    """draw_row: every lane ends with the same node; lane 0's."""
+    nodes = [f.clone() for f in leaves]
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        nodes = _merge(nodes, [f[:, lane ^ off] for f in nodes])
+    return nodes
+
+
+def _grouped(leaves, group):
+    """draw_row_grouped<G>: the node every lane of a group ends with, (rows, G)."""
+    per = 32 // group
+    lanes = torch.arange(group)
+    # leaf t of lane j is leaf j + G t
+    held = [[f[:, lanes + group * t] for f in leaves] for t in range(per)]
+    h = per // 2
+    while h:
+        for t in range(h):
+            held[t] = _merge(held[t], held[t + h])
+        h //= 2
+    node = held[0]
+    off = group // 2
+    while off:
+        node = _merge(node, [f[:, lanes ^ off] for f in node])
+        off //= 2
+    return node
+
+
+def _assert_grouped_equals_butterfly(leaves):
+    want = _butterfly(leaves)
+    for group in (1, 2, 4, 8, 16, 32):
+        got = _grouped(leaves, group)
+        for fw, fg in zip(want, got):
+            for j in range(group):        # every lane of the group holds the row's node
+                assert torch.equal(fg[:, j], fw[:, 0]), group
+            assert torch.equal(fw, fw[:, :1].expand_as(fw))
+
+
+@pytest.mark.parametrize("v,temperature", [(1, 1.0), (27, 1.0), (27, 0.7), (32, 1.0), (33, 0.7),
+                                           (100, 1.0), (1000, 1.0)])
+def test_grouped_draw_equals_draw_rows_tree_on_rows(v, temperature):
+    """Leaves made from rows of logits and the kernels' noise, x in every
+    column position; the regrouped tree gives draw_row's node bit for bit."""
+    rows = 64
+    logits, _ = _inputs(v, 1, rows, v)
+    lg = torch.from_numpy(logits[0]) / temperature
+    g = prng.threefry_gumbel((3, v), rows, v)
+    x = torch.arange(rows) % v
+    _assert_grouped_equals_butterfly(_leaves(lg, g, x))
+
+
+@pytest.mark.parametrize("empty", [0, 5, 31])
+def test_grouped_draw_equals_draw_rows_tree_with_ties_and_empty_leaves(empty):
+    """Synthetic leaves: best values drawn from three, so that ties between
+    leaves are frequent (the lower column must win in any grouping); ``empty``
+    leaves of each row left empty (m = -1e30, s = 0, best = -1e30, bidx = 0);
+    the column x in each of the 32 leaves in turn."""
+    rng = np.random.default_rng(empty)
+    rows = 32 * 8
+    m = torch.from_numpy(rng.normal(0, 2, (rows, 32)).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 4, (rows, 32)).astype(np.float32))
+    best = torch.from_numpy(rng.choice(np.float32([-1.5, 0.25, 2.0]), (rows, 32)))
+    bidx = torch.arange(32)[None, :] + 32 * torch.from_numpy(rng.integers(0, 8, (rows, 32)))
+    lg_x, g_x = torch.zeros(rows, 32), torch.zeros(rows, 32)
+    pos = torch.arange(rows) % 32
+    lg_x[torch.arange(rows), pos] = torch.from_numpy(rng.normal(0, 2, rows).astype(np.float32))
+    g_x[torch.arange(rows), pos] = torch.from_numpy(rng.gumbel(size=rows).astype(np.float32))
+    for i in range(rows):
+        gone = rng.choice(32, empty, replace=False)
+        m[i, gone], s[i, gone], best[i, gone], bidx[i, gone] = NEG_LEAF, 0.0, NEG_LEAF, 0
+        keep_x = pos[i] in gone
+        if keep_x:
+            lg_x[i], g_x[i] = 0.0, 0.0
+    _assert_grouped_equals_butterfly([m, s, best, bidx, lg_x, g_x])

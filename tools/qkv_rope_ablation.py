@@ -25,7 +25,6 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-OUT = ROOT / "build" / "qkv_rope_ablation"
 
 # name -> [(text in csrc/draft_decode.cu, replacement)]
 VARIANTS = {
@@ -86,54 +85,61 @@ print(json.dumps({"ms": [cs.graph_ms(launch, n=50) for _ in range(3)], "max_abs_
 '''
 
 
-def variant_source(text: str, name: str) -> str:
-    for old, new in VARIANTS[name]:
+def variant_source(text: str, name: str, variants=None) -> str:
+    for old, new in (variants or VARIANTS)[name]:
         if old not in text:
             raise RuntimeError(f"{name}: the kernel no longer holds {old!r}")
         text = text.replace(old, new)
     return text
 
 
-def main() -> int:
+def run(kernel: str, variants: dict, measure: str) -> int:
+    """Build and time each variant of csrc/draft_decode.cu in a process of its own,
+    in the order base, the variants, base; print the card and one JSON line."""
     import torch
 
     if not torch.cuda.is_available():
-        print("qkv_rope_ablation: needs a CUDA device", file=sys.stderr)
+        print(f"{kernel}_ablation: needs a CUDA device", file=sys.stderr)
         return 2
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
-    shutil.rmtree(OUT, ignore_errors=True)
-    OUT.mkdir(parents=True)
-    (OUT / "measure.py").write_text(MEASURE)
+    out = ROOT / "build" / f"{kernel}_ablation"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    (out / "measure.py").write_text(measure)
     text = (ROOT / "src" / "repro_torch" / "csrc" / "draft_decode.cu").read_text()
     res = {}
-    for name in ["base", *[n for n in VARIANTS if n != "base"], "base"]:
-        pkg = OUT / name / "src" / "repro_torch"
+    for name in ["base", *[n for n in variants if n != "base"], "base"]:
+        pkg = out / name / "src" / "repro_torch"
         if not pkg.exists():
             shutil.copytree(ROOT / "src" / "repro_torch", pkg,
                             ignore=shutil.ignore_patterns("__pycache__"))
-            (pkg / "csrc" / "draft_decode.cu").write_text(variant_source(text, name))
-        run = subprocess.run([sys.executable, str(OUT / "measure.py"), str(pkg.parent),
-                              str(ROOT / "chip_smoke.py")], capture_output=True, text=True)
-        if run.returncode != 0:
-            print(run.stdout[-2000:] + run.stderr[-4000:], file=sys.stderr)
+            (pkg / "csrc" / "draft_decode.cu").write_text(variant_source(text, name, variants))
+        proc = subprocess.run([sys.executable, str(out / "measure.py"), str(pkg.parent),
+                               str(ROOT / "chip_smoke.py")], capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:] + proc.stderr[-4000:], file=sys.stderr)
             return 1
-        got = json.loads(run.stdout.strip().splitlines()[-1])
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
         res.setdefault(name, []).append(got)
         print(f"{name}: {got}", flush=True)
     base_ms = min(min(r["ms"]) for r in res["base"])
     if max(r["max_abs_err"] for r in res["base"]) > 1e-4:
-        print("qkv_rope_ablation: the base kernel disagrees with its plain version",
+        print(f"{kernel}_ablation: the base kernel disagrees with its plain version",
               file=sys.stderr)
         return 1
     print(card)
-    print(json.dumps({"qkv_rope_ablation": {
+    print(json.dumps({f"{kernel}_ablation": {
         "card": card, "base_ms": base_ms,
         "saved_ms": {n: base_ms - min(min(r["ms"]) for r in rs)
                      for n, rs in res.items() if n != "base"},
         "runs": res}}))
     return 0
+
+
+def main() -> int:
+    return run("qkv_rope", VARIANTS, MEASURE)
 
 
 if __name__ == "__main__":
