@@ -19,9 +19,14 @@ CPU path. It then serves 16 mixed requests through ``WarmStartScheduler``
 (``ws_step``'s per-row mode, ``ws_fused``), and runs the paper's generation
 API, ``WarmStartPipeline.generate``, on the same backbone drafted by the
 paper's §4.2 Text-8 LSTM (2 x 512, seed 2, through ``ARDraft``): 32 x 256
-at t0 = 0.8 (13 NFE, each a ``ws_step_gumbel`` launch: the default Euler
-step), the cold pipeline (64 NFE) and ``EulerSampler(fused_block=2)``, with
-exact launch counts, and the measured draft cost ratio. It prints the card,
+at t0 = 0.8 (13 NFE, each one ``ws_step_gumbel`` launch that draws its noise
+in the kernel: the default Euler step), the cold pipeline (64 NFE) and
+``EulerSampler(fused_block=2)``, with exact launch counts, and the measured
+draft cost ratio. Besides each kernel against its plain version, the
+``ws_step_gumbel`` keyed launch must equal the given-noise launch on
+``prng.gumbel``'s noise and ``ws_fused`` must equal K composed launches, bit
+for bit, at every lanes a row; ``ptxas`` must report no spills for any
+instance of the ws, flash_attn and draft kernels. It prints the card,
 ``{"serve": ...}``, ``{"scheduler": ...}`` and ``{"pipeline": ...}`` lines, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
@@ -317,18 +322,124 @@ def check_ws_step_gumbel(r, vp, valid_v, seed):
     return res
 
 
+# per element of the keyed step, beyond the 13 above: the 20-round hash (~72 integer
+# ops), the uniform (~4), the noise's two logf and two expf and two divisions of the
+# three passes (~40 float ops in all); counted against the float32 rate
+WS_KEYED_OPS_PER_ELEMENT = 130
+
+
+def check_ws_step_gumbel_keyed(r, v, seed):
+    """The keyed launch (noise hashed in the kernel) at every lanes a row, and
+    the kernels' choice, against the given-noise launch on prng.gumbel(key,
+    (R, V)) at the same G, bitwise; through the wrapper against the plain
+    version off near ties; a = 0 keeps the token."""
+    from repro_torch import prng
+    from repro_torch.kernels.ws_step import (
+        near_tie_rows_probs, ops, seed_from_key, ws_step_gumbel_keyed, ws_step_gumbel_ref,
+    )
+
+    logits, x, a, _ = gumbel_inputs(r, v, v, seed)
+    x, a = x[:, 0].contiguous(), a[:, 0].contiguous()
+    key = prng.key(seed + 100)
+    noise = prng.gumbel(key, (r, v), device="cuda")
+    differ, outs = {}, {}
+    for lanes in (0,) + WS_LANES:
+        keyed = torch.empty(r, dtype=torch.int32, device="cuda")
+        given = torch.empty((r, 1), dtype=torch.int32, device="cuda")
+        ops._launch_gumbel_keyed(logits, x, a, seed_from_key(key), keyed, v, 1.0, lanes=lanes)
+        ops._launch_gumbel(logits, x[:, None], a[:, None], noise, given, v, 1.0, lanes=lanes)
+        outs[lanes] = keyed
+        differ[lanes] = int((keyed != given[:, 0]).sum())
+    got = ws_step_gumbel_keyed(key, logits, x, a)
+    want = ws_step_gumbel_ref(logits, x[:, None], a[:, None], noise, valid_v=v)[:, 0]
+    ties = near_tie_rows_probs(logits, x[:, None], a[:, None], noise, valid_v=v,
+                               tol=WS_TIE_TOL)
+    torch.cuda.synchronize()
+    mismatch = got != want
+    bad = mismatch & ~ties
+    frozen = int(got[0]) == int(x[0])
+    res = {"rows": r, "vocab": v, "lanes": ops.lanes_for(v), "keyed_vs_given": differ,
+           "wrapper_vs_launch": int((got != outs[0]).sum()),
+           "mismatches": int(mismatch.sum()), "near_ties": int(ties.sum()),
+           "max_abs_err": float((got - want)[~ties].abs().max()), "a0_frozen": frozen}
+    print(f"ws_step_gumbel keyed R={r} V={v}: tokens differing from the given-noise launch "
+          f"on prng.gumbel noise at the same lanes a row (bitwise; 0 = the kernels' choice, "
+          f"{res['lanes']}): {differ}; {res['mismatches']} from the plain version "
+          f"({res['near_ties']} near-tie rows, {int(bad.sum())} mismatches off them); a = 0 "
+          f"row unchanged: {frozen}")
+    if any(differ.values()) or res["wrapper_vs_launch"] or bool(bad.any()) or not frozen:
+        fail(f"the keyed ws_step_gumbel disagrees: {res}")
+    return res
+
+
 def measure_ws_step_gumbel(r, v):
-    from repro_torch.kernels.ws_step import ops, ws_step_gumbel, ws_step_gumbel_ref
+    """Both noise sources at (r, v) and every lanes a row; the default step,
+    gumbel_step, as a whole at (NUM, SEQ, v) against the composition it
+    replaces (prng.gumbel's torch ops, then the given-noise launch); and the
+    kernels one gumbel_step launches (profiler)."""
+    from repro_torch import prng
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.core.sampler import gumbel_step
+    from repro_torch.kernels.ws_step import (
+        ops, seed_from_key, ws_step_gumbel, ws_step_gumbel_keyed, ws_step_gumbel_ref,
+    )
 
     logits, x, a, noise = gumbel_inputs(r, v, v, 0)
     a.fill_(0.078125)                    # h * velocity_scale(t) at t = 0.8, h = 1/64
+    x1, a1 = x[:, 0].contiguous(), a[:, 0].contiguous()
+    key = prng.key(0)
+    seed = seed_from_key(key)
     out = torch.empty((r, 1), dtype=torch.int32, device="cuda")
-    ms = graph_ms(lambda: ops._launch_gumbel(logits, x, a, noise, out, v, 1.0), n=50)
-    call_ms = time_ms(lambda: ws_step_gumbel(logits, x, a, noise, valid_v=v))
+    by_lanes = {"keyed": {}, "given": {}}
+    for lanes in WS_LANES:
+        by_lanes["keyed"][lanes] = graph_ms(
+            lambda: ops._launch_gumbel_keyed(logits, x1, a1, seed, out, v, 1.0, lanes=lanes),
+            n=50)
+        by_lanes["given"][lanes] = graph_ms(
+            lambda: ops._launch_gumbel(logits, x, a, noise, out, v, 1.0, lanes=lanes), n=50)
+    chosen = ops.lanes_for(v)
+    ms = by_lanes["keyed"][chosen]
+    call_ms = time_ms(lambda: ws_step_gumbel_keyed(key, logits, x1, a1))
     plain_ms = graph_ms(lambda: ws_step_gumbel_ref(logits, x, a, noise, valid_v=v))
-    bms, by = bound_ms(2 * r * v * 4 + 3 * r * 4, WS_GUMBEL_OPS_PER_ELEMENT * r * v)
+    bms, by = bound_ms(r * v * 4 + 3 * r * 4, WS_KEYED_OPS_PER_ELEMENT * r * v)
+    given_bms, given_by = bound_ms(2 * r * v * 4 + 3 * r * 4, WS_GUMBEL_OPS_PER_ELEMENT * r * v)
+
+    # the default Euler step as the pipeline calls it: (B, N, V) logits, t (B,), h on the card
+    path = WarmStartPath(t0=T0)
+    b, n = r // SEQ, SEQ
+    lg3, x2 = logits.view(b, n, v), x.view(b, n)
+    t = torch.full((b,), T0, device="cuda")
+    h = torch.tensor(1.0 / COLD_NFE, device="cuda")
+
+    def before():
+        g = prng.gumbel(key, (b, n, v), device="cuda").reshape(-1, v)
+        aa = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
+        aa = aa.reshape(b, 1).expand(b, n).reshape(-1, 1)
+        return ws_step_gumbel(lg3.reshape(-1, v), x2.reshape(-1, 1), aa, g, valid_v=v,
+                              row_block=1)
+
+    step_ms = graph_ms(lambda: gumbel_step(key, lg3, x2, t, h, path), n=20)
+    before_ms = graph_ms(before, n=20)
+    profile = _profile(lambda: (gumbel_step(key, lg3, x2, t, h, path),
+                                torch.cuda.synchronize()), "default step (gumbel_step)")
+    print(f"ws_step_gumbel at ({r}, {v}), us device by lanes a row: "
+          + json.dumps({k: {g: round(t_ * 1e3, 3) for g, t_ in d.items()}
+                        for k, d in by_lanes.items()})
+          + f"; the kernels take {chosen}: keyed {ms * 1e3:.2f} us (bound {bms * 1e3:.3f} us, "
+          f"{by}), given {by_lanes['given'][chosen] * 1e3:.2f} us (bound "
+          f"{given_bms * 1e3:.3f} us, {given_by}), plain {plain_ms * 1e3:.1f} us")
+    print(f"gumbel_step at ({b}, {n}, {v}), device ms a step: {step_ms:.5f} (one keyed "
+          f"launch and the scalar ops on a); before, prng.gumbel's torch ops and the "
+          f"given-noise launch: {before_ms:.5f}; kernels in one step (profiler): "
+          f"{profile.get('kernel_launches')}")
+    n_kernels = profile.get("kernel_launches")
+    if n_kernels is not None and n_kernels > 8:
+        fail(f"gumbel_step launched {n_kernels} kernels: the noise is drawn outside the kernel")
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+            "bound_by": by, "library_ms": None, "lanes": chosen,
+            "given_ms": by_lanes["given"][chosen], "given_bound_ms": given_bms,
+            "ms_by_lanes": by_lanes, "gumbel_step_ms": step_ms,
+            "gumbel_step_before_ms": before_ms, "gumbel_step_kernels": n_kernels}
 
 
 # -- flash_attn ------------------------------------------------------------------
@@ -834,12 +945,51 @@ def check_ws_fused(layout, k, v, seed):
     return res
 
 
+def check_ws_fused_lanes(layout, k, b, n, v, seed):
+    """ws_fused at every admissible lanes a row, and the kernel's choice,
+    against 32 lanes a row and K composed launches (single key: K ws_step
+    launches; per row: K one-step ws_fused launches), bitwise."""
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_fused import ops, ws_fused_steps
+    from repro_torch.kernels.ws_fused.ops import fused_inputs
+    from repro_torch.kernels.ws_step import ws_step
+
+    path = WarmStartPath(t0=0.0)
+    keys, logits, x, ts, hs = fused_case(layout, k, b, n, v, seed)
+    seeds, lg, xr, a, key_group, a_group = fused_inputs(keys, logits, x, ts, hs, path)
+    sd, x32, a = seeds.to("cuda", torch.int64).contiguous(), xr.contiguous(), a.contiguous()
+    outs = {}
+    for lanes in (0,) + WS_LANES:
+        outs[lanes] = torch.empty(b * n, dtype=torch.int32, device="cuda")
+        ops._launch(lg, x32, a, sd, outs[lanes], key_group, a_group, 1.0, lanes=lanes)
+    if layout == "single":
+        composed = x
+        for j in range(k):
+            composed = ws_step(keys[j].cpu(), logits, composed, ts[j], hs[j], path)
+    else:
+        composed = ws_fused_steps(keys, logits, x, ts, hs, path, impl="composed")
+    composed = composed.reshape(-1)
+    torch.cuda.synchronize()
+    differ = {lanes: int((o != outs[32]).sum()) + int((o != composed).sum())
+              for lanes, o in outs.items()}
+    print(f"ws_fused lanes a row, {layout} K={k} R={b * n} V={v}: tokens differing from 32 "
+          f"lanes a row and from {k} composed launches (bitwise), by lanes (0 = the kernel's "
+          f"choice): {differ}")
+    if any(differ.values()):
+        fail(f"ws_fused differs across lanes a row: {differ}")
+    return {"layout": layout, "k": k, "rows": b * n, "vocab": v, "differ": sum(differ.values())}
+
+
 def measure_ws_fused(b, n, v, k):
     """At the scheduler's layout (per-row keys and weights): the fused
-    launch, K one-step launches, the plain version, the bound."""
+    launch, K one-step launches, a graph of K ws_step launches at the same
+    (R, V) (the launches a fused block saves), the plain version, the bound."""
+    from repro_torch import prng
     from repro_torch.core.paths import WarmStartPath
     from repro_torch.kernels.ws_fused import ops, ws_fused_ref, ws_fused_steps
     from repro_torch.kernels.ws_fused.ops import fused_inputs
+    from repro_torch.kernels.ws_step import ops as step_ops
+    from repro_torch.kernels.ws_step import seed_from_key
 
     path = WarmStartPath(t0=0.0)
     keys, logits, x, ts, hs = fused_case("rows", k, b, n, v, 6)
@@ -853,15 +1003,27 @@ def measure_ws_fused(b, n, v, k):
             ops._launch(lg, cur, a[j:j + 1], seeds[j:j + 1], out, key_group, a_group, 1.0)
             cur = out
 
+    step_seeds = [seed_from_key(kk) for kk in prng.split(prng.key(6), k)]
+    step_a = a[:, -1:].expand(k, b * n).contiguous()   # the last request row: never frozen
+    step_out = [torch.empty(b * n, dtype=torch.int32, device="cuda") for _ in range(k)]
+
+    def ws_steps():
+        cur = xr
+        for j in range(k):
+            step_ops._launch(lg, cur, step_a[j], step_out[j], step_seeds[j], 1.0)
+            cur = step_out[j]
+
     ms = graph_ms(lambda: ops._launch(lg, xr, a, seeds, out, key_group, a_group, 1.0), n=50)
     composed_ms = graph_ms(composed, n=20)
+    ws_steps_ms = graph_ms(ws_steps, n=20)
     call_ms = time_ms(lambda: ws_fused_steps(keys, logits, x, ts, hs, path))
     plain_ms = graph_ms(lambda: ws_fused_ref(seeds, lg, xr, a, key_group=key_group,
                                              a_group=a_group), n=3, reps=5)
     r = b * n
     bms, by = bound_ms(r * v * 4 + 8 * r + 20 * k * b, WS_OPS_PER_ELEMENT * k * r * v)
-    return {"ms": ms, "composed_ms": composed_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return {"ms": ms, "composed_ms": composed_ms, "ws_step_graph_ms": ws_steps_ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 # -- the scheduler ---------------------------------------------------------------------
@@ -1317,6 +1479,9 @@ def pipeline_path(model):
         "fused_block_2": {"flow_ms": fused_wall * 1e3, "backbone_evals": st_fused.nfe},
         "launches_per_warm_generate": per_warm, "launches_path": counts,
         "profile": profile,
+        # every kernel the profiled generate launched (the draft's too), per NFE
+        "profile_launches_per_nfe": (profile["kernel_launches"] / nfe
+                                     if profile.get("device_ms") is not None else None),
     }
     print(f"pipeline: {model.cfg.name} drafted by the LSTM ({n_lstm / 1e6:.2f}M params), "
           f"{NUM} x {SEQ}, t0={T0}, cold_nfe={COLD_NFE}: {nfe} NFE per warm generate, guarantee "
@@ -1325,7 +1490,8 @@ def pipeline_path(model):
           f"{rep.draft_cost_ratio:.3f} (best of 5: draft {cal.draft_time_s * 1e3:.2f} ms, one "
           f"NFE {cal.nfe_time_s * 1e3:.2f} ms), effective speed-up "
           f"{rep.effective_speedup:.2f}x of {rep.guaranteed_factor:.2f}x; cold (64 NFE) "
-          f"{cold_wall * 1e3:.1f} ms; fused_block=2 {fused_wall * 1e3:.1f} ms (7 evaluations)")
+          f"{cold_wall * 1e3:.1f} ms; fused_block=2 {fused_wall * 1e3:.1f} ms (7 evaluations); "
+          f"the profiled generate's kernel launches per NFE: {res['profile_launches_per_nfe']}")
     return res, counts
 
 
@@ -1566,10 +1732,12 @@ def main() -> int:
     usage = ptxas_usage(_build.build_log)
     # flash_attn and qkv_rope at head dims 32, 64, 128; post_attn's wo, down, up and
     # gated up; the head at 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
-    # ws_step_rows at 2, 4, 8, 16, 32 lanes a row
+    # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
+    # the noise given and keyed; ws_fused at each with lg in registers and re-read
     for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4),
                           ("qkv_rope_kernel", 3), ("head_proj_kernel", 8),
-                          ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5)):
+                          ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
+                          ("ws_step_gumbel_kernel", 10), ("ws_fused_kernel", 10)):
         found = {k: v for k, v in usage.items() if kernel in k}
         print(f"{kernel}: spill bytes {[v.get('spill') for v in found.values()]}, registers "
               f"{[v.get('registers') for v in found.values()]}")
@@ -1597,22 +1765,30 @@ def main() -> int:
                      check_ws_step_gumbel(8, 128, VOCAB, 1),
                      check_ws_step_gumbel(64, 50257, 50257, 2),
                      check_ws_step_gumbel(8, 262144, 262144, 3)]
+    keyed_checks = [check_ws_step_gumbel_keyed(NUM * SEQ, VOCAB, 0),
+                    check_ws_step_gumbel_keyed(64, 50257, 1),
+                    check_ws_step_gumbel_keyed(8, 262144, 2)]
+    fused_lanes_checks = [check_ws_fused_lanes(layout, k, b, n, v, 40 + k)
+                          for layout in ("single", "rows")
+                          for k, b, n, v in ((4, NUM, SEQ, VOCAB), (3, 8, 64, 200),
+                                             (2, 2, 8, 50257), (2, 3, 7, 5))]
     lanes_checks = [check_ws_lanes(NUM * SEQ, VOCAB, 0), check_ws_lanes(64, 50257, 1)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
     lanes_num = measure_ws_lanes(NUM * SEQ, VOCAB)
     floor_ms = launch_floor_ms()
     print(f"launch floor (graph of one-element adds): {floor_ms * 1e3:.2f} us device a launch")
     gumbel_num = measure_ws_step_gumbel(NUM * SEQ, VOCAB)
-    print(f"ws_step_gumbel at ({NUM * SEQ}, {VOCAB}): {gumbel_num['ms'] * 1e3:.2f} us device "
-          f"(bound {gumbel_num['bound_ms'] * 1e3:.3f} us, {gumbel_num['bound_by']}), plain "
-          f"{gumbel_num['plain_ms'] * 1e3:.1f} us")
     rows_num = measure_ws_step_rows(NUM, SEQ, VOCAB)
     fused_num = measure_ws_fused(NUM, SEQ, VOCAB, 4)
+    fused_big = measure_ws_fused(2, 32, 50257, 4)
+    fused_num["v50257"] = fused_big
     print(f"ws_step_rows at ({NUM}, {SEQ}, {VOCAB}): {rows_num['ms'] * 1e3:.2f} us device "
-          f"(bound {rows_num['bound_ms'] * 1e3:.2f} us, {rows_num['bound_by']}); ws_fused K=4 "
-          f"at ({NUM * SEQ}, {VOCAB}): {fused_num['ms'] * 1e3:.2f} us device, 4 one-step "
-          f"launches {fused_num['composed_ms'] * 1e3:.2f} us (bound "
-          f"{fused_num['bound_ms'] * 1e3:.2f} us, {fused_num['bound_by']})")
+          f"(bound {rows_num['bound_ms'] * 1e3:.2f} us, {rows_num['bound_by']})")
+    for (r_, v_), num in (((NUM * SEQ, VOCAB), fused_num), ((64, 50257), fused_big)):
+        print(f"ws_fused K=4 per-row keys at ({r_}, {v_}): {num['ms'] * 1e3:.2f} us device; "
+              f"a graph of 4 ws_step launches {num['ws_step_graph_ms'] * 1e3:.2f} us, of 4 "
+              f"one-step ws_fused launches {num['composed_ms'] * 1e3:.2f} us (bound "
+              f"{num['bound_ms'] * 1e3:.3f} us, {num['bound_by']})")
     flash_num = measure_flash(NUM, SEQ, 12, 64)
     draft_num = measure_draft_kernels()
 
@@ -1690,15 +1866,16 @@ def main() -> int:
          "mismatches": sum(c["mismatches"] for c in fused_checks),
          "near_ties": sum(c["near_ties"] for c in fused_checks),
          "shape": [NUM * SEQ, VOCAB], "k": 4, **fused_num,
-         "bound_us": fused_num["bound_ms"] * 1e3},
+         "bound_us": fused_num["bound_ms"] * 1e3, "lanes_checks": fused_lanes_checks},
         {"name": "ws_step_gumbel", "route": "cuda", "source": "src/repro_torch/csrc/ws_step.cu",
          "replaces": "src/repro/kernels/ws_step/kernel.py:289",
          "tpu_kernel": "ws_step_pallas",
          "launches": pipe_counts.get("ws_step_gumbel", 0),
          "launches_per_warm_generate": pipe["launches_per_warm_generate"]["ws_step_gumbel"],
-         "max_abs_err": max(c["max_abs_err"] for c in gumbel_checks),
-         "mismatches": sum(c["mismatches"] for c in gumbel_checks),
-         "near_ties": sum(c["near_ties"] for c in gumbel_checks),
+         "max_abs_err": max(c["max_abs_err"] for c in gumbel_checks + keyed_checks),
+         "mismatches": sum(c["mismatches"] for c in gumbel_checks + keyed_checks),
+         "near_ties": sum(c["near_ties"] for c in gumbel_checks + keyed_checks),
+         "keyed_checks": keyed_checks,
          "shape": [NUM * SEQ, VOCAB], **gumbel_num, "bound_us": gumbel_num["bound_ms"] * 1e3},
     ]
     in_serve = serve["profile"].get("by_kind_ms") or {}

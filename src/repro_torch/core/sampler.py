@@ -13,8 +13,8 @@ is a Python loop over that schedule. ``kernels/ws_step`` provides the
 fused step (``step_fn``). Without one, the default step is the
 probability update and a Gumbel-max draw with ``jax.random.gumbel``'s
 noise: on the CPU in plain torch (``euler_step_probs`` +
-``categorical_from_probs``), on the card through the ``ws_step_gumbel``
-kernel on the same noise.
+``categorical_from_probs``), on the card one launch of the
+``ws_step_gumbel`` kernel, which draws the same noise inside.
 
 The scheduler's loop is row-keyed (the ``_rows`` functions): every request
 row has its own flow key and enters the shared schedule at its own step,
@@ -224,9 +224,9 @@ def make_euler_one_step(path: WarmStartPath, *, temperature: float = 1.0,
     draw with ``jax.random.gumbel(rng, logits.shape)``'s noise.
 
     That default runs as ``euler_step_probs`` + ``categorical_from_probs``
-    for CPU logits; for CUDA logits it is :func:`gumbel_step`, which draws
-    the same noise with torch ops (JAX draws it in XLA) and launches the
-    ``ws_step_gumbel`` kernel, which computes the same score."""
+    for CPU logits; for CUDA logits it is :func:`gumbel_step`, one launch of
+    the ``ws_step_gumbel`` kernel, which draws the same noise inside (JAX
+    draws it in XLA) and computes the same score."""
     if step_fn is not None:
         return step_fn
 
@@ -241,21 +241,22 @@ def make_euler_one_step(path: WarmStartPath, *, temperature: float = 1.0,
 
 def gumbel_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
                 path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
-    """The default Euler step through ``ws_step_gumbel``: the noise of
-    ``categorical_from_probs`` (``jax.random.gumbel(rng, logits.shape)``)
-    and ``a = clip(h * velocity_scale(t), 0, 1)`` per batch row, on the
-    flattened ``(B * N, V)`` rows. Tokens shaped like ``x_t``."""
+    """The default Euler step through ``ws_step_gumbel_keyed``: the noise of
+    ``categorical_from_probs`` (``jax.random.gumbel(rng, logits.shape)``,
+    hashed in the kernel from the host key's two words) and ``a = clip(h *
+    velocity_scale(t), 0, 1)``, one weight per batch row (or per position,
+    or one for all), on the flattened ``(B * N, V)`` rows. Tokens shaped
+    like ``x_t``."""
     # imported here, as in make_euler_one_step_rows (import cycle)
-    from repro_torch.kernels.ws_step.ops import ws_step_gumbel
+    from repro_torch.kernels.ws_step.ops import ws_step_gumbel_keyed
 
     v = logits.shape[-1]
-    g = prng.gumbel(rng, logits.shape, device=logits.device).reshape(-1, v)
     a = torch.clamp(torch.as_tensor(h, dtype=torch.float32, device=logits.device)
                     * path.velocity_scale(t), 0.0, 1.0)
-    a = a.reshape(a.shape + (1,) * (x_t.ndim - a.ndim)).expand(x_t.shape).reshape(-1, 1)
-    # one warp per row on the card: any row count, so no row block to divide
-    out = ws_step_gumbel(logits.reshape(-1, v), x_t.reshape(-1, 1), a, g, valid_v=v,
-                         row_block=1, temperature=temperature)
+    if tuple(a.shape) != tuple(x_t.shape[:a.ndim]):
+        a = a.reshape(a.shape + (1,) * (x_t.ndim - a.ndim)).expand(x_t.shape)
+    out = ws_step_gumbel_keyed(rng, logits.reshape(-1, v), x_t.reshape(-1), a, valid_v=v,
+                               temperature=temperature)
     return out.reshape(x_t.shape)
 
 

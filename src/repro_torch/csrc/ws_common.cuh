@@ -1,4 +1,8 @@
 // The warm-start Euler draw of one row, shared by ws_step.cu and ws_fused.cu.
+// draw_row below is the reference: its leaves and merge tree fix the bits, and
+// the kernels run it regrouped (draw_row_grouped<G>, G lanes a row) or taken
+// apart for K draws on one row (the pieces after draw_row_grouped), with the
+// same bits.
 //
 // For one row of logits (V columns), the current token x and the mixing
 // weight a, with Gumbel noise g[v] from a Noise functor:
@@ -24,7 +28,7 @@
 // that inline this function, and every lane merges its partner's values in
 // the same order as the partner merges its own. The result is lane 0's,
 // broadcast to the warp. So K launches of ws_step and one ws_fused launch of
-// K steps give the same tokens, bit for bit.
+// K steps give the same tokens, bit for bit, at every G.
 #pragma once
 
 #include <cstdint>
@@ -263,5 +267,157 @@ __device__ __forceinline__ int draw_row_grouped(const float* __restrict__ lrow, 
   const float score_x = __fadd_rn(logf(fmaxf(px, kMinProb)), gx);
   return score_x >= score_other ? xr : bi;
 }
+
+// -- draw_row_grouped<G> taken apart, for K draws on one row (ws_fused.cu) ----------
+//
+// A row's (m, s) depend on its logits and T alone, so K draws on the same row need
+// them once. stats_leaf and merge_stats<G> are draw_row_grouped<G>'s leaf update and
+// merge tree for (m, s) alone; best_merge and merge_best<G> those for (best, bidx);
+// the fields never mix in draw_row's merge, so apart they give the same bits.
+// A step then reads lg_x and g_x at column x directly: draw_row's tree adds that one
+// value to zeros, which is exact but for the sign of a zero (-0 + 0 = +0), and that
+// sign reaches no score (exp(-0 - m) = exp(+0 - m), y + -0 = y + +0 for y = log p).
+//
+// walk_leaves<G, kRounds> visits a lane's columns in draw_row_grouped<G>'s order:
+// round by round (base = j, j + 32, ...), one column of each of the lane's L = 32 / G
+// leaves a round, column base + G t for leaf t. f(t, k, col) gets the leaf, the rank
+// k = round * L + t of the column among the lane's and the column (col >= vocab past
+// the row: f leaves the leaf as it was). With kRounds > 0 the walk is unrolled over at
+// most kRounds rounds, so that k can index a register array; the caller ensures that
+// vocab <= 32 * kRounds. kRounds = 0 walks any vocab, four rounds unrolled so that
+// their columns' hashes and logs overlap (each leaf still takes its columns in order).
+
+template <int G, int kRounds, class F>
+__device__ __forceinline__ void walk_leaves(int vocab, int j, F&& f) {
+  constexpr int L = 32 / G;
+  if constexpr (kRounds > 0) {
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int base = j + 32 * r;
+      if (base >= vocab) break;
+#pragma unroll
+      for (int t = 0; t < L; ++t) f(t, r * L + t, base + G * t);
+    }
+  } else {
+#pragma unroll 4
+    for (int base = j; base < vocab; base += 32) {
+#pragma unroll
+      for (int t = 0; t < L; ++t) f(t, 0, base + G * t);
+    }
+  }
+}
+
+// draw_row's (m, s) update of a leaf by the column lg (ok: the column lies in the row)
+__device__ __forceinline__ void stats_leaf(float& m, float& s, float lg, bool ok) {
+  const float m_new = ok ? fmaxf(m, lg) : m;
+  const float s_new = __fadd_rn(__fmul_rn(s, expf(m - m_new)), expf(lg - m_new));
+  s = ok ? s_new : s;
+  m = m_new;
+}
+
+// draw_row's merge of (m_o, s_o) into (m, s)
+__device__ __forceinline__ void stats_merge(float& m, float& s, float m_o, float s_o) {
+  const float m_new = fmaxf(m, m_o);
+  s = __fadd_rn(__fmul_rn(s, expf(m - m_new)), __fmul_rn(s_o, expf(m_o - m_new)));
+  m = m_new;
+}
+
+// draw_row's merge of (b_o, i_o) into (best, bidx): the larger, ties to the lower column
+__device__ __forceinline__ void best_merge(float& best, int& bidx, float b_o, int i_o) {
+  if (b_o > best || (b_o == best && i_o < bidx)) {
+    best = b_o;
+    bidx = i_o;
+  }
+}
+
+// draw_row_grouped<G>'s levels off = 16 .. G, in registers: leaf t takes leaf t + H
+// for H = L / 2, L / 4, ..., 1, each level's H a compile-time constant (a level loop
+// that computes H at run time leaves the leaves on the stack at G = 2).
+template <int H, class Merge>
+__device__ __forceinline__ void merge_register_levels(Merge&& merge) {
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int t = 0; t < H; ++t) merge(t, t + H);
+    merge_register_levels<H / 2>(merge);
+  }
+}
+
+// The lane's leaves' (m, s), merged as draw_row_grouped<G> merges them; every lane of
+// the group ends with the row's (m, s).
+template <int G>
+__device__ __forceinline__ void merge_stats(float (&m)[32 / G], float (&s)[32 / G], float& mm,
+                                            float& ss) {
+  merge_register_levels<16 / G>([&](int t, int o) { stats_merge(m[t], s[t], m[o], s[o]); });
+  mm = m[0];
+  ss = s[0];
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    stats_merge(mm, ss, __shfl_xor_sync(0xffffffffu, mm, off),
+                __shfl_xor_sync(0xffffffffu, ss, off));
+}
+
+// The same tree for the leaves' (best, bidx)
+template <int G>
+__device__ __forceinline__ void merge_best(float (&best)[32 / G], int (&bidx)[32 / G],
+                                           float& bb, int& bi) {
+  merge_register_levels<16 / G>(
+      [&](int t, int o) { best_merge(best[t], bidx[t], best[o], bidx[o]); });
+  bb = best[0];
+  bi = bidx[0];
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    best_merge(bb, bi, __shfl_xor_sync(0xffffffffu, bb, off),
+               __shfl_xor_sync(0xffffffffu, bi, off));
+}
+
+// draw_row's scores from the merged row: keep x or move to bidx
+__device__ __forceinline__ int finish_draw(float mm, float ss, float bb, int bi, float lx,
+                                           float gx, int xr, float ar) {
+  const float score_other =
+      __fsub_rn(__fsub_rn(__fadd_rn(logf(fmaxf(ar, kMinProb)), bb), mm), logf(ss));
+  const float p1x = __fdiv_rn(expf(lx - mm), ss);
+  const float px = __fadd_rn(1.0f - ar, __fmul_rn(ar, p1x));
+  const float score_x = __fadd_rn(logf(fmaxf(px, kMinProb)), gx);
+  return score_x >= score_other ? xr : bi;
+}
+
+// -- the host side of the grouped layout, shared by ws_step.cu and ws_fused.cu ------
+
+// Lanes a row for a vocabulary of V columns: 8, doubled (to 32, draw_row's
+// layout) while a lane would take more than kColsPerLane columns. Timed on an
+// H100 at 8192 rows, 8 lanes beat 2, 4, 16 and 32 at V = 27, 64 and 100: fewer
+// lanes leave too few warps to hide the hash's and the logs' latency, more
+// spend the issue on merges.
+constexpr int kColsPerLane = 16;
+
+inline int lanes_for(int vocab) {
+  int g = 8;
+  while (g < 32 && g * kColsPerLane < vocab) g *= 2;
+  return g;
+}
+
+inline bool admissible_lanes(int lanes) {
+  return lanes == 2 || lanes == 4 || lanes == 8 || lanes == 16 || lanes == 32;
+}
+
+// Launch over rows rows with G lanes a row, 32 / G rows a warp, kWarpsPerBlock warps a
+// block, for the G that lanes names (0: lanes_for(vocab)): LAUNCH(G, grid, stream)
+// launches the kernel's instance for the compile-time G. Returns from the caller with
+// cudaErrorInvalidValue for a G that is not admissible.
+#define WSFM_GROUPED_LAUNCH(lanes, vocab, rows, stream, LAUNCH)                         \
+  do {                                                                                 \
+    const int g_ = (lanes) == 0 ? wsfm::lanes_for(vocab) : (lanes);                    \
+    if (!wsfm::admissible_lanes(g_)) return static_cast<int>(cudaErrorInvalidValue);   \
+    const int warps_ = ((rows) + 32 / g_ - 1) / (32 / g_);                              \
+    const dim3 grid_((warps_ + wsfm::kWarpsPerBlock - 1) / wsfm::kWarpsPerBlock);        \
+    const auto st_ = static_cast<cudaStream_t>(stream);                                \
+    switch (g_) {                                                                      \
+      case 2: LAUNCH(2, grid_, st_); break;                                            \
+      case 4: LAUNCH(4, grid_, st_); break;                                            \
+      case 8: LAUNCH(8, grid_, st_); break;                                            \
+      case 16: LAUNCH(16, grid_, st_); break;                                          \
+      default: LAUNCH(32, grid_, st_); break;                                          \
+    }                                                                                  \
+  } while (0)
 
 }  // namespace wsfm

@@ -12,14 +12,16 @@
 // jax.random.gumbel(key_b, (N, V)), so a request's draw depends on its own
 // key alone, wherever it sits in the batch.
 //
-// ws_step_gumbel_kernel replaces the TPU kernel ws_step_pallas /
-// _ws_step_kernel (same file): the Euler step with its Gumbel noise drawn
-// beforehand into an (R, Vp) array (as jax.random.gumbel draws it in XLA for
-// the JAX package's default step, euler_step_probs + categorical_from_probs),
-// scored in probability space over the first valid_v columns:
+// ws_step_gumbel_kernel<G, kKeyed> replaces the TPU kernel ws_step_pallas /
+// _ws_step_kernel (same file): the Euler step with Gumbel noise, scored in
+// probability space over the first valid_v of Vp columns:
 //   x' = argmax_v log(max((1 - a) [v == x] + a softmax(lg / T)_v, 1e-30)) + g_v.
 // That score is a different floating-point function from draw_row's streamed
-// decomposition, so it has its own three passes (max, sum, score + argmax).
+// decomposition, so it has its own three passes (max, sum, score + argmax). The
+// noise is given (kKeyed false: an (R, Vp) array, the TPU kernel's contract) or
+// keyed (kKeyed true: jax.random.gumbel(key, (R, Vp)) hashed in pass 3, each
+// element once, as the JAX package's default step draws it in XLA), so the
+// default Euler step is one launch with no noise array.
 //
 // Design of ws_step_kernel and ws_step_rows_kernel. G lanes draw a row (G a
 // power of two chosen from V alone by lanes_for: 8 up to V = 128, 32 from V = 257
@@ -27,10 +29,10 @@
 // draw_row's leaves and its xor merge tree, regrouped so that a lane computes
 // 32 / G leaves side by side and merges the upper levels in registers, and the
 // group's lanes the last log2(G) levels by shuffles. The tokens equal
-// draw_row's bit for bit at every G, so they equal ws_fused.cu's, which runs
-// draw_row K times. Any V (27, 50257, 262144) runs without padding. Build
-// without --use_fast_math: logf must be the accurate one for the Gumbel noise
-// to match the plain version. The C entry points take `lanes` (0: lanes_for)
+// draw_row's bit for bit at every G, so they equal ws_fused.cu's, whose K
+// draws take the same leaves and tree. Any V (27, 50257, 262144) runs without
+// padding. Build without --use_fast_math: logf must be the accurate one for
+// the Gumbel noise to match the plain version. The C entry points take `lanes` (0: lanes_for)
 // so that the tests can hold every G against G = 32.
 //
 // Bound on an H100 SXM: the logits are the only (R, V) array read (R * V
@@ -46,10 +48,17 @@
 // the least kernel on that card) and the latency of a warp's chain of
 // elements; a CUDA graph of the refine loop is the tool for the first.
 //
-// ws_step_gumbel reads the noise as well: 8 bytes an element, plus 12 a
-// row, and about 20 operations an element (a division, expf, logf, the
-// mixing and the compares), so the bytes bound it (0.56 us at R = 8192,
-// V = 27); it too is launch-bound at that size.
+// ws_step_gumbel takes the layout of ws_step_kernel<G>, G = lanes_for(valid_v),
+// since with the hash inside its element costs about what ws_step's does. Keyed,
+// the logits are the only (R, Vp) array read (R * valid_v * 4 bytes, plus 12 a
+// row) and an element is about 130 operations (the hash, the uniform, three logf,
+// two expf, a division and the mixing), so the float rate bounds it (0.43 us at
+// (8192, 27)). Given, it reads the noise too (8 bytes an element) and does about
+// 20 operations an element: the bytes bound it (0.56 us there). Both are
+// launch-bound at that size. At (8192, 27) on an H100 the keyed launch took
+// 5.6 us at G = 8, 5.1 at 16, 5.9 at 32, 6.1 at 4 and 10.1 at 2 (chip_smoke.py
+// times every G). G = 16 would save 0.5 us a launch, 6 us a 13-step generate,
+// so lanes_for's 8 is kept and every ws kernel takes its G from one rule.
 
 #include "ws_common.cuh"
 
@@ -96,110 +105,104 @@ ws_step_rows_kernel(const float* __restrict__ logits, const int32_t* __restrict_
   if (lane % G == 0 && mine < rows) out[row] = next;
 }
 
-// logits, gumbel: (rows, vp); x, a, out: (rows,). Columns >= valid_v are
-// never read and never win (their score is -1e30 in the TPU kernel).
-__global__ void ws_step_gumbel_kernel(const float* __restrict__ logits,
-                                      const int32_t* __restrict__ x,
-                                      const float* __restrict__ a,
-                                      const float* __restrict__ gumbel,
-                                      int32_t* __restrict__ out, int rows, int vp, int valid_v,
-                                      float temperature) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * wsfm::kWarpsPerBlock + (threadIdx.x >> 5);
-  if (row >= rows) return;  // the whole warp leaves together
-  const float* lg = logits + static_cast<size_t>(row) * vp;
-  const float* g = gumbel + static_cast<size_t>(row) * vp;
+// The noise of ws_step_gumbel: given, g[row * vp + v] of an (R, Vp) array ...
+struct GivenNoise {
+  const float* __restrict__ g;   // the row's noise
+  __device__ __forceinline__ float operator()(int v) const { return g[v]; }
+};
 
-  // pass 1: max of lg / T (a max is exact in any order)
+// ... or keyed: jax.random.gumbel(key, (R, Vp))[row, v], hashed here (JaxNoise with
+// base = row * Vp; the launch refuses R * Vp >= 2**32, as jax.random does).
+
+// ws_step_pallas's draw of one row with G lanes: lane j of the group takes columns
+// j, j + G, ... of the first valid_v. Pass 1 takes the max of lg / T, pass 2 the sum
+// of exp(lg / T - m), pass 3 the score and its first argmax; each ends in a xor
+// butterfly inside the group, which leaves the same value in every lane (a pair adds
+// or compares the same two values). A max is exact in any order; the sum's order is
+// fixed by G alone, so both noise sources give the same tokens at the same G. Every
+// rounding is as the plain version's separate operations take it (no contraction
+// into an FMA).
+template <int G, class Noise>
+__device__ __forceinline__ int gumbel_draw(const float* __restrict__ lg, int valid_v, int xr,
+                                           float ar, float temperature, const Noise& noise,
+                                           int j) {
   float m = wsfm::kNeg;
-  for (int v = lane; v < valid_v; v += 32) m = fmaxf(m, lg[v] / temperature);
+  for (int v = j; v < valid_v; v += G) m = fmaxf(m, lg[v] / temperature);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  for (int off = G / 2; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
 
-  // pass 2: s = sum of exp(lg / T - m); a xor butterfly leaves the same sum
-  // in every lane (each pair adds the same two values)
   float s = 0.0f;
-  for (int v = lane; v < valid_v; v += 32)
-    s = __fadd_rn(s, expf(__fsub_rn(lg[v] / temperature, m)));
+  for (int v = j; v < valid_v; v += G) s = __fadd_rn(s, expf(__fsub_rn(lg[v] / temperature, m)));
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+  for (int off = G / 2; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
 
-  // pass 3: the score and its first argmax; every rounding as the plain
-  // version's separate operations take it (no contraction into an FMA)
-  const int xr = x[row];
-  const float ar = a[row];
   const float keep = __fsub_rn(1.0f, ar);
   float best = __int_as_float(static_cast<int>(0xff800000u));  // -inf
   int bidx = valid_v;
-  for (int v = lane; v < valid_v; v += 32) {
+  for (int v = j; v < valid_v; v += G) {
     const float p1 = __fdiv_rn(expf(__fsub_rn(lg[v] / temperature, m)), s);
     const float probs = __fadd_rn(__fmul_rn(keep, v == xr ? 1.0f : 0.0f), __fmul_rn(ar, p1));
-    const float score = __fadd_rn(logf(fmaxf(probs, wsfm::kMinProb)), g[v]);
+    const float score = __fadd_rn(logf(fmaxf(probs, wsfm::kMinProb)), noise(v));
     if (score > best) {  // strict: a lane's earlier column wins a tie
       best = score;
       bidx = v;
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
-    if (ob > best || (ob == best && oi < bidx)) {  // ties go to the lower column
-      best = ob;
-      bidx = oi;
-    }
+  for (int off = G / 2; off > 0; off >>= 1)
+    wsfm::best_merge(best, bidx, __shfl_xor_sync(0xffffffffu, best, off),
+                     __shfl_xor_sync(0xffffffffu, bidx, off));
+  return bidx;
+}
+
+// logits: (rows, vp); x, out: (rows,); a: (rows / a_group,), row r mixes with
+// a[r / a_group]; gumbel: (rows, vp) when the noise is given, else unused. Columns >=
+// valid_v are never read and never win (their score is -1e30 in the TPU kernel). The
+// layout is ws_step_kernel<G>'s: tail lanes draw the last row again and write nothing.
+template <int G, bool kKeyed>
+__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32)
+ws_step_gumbel_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
+                      const float* __restrict__ a, const float* __restrict__ gumbel,
+                      int32_t* __restrict__ out, int rows, int vp, int valid_v, int a_group,
+                      uint32_t k0, uint32_t k1, float temperature) {
+  const int lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * wsfm::kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
+  if (first >= rows) return;  // the whole warp leaves together
+  const int mine = first + lane / G;
+  const int row = min(mine, rows - 1);
+  const float* lg = logits + static_cast<size_t>(row) * vp;
+  int next;
+  if constexpr (kKeyed) {
+    const wsfm::JaxNoise noise{k0, k1, static_cast<uint32_t>(row) * static_cast<uint32_t>(vp)};
+    next = gumbel_draw<G>(lg, valid_v, x[row], a[row / a_group], temperature, noise, lane % G);
+  } else {
+    const GivenNoise noise{gumbel + static_cast<size_t>(row) * vp};
+    next = gumbel_draw<G>(lg, valid_v, x[row], a[row / a_group], temperature, noise, lane % G);
   }
-  if (lane == 0) out[row] = bidx;
+  if (lane % G == 0 && mine < rows) out[row] = next;
 }
 
-int blocks_for(int rows) { return (rows + wsfm::kWarpsPerBlock - 1) / wsfm::kWarpsPerBlock; }
+constexpr int kThreads = wsfm::kWarpsPerBlock * 32;
 
-// Lanes a row for a vocabulary of V columns: 8, doubled (to 32, draw_row's
-// layout) while a lane would take more than kColsPerLane columns. Timed on an
-// H100 at 8192 rows, 8 lanes beat 2, 4, 16 and 32 at V = 27, 64 and 100: fewer
-// lanes leave too few warps to hide the hash's and the logs' latency, more
-// spend the issue on merges.
-constexpr int kColsPerLane = 16;
-
-int lanes_for(int vocab) {
-  int g = 8;
-  while (g < 32 && g * kColsPerLane < vocab) g *= 2;
-  return g;
+bool gumbel_shape_ok(int rows, int vp, int valid_v) {
+  return rows > 0 && vp > 0 && valid_v > 0 && valid_v <= vp;
 }
-
-bool admissible(int lanes) {
-  return lanes == 2 || lanes == 4 || lanes == 8 || lanes == 16 || lanes == 32;
-}
-
-// Launch KERNEL<G> for the G that lanes names (0: lanes_for(vocab)) over rows
-// rows, 32 / G a warp.
-#define WSFM_LAUNCH_GROUPED(KERNEL, lanes, vocab, rows, stream, ...)                  \
-  do {                                                                                \
-    const int g_ = (lanes) == 0 ? lanes_for(vocab) : (lanes);                         \
-    if (!admissible(g_)) return static_cast<int>(cudaErrorInvalidValue);              \
-    const int blocks_ = blocks_for(((rows) + 32 / g_ - 1) / (32 / g_));                \
-    const auto st_ = static_cast<cudaStream_t>(stream);                               \
-    switch (g_) {                                                                     \
-      case 2: KERNEL<2><<<blocks_, wsfm::kWarpsPerBlock * 32, 0, st_>>>(__VA_ARGS__); break;   \
-      case 4: KERNEL<4><<<blocks_, wsfm::kWarpsPerBlock * 32, 0, st_>>>(__VA_ARGS__); break;   \
-      case 8: KERNEL<8><<<blocks_, wsfm::kWarpsPerBlock * 32, 0, st_>>>(__VA_ARGS__); break;   \
-      case 16: KERNEL<16><<<blocks_, wsfm::kWarpsPerBlock * 32, 0, st_>>>(__VA_ARGS__); break; \
-      default: KERNEL<32><<<blocks_, wsfm::kWarpsPerBlock * 32, 0, st_>>>(__VA_ARGS__); break; \
-    }                                                                                 \
-  } while (0)
 
 }  // namespace
 
-extern "C" int ws_step_lanes(int vocab) { return vocab > 0 ? lanes_for(vocab) : 0; }
+extern "C" int ws_step_lanes(int vocab) { return vocab > 0 ? wsfm::lanes_for(vocab) : 0; }
 
 extern "C" int ws_step_launch(const void* logits, const void* x, const void* a, void* out,
                               int rows, int vocab, uint32_t seed0, uint32_t seed1,
                               float temperature, int lanes, void* stream) {
   if (rows <= 0 || vocab <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  WSFM_LAUNCH_GROUPED(ws_step_kernel, lanes, vocab, rows, stream,
-                      static_cast<const float*>(logits), static_cast<const int32_t*>(x),
-                      static_cast<const float*>(a), static_cast<int32_t*>(out), rows, vocab,
-                      seed0, seed1, temperature);
+#define WSFM_STEP(G, grid, st)                                                             \
+  ws_step_kernel<G><<<grid, kThreads, 0, st>>>(                                            \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), static_cast<int32_t*>(out), rows, vocab, seed0, seed1, \
+      temperature)
+  WSFM_GROUPED_LAUNCH(lanes, vocab, rows, stream, WSFM_STEP);
+#undef WSFM_STEP
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -208,23 +211,47 @@ extern "C" int ws_step_rows_launch(const void* logits, const void* x, const void
                                    float temperature, int lanes, void* stream) {
   if (rows <= 0 || vocab <= 0 || group <= 0 || rows % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  WSFM_LAUNCH_GROUPED(ws_step_rows_kernel, lanes, vocab, rows, stream,
-                      static_cast<const float*>(logits), static_cast<const int32_t*>(x),
-                      static_cast<const float*>(a), static_cast<const int64_t*>(keys),
-                      static_cast<int32_t*>(out), rows, vocab, group, temperature);
+#define WSFM_ROWS(G, grid, st)                                                             \
+  ws_step_rows_kernel<G><<<grid, kThreads, 0, st>>>(                                       \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), static_cast<const int64_t*>(keys),                     \
+      static_cast<int32_t*>(out), rows, vocab, group, temperature)
+  WSFM_GROUPED_LAUNCH(lanes, vocab, rows, stream, WSFM_ROWS);
+#undef WSFM_ROWS
   return static_cast<int>(cudaGetLastError());
 }
 
+// The noise given: gumbel (rows, vp), one weight a row.
 extern "C" int ws_step_gumbel_launch(const void* logits, const void* x, const void* a,
                                      const void* gumbel, void* out, int rows, int vp,
-                                     int valid_v, float temperature, void* stream) {
-  if (rows <= 0 || vp <= 0 || valid_v <= 0 || valid_v > vp)
+                                     int valid_v, float temperature, int lanes, void* stream) {
+  if (!gumbel_shape_ok(rows, vp, valid_v)) return static_cast<int>(cudaErrorInvalidValue);
+#define WSFM_GIVEN(G, grid, st)                                                            \
+  ws_step_gumbel_kernel<G, false><<<grid, kThreads, 0, st>>>(                              \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), static_cast<const float*>(gumbel),                     \
+      static_cast<int32_t*>(out), rows, vp, valid_v, 1, 0u, 0u, temperature)
+  WSFM_GROUPED_LAUNCH(lanes, valid_v, rows, stream, WSFM_GIVEN);
+#undef WSFM_GIVEN
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The noise keyed: jax.random.gumbel((k0, k1), (rows, vp)), drawn in the kernel; a
+// weight for every a_group rows.
+extern "C" int ws_step_gumbel_keyed_launch(const void* logits, const void* x, const void* a,
+                                           uint32_t k0, uint32_t k1, void* out, int rows,
+                                           int vp, int valid_v, int a_group, float temperature,
+                                           int lanes, void* stream) {
+  if (!gumbel_shape_ok(rows, vp, valid_v) || a_group <= 0 || rows % a_group != 0 ||
+      static_cast<uint64_t>(rows) * static_cast<uint64_t>(vp) >= (uint64_t{1} << 32))
     return static_cast<int>(cudaErrorInvalidValue);
-  ws_step_gumbel_kernel<<<blocks_for(rows), wsfm::kWarpsPerBlock * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(logits), static_cast<const int32_t*>(x),
-      static_cast<const float*>(a), static_cast<const float*>(gumbel),
-      static_cast<int32_t*>(out), rows, vp, valid_v, temperature);
+#define WSFM_KEYED(G, grid, st)                                                            \
+  ws_step_gumbel_kernel<G, true><<<grid, kThreads, 0, st>>>(                               \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), nullptr, static_cast<int32_t*>(out), rows, vp,         \
+      valid_v, a_group, k0, k1, temperature)
+  WSFM_GROUPED_LAUNCH(lanes, valid_v, rows, stream, WSFM_KEYED);
+#undef WSFM_KEYED
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,7 +3,9 @@
   ws_step    — warm-start Euler sampling step (replaces the TPU kernel
                ``ws_step_streamed_pallas``), its per-row mode for the
                scheduler (``ws_step_rows``), and the step with its noise
-               given (``ws_step_gumbel``, replaces ``ws_step_pallas``)
+               given (``ws_step_gumbel``, replaces ``ws_step_pallas``) or
+               keyed and drawn in the kernel (``ws_step_gumbel_keyed``, the
+               default Euler step)
   ws_fused   — K fused warm-start Euler steps on one logits buffer
                (replaces ``ws_fused_streamed_pallas``)
   flash_attn — blockwise online-softmax attention (replaces
@@ -23,11 +25,11 @@ from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
 from repro_torch.kernels.ws_fused import make_ws_fused_fn, ws_fused_steps
 from repro_torch.kernels.ws_step import (
-    make_ws_step_fn, ws_step, ws_step_gumbel, ws_step_gumbel_ref, ws_step_ref,
-    ws_step_ref_streamed, ws_step_rows,
+    make_ws_step_fn, ws_step, ws_step_gumbel, ws_step_gumbel_keyed, ws_step_gumbel_ref,
+    ws_step_ref, ws_step_ref_streamed, ws_step_rows,
 )
 
-__all__ = ["launches", "ws_step", "ws_step_rows", "ws_step_gumbel", "make_ws_step_fn",
-           "ws_step_ref", "ws_step_ref_streamed", "ws_step_gumbel_ref", "make_ws_fused_fn",
-           "ws_fused_steps", "flash_attention", "flash_attention_ref", "DraftDecoder",
-           "draft_decode_supported"]
+__all__ = ["launches", "ws_step", "ws_step_rows", "ws_step_gumbel", "ws_step_gumbel_keyed",
+           "make_ws_step_fn", "ws_step_ref", "ws_step_ref_streamed", "ws_step_gumbel_ref",
+           "make_ws_fused_fn", "ws_fused_steps", "flash_attention",
+           "flash_attention_ref", "DraftDecoder", "draft_decode_supported"]

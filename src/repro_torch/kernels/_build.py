@@ -51,11 +51,15 @@ _SIGNATURES = {
     "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     # vocab -> the lanes a row ws_step and ws_step_rows take for it
     "ws_step_lanes": [_I],
-    # logits, x, a, gumbel, out, rows, padded vocab, valid vocab, temperature, stream
-    "ws_step_gumbel_launch": [_P] * 5 + [_I, _I, _I, _F, _P],
+    # logits, x, a, gumbel, out, rows, padded vocab, valid vocab, temperature, lanes a
+    # row (0: the choice from valid vocab), stream
+    "ws_step_gumbel_launch": [_P] * 5 + [_I, _I, _I, _F, _I, _P],
+    # logits, x, a (R / a_group,), key words k0, k1, out, rows, padded vocab, valid vocab,
+    # a_group, temperature, lanes a row, stream
+    "ws_step_gumbel_keyed_launch": [_P, _P, _P, _U, _U, _P] + [_I] * 4 + [_F, _I, _P],
     # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,
-    # steps, key_group, a_group, temperature, stream
-    "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _P],
+    # steps, key_group, a_group, temperature, lanes a row (0: the choice from vocab), stream
+    "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
     # q, k, v, o, B, S, T, H, KH, D, scale, causal, window (<= 0: none), stream
     "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, ln scale, ln bias, wq, wk, wv, bq, bk, bv, q, k cache, v cache, cursor,

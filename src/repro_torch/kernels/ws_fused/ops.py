@@ -21,8 +21,8 @@ freezes a row bit for bit. A CUDA tensor launches the kernel (or raises);
 a CPU tensor takes the plain version (``ref.ws_fused_ref``).
 
 Not carried over: ``pick_tiles_fused`` and ``fused_row_bytes`` model the
-TPU's VMEM (row block and vocab tile sizes), which a warp-per-row kernel
-does not have; the TPU hardware PRNG (``hw_prng`` accepts only ``None``
+TPU's VMEM (row block and vocab tile sizes), which a kernel that keeps a
+row's state in registers does not have; the TPU hardware PRNG (``hw_prng`` accepts only ``None``
 or ``False``); and ``interpret``, ``row_block``, ``vocab_tile`` and
 ``vmem_budget``, which only tune or emulate the TPU kernel.
 """
@@ -130,14 +130,17 @@ def _fused(seeds, lg, x, a, key_group, a_group, temperature) -> torch.Tensor:
     return out
 
 
-def _launch(lg, x, a, seeds, out, key_group: int, a_group: int, temperature: float) -> None:
-    """One launch on checked, contiguous CUDA tensors (no count)."""
+def _launch(lg, x, a, seeds, out, key_group: int, a_group: int, temperature: float, *,
+            lanes: int = 0) -> None:
+    """One launch on checked, contiguous CUDA tensors (no count). ``lanes``
+    forces the lanes a row (2, 4, 8, 16 or 32; 0: the kernel's choice from
+    V), for the tests: the tokens are the same at every one."""
     r, v = lg.shape
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
         rc = _build.library().ws_fused_launch(
             lg.data_ptr(), x.data_ptr(), a.data_ptr(), seeds.data_ptr(), out.data_ptr(),
-            r, v, seeds.shape[0], key_group, a_group, float(temperature), stream)
+            r, v, seeds.shape[0], key_group, a_group, float(temperature), int(lanes), stream)
     _build.check(rc, "ws_fused")
 
 

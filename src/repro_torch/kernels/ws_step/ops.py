@@ -18,10 +18,13 @@ draw); a CPU tensor takes :func:`ws_step_rows_ref`.
 
 ``ws_step_gumbel(logits, x_t, a, gumbel, valid_v=...)`` wraps the port of
 the TPU kernel ``ws_step_pallas``: the step with its Gumbel noise given,
-scored in probability space. It is the default Euler step of
-``core.sampler.make_euler_one_step`` on the card, and ``ws_step``'s
-``impl="reference"``. A CUDA tensor launches ``ws_step_gumbel_kernel``
-(or raises); a CPU tensor takes :func:`ws_step_gumbel_ref`.
+scored in probability space; it is ``ws_step``'s ``impl="reference"``.
+``ws_step_gumbel_keyed(rng, logits, x_t, a, valid_v=...)`` is the same
+step with the noise ``jax.random.gumbel(rng, (R, Vp))`` drawn inside the
+kernel: the default Euler step of ``core.sampler.make_euler_one_step`` on
+the card, one launch. A CUDA tensor launches ``ws_step_gumbel_kernel`` (or
+raises); a CPU tensor takes :func:`ws_step_gumbel_ref` (keyed: on
+:func:`keyed_gumbel`'s noise).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from repro_torch.core.paths import WarmStartPath
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.ws_step.ref import (
-    ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows_ref,
+    keyed_gumbel, ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows_ref,
 )
 
 
@@ -190,7 +193,7 @@ def ws_step_gumbel(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
     the columns ``>= valid_v`` are padding. Returns ``(R, 1)`` int32.
 
     ``R`` must be a multiple of ``row_block``, as the TPU kernel demands;
-    on the card one warp takes each row, so ``row_block`` changes nothing
+    on the card G lanes take each row, so ``row_block`` changes nothing
     else there."""
     if logits.ndim != 2:
         raise ValueError(f"logits must be (R, Vp), got {tuple(logits.shape)}")
@@ -223,12 +226,80 @@ def ws_step_gumbel(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
 
 
 def _launch_gumbel(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, g: torch.Tensor,
-                   out: torch.Tensor, valid_v: int, temperature: float) -> None:
-    """One launch of ``ws_step_gumbel_kernel`` on checked CUDA tensors (no count)."""
+                   out: torch.Tensor, valid_v: int, temperature: float, *,
+                   lanes: int = 0) -> None:
+    """One launch of ``ws_step_gumbel_kernel`` with the noise given, on
+    checked CUDA tensors (no count). ``lanes`` forces the lanes a row (0:
+    the kernel's choice from ``valid_v``); unlike ``ws_step``'s, the tokens
+    may differ between two G off near ties (the softmax sum's order is G's)."""
     r, vp = lg.shape
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
         rc = _build.library().ws_step_gumbel_launch(
             lg.data_ptr(), x.data_ptr(), a.data_ptr(), g.data_ptr(), out.data_ptr(), r, vp,
-            valid_v, float(temperature), stream)
+            valid_v, float(temperature), int(lanes), stream)
+    _build.check(rc, "ws_step_gumbel")
+
+
+def ws_step_gumbel_keyed(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor,
+                         a: torch.Tensor, *, valid_v: Optional[int] = None,
+                         temperature: float = 1.0) -> torch.Tensor:
+    """:func:`ws_step_gumbel` on the noise ``jax.random.gumbel(rng, (R,
+    Vp))``, which the kernel hashes itself: ``rng`` a key ``(2,)`` (best on
+    the host: its two words go to the kernel as integers), ``logits (R,
+    Vp)`` float32, ``x_t (R,)``, ``a`` float32 holding ``R / a_group``
+    weights, row ``r`` mixing with ``a.reshape(-1)[r // a_group]`` (one
+    weight, one per batch row of ``a_group`` positions, or one per row);
+    ``valid_v`` defaults to ``Vp``. Returns ``(R,)`` int32.
+
+    At the same lanes a row its tokens equal :func:`ws_step_gumbel`'s on
+    ``prng.gumbel(rng, (R, Vp))``'s noise, bit for bit."""
+    if logits.ndim != 2:
+        raise ValueError(f"logits must be (R, Vp), got {tuple(logits.shape)}")
+    r, vp = logits.shape
+    valid_v = vp if valid_v is None else valid_v
+    if not 0 < valid_v <= vp:
+        raise ValueError(f"valid_v must lie in [1, {vp}], got {valid_v}")
+    if tuple(x_t.shape) != (r,):
+        raise ValueError(f"x_t must be (R,) = ({r},), got {tuple(x_t.shape)}")
+    a = a.reshape(-1)
+    if a.numel() == 0 or r % a.numel() != 0:
+        raise ValueError(f"a must hold one weight for every R / a_group rows; R = {r}, "
+                         f"{a.numel()} weights")
+    if r * vp >= 1 << 32:
+        raise NotImplementedError("random bits arrays of 2**32 elements or more")
+    seed = seed_from_key(rng)
+    dev = logits.device
+    if dev.type == "cpu":
+        g = keyed_gumbel(seed, r, vp, device=dev)
+        aa = a.repeat_interleave(r // a.numel()).reshape(r, 1)
+        return ws_step_gumbel_ref(logits, x_t.reshape(r, 1), aa, g, valid_v=valid_v,
+                                  temperature=temperature)[:, 0]
+    if dev.type != "cuda":
+        raise ValueError(f"ws_step_gumbel runs on cuda or cpu, got {dev}")
+    for name, arr in (("logits", logits), ("a", a)):
+        if arr.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {arr.dtype}")
+    if x_t.device != dev or a.device != dev:
+        raise ValueError(f"x_t and a must lie on {dev} with the logits")
+    out = torch.empty(r, dtype=torch.int32, device=dev)
+    _launch_gumbel_keyed(logits.contiguous(), x_t.to(torch.int32).contiguous(),
+                         a.contiguous(), seed, out, valid_v, temperature)
+    _build.count("ws_step_gumbel")
+    return out
+
+
+def _launch_gumbel_keyed(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, seed,
+                         out: torch.Tensor, valid_v: int, temperature: float, *,
+                         lanes: int = 0) -> None:
+    """One launch of ``ws_step_gumbel_kernel`` with the noise keyed by the
+    two words ``seed``, on checked CUDA tensors (no count); ``a`` holds one
+    weight for every ``R / a.numel()`` rows; ``lanes`` as in
+    :func:`_launch_gumbel`."""
+    r, vp = lg.shape
+    with torch.cuda.device(lg.device):
+        stream = torch.cuda.current_stream(lg.device).cuda_stream
+        rc = _build.library().ws_step_gumbel_keyed_launch(
+            lg.data_ptr(), x.data_ptr(), a.data_ptr(), seed[0], seed[1], out.data_ptr(), r,
+            vp, valid_v, r // a.numel(), float(temperature), int(lanes), stream)
     _build.check(rc, "ws_step_gumbel")

@@ -23,17 +23,22 @@ argmax whose noise for request row ``b`` is ``jax.random.gumbel(keys[b],
 Gumbel noise drawn beforehand, over the first ``valid_v`` of ``Vp``
 columns. :func:`near_tie_rows_probs` names its near-tie rows: that score
 is a different floating-point function from the streamed decomposition
-that :func:`near_tie_rows` measures.
+that :func:`near_tie_rows` measures. :func:`keyed_gumbel` is the noise
+that the keyed ``ws_step_gumbel`` kernel hashes, element by element.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from repro_torch import prng
 
 MIN_PROB = 1e-30
 NEG = -1e30
+_TINY = float(np.finfo(np.float32).tiny)
 
 
 def ws_step_ref(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor,
@@ -134,3 +139,28 @@ def near_tie_rows_probs(logits: torch.Tensor, x_t: torch.Tensor, a: torch.Tensor
         return torch.zeros(score.shape[0], dtype=torch.bool, device=score.device)
     top2 = score.topk(2, dim=-1).values
     return (top2[:, 0] - top2[:, 1]) <= tol
+
+
+def keyed_uniform(seed: Tuple[int, int], rows: int, vp: int, *, device=None) -> torch.Tensor:
+    """``(rows, vp)`` float32: the uniform under the keyed ``ws_step_gumbel``
+    kernel's noise, as the kernel forms each element. For row ``r`` and
+    column ``v`` the bits are ``x0 ^ x1`` of ``threefry2x32(key, (0, r * vp +
+    v))``; their top 23 bits make ``f`` in [0, 1); ``u = max(f * 1 + tiny,
+    tiny)`` with one rounding (the kernel's FMA; ``f * 1`` is exact, so the
+    float32 sum rounds once too). That is ``jax.random.uniform(key, (rows,
+    vp), minval=tiny, maxval=1)``, bit for bit."""
+    if rows * vp >= 1 << 32:
+        raise NotImplementedError("random bits arrays of 2**32 elements or more")
+    r = torch.arange(rows, dtype=torch.int64, device=device)[:, None]
+    v = torch.arange(vp, dtype=torch.int64, device=device)[None, :]
+    x0, x1 = prng.threefry2x32(int(seed[0]), int(seed[1]), 0, r * vp + v)
+    f = (((x0 ^ x1) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f * 1.0 + _TINY, _TINY)
+
+
+def keyed_gumbel(seed: Tuple[int, int], rows: int, vp: int, *, device=None) -> torch.Tensor:
+    """The keyed ``ws_step_gumbel`` kernel's noise, ``-log(-log u)`` of
+    :func:`keyed_uniform`: ``jax.random.gumbel(key, (rows, vp))``, whose
+    uniform it equals bit for bit (``prng.gumbel``'s values exactly; JAX's
+    own log may round the last bit otherwise)."""
+    return -torch.log(-torch.log(keyed_uniform(seed, rows, vp, device=device)))

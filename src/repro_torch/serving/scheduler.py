@@ -424,8 +424,12 @@ class WarmStartScheduler:
         metrics registry (default a private one); report sections are
         derived from the registry, under the JAX package's counter names.
       device: where the refine runs: the card unless ``"cpu"`` is asked for.
-      mesh / t0_policy / speculative / distilled_model / pair_buffer: not
-        ported yet; setting one raises ``NotImplementedError``.
+      mesh / t0_policy / per_row_t0 / speculative / accept_score /
+        distilled_model / distilled_params / distilled_nfe /
+        distilled_accept_score / pair_buffer: not ported yet; each is taken
+        at the JAX package's default, and any other value raises
+        ``NotImplementedError`` naming the slice that will port it.
+        (``flow_params`` is not taken: ``flow_model`` holds its weights.)
     """
 
     def __init__(
@@ -450,8 +454,13 @@ class WarmStartScheduler:
         device: Any = "cuda",
         mesh: Optional[Any] = None,
         t0_policy: Optional[Any] = None,
+        per_row_t0: bool = False,
         speculative: bool = False,
+        accept_score: Optional[float] = None,
         distilled_model: Optional[Any] = None,
+        distilled_params: Optional[Any] = None,
+        distilled_nfe: int = 1,
+        distilled_accept_score: Optional[float] = None,
         pair_buffer: Optional[Any] = None,
     ):
         if mesh is not None:
@@ -459,12 +468,25 @@ class WarmStartScheduler:
         if t0_policy is not None:
             raise _not_ported("t0_policy (scoring pre-pass, bandit)",
                               "the drafting-policies slice")
+        if per_row_t0:
+            raise _not_ported("per_row_t0 (per-row t0 from the policy)",
+                              "the drafting-policies slice")
         if speculative:
             raise _not_ported("speculative serving", "the drafting-policies slice")
+        if accept_score is not None:
+            raise _not_ported("accept_score (speculative acceptance)",
+                              "the drafting-policies slice")
         if distilled_model is not None:
-            raise _not_ported("the distilled tier", "the training slice")
+            raise _not_ported("the distilled tier", "the distilled-tier slice")
+        if distilled_params is not None:
+            raise _not_ported("distilled_params", "the distilled-tier slice")
+        if distilled_nfe != 1:
+            raise _not_ported(f"distilled_nfe={distilled_nfe}", "the distilled-tier slice")
+        if distilled_accept_score is not None:
+            raise _not_ported("distilled_accept_score", "the distilled-tier slice")
         if pair_buffer is not None:
-            raise _not_ported("pair_buffer (self-distillation harvest)", "the training slice")
+            raise _not_ported("pair_buffer (self-distillation harvest)",
+                              "the distilled-tier slice")
         if cold_nfe < 1:
             raise ValueError(f"cold_nfe must be >= 1, got {cold_nfe}")
         if fused_block < 1:

@@ -23,11 +23,14 @@ from repro_torch.kernels.draft_decode import (
 from repro_torch.kernels.draft_decode import ops as draft_ops
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.models import Model
+from repro_torch.core.sampler import gumbel_step
 from repro_torch.kernels.ws_fused import ws_fused_ref, ws_fused_steps
+from repro_torch.kernels.ws_fused import ops as fused_ops
 from repro_torch.kernels.ws_fused.ops import fused_inputs
 from repro_torch.kernels.ws_step import (
     near_tie_rows, near_tie_rows_probs, seed_from_key, ws_step, ws_step_gumbel,
-    ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows, ws_step_rows_ref,
+    ws_step_gumbel_keyed, ws_step_gumbel_ref, ws_step_ref_streamed, ws_step_rows,
+    ws_step_rows_ref,
 )
 from repro_torch.kernels.ws_step import ops as ws_ops
 from repro_torch.models import LSTMConfig, LSTMModel
@@ -509,6 +512,117 @@ def test_ws_step_gumbel_kernel_matches_plain(card, r, vp, valid_v, temperature):
     assert int(got[0, 0]) == int(x[0, 0]) and int(got.max()) < valid_v
     with pytest.raises(ValueError):
         ws_step_gumbel(*args, valid_v=valid_v, row_block=2 if r % 2 else 3)
+
+
+LANES = (0, 2, 4, 8, 16, 32)        # 0: the kernels' own choice
+
+
+@pytest.mark.parametrize("r,vp,valid_v,temperature", [
+    (8192, 27, 27, 1.0), (64, 50257, 50257, 0.7), (8, 262144, 262144, 1.0),
+    (13, 640, 517, 1.0), (7, 27, 27, 0.7)])
+def test_ws_step_gumbel_keyed_equals_given_bitwise(card, r, vp, valid_v, temperature):
+    """The keyed launch at every lanes a row equals the given-noise launch on
+    prng.gumbel(key, (R, Vp)) at the same G, bit for bit; through the wrapper
+    (one counted launch) it equals the plain version off near ties. Row 0 has
+    a = 0 (kept); the padding (60) would win every row if it were read."""
+    g = torch.Generator(device=card).manual_seed(r + vp)
+    logits = torch.full((r, vp), 60.0, device=card)
+    logits[:, :valid_v] = 3.0 * torch.randn((r, valid_v), generator=g, device=card)
+    x = torch.randint(0, valid_v, (r,), generator=g, device=card, dtype=torch.int32)
+    a = torch.rand((r,), generator=g, device=card)
+    a[0] = 0.0
+    key = prng.key(r + vp)
+    noise = prng.gumbel(key, (r, vp), device=card)
+    outs = {}
+    for lanes in LANES:
+        keyed = torch.empty(r, dtype=torch.int32, device=card)
+        given = torch.empty((r, 1), dtype=torch.int32, device=card)
+        ws_ops._launch_gumbel_keyed(logits, x, a, seed_from_key(key), keyed, valid_v,
+                                    temperature, lanes=lanes)
+        ws_ops._launch_gumbel(logits, x[:, None], a[:, None], noise, given, valid_v,
+                              temperature, lanes=lanes)
+        assert torch.equal(keyed, given[:, 0]), lanes
+        outs[lanes] = keyed
+    assert torch.equal(outs[0], outs[ws_ops.lanes_for(valid_v)])
+    before = launches["ws_step_gumbel"]
+    got = ws_step_gumbel_keyed(key, logits, x, a, valid_v=valid_v, temperature=temperature)
+    assert launches["ws_step_gumbel"] == before + 1
+    assert torch.equal(got, outs[0])
+    want = ws_step_gumbel_ref(logits, x[:, None], a[:, None], noise, valid_v=valid_v,
+                              temperature=temperature)[:, 0]
+    ties = near_tie_rows_probs(logits, x[:, None], a[:, None], noise, valid_v=valid_v,
+                               temperature=temperature, tol=1e-5)
+    assert not bool(((got != want) & ~ties).any())
+    assert int(got[0]) == int(x[0]) and int(got.max()) < valid_v
+
+
+def test_gumbel_step_is_one_keyed_launch_with_a_weight_a_batch_row(card):
+    """The default Euler step on the card: one ws_step_gumbel launch (a (B,) of
+    weights, a_group = N) whose tokens equal the given-noise kernel's on
+    prng.gumbel(rng, (B, N, V)) with the weights expanded to every row."""
+    b, n, v = 32, 256, 27
+    g = torch.Generator(device=card).manual_seed(3)
+    logits = 3.0 * torch.randn((b, n, v), generator=g, device=card)
+    x = torch.randint(0, v, (b, n), generator=g, device=card, dtype=torch.int32)
+    t = torch.linspace(0.8, 0.95, b, device=card)
+    h = torch.tensor(1 / 64, device=card)
+    path = WarmStartPath(0.8)
+    key = prng.key(4)
+    before = dict(launches)
+    got = gumbel_step(key, logits, x, t, h, path)
+    assert {k: c - before.get(k, 0) for k, c in launches.items()
+            if c != before.get(k, 0)} == {"ws_step_gumbel": 1}
+    a = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
+    want = ws_step_gumbel(logits.reshape(-1, v), x.reshape(-1, 1),
+                          a.repeat_interleave(n).reshape(-1, 1),
+                          prng.gumbel(key, (b, n, v), device=card).reshape(-1, v), valid_v=v,
+                          row_block=1)
+    assert got.shape == (b, n) and torch.equal(got.reshape(-1), want[:, 0])
+
+
+def test_ws_step_gumbel_keyed_refuses_2_32_elements(card):
+    """(2**16, 2**16) elements: the wrapper refuses, as jax.random does, and so
+    does the C entry point, before anything is read."""
+    big = torch.zeros(1, 1, device=card).expand(1 << 16, 1 << 16)
+    x = torch.zeros(1, dtype=torch.int32, device=card).expand(1 << 16)
+    a = torch.zeros(1, device=card)
+    with pytest.raises(NotImplementedError, match="2\\*\\*32"):
+        ws_step_gumbel_keyed(prng.key(0), big, x, a)
+    out = torch.empty(1, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="ws_step_gumbel launch failed"):
+        ws_ops._launch_gumbel_keyed(big, x, a, (0, 0), out, 1 << 16, 1.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("layout", ["single", "rows"])
+@pytest.mark.parametrize("k,v,b,n,temperature", [
+    (4, 27, 8, 64, 1.0), (3, 200, 8, 64, 0.7), (2, 50257, 2, 8, 1.0), (2, 5, 3, 7, 1.0)])
+def test_ws_fused_group_sizes_agree_bitwise(card, layout, k, v, b, n, temperature):
+    """ws_fused at every lanes a row (lg kept in registers where V <= 16 G, so
+    at V = 200 both ways) equals 32 lanes a row and K composed launches (single
+    key: K ws_step launches; per row: K one-step ws_fused launches), bit for
+    bit; 21 rows leave the last warp part empty."""
+    keys, logits, x, ts, hs = _fused_case(card, layout, k, b, n, v, 7 * k + v)
+    path = WarmStartPath(0.0)
+    seeds, lg, xr, a, key_group, a_group = fused_inputs(keys, logits, x, ts, hs, path)
+    sd = seeds.to(card, torch.int64).contiguous()
+    x32, a = xr.to(torch.int32).contiguous(), a.contiguous()
+    outs = {}
+    for lanes in LANES:
+        outs[lanes] = torch.empty(b * n, dtype=torch.int32, device=card)
+        fused_ops._launch(lg, x32, a, sd, outs[lanes], key_group, a_group, temperature,
+                          lanes=lanes)
+    if layout == "single":
+        want = x
+        for j in range(k):
+            want = ws_step(keys[j].cpu(), logits, want, ts[j], hs[j], path,
+                           temperature=temperature)
+    else:
+        want = ws_fused_steps(keys, logits, x, ts, hs, path, temperature=temperature,
+                              impl="composed")
+    for lanes, out in outs.items():
+        assert torch.equal(out, outs[32]), lanes
+        assert torch.equal(out, want.reshape(-1)), lanes
 
 
 def test_lstm_generate_on_card_equals_cpu(card):

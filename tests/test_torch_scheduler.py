@@ -12,6 +12,7 @@ the smoke DiT drafted by a smoke-size AR engine. Drafts are the packages'
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -371,6 +372,37 @@ def test_batch_path_requeues_on_dispatch_failure_and_stays_retryable():
 def test_unported_features_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         make(T, **kw)
+
+
+# JAX's constructor keywords that the port takes only at their defaults
+JAX_DEFAULTS = dict(per_row_t0=False, accept_score=None, distilled_params=None,
+                    distilled_nfe=1, distilled_accept_score=None)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_DEFAULTS))
+def test_jax_keywords_are_taken_at_their_defaults(name):
+    """Each of these keywords, passed at JAX's default, builds the scheduler
+    that the JAX package builds with it (same keyword, same default)."""
+    sched = make(T, fresh=True, **{name: JAX_DEFAULTS[name]})
+    assert isinstance(sched, T.WarmStartScheduler)
+    jax_param = inspect.signature(J.WarmStartScheduler.__init__).parameters[name]
+    port_param = inspect.signature(T.WarmStartScheduler.__init__).parameters[name]
+    assert jax_param.default == port_param.default == JAX_DEFAULTS[name]
+
+
+@pytest.mark.parametrize("kw,slice_name", [
+    (dict(per_row_t0=True), "the drafting-policies slice"),
+    (dict(accept_score=0.5), "the drafting-policies slice"),
+    (dict(distilled_params=object()), "the distilled-tier slice"),
+    (dict(distilled_nfe=2), "the distilled-tier slice"),
+    (dict(distilled_accept_score=0.5), "the distilled-tier slice"),
+    (dict(distilled_model=object()), "the distilled-tier slice"),
+    (dict(pair_buffer=object()), "the distilled-tier slice")])
+def test_unported_keywords_name_their_slice(kw, slice_name):
+    (name,) = kw
+    with pytest.raises(NotImplementedError, match=name.split("_")[0]) as err:
+        make(T, fresh=True, **kw)
+    assert slice_name in str(err.value)
 
 
 def test_submit_rejects_unservable_requests_as_jax_does():

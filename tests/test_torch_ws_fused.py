@@ -146,3 +146,136 @@ def test_a_zero_freezes_rows_even_on_the_r4_element():
     got = ws_fused_steps(keys, logits, x, torch.full((1, 1), 0.5), torch.zeros(1, 1),
                          WarmStartPath(0.0))
     assert torch.equal(got, x)
+
+
+# -- the kernel's draw, replicated in float32 ----------------------------------------------
+# ws_fused_kernel<G> takes a row's (m, s) once, through draw_row_grouped<G>'s leaves and
+# merge tree, then for each step merges only (best, bidx) over v != x through the same tree
+# and reads lg[x] and g[x] directly. A replica of that against a replica of draw_row (32
+# leaves, column l + 32 i in leaf l, a xor butterfly over all six fields) must give the
+# same scores and tokens at every step, bit for bit, for every G.
+
+NEG_LEAF = -1e30
+
+
+def _leaves(lg, g, x):
+    """draw_row's 32 leaves of each row: (m, s, best, bidx, lg_x, g_x), (rows, 32)."""
+    rows, v = lg.shape
+    m, s = torch.full((rows, 32), NEG_LEAF), torch.zeros(rows, 32)
+    best, bidx = torch.full((rows, 32), NEG_LEAF), torch.zeros(rows, 32, dtype=torch.int64)
+    lg_x, g_x = torch.zeros(rows, 32), torch.zeros(rows, 32)
+    for col in range(v):
+        k, lgc, gc = col % 32, lg[:, col], g[:, col]
+        m_new = torch.maximum(m[:, k], lgc)
+        s[:, k] = s[:, k] * torch.exp(m[:, k] - m_new) + torch.exp(lgc - m_new)
+        m[:, k] = m_new
+        is_x = x == col
+        lg_x[:, k] = torch.where(is_x, lgc, lg_x[:, k])
+        g_x[:, k] = torch.where(is_x, gc, g_x[:, k])
+        take = ~is_x & (lgc + gc > best[:, k])
+        best[:, k] = torch.where(take, lgc + gc, best[:, k])
+        bidx[:, k] = torch.where(take, col, bidx[:, k])
+    return [m, s, best, bidx, lg_x, g_x]
+
+
+def _merge_stats(a, b):
+    m = torch.maximum(a[0], b[0])
+    return [m, a[1] * torch.exp(a[0] - m) + b[1] * torch.exp(b[0] - m)]
+
+
+def _merge_best(a, b):
+    take = (b[0] > a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return [torch.where(take, b[0], a[0]), torch.where(take, b[1], a[1])]
+
+
+def _merge_all(a, b):
+    return _merge_stats(a[:2], b[:2]) + _merge_best(a[2:4], b[2:4]) + [a[4] + b[4],
+                                                                        a[5] + b[5]]
+
+
+def _butterfly(fields, merge):
+    """draw_row's xor butterfly over 32 lanes; lane 0's node."""
+    lane = torch.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        fields = merge(fields, [f[:, lane ^ off] for f in fields])
+    return [f[:, 0] for f in fields]
+
+
+def _grouped_tree(fields, merge, group):
+    """draw_row_grouped<G>'s tree: leaf j + G t in lane j, the levels off >= G in
+    registers, off < G by xor inside the group; every lane's node must agree."""
+    lanes = torch.arange(group)
+    held = [[f[:, lanes + group * t] for f in fields] for t in range(32 // group)]
+    h = len(held) // 2
+    while h:
+        for t in range(h):
+            held[t] = merge(held[t], held[t + h])
+        h //= 2
+    node, off = held[0], group // 2
+    while off:
+        node = merge(node, [f[:, lanes ^ off] for f in node])
+        off //= 2
+    for f in node:
+        assert torch.equal(f, f[:, :1].expand_as(f))
+    return [f[:, 0] for f in node]
+
+
+def _scores(m, s, best, bidx, lg_x, g_x, x, a):
+    score_other = ((torch.log(torch.clamp_min(a, 1e-30)) + best) - m) - torch.log(s)
+    px = (1.0 - a) + a * (torch.exp(lg_x - m) / s)
+    score_x = torch.log(torch.clamp_min(px, 1e-30)) + g_x
+    return score_x, score_other, torch.where(score_x >= score_other, x, bidx)
+
+
+def _assert_fused_draw_equals_draw_rows(lg, gs, x, a_steps):
+    """K draws: draw_row's (all fields, every step) against the kernel's (stats
+    once, candidates a step, lg[x] and g[x] read directly), for every G."""
+    rows = lg.shape[0]
+    ar = torch.arange(rows)
+    for group in (2, 4, 8, 16, 32):
+        want_x = got_x = x.clone()
+        leaves = _leaves(lg, gs[0], x)
+        m, s = _grouped_tree(leaves[:2], _merge_stats, group)
+        for g, a in zip(gs, a_steps):
+            node = _butterfly(_leaves(lg, g, want_x), _merge_all)
+            want = _scores(*node, want_x, a)
+            assert torch.equal(m, node[0]) and torch.equal(s, node[1])
+            best, bidx = _grouped_tree(_leaves(lg, g, got_x)[2:4], _merge_best, group)
+            lg_x, g_x = lg[ar, got_x], g[ar, got_x]
+            assert torch.equal(lg_x, node[4]) and torch.equal(g_x, node[5])  # -0 == +0
+            got = _scores(m, s, best, bidx, lg_x, g_x, got_x, a)
+            for w, o in zip(want, got):
+                assert torch.equal(w.view(torch.int32), o.view(torch.int32)), group
+            want_x, got_x = want[2], got[2]
+
+
+@pytest.mark.parametrize("v", [5, 27, 40, 100])
+def test_fused_draw_with_stats_once_equals_draw_rows_tree(v):
+    """Logits and noise from a few values (ties among the candidates in and
+    across leaves are frequent; -0.0 among them, and -0.0 at x in a third of
+    the rows), leaves empty at V < 32, x on the leaf boundaries 0, 31, 32 and
+    V - 1, weights 0, 1/16, 0.3 and 1; 4 steps, the token carried."""
+    rng = np.random.default_rng(v)
+    rows, k = 192, 4
+    vals = np.float32([-1.5, -0.0, 0.0, 0.25, 2.0])
+    lg = torch.from_numpy(rng.choice(vals, (rows, v)))
+    x = torch.tensor([0, 31, 32, v - 1, 63, 64] * (rows // 6)) % v
+    lg[torch.arange(0, rows, 3), x[::3]] = -0.0
+    gs = [torch.from_numpy(rng.choice(np.float32([-0.0, 0.0, 0.5, 1.0, -1.0]), (rows, v)))
+          for _ in range(k)]
+    a_steps = [torch.from_numpy(rng.choice(np.float32([0.0, 1 / 16, 0.3, 1.0]), rows))
+               for _ in range(k)]
+    _assert_fused_draw_equals_draw_rows(lg, gs, x, a_steps)
+
+
+@pytest.mark.parametrize("v,temperature", [(27, 1.0), (27, 0.7), (200, 1.0)])
+def test_fused_draw_with_stats_once_equals_draw_rows_tree_on_kernel_noise(v, temperature):
+    """The same on logits / T and the kernel's counter noise, one key a step."""
+    rows, k = 64, 3
+    logits = torch.from_numpy((3 * np.random.default_rng(v).standard_normal((rows, v)))
+                              .astype(np.float32))
+    seeds = prng.split(prng.key(v), k)[:, None, :]
+    gs = [fused_noise(seeds[j], rows, v, rows) for j in range(k)]
+    x = torch.arange(rows) % v
+    a_steps = [torch.full((rows,), 0.3), torch.full((rows,), 1 / 16), torch.ones(rows)]
+    _assert_fused_draw_equals_draw_rows(logits / temperature, gs, x, a_steps)

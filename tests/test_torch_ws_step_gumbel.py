@@ -21,7 +21,8 @@ from repro_torch import prng
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import gumbel_step, make_euler_one_step
 from repro_torch.kernels.ws_step import (
-    make_ws_step_fn, near_tie_rows_probs, ws_step, ws_step_gumbel, ws_step_gumbel_ref,
+    keyed_gumbel, keyed_uniform, make_ws_step_fn, near_tie_rows_probs, seed_from_key, ws_step, ws_step_gumbel,
+    ws_step_gumbel_keyed, ws_step_gumbel_ref,
 )
 
 TIE_TOL = 1e-5
@@ -170,3 +171,133 @@ def test_default_euler_step_matches_jax(v, temperature, t0, h):
     ties = _probs_ties(lg, xt, tt, h, path, g, temperature)
     _assert_equal_up_to_ties(want, cpu.numpy(), ties)
     _assert_equal_up_to_ties(want, card_path.numpy(), ties)
+
+
+# -- the keyed noise and the grouped three passes of ws_step_gumbel_kernel ----------------
+
+@pytest.mark.parametrize("r,vp", [(8, 27), (16, 300), (8, 128), (3, 517)])
+def test_keyed_noise_formula_equals_jax_gumbel(r, vp):
+    """The keyed kernel's element formula (bits of threefry(key, (0, row * vp +
+    v)), the 23-bit uniform, the FMA with tiny) gives jax.random.gumbel's
+    uniform for (R, Vp) bit for bit, and its noise -log(-log u) equals
+    prng.gumbel's bit for bit and JAX's within one ulp of max(|g|, 1): the
+    two log implementations may round the last bit apart (as in
+    test_torch_prng.py). (8, 128) and (3, 517) are padded widths, whose noise
+    is drawn over all Vp columns as JAX draws it."""
+    seed = 7 * r + vp
+    tiny = np.finfo(np.float32).tiny
+    want_u = np.asarray(jax.random.uniform(jax.random.key(seed), (r, vp), minval=tiny,
+                                           maxval=1.0))
+    words = seed_from_key(prng.key(seed))
+    got_u = keyed_uniform(words, r, vp)
+    np.testing.assert_array_equal(got_u.numpy().view(np.uint32), want_u.view(np.uint32))
+    got = keyed_gumbel(words, r, vp)
+    assert got.dtype == torch.float32 and got.shape == (r, vp)
+    assert torch.equal(got, prng.gumbel(prng.key(seed), (r, vp)))
+    want = np.asarray(jax.random.gumbel(jax.random.key(seed), (r, vp)))
+    assert np.all(np.abs(got.numpy() - want) <= np.spacing(np.maximum(np.abs(want), 1.0)))
+
+
+def _grouped_gumbel_draw(logits, x, a, g, valid_v, temperature, group):
+    """float32 replica of gumbel_draw<G>: lane j of a row's group takes columns
+    j, j + G, ... < valid_v; the max, the sum (in the lane's column order) and
+    the score's first argmax each end in a xor butterfly inside the group."""
+    rows = logits.shape[0]
+    lanes = torch.arange(group)
+    lg = logits[:, :valid_v] / temperature
+    m = torch.full((rows, group), -1e30)
+    for v in range(valid_v):
+        m[:, v % group] = torch.maximum(m[:, v % group], lg[:, v])
+    off = group // 2
+    while off:
+        m = torch.maximum(m, m[:, lanes ^ off])
+        off //= 2
+    s = torch.zeros(rows, group)
+    for v in range(valid_v):
+        s[:, v % group] = s[:, v % group] + torch.exp(lg[:, v] - m[:, v % group])
+    off = group // 2
+    while off:
+        s = s + s[:, lanes ^ off]
+        off //= 2
+    assert torch.equal(m, m[:, :1].expand_as(m)) and torch.equal(s, s[:, :1].expand_as(s))
+    aa = a.reshape(-1)
+    keep = 1.0 - aa
+    best = torch.full((rows, group), -float("inf"))
+    bidx = torch.full((rows, group), valid_v, dtype=torch.int64)
+    for v in range(valid_v):
+        p1 = torch.exp(lg[:, v] - m[:, 0]) / s[:, 0]
+        probs = keep * (x.reshape(-1) == v).float() + aa * p1
+        score = torch.log(torch.clamp_min(probs, 1e-30)) + g[:, v]
+        j = v % group
+        take = score > best[:, j]
+        best[:, j] = torch.where(take, score, best[:, j])
+        bidx[:, j] = torch.where(take, v, bidx[:, j])
+    off = group // 2
+    while off:
+        b_o, i_o = best[:, lanes ^ off], bidx[:, lanes ^ off]
+        take = (b_o > best) | ((b_o == best) & (i_o < bidx))
+        best, bidx = torch.where(take, b_o, best), torch.where(take, i_o, bidx)
+        off //= 2
+    assert torch.equal(bidx, bidx[:, :1].expand_as(bidx))
+    return bidx[:, 0].to(torch.int32)
+
+
+@pytest.mark.parametrize("group", [2, 4, 8, 16, 32])
+@pytest.mark.parametrize("r,v,valid_v,temperature", [(64, 27, 27, 1.0), (16, 128, 27, 0.7),
+                                                     (8, 300, 300, 1.0), (32, 5, 3, 1.0)])
+def test_grouped_three_passes_give_the_plain_tokens_off_near_ties(group, r, v, valid_v,
+                                                                  temperature):
+    """The G-lane reduction of ws_step_gumbel_kernel picks the plain version's
+    token except on counted near-tie rows (its softmax sum adds in G's order);
+    a = 0 keeps the token, and no padded column wins."""
+    logits, x, a, _ = _padded_case(r, valid_v, 50.0, 31 * group + v)
+    logits = np.concatenate([logits[:r, :valid_v],
+                             np.full((r, v - valid_v), 50.0, np.float32)], axis=1)
+    x, a = x[:r], a[:r]
+    lt, xt, at = torch.from_numpy(logits), torch.from_numpy(x), torch.from_numpy(a)
+    g = keyed_gumbel((3, group), r, v)
+    got = _grouped_gumbel_draw(lt, xt, at, g, valid_v, temperature, group)
+    want = ws_step_gumbel_ref(lt, xt, at, g, valid_v=valid_v, temperature=temperature)[:, 0]
+    ties = near_tie_rows_probs(lt, xt, at, g, valid_v=valid_v, temperature=temperature,
+                               tol=TIE_TOL).numpy()
+    _assert_equal_up_to_ties(want.numpy(), got.numpy(), ties)
+    assert int(got[0]) == int(x[0, 0]) and int(got.max()) < valid_v
+
+
+@pytest.mark.parametrize("a_shape", ["scalar", "batch", "row"])
+def test_keyed_wrapper_equals_the_given_noise_step(a_shape):
+    """ws_step_gumbel_keyed on the CPU: the given-noise step on
+    prng.gumbel(rng, (R, Vp)), with one weight, one per batch row of N
+    positions, or one per row; the tokens bit for bit."""
+    b, n, v, valid_v = 3, 8, 40, 27
+    logits, x = _step_inputs(5, b, n, v)
+    lt = torch.from_numpy(logits).reshape(b * n, v)
+    xt = torch.from_numpy(x).reshape(-1)
+    rng = np.random.default_rng(1)
+    a = {"scalar": torch.tensor(0.3), "batch": torch.from_numpy(rng.uniform(size=b)).float(),
+         "row": torch.from_numpy(rng.uniform(size=b * n)).float()}[a_shape]
+    key = prng.key(21)
+    got = ws_step_gumbel_keyed(key, lt, xt, a, valid_v=valid_v, temperature=0.7)
+    aa = a.reshape(-1).repeat_interleave(b * n // a.numel()).reshape(-1, 1)
+    want = ws_step_gumbel(lt, xt[:, None], aa, prng.gumbel(key, (b * n, v)), valid_v=valid_v,
+                          row_block=1, temperature=0.7)[:, 0]
+    assert got.shape == (b * n,) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_keyed_wrapper_checks_its_inputs_and_refuses_2_32_elements():
+    lt, xt = torch.zeros(6, 27), torch.zeros(6, dtype=torch.int32)
+    key = prng.key(0)
+    with pytest.raises(ValueError, match=r"\(R,\)"):
+        ws_step_gumbel_keyed(key, lt, xt[:, None], torch.zeros(6))
+    with pytest.raises(ValueError, match="weight"):
+        ws_step_gumbel_keyed(key, lt, xt, torch.zeros(4))
+    with pytest.raises(ValueError, match="valid_v"):
+        ws_step_gumbel_keyed(key, lt, xt, torch.zeros(6), valid_v=28)
+    # 2**32 elements: refused before anything is read, as jax.random refuses it
+    big = torch.zeros(1, 1).expand(1 << 16, 1 << 16)
+    with pytest.raises(NotImplementedError, match="2\\*\\*32"):
+        ws_step_gumbel_keyed(key, big, torch.zeros(1, dtype=torch.int32).expand(1 << 16),
+                             torch.zeros(1))
+    with pytest.raises(NotImplementedError, match="2\\*\\*32"):
+        keyed_gumbel((0, 0), 1 << 16, 1 << 16)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Device times of the head and ws_step kernels of a checkout, for comparing two
-trees on one card.
+"""Device times of the head, ws_step, ws_fused and ws_step_gumbel kernels of a
+checkout, for comparing two trees on one card.
 
 Run on a machine with one NVIDIA H100, from the root of the checkout that holds
 this script:
@@ -14,6 +14,11 @@ that every tree since the head and ws_step kernels were ported shares:
   * ``head`` at the draft's decode shape (32 rows, D = 768, V = 27, row-major
     weights), warm (one weight set) and cold (650 weight sets, 54 MB, cycled);
   * ``ws_step`` at (8192, 27) and ``ws_step_rows`` at (32, 256, 27);
+  * ``ws_fused`` at (8192, 27, K = 4) and (64, 50257, K = 4), per-row keys, and a
+    graph of 4 ``ws_step`` launches at the same shapes;
+  * ``ws_step_gumbel`` with its noise given at (8192, 27), and the default Euler
+    step ``core.sampler.gumbel_step`` as a whole at (32, 256, 27) (a graph of
+    steps: the noise, the weights and the launch);
   * the launch floor: a graph of one-element in-place adds.
 Prints the card (``nvidia-smi``) and one JSON line.
 """
@@ -45,9 +50,12 @@ def main() -> int:
     # the timed tree's package first: chip_smoke put this checkout's src in front
     sys.path.insert(0, str(pathlib.Path(args.root).resolve() / "src"))
     from repro_torch import prng
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.core.sampler import gumbel_step
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
     from repro_torch.kernels.draft_decode import ops as dops
+    from repro_torch.kernels.ws_fused import ops as fops
     from repro_torch.kernels.ws_step import ops as wops
 
     resolve_device("cuda")
@@ -83,6 +91,33 @@ def main() -> int:
     ab, out2 = a[:smoke.NUM].contiguous(), out.view(smoke.NUM, smoke.SEQ)
     res["ws_step_rows_ms"] = smoke.graph_ms(
         lambda: wops._launch_rows(lg3, x2, ab, keys, out2, 1.0), n=50)
+    steps = [wops.seed_from_key(k) for k in prng.split(prng.key(6), 4)]
+    path = WarmStartPath(t0=0.0)
+    for suffix, (b, n, vf) in (("", (smoke.NUM, smoke.SEQ, v)), ("_v50257", (2, 32, 50257))):
+        keys4, lgf, xf, ts, hs = smoke.fused_case("rows", 4, b, n, vf, 6)
+        seeds, lgf, xf, af, kg, ag = fops.fused_inputs(keys4, lgf, xf, ts, hs, path)
+        xf, sd = xf.contiguous(), seeds.to("cuda", torch.int64).contiguous()
+        outs = [torch.empty(b * n, dtype=torch.int32, device="cuda") for _ in steps]
+        a_step = torch.full((b * n,), 0.078125, device="cuda")
+
+        def ws_steps():
+            cur = xf
+            for seed_j, out_j in zip(steps, outs):
+                wops._launch(lgf, cur, a_step, out_j, seed_j, 1.0)
+                cur = out_j
+
+        res["ws_step_graph_of_4" + suffix + "_ms"] = smoke.graph_ms(ws_steps, n=20)
+        res["ws_fused" + suffix + "_ms"] = smoke.graph_ms(
+            lambda: fops._launch(lgf, xf, af, sd, outs[0], kg, ag, 1.0), n=20)
+    noise = prng.gumbel(prng.key(0), (rows, v), device="cuda")
+    x1, a1, o1 = xt.view(rows, 1), a.view(rows, 1), out.view(rows, 1)
+    res["ws_step_gumbel_given_ms"] = smoke.graph_ms(
+        lambda: wops._launch_gumbel(lg, x1, a1, noise, o1, v, 1.0), n=50)
+    t = torch.full((smoke.NUM,), smoke.T0, device="cuda")
+    h = torch.tensor(1.0 / smoke.COLD_NFE, device="cuda")
+    warm = WarmStartPath(t0=smoke.T0)
+    res["gumbel_step_ms"] = smoke.graph_ms(
+        lambda: gumbel_step(prng.key(0), lg3, x2, t, h, warm), n=20)
     res["launch_floor_ms"] = smoke.launch_floor_ms()
     print(res["card"])
     print(json.dumps({"kernel_times": res}))
