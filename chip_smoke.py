@@ -26,7 +26,19 @@ draft cost ratio. Besides each kernel against its plain version, the
 ``ws_step_gumbel`` keyed launch must equal the given-noise launch on
 ``prng.gumbel``'s noise and ``ws_fused`` must equal K composed launches, bit
 for bit, at every lanes a row; ``ptxas`` must report no spills for any
-instance of the ws, flash_attn and draft kernels. It prints the card,
+instance of the ws, flash_attn and draft kernels.
+
+The AR draft's decode and the refine loops run as CUDA graphs, one
+replay a call, captured once per compile key: it gates one capture per
+key (the serve, the scheduler's ``(rows, prefix, bucket_len)``, the
+pipeline's warm, cold and fused samplers), every graph against its eager
+launches bit for bit (the decode at 32 x 255 steps with the prefix reused
+and recomputed, two serves, the pipeline against ``jit=False``), a step
+key read on the card against the host's words, and the launch counts of
+each call (a replay counts what was captured; a call that captures counts
+its eager warm-up run too); it prints the capture times, the draft's wall
+and device time and busy share, and the graphed and eager times side by
+side. It prints the card,
 ``{"serve": ...}``, ``{"scheduler": ...}`` and ``{"pipeline": ...}`` lines, a
 ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
@@ -35,6 +47,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import math
@@ -175,15 +188,22 @@ def check_ws_step(r, v, temperature, seed):
 
 
 def measure_ws_step(r, v):
+    """``ms`` is the kernel the serve's refine graph launches, the step key
+    read on the card (``ws_step_dkey_kernel``); ``byvalue_ms`` the same body
+    with the key's words passed by value (eager callers with a host key)."""
     from repro_torch import prng
     from repro_torch.core.paths import WarmStartPath
-    from repro_torch.kernels.ws_step import ops, seed_from_key, ws_step, ws_step_ref_streamed
+    from repro_torch.kernels.ws_step import (
+        key_words, ops, seed_from_key, ws_step, ws_step_ref_streamed,
+    )
 
     path = WarmStartPath(t0=T0)
     logits, x, t = ws_inputs(r, v, 0)
     h = torch.tensor(1.0 / COLD_NFE, device="cuda")
     key = prng.key(1)
     seed = seed_from_key(key)
+    dkey = key.to("cuda")
+    words = key_words(dkey)
     a = torch.clamp(h * path.velocity_scale(t), 0.0, 1.0)
     out = torch.empty(r, dtype=torch.int32, device="cuda")
 
@@ -191,13 +211,14 @@ def measure_ws_step(r, v):
         noise = prng.threefry_gumbel(seed, r, v, device="cuda")
         return ws_step_ref_streamed(logits, x, a, noise)
 
-    ms = graph_ms(lambda: ops._launch(logits, x, a, out, seed, 1.0), n=50)
-    call_ms = time_ms(lambda: ws_step(key, logits, x, t, h, path))
+    ms = graph_ms(lambda: ops._launch(logits, x, a, out, words, 1.0), n=50)
+    byvalue_ms = graph_ms(lambda: ops._launch(logits, x, a, out, seed, 1.0), n=50)
+    call_ms = time_ms(lambda: ws_step(dkey, logits, x, t, h, path))
     plain_ms = graph_ms(plain)
     nbytes = r * v * 4 + 3 * r * 4
     bms, by = bound_ms(nbytes, WS_OPS_PER_ELEMENT * r * v)
-    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None}
+    return {"ms": ms, "byvalue_ms": byvalue_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
 WS_LANES = (2, 4, 8, 16, 32)    # the lanes a row the ws_step kernels admit; 32 is draw_row's
@@ -249,17 +270,23 @@ def check_ws_lanes(r, v, seed):
 
 def measure_ws_lanes(r, v):
     """Device time of both modes at each lanes a row, (r, v) as in
-    check_ws_lanes (the per-row mode as (r / 256, 256, v))."""
-    from repro_torch.kernels.ws_step import ops
+    check_ws_lanes (the per-row mode as (r / 256, 256, v)); ``ws_step`` with
+    the key read on the card (the refine graph's kernel), beside it
+    ``ws_step_byvalue`` with the words by value."""
+    from repro_torch import prng
+    from repro_torch.kernels.ws_step import key_words, ops
 
     logits, x, a, seed_w, n, keys = lanes_inputs(r, v, 5)
+    words = key_words(prng.key(5).to("cuda"))
     b = r // n
     step = torch.empty(r, dtype=torch.int32, device="cuda")
     rows = torch.empty((b, n), dtype=torch.int32, device="cuda")
     lg3, x2, ab = logits.view(b, n, v), x.view(b, n), a[:b].contiguous()
-    res = {"ws_step": {}, "ws_step_rows": {}}
+    res = {"ws_step": {}, "ws_step_byvalue": {}, "ws_step_rows": {}}
     for lanes in WS_LANES:
         res["ws_step"][lanes] = graph_ms(
+            lambda: ops._launch(logits, x, a, step, words, 1.0, lanes=lanes), n=50)
+        res["ws_step_byvalue"][lanes] = graph_ms(
             lambda: ops._launch(logits, x, a, step, seed_w, 1.0, lanes=lanes), n=50)
         res["ws_step_rows"][lanes] = graph_ms(
             lambda: ops._launch_rows(lg3, x2, ab, keys, rows, 1.0, lanes=lanes), n=50)
@@ -373,15 +400,18 @@ def check_ws_step_gumbel_keyed(r, v, seed):
 
 
 def measure_ws_step_gumbel(r, v):
-    """Both noise sources at (r, v) and every lanes a row; the default step,
-    gumbel_step, as a whole at (NUM, SEQ, v) against the composition it
-    replaces (prng.gumbel's torch ops, then the given-noise launch); and the
-    kernels one gumbel_step launches (profiler)."""
+    """Both noise sources at (r, v) and every lanes a row (``keyed``: the key
+    read on the card, the kernel the pipeline's refine graph launches;
+    ``keyed_byvalue``: its words by value); the default step, gumbel_step,
+    as a whole at (NUM, SEQ, v) with its key on the card against the
+    composition it replaces (prng.gumbel's torch ops, then the given-noise
+    launch); and the kernels one gumbel_step launches (profiler)."""
     from repro_torch import prng
     from repro_torch.core.paths import WarmStartPath
     from repro_torch.core.sampler import gumbel_step
     from repro_torch.kernels.ws_step import (
-        ops, seed_from_key, ws_step_gumbel, ws_step_gumbel_keyed, ws_step_gumbel_ref,
+        key_words, ops, seed_from_key, ws_step_gumbel, ws_step_gumbel_keyed,
+        ws_step_gumbel_ref,
     )
 
     logits, x, a, noise = gumbel_inputs(r, v, v, 0)
@@ -389,17 +419,22 @@ def measure_ws_step_gumbel(r, v):
     x1, a1 = x[:, 0].contiguous(), a[:, 0].contiguous()
     key = prng.key(0)
     seed = seed_from_key(key)
+    dkey = key.to("cuda")
+    words = key_words(dkey)
     out = torch.empty((r, 1), dtype=torch.int32, device="cuda")
-    by_lanes = {"keyed": {}, "given": {}}
+    by_lanes = {"keyed": {}, "keyed_byvalue": {}, "given": {}}
     for lanes in WS_LANES:
         by_lanes["keyed"][lanes] = graph_ms(
+            lambda: ops._launch_gumbel_keyed(logits, x1, a1, words, out, v, 1.0, lanes=lanes),
+            n=50)
+        by_lanes["keyed_byvalue"][lanes] = graph_ms(
             lambda: ops._launch_gumbel_keyed(logits, x1, a1, seed, out, v, 1.0, lanes=lanes),
             n=50)
         by_lanes["given"][lanes] = graph_ms(
             lambda: ops._launch_gumbel(logits, x, a, noise, out, v, 1.0, lanes=lanes), n=50)
     chosen = ops.lanes_for(v)
     ms = by_lanes["keyed"][chosen]
-    call_ms = time_ms(lambda: ws_step_gumbel_keyed(key, logits, x1, a1))
+    call_ms = time_ms(lambda: ws_step_gumbel_keyed(dkey, logits, x1, a1))
     plain_ms = graph_ms(lambda: ws_step_gumbel_ref(logits, x, a, noise, valid_v=v))
     bms, by = bound_ms(r * v * 4 + 3 * r * 4, WS_KEYED_OPS_PER_ELEMENT * r * v)
     given_bms, given_by = bound_ms(2 * r * v * 4 + 3 * r * 4, WS_GUMBEL_OPS_PER_ELEMENT * r * v)
@@ -418,14 +453,15 @@ def measure_ws_step_gumbel(r, v):
         return ws_step_gumbel(lg3.reshape(-1, v), x2.reshape(-1, 1), aa, g, valid_v=v,
                               row_block=1)
 
-    step_ms = graph_ms(lambda: gumbel_step(key, lg3, x2, t, h, path), n=20)
+    step_ms = graph_ms(lambda: gumbel_step(dkey, lg3, x2, t, h, path), n=20)
     before_ms = graph_ms(before, n=20)
-    profile = _profile(lambda: (gumbel_step(key, lg3, x2, t, h, path),
+    profile = _profile(lambda: (gumbel_step(dkey, lg3, x2, t, h, path),
                                 torch.cuda.synchronize()), "default step (gumbel_step)")
     print(f"ws_step_gumbel at ({r}, {v}), us device by lanes a row: "
           + json.dumps({k: {g: round(t_ * 1e3, 3) for g, t_ in d.items()}
                         for k, d in by_lanes.items()})
-          + f"; the kernels take {chosen}: keyed {ms * 1e3:.2f} us (bound {bms * 1e3:.3f} us, "
+          + f"; the kernels take {chosen}: keyed {ms * 1e3:.2f} us, key on the card (by "
+          f"value {by_lanes['keyed_byvalue'][chosen] * 1e3:.2f} us; bound {bms * 1e3:.3f} us, "
           f"{by}), given {by_lanes['given'][chosen] * 1e3:.2f} us (bound "
           f"{given_bms * 1e3:.3f} us, {given_by}), plain {plain_ms * 1e3:.1f} us")
     print(f"gumbel_step at ({b}, {n}, {v}), device ms a step: {step_ms:.5f} (one keyed "
@@ -435,8 +471,9 @@ def measure_ws_step_gumbel(r, v):
     n_kernels = profile.get("kernel_launches")
     if n_kernels is not None and n_kernels > 8:
         fail(f"gumbel_step launched {n_kernels} kernels: the noise is drawn outside the kernel")
-    return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "lanes": chosen,
+    return {"ms": ms, "byvalue_ms": by_lanes["keyed_byvalue"][chosen], "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "lanes": chosen,
             "given_ms": by_lanes["given"][chosen], "given_bound_ms": given_bms,
             "ms_by_lanes": by_lanes, "gumbel_step_ms": step_ms,
             "gumbel_step_before_ms": before_ms, "gumbel_step_kernels": n_kernels}
@@ -1045,11 +1082,13 @@ def sched_requests():
             for i, (L, n, t0) in enumerate(SCHED_REQUESTS)]
 
 
-def expected_launches(report, prefills, layers, fused_block=1):
+def expected_launches(report, prefills, layers, fused_block=1, captured=()):
     """Exact kernel launches of one scheduler run from its micro-batches:
     per micro-batch, n refine steps (ceil(n / K) backbone evaluations with
     fused blocks) and a draft of bucket_len tokens (bucket_len - 1 decode
-    steps), plus one 1-token prefill per prefix computed."""
+    steps), plus one 1-token prefill per prefix computed and one eager
+    decode (the capture's warm-up) per decode key ``(rows, prefix,
+    seq_len)`` captured."""
     want = {k: 0 for k in ("ws_step_rows", "ws_fused", "flash_attn") + DRAFT_KERNELS}
     for b in report["batches"]:
         n = b["nfe"]
@@ -1060,9 +1099,10 @@ def expected_launches(report, prefills, layers, fused_block=1):
         for name in ("qkv_rope", "attn_cached", "post_attn"):
             want[name] += steps * layers
         want["head"] += steps
+    steps = prefills + sum(seq_len - 1 for _, _, seq_len in captured)
     for name in ("qkv_rope", "attn_cached", "post_attn"):
-        want[name] += prefills * layers
-    want["head"] += prefills
+        want[name] += steps * layers
+    want["head"] += steps
     return want
 
 
@@ -1071,12 +1111,13 @@ def run_counted(what, fn, engine, layers, fused_block=1):
     them against the run's micro-batches."""
     from repro_torch.kernels import launches
 
-    pre = engine.stats.prefill_computes
+    pre, keys = engine.stats.prefill_computes, set(engine.graphs.capture_s)
     launches.clear()
     out, report = fn()
     torch.cuda.synchronize()
     got = dict(launches)
-    want = expected_launches(report, engine.stats.prefill_computes - pre, layers, fused_block)
+    want = expected_launches(report, engine.stats.prefill_computes - pre, layers, fused_block,
+                             set(engine.graphs.capture_s) - keys)
     if {k: got.get(k, 0) for k in want} != want or set(got) - set(want):
         fail(f"{what}: launches {got}, expected {want}")
     return out, report, got
@@ -1138,20 +1179,37 @@ def scheduler_path(model, engine):
 
     reqs = sched_requests()
     sched = scheduler()
-    # the first run pays the draft engine's first prefills and the caches
-    run_counted("warm-up run", lambda: sched.serve_requests(reqs), engine, layers)
+    cap0, seen, captures = engine.graphs.captures, set(), []
+
+    def gate_captures(what, report, keys=None):
+        """One decode capture per (rows, prefix, bucket_len) key ever drafted
+        (the scheduler's BOS prompt: prefix 1), none for a key seen before."""
+        seen.update(keys or ((b["padded_rows"], 1, b["bucket_len"]) for b in report["batches"]))
+        captures.append(engine.graphs.captures - cap0)
+        if captures[-1] != len(seen):
+            fail(f"{what}: {captures[-1]} decode captures for {len(seen)} keys {sorted(seen)}")
+
+    # the first run pays the draft engine's first prefills, the caches and a
+    # decode capture per key
+    _, rep_first, _ = run_counted("warm-up run", lambda: sched.serve_requests(reqs), engine,
+                                  layers)
+    gate_captures("warm-up run", rep_first)
     batch, rep_on, counts = run_counted("serve_requests (overlap on)",
                                         lambda: sched.serve_requests(reqs), engine, layers)
+    gate_captures("serve_requests (overlap on)", rep_on)
     streamed, rep_stream, _ = run_counted(
         "serve_stream", lambda: (list(sched.serve_stream(reqs)), sched.stream_report),
         engine, layers)
+    gate_captures("serve_stream", rep_stream)
     serial, rep_off, _ = run_counted(
         "serve_requests (overlap off)",
         lambda: scheduler(overlap=False).serve_requests(reqs), engine, layers)
+    gate_captures("serve_requests (overlap off)", rep_off)
     alone_id = 7
     alone, rep_alone, _ = run_counted(
         "one request alone", lambda: scheduler().serve_requests([reqs[alone_id]]), engine,
         layers)
+    gate_captures("one request alone", rep_alone)
 
     stream_by_id = {c.request_id: c for c in streamed}
     diffs = {"stream_vs_batch": 0, "overlap_off_vs_on": 0}
@@ -1186,6 +1244,7 @@ def scheduler_path(model, engine):
     fused, rep_fused, fused_counts = run_counted(
         "serve_requests (fused_block=2)",
         lambda: scheduler(fused_block=2).serve_requests(reqs), engine, layers, fused_block=2)
+    gate_captures("serve_requests (fused_block=2)", rep_fused)
     prompt = draft_prompt(NUM)
     path = WarmStartPath(t0=T0)
     server = WarmStartServer(
@@ -1196,16 +1255,22 @@ def scheduler_path(model, engine):
     x, rep_server = server.serve(prng.key(300), NUM)
     torch.cuda.synchronize()
     server_counts = dict(launches)
+    gate_captures("WarmStartServer(fused_block=2)", None, keys=[(NUM, PROMPT, SEQ)])
+    # the serve captures its refine: the warm-up's 7 evaluations, then the replay's
     if (rep_server["nfe"], rep_server["backbone_evals"]) != (13, 7) or \
-            server_counts.get("ws_fused") != 7 or server_counts.get("flash_attn") != 7 * layers \
+            server_counts.get("ws_fused") != 14 or server_counts.get("flash_attn") != 14 * layers \
             or x.shape != (NUM, SEQ) or int(x.min()) < 0 or int(x.max()) >= VOCAB:
         fail(f"WarmStartServer(fused_block=2): {rep_server['nfe']} NFE, "
              f"{rep_server['backbone_evals']} evals, launches {server_counts}")
     print(f"fused_block=2: scheduler launches {fused_counts} (ceil(n/2) evaluations per "
           f"micro-batch); WarmStartServer 32 x 256: nfe 13, backbone_evals 7, launches "
-          f"{server_counts}")
+          f"{server_counts} (capture warm-up and replay)")
 
     profile = busy_share(lambda: sched.serve_requests(reqs))
+    print(f"scheduler decode graphs: first run {rep_first['wall_time_s']:.3f} s with "
+          f"{captures[0]} captures (keys {sorted(seen)}); later runs replay (captures after "
+          f"each gated run {captures}); capture ms by key "
+          f"{json.dumps(engine.graphs.stats()['capture_ms'])}")
     print(f"scheduler wall: overlap on {rep_on['wall_time_s']:.3f} s (draft "
           f"{rep_on['draft_time_s']:.3f} s, flow {rep_on['flow_time_s']:.3f} s), overlap off "
           f"{rep_off['wall_time_s']:.3f} s (draft {rep_off['draft_time_s']:.3f} s, flow "
@@ -1238,6 +1303,10 @@ def scheduler_path(model, engine):
                       "misses": rep_on["jit_cache"]["misses"]},
         "launches_per_run": counts, "launches_fused_run": fused_counts,
         "token_diffs": diffs, "conservation": ledger, "profile": profile,
+        "first_run": {"wall_s": rep_first["wall_time_s"], "draft_s": rep_first["draft_time_s"],
+                      "flow_s": rep_first["flow_time_s"], "decode_captures": captures[0]},
+        "decode_captures_after_each_run": captures,
+        "decode_graphs": engine.graphs.stats(),
     }
     counts_path = {"ws_step_rows": counts.get("ws_step_rows", 0),
                    "ws_fused": fused_counts.get("ws_fused", 0) + server_counts.get("ws_fused", 0)}
@@ -1324,7 +1393,9 @@ def check_small_pipeline_against_cpu():
                                              params=to_device(lparams, device), seq_len=seq),
             path=WarmStartPath(t0=T0), cold_nfe=cold, vocab_size=VOCAB, seq_len=seq,
             device=device)
-        x, _ = pipe.generate(prng.key(5), num)
+        # model_fn copies each step to the host, which no graph can hold: jit=False,
+        # as the JAX package's own tests record a trajectory
+        x, _ = with_jit_off(pipe).generate(prng.key(5), num)
         runs[device] = [s_[0] for s_ in seen] + [x.cpu()], seen
     (states_c, seen_c), (states_p, seen_p) = runs["cuda"], runs["cpu"]
     n = len(seen_p)
@@ -1355,6 +1426,66 @@ def check_small_pipeline_against_cpu():
           + (f", all in near-tie rows, at step {parted_at} (the runs part there)" if diff
              else ""))
     return {"tokens_differ": diff, "near_tie_tokens": ties, "parted_at_step": parted_at}
+
+
+def with_jit_off(pipe):
+    """The same pipeline with its sampler's loop as eager launches
+    (``EulerSampler(jit=False)``)."""
+    other = dataclasses.replace(pipe)
+    other._sampler = dataclasses.replace(pipe.sampler(), jit=False)
+    return other
+
+
+def check_pipeline_graphs(pipe, warm, cold_pipe, x_cold, fused, x0, x_fused, model_fn,
+                          draft_s):
+    """The pipeline's refine graphs against ``jit=False`` at full width, bit
+    for bit: warm generates 2 and 3 (replays), the first cold generate (64
+    NFE) and ``EulerSampler(fused_block=2)`` call, each key captured once
+    over its calls; and the eager generates' times beside the graphed ones."""
+    from repro_torch import prng
+
+    res = {"captures": {"warm": pipe.sampler().graphs.stats(),
+                        "cold": cold_pipe.sampler().graphs.stats(),
+                        "fused": fused.graphs.stats()}}
+    eager, eager_warm = with_jit_off(pipe), []
+    for i in (1, 2):
+        t0 = time.perf_counter()
+        x, _ = eager.generate(prng.key(500 + i), NUM)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eager_warm.append({"differ": int((x != warm[i]["x"]).sum()), "wall_ms": wall * 1e3,
+                           "draft_ms": draft_s[-1] * 1e3, "flow_ms": (wall - draft_s[-1]) * 1e3})
+    t0 = time.perf_counter()
+    x, _ = with_jit_off(cold_pipe).generate(prng.key(600), NUM)
+    torch.cuda.synchronize()
+    res["eager_cold"] = {"differ": int((x != x_cold).sum()),
+                         "flow_ms": (time.perf_counter() - t0) * 1e3}
+    x, _ = dataclasses.replace(fused, jit=False).sample(prng.key(701), model_fn, x0)
+    res["eager_fused_differ"] = int((x != x_fused).sum())
+    res["eager_warm"] = eager_warm
+    # the warm flow alone (13 NFE on an LSTM draft), one replay and its eager launches
+    for name, smp in (("flow_profile", pipe.sampler()),
+                      ("flow_profile_eager", dataclasses.replace(pipe.sampler(), jit=False))):
+        res[name] = _profile(lambda smp=smp: (smp.sample(prng.key(900), model_fn, x0),
+                                              torch.cuda.synchronize()),
+                             "warm flow" + (" (eager launches)" if name.endswith("eager")
+                                            else " (graph)"))
+    caps = {k: v["captures"] for k, v in res["captures"].items()}
+    reps = {k: v["replays"] for k, v in res["captures"].items()}
+    print(f"pipeline graphs: captures {caps}, replays {reps}, capture ms (warm-up and capture) "
+          + json.dumps({k: v["capture_ms"] for k, v in res["captures"].items()})
+          + f"; vs jit=False, tokens differing (bitwise): warm "
+          f"{[w['differ'] for w in eager_warm]}, cold {res['eager_cold']['differ']}, "
+          f"fused_block=2 {res['eager_fused_differ']}; eager generates: flow "
+          f"{[round(w['flow_ms'], 1) for w in eager_warm]} ms (graphed "
+          f"{[round(w['flow_ms'], 1) for w in warm[1:]]}), cold flow "
+          f"{res['eager_cold']['flow_ms']:.1f} ms")
+    if caps != {"warm": 1, "cold": 1, "fused": 1} or reps != {"warm": 3, "cold": 2, "fused": 2} \
+            or res["eager_cold"]["differ"] \
+            or res["eager_fused_differ"] or any(w["differ"] for w in eager_warm):
+        fail(f"the pipeline's graphs disagree with jit=False or were captured more than "
+             f"once: {res}")
+    return res
 
 
 def pipeline_path(model):
@@ -1410,16 +1541,26 @@ def pipeline_path(model):
 
     cal = draft.calibrate_cost_ratio(nfe_fn, rng=prng.key(401), num=NUM, seq_len=SEQ)
 
-    def counted(what, fn, want, want_evals):
+    def counted(what, fn, want, want_evals, smp):
+        """Run ``fn``, one call of ``smp``'s refine graph, and gate its launches:
+        ``want`` a replay (what was captured), twice that when the call
+        captures (the warm-up's eager launches too). model_fn's calls are
+        Python's: 2 x ``want_evals`` when the call captures (the warm-up run
+        and the capture), none on a replay; exactly one replay a call."""
         before, n0 = dict(launches), len(evals)
+        c0, r0 = smp.graphs.captures, smp.graphs.replays
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        grew = {k: v - before.get(k, 0) for k, v in launches.items() if v != before.get(k, 0)}
-        if grew != want or len(evals) - n0 != want_evals:
-            fail(f"{what}: launches {grew}, {len(evals) - n0} backbone evaluations; expected "
-                 f"{want}, {want_evals}")
+        grew = grown(before)
+        runs = 1 + smp.graphs.captures - c0
+        traced = 2 * want_evals * (smp.graphs.captures - c0)
+        if grew != {k: runs * c for k, c in want.items()} or len(evals) - n0 != traced \
+                or smp.graphs.replays != r0 + 1:
+            fail(f"{what}: launches {grew}, {len(evals) - n0} model_fn calls, "
+                 f"{smp.graphs.replays - r0} replays; expected {runs} x {want}, {traced} "
+                 f"({want_evals} backbone evaluations a run), 1")
         return out, wall
 
     per_warm = {"ws_step_gumbel": nfe, "flash_attn": nfe * layers}
@@ -1428,30 +1569,46 @@ def pipeline_path(model):
     for i in range(3):
         n_draft = len(draft_s)
         (x, rep), wall = counted(f"warm generate {i}",
-                                 lambda i=i: pipe.generate(prng.key(500 + i), NUM), per_warm, nfe)
+                                 lambda i=i: pipe.generate(prng.key(500 + i), NUM), per_warm,
+                                 nfe, smp)
         if (rep.warm_nfe, rep.cold_nfe) != (nfe, COLD_NFE) or len(draft_s) != n_draft + 1:
             fail(f"warm generate {i}: report {rep}")
         if x.shape != (NUM, SEQ) or x.dtype != torch.int32 or x.device.type != "cuda" \
                 or int(x.min()) < 0 or int(x.max()) >= VOCAB:
             fail(f"warm generate {i}: tokens {tuple(x.shape)} {x.dtype} on {x.device}")
         warm.append({"wall_ms": wall * 1e3, "draft_ms": draft_s[-1] * 1e3,
-                     "flow_ms": (wall - draft_s[-1]) * 1e3, "report": rep})
+                     "flow_ms": (wall - draft_s[-1]) * 1e3, "report": rep, "x": x})
     cold_pipe = WarmStartPipeline(model_fn=model_fn, draft=None, path=WarmStartPath(t0=0.0),
                                   cold_nfe=COLD_NFE, vocab_size=VOCAB, seq_len=SEQ,
                                   device="cuda")
-    (x_cold, rep_cold), cold_wall = counted(
-        "cold generate", lambda: cold_pipe.generate(prng.key(600), NUM),
-        {"ws_step_gumbel": COLD_NFE, "flash_attn": COLD_NFE * layers}, COLD_NFE)
-    if rep_cold.warm_nfe != COLD_NFE or rep_cold.nfe_speedup != 1.0 or x_cold.shape != (NUM, SEQ):
-        fail(f"cold generate: report {rep_cold}")
+    # the cold pipeline and the fused sampler twice each: the first call
+    # captures, the second replays (its time is the steady one)
+    cold_walls, fused_walls = [], []
+    for i in range(2):
+        (x, rep_cold), wall = counted(
+            f"cold generate {i}", lambda i=i: cold_pipe.generate(prng.key(600 + i), NUM),
+            {"ws_step_gumbel": COLD_NFE, "flash_attn": COLD_NFE * layers}, COLD_NFE,
+            cold_pipe.sampler())
+        if rep_cold.warm_nfe != COLD_NFE or rep_cold.nfe_speedup != 1.0 \
+                or x.shape != (NUM, SEQ):
+            fail(f"cold generate {i}: report {rep_cold}")
+        x_cold = x_cold if i else x
+        cold_walls.append(wall)
     fused = EulerSampler(path=path, num_steps=COLD_NFE, fused_block=2)
     x0 = lstm.generate(lparams, prng.key(700), NUM, SEQ)
-    (x_fused, st_fused), fused_wall = counted(
-        "EulerSampler(fused_block=2)", lambda: fused.sample(prng.key(701), model_fn, x0),
-        {"ws_fused": 7, "flash_attn": 7 * layers}, 7)
+    for i in range(2):
+        (x, st_fused), wall = counted(
+            f"EulerSampler(fused_block=2) {i}",
+            lambda i=i: fused.sample(prng.key(701 + i), model_fn, x0),
+            {"ws_fused": 7, "flash_attn": 7 * layers}, 7, fused)
+        x_fused = x_fused if i else x
+        fused_walls.append(wall)
+    cold_wall, fused_wall = cold_walls[1], fused_walls[1]
     if (fused.nfe, fused.backbone_evals, st_fused.nfe) != (nfe, 7, 7):
         fail(f"EulerSampler(fused_block=2): nfe {fused.nfe}, evals {fused.backbone_evals}")
     counts = dict(launches)
+    graphs = check_pipeline_graphs(pipe, warm, cold_pipe, x_cold, fused, x0, x_fused, model_fn,
+                                   draft_s)
     profile = _profile(lambda: (pipe.generate(prng.key(800), NUM), torch.cuda.synchronize()),
                        "pipeline generate")
 
@@ -1469,15 +1626,19 @@ def pipeline_path(model):
         "generate_ms": med("wall_ms"), "draft_ms": med("draft_ms"), "flow_ms": flow_ms,
         "per_nfe_ms": flow_ms / nfe, "samples_per_s": NUM / (med("wall_ms") / 1e3),
         "generate_ms_each": [w["wall_ms"] for w in warm[1:]],
+        "flow_ms_each": [w["flow_ms"] for w in warm[1:]],
         "draft_ms_each": [w["draft_ms"] for w in warm[1:]],
         "measured_cost": cal.as_dict(),
         "draft_cost_ratio": rep.draft_cost_ratio,
         "guaranteed_speedup": rep.guaranteed_factor, "nfe_speedup": rep.nfe_speedup,
         "effective_speedup": rep.effective_speedup,
         "cold": {"nfe": rep_cold.warm_nfe, "flow_ms": cold_wall * 1e3,
+                 "capture_call_ms": cold_walls[0] * 1e3,
                  "per_nfe_ms": cold_wall * 1e3 / COLD_NFE},
-        "fused_block_2": {"flow_ms": fused_wall * 1e3, "backbone_evals": st_fused.nfe},
+        "fused_block_2": {"flow_ms": fused_wall * 1e3, "backbone_evals": st_fused.nfe,
+                          "capture_call_ms": fused_walls[0] * 1e3},
         "launches_per_warm_generate": per_warm, "launches_path": counts,
+        "graphs": graphs,
         "profile": profile,
         # every kernel the profiled generate launched (the draft's too), per NFE
         "profile_launches_per_nfe": (profile["kernel_launches"] / nfe
@@ -1493,6 +1654,116 @@ def pipeline_path(model):
           f"{cold_wall * 1e3:.1f} ms; fused_block=2 {fused_wall * 1e3:.1f} ms (7 evaluations); "
           f"the profiled generate's kernel launches per NFE: {res['profile_launches_per_nfe']}")
     return res, counts
+
+
+# -- CUDA graphs of the loops ----------------------------------------------------
+
+def check_device_keys(r, v, seed):
+    """ws_step and the keyed ws_step_gumbel with the step key's words read
+    from the card (the entry points the refine graphs take) against the
+    launches with the words passed as integers, at every lanes a row and
+    the kernels' choice: the tokens must be equal, bitwise."""
+    from repro_torch import prng
+    from repro_torch.kernels.ws_step import key_words, ops
+
+    logits, x, a, seed_w, _, _ = lanes_inputs(r, v, seed)
+    dkey = key_words(prng.key(seed).to("cuda"))
+    differ = {}
+    for lanes in (0,) + WS_LANES:
+        out = [torch.empty(r, dtype=torch.int32, device="cuda") for _ in range(4)]
+        ops._launch(logits, x, a, out[0], seed_w, 1.0, lanes=lanes)
+        ops._launch(logits, x, a, out[1], dkey, 1.0, lanes=lanes)
+        ops._launch_gumbel_keyed(logits, x, a, seed_w, out[2], v, 1.0, lanes=lanes)
+        ops._launch_gumbel_keyed(logits, x, a, dkey, out[3], v, 1.0, lanes=lanes)
+        differ[lanes] = int((out[0] != out[1]).sum()) + int((out[2] != out[3]).sum())
+    torch.cuda.synchronize()
+    print(f"device key vs host key at ({r}, {v}): tokens differing (ws_step and keyed "
+          f"ws_step_gumbel, bitwise), by lanes a row (0 = the kernels' choice): {differ}")
+    if any(differ.values()):
+        fail(f"a step key read on the card draws differently from the host's words: {differ}")
+    return {"rows": r, "vocab": v, "differ": sum(differ.values())}
+
+
+def grown(before: dict) -> dict:
+    """The launches counted since ``before`` (a copy of ``launches``)."""
+    from repro_torch.kernels import launches
+
+    return {k: c - before.get(k, 0) for k, c in launches.items() if c != before.get(k, 0)}
+
+
+def serve_eager(server, engine, rng, prompt):
+    """``server.serve(rng, NUM)``'s draft and refine as eager launches (the
+    graphs' yardstick), timed as ``serve`` times them: (tokens, draft s,
+    flow s)."""
+    from repro_torch import prng
+    from repro_torch.core.sampler import refine_loop_inputs
+
+    k_draft, k_flow = prng.split(rng, 2)
+    t0 = time.perf_counter()
+    x = engine._generate_rows_eager(prng.split(k_draft, NUM), SEQ, prompt)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    keys, ts, hs = refine_loop_inputs(k_flow, T0, 1.0 / COLD_NFE, 13)
+    with torch.inference_mode():
+        x = server._refine_loop_eager(keys, x, ts, hs)
+    torch.cuda.synchronize()
+    return x, t1 - t0, time.perf_counter() - t1
+
+
+def check_serve_graphs(server, engine, prompt, prefill):
+    """Full width, after the serves that captured: two more serves (new
+    keys: replays) against the same serves as eager launches, tokens
+    bitwise; then the decode alone, graph against eager at 32 rows x 255
+    steps with the prefix reused, recomputed into the same buffers and
+    recomputed back, tokens bitwise and the replay's launches equal to the
+    eager decode's; no capture in any of it."""
+    from repro_torch import prng
+    from repro_torch.kernels import launches
+
+    caps = (engine.graphs.captures, server.graphs.captures)
+    kv = engine._caches[NUM]["blocks"]["p0"]["k"].data_ptr()
+    res = {"serve": [], "decode": []}
+    for rng in (prng.key(110), prng.key(111)):
+        x, rep = server.serve(rng, NUM)
+        want, t_draft, t_flow = serve_eager(server, engine, rng, prompt)
+        res["serve"].append({
+            "differ": int((x != want).sum()),
+            "graph_draft_ms": rep["draft_time_s"] * 1e3,
+            "graph_flow_ms": rep["flow_time_s"] * 1e3,
+            "eager_draft_ms": t_draft * 1e3, "eager_flow_ms": t_flow * 1e3})
+    other = torch.roll(prompt, 1, dims=1)
+    for i, (what, p) in enumerate((("reused", prompt), ("recomputed", other),
+                                   ("recomputed back", prompt))):
+        keys = prng.split(prng.key(120 + i), NUM)
+        computes = engine.stats.prefill_computes
+        before = dict(launches)
+        got = engine.generate_rows(keys, SEQ, p)
+        torch.cuda.synchronize()
+        n_got = grown(before)
+        if engine.stats.prefill_computes != computes:
+            n_got = {k: c - prefill.get(k, 0) for k, c in n_got.items()}
+        before = dict(launches)
+        want = engine._generate_rows_eager(keys, SEQ, p)
+        torch.cuda.synchronize()
+        n_want = grown(before)
+        res["decode"].append({"prefix": what, "differ": int((got != want).sum()),
+                              "launches_equal": n_got == n_want})
+    same_buffers = engine._caches[NUM]["blocks"]["p0"]["k"].data_ptr() == kv
+    decode = [(r["prefix"], r["differ"], r["launches_equal"]) for r in res["decode"]]
+    print(f"graphs at full width: serve (graph) vs serve (eager launches), 2 keys: "
+          f"{[r['differ'] for r in res['serve']]} tokens differ (bitwise); draft "
+          f"{[round(r['graph_draft_ms'], 1) for r in res['serve']]} ms graphed vs "
+          f"{[round(r['eager_draft_ms'], 1) for r in res['serve']]} eager, flow "
+          f"{[round(r['graph_flow_ms'], 1) for r in res['serve']]} vs "
+          f"{[round(r['eager_flow_ms'], 1) for r in res['serve']]}; decode graph vs eager "
+          f"({NUM} x {SEQ - 1} steps; prefix, tokens differing, launches equal): {decode}"
+          f"; KV buffers kept: {same_buffers}; captures (engine, server) {caps} -> "
+          f"{(engine.graphs.captures, server.graphs.captures)}")
+    if any(r["differ"] for r in res["serve"] + res["decode"]) \
+            or not all(r["launches_equal"] for r in res["decode"]) or not same_buffers \
+            or (engine.graphs.captures, server.graphs.captures) != caps:
+        fail(f"the serve's graphs disagree with their eager launches: {res}")
+    return res
 
 
 # -- the main path ---------------------------------------------------------------
@@ -1577,7 +1848,9 @@ def main_path(engine):
         before = dict(launches)
         x, rep = server.serve(prng.key(100 + i), NUM)
         for name, n in per_serve.items():
-            want = n + (prefill.get(name, 0) if i == 0 else 0)
+            # the first serve captures the decode and the refine: each capture's
+            # warm-up runs its loop once more, eagerly, before the replay
+            want = n * 2 + prefill.get(name, 0) if i == 0 else n
             grew = launches[name] - before.get(name, 0)
             if grew != want:
                 fail(f"serve {i}: {name} launched {grew} times, expected {want}")
@@ -1594,13 +1867,23 @@ def main_path(engine):
     print(f"main path: dfm_dit CONFIG ({n_params / 1e6:.1f}M params) x 3 serves of "
           f"{NUM} x {SEQ} drafted by the AR engine (prompt {PROMPT}, max_len {MAX_LEN}), "
           f"t0={T0}, cold_nfe={COLD_NFE}: nfe 13 per serve, guarantee gate passed, launches "
-          f"{counts} (per serve {per_serve}, first serve adds {prefill}); draft stats {stats}")
+          f"{counts} (per serve {per_serve}; the first serve twice that, its capture "
+          f"warm-ups, and {prefill}); draft stats {stats}")
     if (stats["prefill_computes"], stats["prefill_reuses"]) != (1, 2):
         fail(f"the draft engine's prefix pool: {stats}, expected 1 compute and 2 reuses")
+    graph_counts = {"engine": (engine.graphs.captures, engine.graphs.replays),
+                    "server": (server.graphs.captures, server.graphs.replays)}
+    print(f"main path graphs (captures, replays) over the 3 serves: {graph_counts}; capture ms "
+          f"(warm-up and capture): decode {engine.graphs.stats()['capture_ms']}, refine "
+          f"{server.graphs.stats()['capture_ms']}")
+    if graph_counts != {"engine": (1, 3), "server": (1, 3)}:
+        fail(f"the 3 serves must capture the decode and the refine once each: {graph_counts}")
 
     check_full_width_logits(model, last[:1], torch.full((1,), T0, device="cuda"))
+    graphs = check_serve_graphs(server, engine, prompt, prefill)
     profile = profile_serve(server, prng.key(200))
     draft_profile = profile_draft(engine, prng.key(201), prompt)
+    draft_profile_eager = profile_draft(engine, prng.key(201), prompt, eager=True)
     steady = reports[1:]
     serve = {
         "config": CONFIG.name, "num": NUM, "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE,
@@ -1624,6 +1907,9 @@ def main_path(engine):
         "flow_ms_each": [r["flow_time_s"] * 1e3 for r in steady],
         "profile": profile,
         "draft_profile": draft_profile,
+        "draft_profile_eager": draft_profile_eager,
+        "graphs": {"engine": engine.graphs.stats(), "server": server.graphs.stats(),
+                   "vs_eager": graphs},
     }
     return counts, per_serve, serve, model
 
@@ -1631,11 +1917,11 @@ def main_path(engine):
 def _category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
-    if "ws_step_kernel" in name:
+    if "ws_step_kernel" in name or "ws_step_dkey_kernel" in name:
         return "ws_step"
     if "ws_step_rows_kernel" in name:
         return "ws_step_rows"
-    if "ws_step_gumbel_kernel" in name:
+    if "ws_step_gumbel_kernel" in name or "ws_step_gumbel_dkey_kernel" in name:
         return "ws_step_gumbel"
     if "ws_fused_kernel" in name:
         return "ws_fused"
@@ -1667,16 +1953,19 @@ def profile_serve(server, key):
     return res
 
 
-def profile_draft(engine, key, prompt):
-    """The draft stage alone (one ``generate_rows``, prefix reused) under
+def profile_draft(engine, key, prompt, eager=False):
+    """The draft stage alone (one ``generate_rows``, prefix reused: one decode
+    graph replay, or with ``eager`` its eager launches) under
     ``torch.profiler``: its device time by kernel and busy share."""
     from repro_torch import prng
 
+    gen = engine._generate_rows_eager if eager else engine.generate_rows
+
     def run():
-        engine.generate_rows(prng.split(key, NUM), SEQ, prompt)
+        gen(prng.split(key, NUM), SEQ, prompt)
         torch.cuda.synchronize()
 
-    return _profile(run, "draft stage")
+    return _profile(run, "draft stage" + (" (eager launches)" if eager else " (graph)"))
 
 
 def _profile(run, what):
@@ -1733,11 +2022,13 @@ def main() -> int:
     # flash_attn and qkv_rope at head dims 32, 64, 128; post_attn's wo, down, up and
     # gated up; the head at 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
     # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
-    # the noise given and keyed; ws_fused at each with lg in registers and re-read
+    # the noise given and keyed; ws_fused at each with lg in registers and re-read; the
+    # device-key ws_step and keyed ws_step_gumbel (the refine graphs' steps) at each G
     for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4),
                           ("qkv_rope_kernel", 3), ("head_proj_kernel", 8),
                           ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
-                          ("ws_step_gumbel_kernel", 10), ("ws_fused_kernel", 10)):
+                          ("ws_step_gumbel_kernel", 10), ("ws_fused_kernel", 10),
+                          ("ws_step_dkey_kernel", 5), ("ws_step_gumbel_dkey_kernel", 5)):
         found = {k: v for k, v in usage.items() if kernel in k}
         print(f"{kernel}: spill bytes {[v.get('spill') for v in found.values()]}, registers "
               f"{[v.get('registers') for v in found.values()]}")
@@ -1773,8 +2064,13 @@ def main() -> int:
                           for k, b, n, v in ((4, NUM, SEQ, VOCAB), (3, 8, 64, 200),
                                              (2, 2, 8, 50257), (2, 3, 7, 5))]
     lanes_checks = [check_ws_lanes(NUM * SEQ, VOCAB, 0), check_ws_lanes(64, 50257, 1)]
+    key_checks = [check_device_keys(NUM * SEQ, VOCAB, 0), check_device_keys(64, 50257, 1)]
     ws_num = measure_ws_step(NUM * SEQ, VOCAB)
     lanes_num = measure_ws_lanes(NUM * SEQ, VOCAB)
+    print(f"ws_step at ({NUM * SEQ}, {VOCAB}): {ws_num['ms'] * 1e3:.2f} us device with the key "
+          f"read on the card (the serve's refine graph), {ws_num['byvalue_ms'] * 1e3:.2f} us "
+          f"with its words by value (bound {ws_num['bound_ms'] * 1e3:.3f} us, "
+          f"{ws_num['bound_by']}; plain {ws_num['plain_ms'] * 1e3:.1f} us)")
     floor_ms = launch_floor_ms()
     print(f"launch floor (graph of one-element adds): {floor_ms * 1e3:.2f} us device a launch")
     gumbel_num = measure_ws_step_gumbel(NUM * SEQ, VOCAB)
@@ -1825,7 +2121,9 @@ def main() -> int:
          "near_ties": sum(c["near_ties"] for c in ws_checks),
          "shape": [NUM * SEQ, VOCAB], **ws_num,
          "bound_us": ws_num["bound_ms"] * 1e3, "lanes": lanes_checks[0]["lanes"],
-         "ms_by_lanes": lanes_num["ws_step"], "lanes_checks": lanes_checks},
+         "ms_by_lanes": lanes_num["ws_step"],
+         "byvalue_ms_by_lanes": lanes_num["ws_step_byvalue"], "lanes_checks": lanes_checks,
+         "device_key_checks": key_checks},
         {"name": "flash_attn", "route": "cuda", "source": "src/repro_torch/csrc/flash_attn.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:94",
          "tpu_kernel": "flash_attention_pallas",

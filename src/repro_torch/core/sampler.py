@@ -9,8 +9,10 @@ Starting at ``t = t0`` from draft samples, each step forms
 and draws the next state from it, until ``t`` reaches 1. The ``(t, h)``
 schedule is computed on the host once (numpy, identical to the JAX
 package's) and the key is split once, one key per step; the loop itself
-is a Python loop over that schedule. ``kernels/ws_step`` provides the
-fused step (``step_fn``). Without one, the default step is the
+is a Python loop over that schedule. On the card ``EulerSampler(jit=True)``
+runs it as one CUDA graph replay a call (:mod:`repro_torch.graphs`),
+captured once per ``model_fn`` and shape as JAX jits it once.
+``kernels/ws_step`` provides the fused step (``step_fn``). Without one, the default step is the
 probability update and a Gumbel-max draw with ``jax.random.gumbel``'s
 noise: on the CPU in plain torch (``euler_step_probs`` +
 ``categorical_from_probs``), on the card one launch of the
@@ -27,6 +29,7 @@ kernel (``fused_fn``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -35,6 +38,7 @@ import torch
 from repro_torch import prng
 from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
+from repro_torch.graphs import GraphCache
 
 
 class SamplerStats(NamedTuple):
@@ -243,7 +247,8 @@ def gumbel_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h
                 path: WarmStartPath, *, temperature: float = 1.0) -> torch.Tensor:
     """The default Euler step through ``ws_step_gumbel_keyed``: the noise of
     ``categorical_from_probs`` (``jax.random.gumbel(rng, logits.shape)``,
-    hashed in the kernel from the host key's two words) and ``a = clip(h *
+    hashed in the kernel from the key's two words, read on the card when the
+    key lies there, as in the refine graph) and ``a = clip(h *
     velocity_scale(t), 0, 1)``, one weight per batch row (or per position,
     or one for all), on the flattened ``(B * N, V)`` rows. Tokens shaped
     like ``x_t``."""
@@ -263,7 +268,7 @@ def gumbel_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h
 def refine_loop_inputs(rng: torch.Tensor, t0: float, h: float, n: int, *, device=None):
     """``(keys (n, 2), ts (n,), hs (n,))`` for an n-step refine: the key is
     split once on the host (one key per step, shared across the batch);
-    ``ts``/``hs`` go to ``device`` as float32."""
+    ``ts``/``hs`` go to ``device`` as float32 (stay on the host for None)."""
     ts, hs = refine_schedule(t0, h, n)
     keys = prng.split(rng, n)
     return keys, torch.from_numpy(ts).to(device), torch.from_numpy(hs).to(device)
@@ -337,8 +342,13 @@ class EulerSampler:
       fused_block: K > 1 runs the loop in blocks of K draws against one
         backbone evaluation, through the ``ws_fused`` kernel; backbone
         evaluations drop to ceil(nfe / K). Opt-in; 1 is the paper's loop.
-      jit: accepted for the JAX signature; the loop runs eagerly whatever
-        its value (capturing it in a CUDA graph is later work).
+      jit: on the card, run the whole loop as one CUDA graph replay a call,
+        captured once per ``model_fn`` and ``x_init`` shape, dtype and
+        device (JAX's ``_jit_cache`` per ``model_fn``, its jit per shape);
+        the tokens equal ``jit=False``'s bit for bit. A ``model_fn`` or
+        ``step_fn`` that synchronises with the host cannot be captured and
+        raises: pass ``jit=False``, which runs the loop eagerly. On the CPU
+        the loop is eager either way.
     """
 
     path: WarmStartPath
@@ -348,6 +358,14 @@ class EulerSampler:
     step_fn: Optional[Callable] = None
     fused_block: int = 1
     jit: bool = True
+
+    def __post_init__(self):
+        # the jit cache of this sampler: its graphs (and what they hold) die
+        # with it; the dataclass is frozen, so set as the JAX sampler does
+        object.__setattr__(self, "graphs", GraphCache(
+            "EulerSampler's refine loop",
+            hint="a model_fn or step_fn that synchronises with the host cannot be "
+                 "captured; pass jit=False to run the loop eagerly"))
 
     @property
     def h(self) -> float:
@@ -380,19 +398,29 @@ class EulerSampler:
         Returns:
           (x_final, SamplerStats)
         """
-        keys, ts, hs = refine_loop_inputs(rng, self.path.t0, self.h, self.nfe,
-                                          device=x_init.device)
+        keys, ts, hs = refine_loop_inputs(rng, self.path.t0, self.h, self.nfe)
+        loop = functools.partial(self._loop, model_fn)
+        dev = x_init.device
+        with torch.no_grad():
+            if self.jit:
+                # the compile key: model_fn and x_init's shape, dtype and device
+                # (the sampler's own fields are frozen)
+                key = (model_fn, tuple(x_init.shape), x_init.dtype, dev)
+                x = self.graphs(key, loop, x_init, keys, ts, hs)
+            else:
+                x = loop(x_init, keys, ts.to(dev), hs.to(dev))
+        return x, SamplerStats(nfe=self.backbone_evals, final_t=1.0)
+
+    def _loop(self, model_fn, x_init, keys, ts, hs):
         one_step = make_euler_one_step(self.path, temperature=self.temperature,
                                        step_fn=self.step_fn)
         fused_fn = None
         if self.fused_block > 1:
             from repro_torch.kernels.ws_fused import make_ws_fused_fn
             fused_fn = make_ws_fused_fn(self.path, temperature=self.temperature)
-        with torch.no_grad():
-            x = scan_refine_loop(model_fn, one_step, x_init, keys, ts, hs,
-                                 argmax_final=self.argmax_final,
-                                 fused_block=self.fused_block, fused_fn=fused_fn)
-        return x, SamplerStats(nfe=self.backbone_evals, final_t=1.0)
+        return scan_refine_loop(model_fn, one_step, x_init, keys, ts, hs,
+                                argmax_final=self.argmax_final,
+                                fused_block=self.fused_block, fused_fn=fused_fn)
 
 
 def make_refine_step(apply_fn: Callable, path: WarmStartPath, *, temperature: float = 1.0,

@@ -35,6 +35,16 @@
 // the Gumbel noise to match the plain version. The C entry points take `lanes` (0: lanes_for)
 // so that the tests can hold every G against G = 32.
 //
+// The step key of ws_step and of the keyed ws_step_gumbel comes as its two words by
+// value (ws_step_kernel, ws_step_gumbel_kernel) or as a pointer to them on the card
+// (ws_step_dkey_kernel, ws_step_gumbel_dkey_kernel): a CUDA graph of the refine loop
+// reads each replay's keys through the pointer, where words passed by value would be
+// baked into it. A dkey kernel loads the words and runs the same row body on them, so
+// the two give the same bits; the by-value kernels are unchanged (their words stay in
+// the constant bank). The loaded words take registers, and ptxas then held the keyed
+// body at 32 registers with spills: the dkey kernels declare __launch_bounds__(256, 1)
+// (at least one block an SM), which lifts that cap.
+//
 // Bound on an H100 SXM: the logits are the only (R, V) array read (R * V
 // * 4 bytes, plus 12 bytes a row); the arithmetic is a 20-round hash, two
 // logf for the noise and the streamed softmax per element, about 112
@@ -68,10 +78,11 @@ namespace {
 // in the last warp, lanes past the last row draw that row again (every lane
 // must join the shuffles) and write nothing.
 template <int G>
-__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32)
-ws_step_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
-               const float* __restrict__ a, int32_t* __restrict__ out, int rows, int vocab,
-               uint32_t seed0, uint32_t seed1, float temperature) {
+__device__ __forceinline__ void step_rows(const float* __restrict__ logits,
+                                          const int32_t* __restrict__ x,
+                                          const float* __restrict__ a,
+                                          int32_t* __restrict__ out, int rows, int vocab,
+                                          uint32_t seed0, uint32_t seed1, float temperature) {
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * wsfm::kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
   if (first >= rows) return;  // the whole warp leaves together
@@ -81,6 +92,24 @@ ws_step_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
   const int next = wsfm::draw_row_grouped<G>(logits + static_cast<size_t>(row) * vocab, vocab,
                                              x[row], a[row], temperature, noise, lane % G);
   if (lane % G == 0 && mine < rows) out[row] = next;
+}
+
+template <int G>
+__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32)
+ws_step_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
+               const float* __restrict__ a, int32_t* __restrict__ out, int rows, int vocab,
+               uint32_t seed0, uint32_t seed1, float temperature) {
+  step_rows<G>(logits, x, a, out, rows, vocab, seed0, seed1, temperature);
+}
+
+// key: (2,) int64 on the card holding the two uint32 words (prng's key data).
+template <int G>
+__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32, 1)
+ws_step_dkey_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
+                    const float* __restrict__ a, const int64_t* __restrict__ key,
+                    int32_t* __restrict__ out, int rows, int vocab, float temperature) {
+  step_rows<G>(logits, x, a, out, rows, vocab, static_cast<uint32_t>(key[0]),
+               static_cast<uint32_t>(key[1]), temperature);
 }
 
 // keys: (B, 2) int64 holding uint32 key words; a: (B,); rows = B * group.
@@ -160,11 +189,13 @@ __device__ __forceinline__ int gumbel_draw(const float* __restrict__ lg, int val
 // valid_v are never read and never win (their score is -1e30 in the TPU kernel). The
 // layout is ws_step_kernel<G>'s: tail lanes draw the last row again and write nothing.
 template <int G, bool kKeyed>
-__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32)
-ws_step_gumbel_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
-                      const float* __restrict__ a, const float* __restrict__ gumbel,
-                      int32_t* __restrict__ out, int rows, int vp, int valid_v, int a_group,
-                      uint32_t k0, uint32_t k1, float temperature) {
+__device__ __forceinline__ void gumbel_rows(const float* __restrict__ logits,
+                                            const int32_t* __restrict__ x,
+                                            const float* __restrict__ a,
+                                            const float* __restrict__ gumbel,
+                                            int32_t* __restrict__ out, int rows, int vp,
+                                            int valid_v, int a_group, uint32_t k0, uint32_t k1,
+                                            float temperature) {
   const int lane = threadIdx.x & 31;
   const int first = (blockIdx.x * wsfm::kWarpsPerBlock + (threadIdx.x >> 5)) * (32 / G);
   if (first >= rows) return;  // the whole warp leaves together
@@ -180,6 +211,28 @@ ws_step_gumbel_kernel(const float* __restrict__ logits, const int32_t* __restric
     next = gumbel_draw<G>(lg, valid_v, x[row], a[row / a_group], temperature, noise, lane % G);
   }
   if (lane % G == 0 && mine < rows) out[row] = next;
+}
+
+template <int G, bool kKeyed>
+__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32)
+ws_step_gumbel_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
+                      const float* __restrict__ a, const float* __restrict__ gumbel,
+                      int32_t* __restrict__ out, int rows, int vp, int valid_v, int a_group,
+                      uint32_t k0, uint32_t k1, float temperature) {
+  gumbel_rows<G, kKeyed>(logits, x, a, gumbel, out, rows, vp, valid_v, a_group, k0, k1,
+                         temperature);
+}
+
+// The keyed draw with its key on the card: key (2,) int64 holding the two words.
+template <int G>
+__global__ void __launch_bounds__(wsfm::kWarpsPerBlock * 32, 1)
+ws_step_gumbel_dkey_kernel(const float* __restrict__ logits, const int32_t* __restrict__ x,
+                           const float* __restrict__ a, const int64_t* __restrict__ key,
+                           int32_t* __restrict__ out, int rows, int vp, int valid_v,
+                           int a_group, float temperature) {
+  gumbel_rows<G, true>(logits, x, a, nullptr, out, rows, vp, valid_v, a_group,
+                       static_cast<uint32_t>(key[0]), static_cast<uint32_t>(key[1]),
+                       temperature);
 }
 
 constexpr int kThreads = wsfm::kWarpsPerBlock * 32;
@@ -201,6 +254,21 @@ extern "C" int ws_step_launch(const void* logits, const void* x, const void* a, 
       static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
       static_cast<const float*>(a), static_cast<int32_t*>(out), rows, vocab, seed0, seed1, \
       temperature)
+  WSFM_GROUPED_LAUNCH(lanes, vocab, rows, stream, WSFM_STEP);
+#undef WSFM_STEP
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The step key on the card: key (2,) int64, read by the kernel.
+extern "C" int ws_step_dkey_launch(const void* logits, const void* x, const void* a,
+                                   const void* key, void* out, int rows, int vocab,
+                                   float temperature, int lanes, void* stream) {
+  if (rows <= 0 || vocab <= 0 || key == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+#define WSFM_STEP(G, grid, st)                                                             \
+  ws_step_dkey_kernel<G><<<grid, kThreads, 0, st>>>(                                       \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), static_cast<const int64_t*>(key),                      \
+      static_cast<int32_t*>(out), rows, vocab, temperature)
   WSFM_GROUPED_LAUNCH(lanes, vocab, rows, stream, WSFM_STEP);
 #undef WSFM_STEP
   return static_cast<int>(cudaGetLastError());
@@ -252,6 +320,25 @@ extern "C" int ws_step_gumbel_keyed_launch(const void* logits, const void* x, co
       valid_v, a_group, k0, k1, temperature)
   WSFM_GROUPED_LAUNCH(lanes, valid_v, rows, stream, WSFM_KEYED);
 #undef WSFM_KEYED
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The key on the card: key (2,) int64, read by the kernel.
+extern "C" int ws_step_gumbel_dkey_launch(const void* logits, const void* x, const void* a,
+                                          const void* key, void* out, int rows, int vp,
+                                          int valid_v, int a_group, float temperature,
+                                          int lanes, void* stream) {
+  if (!gumbel_shape_ok(rows, vp, valid_v) || a_group <= 0 || rows % a_group != 0 ||
+      key == nullptr ||
+      static_cast<uint64_t>(rows) * static_cast<uint64_t>(vp) >= (uint64_t{1} << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define WSFM_DKEY(G, grid, st)                                                             \
+  ws_step_gumbel_dkey_kernel<G><<<grid, kThreads, 0, st>>>(                                \
+      static_cast<const float*>(logits), static_cast<const int32_t*>(x),                   \
+      static_cast<const float*>(a), static_cast<const int64_t*>(key),                      \
+      static_cast<int32_t*>(out), rows, vp, valid_v, a_group, temperature)
+  WSFM_GROUPED_LAUNCH(lanes, valid_v, rows, stream, WSFM_DKEY);
+#undef WSFM_DKEY
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -9,8 +9,15 @@ paper's LSTM (§4.2), whose "cache" is its recurrent state.
 * **prefill + decode** — the prompt is consumed by one batched call
   ("batched") or token by token ("scan"); then ``seq_len`` tokens are
   sampled, each followed by one single-token decode step (the last needs
-  none). The JAX engine runs each phase as one jitted dispatch; here each
-  step is a Python loop of eager launches (a CUDA graph is later work).
+  none). The JAX engine samples every token in one jitted ``lax.scan``
+  dispatch; here, on the card, the whole decode (the noise of every
+  token, every draw and every decode step) is one CUDA graph replay
+  (:mod:`repro_torch.graphs`), captured once per ``(rows, prefix_len,
+  seq_len)``. That key is finer than JAX's ``(rows, seq_len)``: JAX
+  traces the start position, the graph bakes each step's position in as
+  the host integer the kernels take. The prefill runs eagerly, as does
+  everything on the CPU; the graph's tokens equal the eager loop's bit
+  for bit.
 * **prefix reuse** — the post-prefill cache is pooled per row count;
   a call with the same rows and prompt skips the prefill and just rewinds
   the cache cursors to the prompt length (KV rows past it are masked by
@@ -18,8 +25,10 @@ paper's LSTM (§4.2), whose "cache" is its recurrent state.
   adapter (``positional = False``) keeps the post-prefill state itself: its
   steps make new tensors and never write the snapshot.
 * **in place** — the cache buffers are written in place where the JAX
-  engine donates them; a pooled cache is handed to the next decode and
-  re-pooled afterwards.
+  engine donates them. A positional adapter's cache is allocated once per
+  row count and kept for the engine's lifetime (the decode graphs write
+  those very buffers): a new prompt is prefilled into it and its cursors
+  are rewound in place.
 * **row-keyed sampling** — token ``i`` of row ``b`` is
   ``categorical(fold_in(keys[b], i), logits / temperature)``: a row depends
   only on its own key and the prompt (pack-invariant, prefix-stable). The
@@ -35,8 +44,9 @@ prefill equals the scan bitwise and is the default.
 Adapter contract: ``device``, ``init_cache(batch, max_len)``,
 ``decode_step(tok (B,), cache, pos) -> (logits (B, V), cache)``,
 ``prefill_batched(toks (B, S), cache)``, ``positional`` (cursors in the
-cache, rewound by ``set_pos``) and ``exact_batched_prefill``. The adapter
-holds its model's parameters.
+cache, rewound in place by ``set_pos``) and ``exact_batched_prefill``. The
+adapter holds its model's parameters; on the card its steps must not
+synchronise with the host, or the decode's capture raises.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.graphs import GraphCache
 from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
 
 
@@ -132,11 +143,12 @@ class TransformerDraftAdapter:
 
     @staticmethod
     def set_pos(cache: dict, pos: int) -> dict:
-        """Every cursor set to ``pos``: the zero-copy prefix rewind."""
-        return {group: {name: {k: torch.full_like(v, pos) if k == "pos" else v
-                               for k, v in leaves.items()}
-                        for name, leaves in cache[group].items()}
-                for group in ("blocks", "rem", "pre")}
+        """Every cursor set to ``pos`` in place: the zero-copy prefix rewind
+        (a decode graph reads these very cursor tensors). Returns ``cache``."""
+        for group in ("blocks", "rem", "pre"):
+            for leaves in cache.get(group, {}).values():
+                leaves["pos"].fill_(pos)
+        return cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,7 +208,7 @@ class DraftEngineStats:
 @dataclasses.dataclass
 class _PoolEntry:
     prefix_key: Tuple[bytes, int]    # (prompt fingerprint, prefix_len)
-    snapshot: dict                   # post-prefill cache
+    snapshot: dict                   # post-prefill cache (positional: the row count's own)
     logits0: torch.Tensor            # (B, V) next-token logits after the prefix
 
 
@@ -215,6 +227,9 @@ class ARDraftEngine:
       prefill_mode: "scan" (token by token, bit-exact on any adapter),
         "batched" (one call; bit-exact iff ``adapter.exact_batched_prefill``)
         or None to take "batched" where it is exact, else "scan".
+
+    ``graphs`` holds the decode's CUDA graphs and their capture and replay
+    counts; :meth:`reset` drops them with the caches.
     """
 
     def __init__(self, adapter, *, max_len: int, temperature: float = 1.0, bos: int = 0,
@@ -231,6 +246,10 @@ class ARDraftEngine:
         self.prefill_mode = prefill_mode
         self.stats = DraftEngineStats()
         self._pool: Dict[int, _PoolEntry] = {}
+        # positional adapters: one KV cache per row count, for the engine's
+        # lifetime (until reset), since the decode graphs write its buffers
+        self._caches: Dict[int, dict] = {}
+        self.graphs = GraphCache("ARDraftEngine's decode")
 
     @property
     def device(self) -> torch.device:
@@ -246,11 +265,12 @@ class ARDraftEngine:
             logits, cache = self.adapter.decode_step(toks[:, j], cache, j)
         return logits, cache
 
-    def _decode(self, cache: dict, logits0: torch.Tensor, keys: torch.Tensor, start: int,
-                n_steps: int) -> Tuple[torch.Tensor, dict]:
+    def _decode_eager(self, cache: dict, logits0: torch.Tensor, keys: torch.Tensor,
+                      start: int, n_steps: int) -> torch.Tensor:
         """Sample ``n_steps`` tokens: token i from the current logits with
         the row's key folded with i, then one decode step (none after the
-        last token)."""
+        last token). The cursors the steps advance are new tensors: the
+        pooled ones stay at ``start``."""
         noise = row_gumbel(keys, n_steps, logits0.shape[-1], logits0.device)
         logits, toks = logits0, []
         for i in range(n_steps):
@@ -258,7 +278,25 @@ class ARDraftEngine:
             toks.append(tok)
             if i < n_steps - 1:
                 logits, cache = self.adapter.decode_step(tok, cache, start + i)
-        return torch.stack(toks, dim=1), cache
+        return torch.stack(toks, dim=1)
+
+    def _decode(self, cache: dict, logits0: torch.Tensor, keys: torch.Tensor, start: int,
+                n_steps: int, graphed: bool) -> torch.Tensor:
+        """The decode: ``graphed``, through the graph of ``(rows, start,
+        n_steps)`` (one replay on the card), else :meth:`_decode_eager`. A
+        positional cache is the row count's own, read and written by the
+        graph in place; a recurrent state is an input, copied in like the
+        keys."""
+        if not graphed:
+            return self._decode_eager(cache, logits0, keys, start, n_steps)
+        key = (keys.shape[0], start, n_steps)
+        names = [] if self.adapter.positional else sorted(cache)
+
+        def run(lg, k, *state):
+            return self._decode_eager(dict(zip(names, state)) if names else cache, lg, k,
+                                      start, n_steps)
+
+        return self.graphs(key, run, logits0, keys, *(cache[n] for n in names))
 
     # ---- prefix bookkeeping ------------------------------------------------
 
@@ -271,29 +309,32 @@ class ARDraftEngine:
         """Post-prefill (cache, logits0): reused when the pool holds this
         (rows, prefix), else recomputed.
 
-        Positional adapters: the entry is popped and its buffer (rewound to
-        0) recomputed in place; it goes to the decode and ``generate_rows``
-        pools it again afterwards, so a failure in between leaves no
-        half-used cache in the pool. Recurrent adapters: the entry stays
-        pooled, since decoding never writes it."""
-        positional = self.adapter.positional
-        entry = self._pool.pop(b, None) if positional else self._pool.get(b)
+        The entry is popped; ``generate_rows`` pools it again after the
+        decode, so a failure in between leaves no half-used cache in the
+        pool. Positional adapters: the row count's own cache, its cursors
+        rewound in place (to 0 and prefilled, or straight to the prefix
+        length on reuse). Recurrent adapters: a new state on recompute; the
+        decode never writes the snapshot."""
+        p = prompt.shape[1]
+        entry = self._pool.pop(b, None)
         if entry is not None and entry.prefix_key == key:
             self.stats.prefill_reuses += 1
+            if self.adapter.positional:
+                self.adapter.set_pos(entry.snapshot, p)
             return entry.snapshot, entry.logits0
-        if entry is not None and positional:
-            cache = self.adapter.set_pos(entry.snapshot, 0)
+        if self.adapter.positional:
+            cache = self._caches.get(b)
+            if cache is None:
+                cache = self._caches[b] = self.adapter.init_cache(b, self.max_len)
+            logits0, _ = self._prefill(self.adapter.set_pos(cache, 0), prompt)
+            self.adapter.set_pos(cache, p)
         else:
-            cache = self.adapter.init_cache(b, self.max_len)
-        logits0, cache = self._prefill(cache, prompt)
+            logits0, cache = self._prefill(self.adapter.init_cache(b, self.max_len), prompt)
         self.stats.prefill_computes += 1
-        if not positional:
-            self._pool[b] = _PoolEntry(key, cache, logits0)
         return cache, logits0
 
     # ---- generation ----------------------------------------------------------
 
-    @torch.no_grad()
     def generate_rows(self, keys: torch.Tensor, seq_len: int,
                       prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Row-keyed draft generation.
@@ -307,6 +348,17 @@ class ARDraftEngine:
           (B, seq_len) int32 draft tokens on the model's device (prompt not
           included).
         """
+        return self._generate(keys, seq_len, prompt, graphed=True)
+
+    def _generate_rows_eager(self, keys: torch.Tensor, seq_len: int,
+                             prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`generate_rows` with the decode as eager launches on the
+        card too: the graph's yardstick."""
+        return self._generate(keys, seq_len, prompt, graphed=False)
+
+    @torch.no_grad()
+    def _generate(self, keys: torch.Tensor, seq_len: int, prompt: Optional[torch.Tensor],
+                  graphed: bool) -> torch.Tensor:
         if seq_len < 1:
             raise ValueError(f"seq_len must be >= 1, got {seq_len}")
         keys = prng.key_data(keys)
@@ -322,11 +374,10 @@ class ARDraftEngine:
                              f"max_len={self.max_len}")
         fp = self._fingerprint(prompt)
         cache, logits0 = self._prefix_cache(b, prompt, fp)
-        toks, cache = self._decode(cache, logits0, keys, p, int(seq_len))
-        if self.adapter.positional:
-            # the prefix KV rows < p are never overwritten, so a cursor
-            # rewind restores the post-prefill cache with no copy
-            self._pool[b] = _PoolEntry(fp, self.adapter.set_pos(cache, p), logits0)
+        toks = self._decode(cache, logits0, keys, p, int(seq_len), graphed)
+        # the prefix KV rows < p are never overwritten and the pooled cursors
+        # stay at p, so the post-prefill cache is intact with no copy
+        self._pool[b] = _PoolEntry(fp, cache, logits0)
         self.stats.decode_dispatches += 1
         self.stats.tokens_generated += b * seq_len
         return toks
@@ -336,5 +387,8 @@ class ARDraftEngine:
         return self.generate_rows
 
     def reset(self) -> None:
-        """Drop pooled prefix caches (frees device buffers)."""
+        """Drop pooled prefixes, the caches and the decode graphs (frees
+        device buffers)."""
         self._pool.clear()
+        self._caches.clear()
+        self.graphs.clear()

@@ -17,10 +17,11 @@
 
 Each wrapper launches its kernel for a CUDA tensor and takes its plain
 PyTorch version (``ref.py``) only for a CPU tensor. ``_build`` compiles
-``csrc/*.cu`` with ``nvcc`` on first use and counts launches.
+``csrc/*.cu`` with ``nvcc`` on first use; ``repro_torch.counts`` counts
+launches.
 """
 
-from repro_torch.kernels._build import launches
+from repro_torch.counts import launches
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
 from repro_torch.kernels.ws_fused import make_ws_fused_fn, ws_fused_steps

@@ -9,15 +9,13 @@ Gumbel noise needs the accurate ``logf`` to match its plain version.
 
 Each C entry point takes device pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on
-a non-zero code. A failed build raises. ``launches`` counts kernel
-launches by kernel name; each wrapper calls :func:`count` where it
-launches, under a lock, since the scheduler launches from its draft
-worker thread and its refine thread at once.
+a non-zero code. A failed build raises. ``launches`` and :func:`count`
+come from :mod:`repro_torch.counts`: each wrapper counts its launch where
+it launches.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import os
 import shutil
@@ -27,16 +25,15 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from repro_torch.counts import count, launches  # noqa: F401  (the wrappers' counting)
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libwsfm_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
-launches: collections.Counter = collections.Counter()
-
 _lock = threading.Lock()
-_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 build_log = ""
@@ -46,6 +43,9 @@ _SIGNATURES = {
     # logits, x, a, out, rows, vocab, seed0, seed1, temperature, lanes a row (0: the
     # choice from vocab), stream
     "ws_step_launch": [_P, _P, _P, _P, _I, _I, _U, _U, _F, _I, _P],
+    # logits, x, a, key (2,) int64 on the card, out, rows, vocab, temperature, lanes,
+    # stream
+    "ws_step_dkey_launch": [_P] * 5 + [_I, _I, _F, _I, _P],
     # logits, x, a (B,), keys (B, 2) int64, out, rows, vocab, group (N), temperature,
     # lanes a row, stream
     "ws_step_rows_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
@@ -57,6 +57,9 @@ _SIGNATURES = {
     # logits, x, a (R / a_group,), key words k0, k1, out, rows, padded vocab, valid vocab,
     # a_group, temperature, lanes a row, stream
     "ws_step_gumbel_keyed_launch": [_P, _P, _P, _U, _U, _P] + [_I] * 4 + [_F, _I, _P],
+    # logits, x, a, key (2,) int64 on the card, out, rows, padded vocab, valid vocab,
+    # a_group, temperature, lanes a row, stream
+    "ws_step_gumbel_dkey_launch": [_P] * 5 + [_I] * 4 + [_F, _I, _P],
     # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,
     # steps, key_group, a_group, temperature, lanes a row (0: the choice from vocab), stream
     "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
@@ -148,12 +151,6 @@ def library() -> ctypes.CDLL:
             lib.wsfm_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
-
-
-def count(name: str) -> None:
-    """Add one launch of ``name`` to ``launches`` (thread-safe)."""
-    with _count_lock:
-        launches[name] += 1
 
 
 def check(rc: int, name: str) -> None:

@@ -4,7 +4,8 @@ noise given or keyed), their wrappers (``ops``) and plain versions
 (``ref``)."""
 
 from repro_torch.kernels.ws_step.ops import (
-    make_ws_step_fn, seed_from_key, ws_step, ws_step_gumbel, ws_step_gumbel_keyed, ws_step_rows,
+    key_words, make_ws_step_fn, seed_from_key, ws_step, ws_step_gumbel, ws_step_gumbel_keyed,
+    ws_step_rows,
 )
 from repro_torch.kernels.ws_step.ref import (
     keyed_gumbel, keyed_uniform, near_tie_rows, near_tie_rows_probs, ws_step_gumbel_ref,
@@ -12,6 +13,6 @@ from repro_torch.kernels.ws_step.ref import (
 )
 
 __all__ = ["ws_step", "ws_step_rows", "ws_step_gumbel", "ws_step_gumbel_keyed",
-           "make_ws_step_fn", "seed_from_key", "ws_step_ref", "ws_step_ref_streamed",
-           "ws_step_rows_ref", "ws_step_gumbel_ref", "keyed_gumbel", "keyed_uniform",
-           "near_tie_rows", "near_tie_rows_probs"]
+           "make_ws_step_fn", "seed_from_key", "key_words", "ws_step_ref",
+           "ws_step_ref_streamed", "ws_step_rows_ref", "ws_step_gumbel_ref", "keyed_gumbel",
+           "keyed_uniform", "near_tie_rows", "near_tie_rows_probs"]

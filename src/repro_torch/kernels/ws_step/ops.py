@@ -6,7 +6,9 @@ rows, forms ``a = clip(h * velocity_scale(t), 0, 1)`` per row and draws
 the next token of every row with the threefry noise keyed by the step
 key's two words and the absolute ``(row, col)``. A CUDA tensor launches
 the kernel (or raises); a CPU tensor takes the plain streamed version on
-the same noise (``prng.threefry_gumbel``).
+the same noise (``prng.threefry_gumbel``). A step key on the card is read
+by the kernel (:func:`key_words`), one on the host goes to it as two
+integers: the same words give the same bits.
 
 ``ws_step_rows(keys, logits, x_t, t, h, path)`` is the per-row mode that
 the scheduler's ``make_euler_one_step_rows`` runs: ``keys (B, 2)`` (one
@@ -48,6 +50,27 @@ def seed_from_key(rng: torch.Tensor) -> Tuple[int, int]:
     return int(kd[0]), int(kd[1])
 
 
+def key_words(rng: torch.Tensor) -> torch.Tensor:
+    """The two words of a step key as the kernels read them from the card:
+    ``(2,)`` int64 (a view of the key, no copy), equal to
+    :func:`seed_from_key`'s integers."""
+    kd = prng.key_data(rng).reshape(-1)[:2]
+    if kd.dtype != torch.int64:
+        raise ValueError(f"a key's words are int64, got {kd.dtype}")
+    return kd.contiguous()
+
+
+def _kernel_seed(rng: torch.Tensor, device: torch.device):
+    """What a launch on ``device`` takes for the key: its words on the card
+    when the key lies there (no synchronisation: a CUDA graph can hold it),
+    else the host's two integers."""
+    if rng.device.type == "cpu":
+        return seed_from_key(rng)
+    if rng.device != device:
+        raise ValueError(f"the step key lies on {rng.device}, the logits on {device}")
+    return key_words(rng)
+
+
 def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
             path: WarmStartPath, *, temperature: float = 1.0,
             impl: Optional[str] = None) -> torch.Tensor:
@@ -79,10 +102,9 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
         return out.reshape(x_t.shape)
     if impl not in (None, "auto", "streamed"):
         raise ValueError(f"unknown ws_step impl {impl!r}")
-    seed = seed_from_key(rng)
 
     if logits.device.type == "cpu":
-        g = prng.threefry_gumbel(seed, r, v, device=logits.device)
+        g = prng.threefry_gumbel(seed_from_key(rng), r, v, device=logits.device)
         out = ws_step_ref_streamed(lg, x, a, g, temperature=temperature)
         return out.reshape(x_t.shape)
     if logits.device.type != "cuda":
@@ -95,7 +117,7 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
     x32 = x.to(torch.int32).contiguous()
     a = a.contiguous()
     out = torch.empty(r, dtype=torch.int32, device=logits.device)
-    _launch(lg, x32, a, out, seed, temperature)
+    _launch(lg, x32, a, out, _kernel_seed(rng, logits.device), temperature)
     _build.count("ws_step")
     return out.reshape(x_t.shape)
 
@@ -103,14 +125,22 @@ def ws_step(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Tensor, t, h,
 def _launch(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, out: torch.Tensor, seed,
             temperature: float, *, lanes: int = 0) -> None:
     """One launch of the kernel on checked, contiguous CUDA tensors (no count).
-    ``lanes`` forces the lanes a row (2, 4, 8, 16 or 32; 0: the kernel's
-    choice from V), for the tests: the tokens are the same at every one."""
+    ``seed``: the key's two words as integers, or as a ``(2,)`` int64 tensor
+    on the card (:func:`key_words`), which the kernel reads. ``lanes``
+    forces the lanes a row (2, 4, 8, 16 or 32; 0: the kernel's choice from
+    V), for the tests: the tokens are the same at every one."""
     r, v = lg.shape
+    lib = _build.library()
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
-        rc = _build.library().ws_step_launch(lg.data_ptr(), x.data_ptr(), a.data_ptr(),
-                                             out.data_ptr(), r, v, seed[0], seed[1],
-                                             float(temperature), int(lanes), stream)
+        if isinstance(seed, torch.Tensor):
+            rc = lib.ws_step_dkey_launch(lg.data_ptr(), x.data_ptr(), a.data_ptr(),
+                                         seed.data_ptr(), out.data_ptr(), r, v,
+                                         float(temperature), int(lanes), stream)
+        else:
+            rc = lib.ws_step_launch(lg.data_ptr(), x.data_ptr(), a.data_ptr(), out.data_ptr(),
+                                    r, v, seed[0], seed[1], float(temperature), int(lanes),
+                                    stream)
     _build.check(rc, "ws_step")
 
 
@@ -245,8 +275,9 @@ def ws_step_gumbel_keyed(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Ten
                          a: torch.Tensor, *, valid_v: Optional[int] = None,
                          temperature: float = 1.0) -> torch.Tensor:
     """:func:`ws_step_gumbel` on the noise ``jax.random.gumbel(rng, (R,
-    Vp))``, which the kernel hashes itself: ``rng`` a key ``(2,)`` (best on
-    the host: its two words go to the kernel as integers), ``logits (R,
+    Vp))``, which the kernel hashes itself: ``rng`` a key ``(2,)`` (on the
+    host its two words go to the kernel as integers; on the card the kernel
+    reads them, as a CUDA graph of the refine loop needs), ``logits (R,
     Vp)`` float32, ``x_t (R,)``, ``a`` float32 holding ``R / a_group``
     weights, row ``r`` mixing with ``a.reshape(-1)[r // a_group]`` (one
     weight, one per batch row of ``a_group`` positions, or one per row);
@@ -268,10 +299,9 @@ def ws_step_gumbel_keyed(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Ten
                          f"{a.numel()} weights")
     if r * vp >= 1 << 32:
         raise NotImplementedError("random bits arrays of 2**32 elements or more")
-    seed = seed_from_key(rng)
     dev = logits.device
     if dev.type == "cpu":
-        g = keyed_gumbel(seed, r, vp, device=dev)
+        g = keyed_gumbel(seed_from_key(rng), r, vp, device=dev)
         aa = a.repeat_interleave(r // a.numel()).reshape(r, 1)
         return ws_step_gumbel_ref(logits, x_t.reshape(r, 1), aa, g, valid_v=valid_v,
                                   temperature=temperature)[:, 0]
@@ -284,7 +314,7 @@ def ws_step_gumbel_keyed(rng: torch.Tensor, logits: torch.Tensor, x_t: torch.Ten
         raise ValueError(f"x_t and a must lie on {dev} with the logits")
     out = torch.empty(r, dtype=torch.int32, device=dev)
     _launch_gumbel_keyed(logits.contiguous(), x_t.to(torch.int32).contiguous(),
-                         a.contiguous(), seed, out, valid_v, temperature)
+                         a.contiguous(), _kernel_seed(rng, dev), out, valid_v, temperature)
     _build.count("ws_step_gumbel")
     return out
 
@@ -293,13 +323,20 @@ def _launch_gumbel_keyed(lg: torch.Tensor, x: torch.Tensor, a: torch.Tensor, see
                          out: torch.Tensor, valid_v: int, temperature: float, *,
                          lanes: int = 0) -> None:
     """One launch of ``ws_step_gumbel_kernel`` with the noise keyed by the
-    two words ``seed``, on checked CUDA tensors (no count); ``a`` holds one
+    two words ``seed`` (integers, or a ``(2,)`` int64 tensor on the card as
+    in :func:`_launch`), on checked CUDA tensors (no count); ``a`` holds one
     weight for every ``R / a.numel()`` rows; ``lanes`` as in
     :func:`_launch_gumbel`."""
     r, vp = lg.shape
+    lib = _build.library()
     with torch.cuda.device(lg.device):
         stream = torch.cuda.current_stream(lg.device).cuda_stream
-        rc = _build.library().ws_step_gumbel_keyed_launch(
-            lg.data_ptr(), x.data_ptr(), a.data_ptr(), seed[0], seed[1], out.data_ptr(), r,
-            vp, valid_v, r // a.numel(), float(temperature), int(lanes), stream)
+        if isinstance(seed, torch.Tensor):
+            rc = lib.ws_step_gumbel_dkey_launch(
+                lg.data_ptr(), x.data_ptr(), a.data_ptr(), seed.data_ptr(), out.data_ptr(), r,
+                vp, valid_v, r // a.numel(), float(temperature), int(lanes), stream)
+        else:
+            rc = lib.ws_step_gumbel_keyed_launch(
+                lg.data_ptr(), x.data_ptr(), a.data_ptr(), seed[0], seed[1], out.data_ptr(), r,
+                vp, valid_v, r // a.numel(), float(temperature), int(lanes), stream)
     _build.check(rc, "ws_step_gumbel")

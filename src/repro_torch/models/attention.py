@@ -81,10 +81,12 @@ class GQAAttention(nn.Module):
         q, k, v = self._qkv(x, sin, cos)
         kbuf, vbuf = cache["k"], cache["v"]
         t = kbuf.shape[1]
-        start = int(cache["pos"])
-        w0 = min(max(start, 0), t - s)   # dynamic_update_slice clamps the write to fit
-        kbuf[:, w0:w0 + s] = k.to(kbuf.dtype)
-        vbuf[:, w0:w0 + s] = v.to(vbuf.dtype)
+        # the cursor stays a tensor (no read by the host, so a CUDA graph can
+        # hold this step); dynamic_update_slice clamps the write to fit
+        start = cache["pos"]
+        rows = torch.clamp(start, 0, t - s).long() + torch.arange(s, device=kbuf.device)
+        kbuf.index_copy_(1, rows, k.to(kbuf.dtype))
+        vbuf.index_copy_(1, rows, v.to(vbuf.dtype))
         k_pos = torch.arange(t, device=x.device)
         mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos < start + s)
         if window is not None:

@@ -141,8 +141,9 @@ class Model(nn.Module):
     def _forward_cached(self, tokens, cache, offset, global_window):
         b, s = tokens.shape
         x = self.embed(tokens)
+        # offset added as it comes (an int: no copy to the card)
         q_pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-                 + torch.as_tensor(offset, dtype=torch.int32, device=x.device)).expand(b, s)
+                 + offset).expand(b, s)
         sin, cos = self._rope(q_pos)
         new: dict = {"blocks": {}, "rem": {}, "pre": {}}
         cursors: dict = {}

@@ -9,9 +9,10 @@ DFM backbone, then the NFE guarantee gate. With
 ``step_fn=make_ws_step_fn(path)`` every step is one ``ws_step`` kernel
 launch (with no ``step_fn``, one ``ws_step_gumbel`` launch), and every
 backbone evaluation runs its attention through the ``flash_attn`` kernel; with ``fused_block = K > 1`` each backbone
-evaluation feeds K draws in one ``ws_fused`` launch. The refine loop is a Python loop of eager launches
-(the JAX engine jits it into one dispatch; a CUDA graph is the port's
-counterpart, not built yet).
+evaluation feeds K draws in one ``ws_fused`` launch. On the card the whole
+refine loop is one CUDA graph replay a serve (:mod:`repro_torch.graphs`),
+captured once per ``(num, seq_len, n_steps, fused_block)`` as the JAX
+engine jits its loop once per shape; on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import make_euler_one_step, refine_loop_inputs, scan_refine_loop
 from repro_torch.device import resolve_device
+from repro_torch.graphs import GraphCache
 from repro_torch.kernels.ws_fused import make_ws_fused_fn
 
 
@@ -226,7 +228,9 @@ class WarmStartServer:
     The NFE guarantee is enforced with
     :class:`~repro_torch.core.guarantees.GuaranteeViolation`. The backbone
     ``flow_model`` (a ``Model``) holds its own weights and must live on
-    ``device``.
+    ``device``. ``graphs`` holds the refine loop's CUDA graphs (one per
+    ``(num, seq_len, n_steps, fused_block)``) and their capture and replay
+    counts.
     """
 
     flow_model: Any
@@ -254,10 +258,21 @@ class WarmStartServer:
             self.path, temperature=self.temperature, step_fn=self.step_fn)
         self._fused_fn = (make_ws_fused_fn(self.path, temperature=self.temperature)
                           if self.fused_block > 1 else None)
+        self.graphs = GraphCache("WarmStartServer's refine loop")
 
-    def _refine_loop(self, keys, x, ts, hs):
+    def _loop(self, x, keys, ts, hs):
         return scan_refine_loop(self.flow_model.dfm_apply, self._one_step, x, keys, ts, hs,
                                 fused_block=self.fused_block, fused_fn=self._fused_fn)
+
+    def _refine_loop(self, keys, x, ts, hs):
+        """The refine from the host's ``keys``, ``ts``, ``hs``: on the card one
+        replay of the graph of ``(num, seq_len, n_steps, fused_block)``."""
+        key = (x.shape[0], x.shape[1], ts.shape[0], self.fused_block)
+        return self.graphs(key, self._loop, x, keys, ts, hs)
+
+    def _refine_loop_eager(self, keys, x, ts, hs):
+        """The same loop as eager launches (the graph's yardstick)."""
+        return self._loop(x, keys, ts.to(self.device), hs.to(self.device))
 
     def serve(self, rng: torch.Tensor, num: int) -> Tuple[torch.Tensor, dict]:
         k_draft, k_flow = prng.split(rng, 2)
@@ -268,9 +283,9 @@ class WarmStartServer:
 
         t0 = self.path.t0
         n_steps = guarantees.warm_nfe(self.cold_nfe, t0)
-        keys, ts, hs = refine_loop_inputs(k_flow, t0, 1.0 / self.cold_nfe, n_steps,
-                                          device=self.device)
+        keys, ts, hs = refine_loop_inputs(k_flow, t0, 1.0 / self.cold_nfe, n_steps)
 
+        captures = self.graphs.captures
         t_flow0 = time.perf_counter()
         with torch.inference_mode():
             x = self._refine_loop(keys, x, ts, hs)
@@ -285,8 +300,10 @@ class WarmStartServer:
         guarantees.require_guarantee(self.cold_nfe, t0, nfe)
         per_nfe = t_flow / max(backbone_evals, 1)
         shape = (x.shape[-1], num, nfe)
-        self.cost_model.observe(shape, t_flow, backbone_evals,
-                                compiled=shape not in self._served_shapes)
+        # a first dispatch: a capture on the card, a shape not served yet on the CPU
+        compiled = (self.graphs.captures > captures if self.device.type == "cuda"
+                    else shape not in self._served_shapes)
+        self.cost_model.observe(shape, t_flow, backbone_evals, compiled=compiled)
         self._served_shapes.add(shape)
         report = {
             "nfe": nfe,

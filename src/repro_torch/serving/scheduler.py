@@ -21,8 +21,10 @@ one ``ws_fused`` launch per K steps with ``fused_block = K``. The loop
 never writes the draft tokens in place, so a retried dispatch reuses them
 as they are (the JAX engine donates the buffer and snapshots it first).
 The compile-key accounting and its ``jit_cache.*`` counters keep the JAX
-package's names, so the two reports compare key for key; nothing is
-compiled per key yet (a CUDA graph per compile key is later work).
+package's names, so the two reports compare key for key; the refine is
+not captured per key yet (its draft is: the AR draft engine replays one
+CUDA graph per ``(rows, prefix_len, bucket_len)``, captured on the worker
+thread's stream).
 
 Sampling is row-keyed: every sample row's PRNG stream is derived from its
 request's seed and its index within the request, so a request's output

@@ -38,6 +38,10 @@ def smoke():
      "int*, int, int, unsigned int, unsigned int, float)", "ws_step"),
     ("void (anonymous namespace)::ws_step_rows_kernel<32>(float const*, int const*, "
      "float const*, long const*, int*, int, int, int, float)", "ws_step_rows"),
+    ("void (anonymous namespace)::ws_step_dkey_kernel<8>(float const*, int const*, "
+     "float const*, long const*, int*, int, int, float)", "ws_step"),
+    ("void (anonymous namespace)::ws_step_gumbel_dkey_kernel<8>(float const*, int const*, "
+     "float const*, long const*, int*, int, int, int, int, float)", "ws_step_gumbel"),
     ("void (anonymous namespace)::flash_attn_kernel<64>(float const*, float const*)",
      "flash_attn"),
     ("(anonymous namespace)::qkv_rope_kernel((anonymous namespace)::QkvArgs)", "qkv_rope"),

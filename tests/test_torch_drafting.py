@@ -159,6 +159,60 @@ def test_partial_cache_reuse_is_bit_exact(adapter):
                                    "decode_dispatches": 5, "tokens_generated": 2 * 37}
 
 
+def test_engine_keeps_its_cache_and_rewinds_in_place(adapter):
+    """One cache per row count for the engine's lifetime (a decode graph
+    writes those buffers): across computed, reused and recomputed prefixes
+    the k/v and cursor tensors keep their storage, the cursors rest at the
+    prefix length, and the tokens equal the oracle's; reset drops them."""
+    eng = ARDraftEngine(adapter, max_len=16)
+    _, kt = _keys(2)
+    prompts = [torch.from_numpy(_prompt(2, 4, seed=s)) for s in (3, 3, 4, 3)]
+    leaves, ptrs = None, None
+    for prompt in prompts:
+        out = eng.generate_rows(kt, 7, prompt=prompt)
+        assert torch.equal(out, oracle_generate_rows(adapter, kt, 7, prompt=prompt, max_len=16))
+        cache = eng._caches[2]
+        now = [leaf for group in ("blocks", "rem") for c in cache[group].values()
+               for leaf in (c["k"], c["v"], c["pos"])]
+        if leaves is None:
+            leaves, ptrs = now, [t.data_ptr() for t in now]
+        assert all(a is b for a, b in zip(now, leaves))
+        assert [t.data_ptr() for t in now] == ptrs
+        assert all(int(c["pos"].min()) == int(c["pos"].max()) == 4
+                   for group in ("blocks", "rem") for c in cache[group].values())
+        assert eng._pool[2].snapshot is cache
+    assert (eng.stats.prefill_computes, eng.stats.prefill_reuses) == (3, 1)
+    eng.reset()
+    assert not eng._caches and not eng._pool
+
+
+def test_decode_graph_keys_and_eager_path(adapter, monkeypatch):
+    """The decode goes through the graph cache keyed (rows, prefix_len,
+    seq_len): repeated shapes share a key, another rows, prefix or seq_len
+    does not; the graphed path, the private eager one and the oracle agree
+    bitwise, with reused and recomputed prefixes."""
+    from repro_torch.graphs import GraphCache
+
+    keys = []
+
+    def call(self, key, fn, *inputs):
+        keys.append(key)
+        return fn(*inputs)
+
+    monkeypatch.setattr(GraphCache, "__call__", call)
+    eng = ARDraftEngine(adapter, max_len=16)
+    eager = ARDraftEngine(adapter, max_len=16)
+    cases = [(2, 3, 6, 5), (2, 3, 6, 6), (2, 3, 6, 7), (3, 3, 6, 5), (2, 4, 6, 5), (2, 3, 5, 5)]
+    for b, p, n, seed in cases:
+        _, kt = _keys(b, seed=seed)
+        prompt = torch.from_numpy(_prompt(b, p))
+        got = eng.generate_rows(kt, n, prompt=prompt)
+        assert torch.equal(got, eager._generate_rows_eager(kt, n, prompt=prompt))
+        assert torch.equal(got, oracle_generate_rows(adapter, kt, n, prompt=prompt, max_len=16))
+    assert keys == [(2, 3, 6)] * 3 + [(3, 3, 6), (2, 4, 6), (2, 3, 5)]
+    assert eng.stats.as_dict() == eager.stats.as_dict()
+
+
 def test_generate_rows_is_pack_invariant(adapter):
     _, kt = _keys(5)
     eng = ARDraftEngine(adapter, max_len=12)

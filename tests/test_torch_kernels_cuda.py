@@ -34,6 +34,11 @@ from repro_torch.kernels.ws_step import (
 )
 from repro_torch.kernels.ws_step import ops as ws_ops
 from repro_torch.models import LSTMConfig, LSTMModel
+from repro_torch.core.sampler import EulerSampler, refine_loop_inputs
+from repro_torch.drafting import LSTMDraftAdapter
+from repro_torch.graphs import GraphCaptureError
+from repro_torch.kernels.ws_step import key_words, make_ws_step_fn
+from repro_torch.serving import WarmStartServer, uniform_draft
 
 pytestmark = pytest.mark.cuda
 
@@ -636,3 +641,168 @@ def test_lstm_generate_on_card_equals_cpu(card):
     want = model.generate(params, prng.key(9), 4, 16)
     assert got.device.type == "cuda"
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+# -- CUDA graphs of the loops ---------------------------------------------------------
+
+
+def _grew(fn):
+    """``fn()``'s result and the launches it added, by kernel."""
+    before = dict(launches)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c - before.get(k, 0) for k, c in launches.items() if c != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("r,v", [(8192, 27), (64, 50257), (7, 27)])
+def test_device_key_equals_host_key_bitwise(card, r, v):
+    """ws_step and the keyed ws_step_gumbel with the key's words read from
+    the card (the entry points a refine graph takes) equal the launches with
+    the words passed as integers, bit for bit, at every lanes a row; the
+    wrappers take that path for a key on the card, one counted launch each."""
+    g = torch.Generator(device=card).manual_seed(r + v)
+    logits = 3.0 * torch.randn((r, v), generator=g, device=card)
+    x = torch.randint(0, v, (r,), generator=g, device=card, dtype=torch.int32)
+    a = torch.rand((r,), generator=g, device=card)
+    key = prng.key(r * v)
+    dkey = key.to(card)
+    for lanes in LANES:
+        out = [torch.empty(r, dtype=torch.int32, device=card) for _ in range(4)]
+        ws_ops._launch(logits, x, a, out[0], seed_from_key(key), 0.9, lanes=lanes)
+        ws_ops._launch(logits, x, a, out[1], key_words(dkey), 0.9, lanes=lanes)
+        ws_ops._launch_gumbel_keyed(logits, x, a, seed_from_key(key), out[2], v, 0.9,
+                                    lanes=lanes)
+        ws_ops._launch_gumbel_keyed(logits, x, a, key_words(dkey), out[3], v, 0.9,
+                                    lanes=lanes)
+        assert torch.equal(out[0], out[1]) and torch.equal(out[2], out[3]), lanes
+    t = torch.full((r,), 0.85, device=card)
+    h = torch.tensor(0.05, device=card)
+    path = WarmStartPath(0.8)
+    (got, got_g), grew = _grew(lambda: (ws_step(dkey, logits, x, t, h, path),
+                                        ws_step_gumbel_keyed(dkey, logits, x, a)))
+    assert grew == {"ws_step": 1, "ws_step_gumbel": 1}
+    assert torch.equal(got, ws_step(key, logits, x, t, h, path))
+    assert torch.equal(got_g, ws_step_gumbel_keyed(key, logits, x, a))
+
+
+def _graph_adapter(card, kind):
+    if kind == "lstm":
+        lstm = LSTMModel(LSTMConfig(vocab_size=27, hidden=32, num_layers=2, embed_dim=16))
+        return LSTMDraftAdapter(model=lstm, params=lstm.init(4, device=card))
+    return TransformerDraftAdapter(model=_draft_model(card), decode_impl=kind)
+
+
+@pytest.mark.parametrize("kind", ["kernel", "xla", "lstm"])
+def test_decode_graph_equals_eager_bitwise(card, kind):
+    """generate_rows on the card replays one decode graph per (rows, prefix,
+    seq_len): over calls with different keys, a reused prefix, a recomputed
+    one and a return to the first, its tokens and launch counts equal an
+    eager engine's bit for bit (the capturing call counts its warm-up's
+    eager decode too); one capture for the four calls, and one more for
+    another seq_len."""
+    adapter = _graph_adapter(card, kind)
+    eng, eager = ARDraftEngine(adapter, max_len=16), ARDraftEngine(adapter, max_len=16)
+    prompt = torch.tensor([[1, 2, 3]] * 3, dtype=torch.int32)
+    other = torch.tensor([[4, 5, 6], [7, 8, 9], [1, 1, 1]], dtype=torch.int32)
+    for seed, p in ((3, prompt), (4, prompt), (5, other), (6, prompt)):
+        keys = prng.split(prng.key(seed), 3)
+        got, n_got = _grew(lambda: eng.generate_rows(keys, 12, prompt=p))
+        want, n_want = _grew(lambda: eager._generate_rows_eager(keys, 12, prompt=p))
+        assert got.device.type == "cuda" and torch.equal(got, want), seed
+        if seed == 3:
+            # the capture's warm-up runs the decode once more, eagerly: one
+            # decode's launches (a reused prefix, so no prefill) on top
+            probe = ARDraftEngine(adapter, max_len=16)
+            probe._generate_rows_eager(keys, 12, prompt=p)
+            _, n_decode = _grew(lambda: probe._generate_rows_eager(keys, 12, prompt=p))
+            n_want = {k: c + n_decode.get(k, 0) for k, c in n_want.items()}
+        assert n_got == n_want, seed
+    assert (eng.graphs.captures, eng.graphs.replays) == (1, 4)
+    assert eng.stats.as_dict() == eager.stats.as_dict()
+    keys = prng.split(prng.key(7), 3)
+    assert torch.equal(eng.generate_rows(keys, 8, prompt=prompt),
+                       eager._generate_rows_eager(keys, 8, prompt=prompt))
+    assert eng.graphs.captures == 2
+    eng.reset()
+    assert len(eng.graphs) == 0
+
+
+def _refine_model(card):
+    return Model(tiny_config(vocab_size=27).replace(num_layers=2), device=card, seed=2)
+
+
+@pytest.mark.parametrize("step", ["default", "ws_step", "fused"])
+def test_serve_refine_graph_equals_eager_bitwise(card, step):
+    """WarmStartServer's refine on the card is one graph replay a serve,
+    captured once for its shape: over three calls with different keys its
+    tokens and launch counts equal the eager loop's bit for bit (the default
+    step, ws_step as step_fn, fused_block = 2)."""
+    path = WarmStartPath(t0=0.75)
+    kw = {"default": {}, "ws_step": dict(step_fn=make_ws_step_fn(path)),
+          "fused": dict(fused_block=2)}[step]
+    model = _refine_model(card)
+    draft = uniform_draft(27, device=card)
+    server = WarmStartServer(flow_model=model, flow_cfg=model.cfg, path=path, cold_nfe=16,
+                             draft_generate=lambda rng, num: draft(prng.split(rng, num), 32),
+                             device=card, **kw)
+    x, report = server.serve(prng.key(1), 4)
+    assert server.graphs.captures == 1 and x.shape == (4, 32)
+    assert server.cost_model._compile is not None and not server.cost_model._per_key
+    for seed in (2, 3):
+        x0 = draft(prng.split(prng.key(seed), 4), 32)
+        keys, ts, hs = refine_loop_inputs(prng.key(seed + 10), 0.75, 1 / 16, 4)
+        with torch.inference_mode():
+            got, n_got = _grew(lambda: server._refine_loop(keys, x0, ts, hs))
+            want, n_want = _grew(lambda: server._refine_loop_eager(keys, x0, ts, hs))
+        assert torch.equal(got, want) and n_got == n_want, seed
+        evals = 2 if step == "fused" else 4
+        assert n_got["flash_attn"] == 2 * evals
+    assert (server.graphs.captures, server.graphs.replays) == (1, 3)
+    server.serve(prng.key(4), 4)
+    assert server.cost_model._per_key       # a replay's time is a steady-state observation
+
+
+@pytest.mark.parametrize("fused_block", [1, 2])
+def test_euler_sampler_graph_equals_jit_false_bitwise(card, fused_block):
+    """EulerSampler(jit=True) on the card: one capture per model_fn and
+    shape, then replays; tokens and launch counts equal jit=False's bit for
+    bit over three keys (the capturing call counts its warm-up run too). A
+    second shape captures once more."""
+    model = _refine_model(card)
+    smp = EulerSampler(path=WarmStartPath(0.5), num_steps=8, fused_block=fused_block)
+    eager = EulerSampler(path=WarmStartPath(0.5), num_steps=8, fused_block=fused_block,
+                         jit=False)
+    x0 = torch.randint(0, 27, (4, 32), device=card, dtype=torch.int32,
+                       generator=torch.Generator(device=card).manual_seed(0))
+    for seed in (1, 2, 3):
+        (got, st), n_got = _grew(lambda: smp.sample(prng.key(seed), model.dfm_apply, x0))
+        (want, _), n_want = _grew(lambda: eager.sample(prng.key(seed), model.dfm_apply, x0))
+        runs = 2 if seed == 1 else 1        # the capture's warm-up, then the replay
+        assert torch.equal(got, want) and n_got == {k: runs * c for k, c in n_want.items()}, \
+            seed
+        assert st.nfe == smp.backbone_evals
+    assert (smp.graphs.captures, smp.graphs.replays) == (1, 3)
+    assert len(eager.graphs) == 0
+    smp.sample(prng.key(4), model.dfm_apply, x0[:2])
+    assert smp.graphs.captures == 2
+
+
+def test_graph_capture_of_a_synchronising_step_raises(card):
+    """A step_fn that reads a value on the host cannot be captured: the
+    sampler raises, naming the statement and jit=False; nothing runs the
+    loop eagerly in its place. jit=False then runs it."""
+    path = WarmStartPath(0.5)
+
+    def step_fn(rng, logits, x_t, t, h):
+        if float(h) < 0:            # a host read of a card value: a synchronisation
+            raise ValueError("negative step")
+        return gumbel_step(rng, logits, x_t, t, h, path)
+
+    model = _refine_model(card)
+    x0 = torch.zeros((2, 16), dtype=torch.int32, device=card)
+    with pytest.raises(GraphCaptureError, match="(?s)float\\(h\\).*jit=False"):
+        EulerSampler(path=path, num_steps=4, step_fn=step_fn).sample(prng.key(0),
+                                                                     model.dfm_apply, x0)
+    out, _ = EulerSampler(path=path, num_steps=4, step_fn=step_fn, jit=False).sample(
+        prng.key(0), model.dfm_apply, x0)
+    assert out.shape == (2, 16)

@@ -113,6 +113,48 @@ def test_euler_sampler_jit_flag_runs_the_same_loop(models):
     assert a[1] == b[1] == SamplerStats(nfe=4, final_t=1.0)
 
 
+def _record_graph_keys(monkeypatch):
+    """Replace the graph cache's call with one that records each key and
+    runs the loop (on the CPU the cache runs it eagerly anyway): the keys the
+    port would capture on the card, and its graphed code path, on the CPU."""
+    from repro_torch.graphs import GraphCache
+
+    keys = []
+
+    def call(self, key, fn, *inputs):
+        keys.append(key)
+        return fn(*inputs)
+
+    monkeypatch.setattr(GraphCache, "__call__", call)
+    return keys
+
+
+@pytest.mark.parametrize("fused_block", [1, 2])
+def test_euler_sampler_jit_equals_jit_false_and_jax(models, monkeypatch, fused_block):
+    """``jit=True`` goes through the graph cache, keyed by model_fn and
+    x_init's shape, dtype and device (JAX's jit cache per model_fn, its jit
+    per shape): the same shape shares a key, another shape or model_fn does
+    not; its tokens equal ``jit=False``'s and JAX's ``jit=False``'s."""
+    keys = _record_graph_keys(monkeypatch)
+    jax_fn, torch_fn = _model_fns(models)
+    kw = dict(num_steps=8, fused_block=fused_block)
+    smp = EulerSampler(path=WarmStartPath(t0=0.5), **kw)
+    eager = EulerSampler(path=WarmStartPath(t0=0.5), jit=False, **kw)
+    jsmp = JaxSampler(path=JaxPath(t0=0.5), jit=False, **kw)
+    x0 = _x_init(7)
+    for seed in (1, 2):
+        got = smp.sample(prng.key(seed), torch_fn, torch.from_numpy(x0))[0]
+        want = eager.sample(prng.key(seed), torch_fn, torch.from_numpy(x0))[0]
+        jwant = jsmp.sample(jax.random.key(seed), jax_fn, jnp.asarray(x0))[0]
+        assert torch.equal(got, want)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jwant))
+    smp.sample(prng.key(3), torch_fn, torch.from_numpy(x0[:2]))
+    smp.sample(prng.key(3), lambda x, t: torch_fn(x, t), torch.from_numpy(x0))
+    assert len(keys) == 4 and keys[0] == keys[1]
+    assert len(set(keys)) == 3 and keys[0][0] is torch_fn
+    assert keys[0][1:] == ((NUM, SEQ), torch.int32, torch.device("cpu"))
+
+
 def _drafts(m, kind):
     """(JAX draft, port draft) of one kind on the same data / weights."""
     data = m["data"]

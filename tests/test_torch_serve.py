@@ -108,6 +108,46 @@ def test_serve_matches_jax(servers_setup, fused_step):
     assert rep_t["speedup_report"].warm_nfe == rep_j["speedup_report"].warm_nfe
 
 
+@pytest.mark.parametrize("fused_block", [1, 2])
+def test_serve_refine_graph_keys_and_eager_path(servers_setup, monkeypatch, fused_block):
+    """The refine goes through the graph cache keyed (num, seq_len,
+    n_steps, fused_block), as JAX jits the loop per shape: repeated serves
+    share a key, another num does not; the graphed path equals the eager
+    yardstick and JAX's serve."""
+    from repro_torch.graphs import GraphCache
+
+    jm, params, model, draft = servers_setup
+    keys = []
+
+    def call(self, key, fn, *inputs):
+        keys.append(key)
+        return fn(*inputs)
+
+    monkeypatch.setattr(GraphCache, "__call__", call)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=model.cfg, fused_block=fused_block,
+        draft_generate=lambda rng, num: torch.from_numpy(draft[:num].copy()), path=path,
+        cold_nfe=COLD_NFE, device="cpu")
+    if fused_block == 1:
+        jserver = JaxWarmStartServer(
+            flow_model=jm, flow_cfg=jm.cfg, flow_params=params, path=JaxPath(t0=T0),
+            draft_generate=lambda rng, num: jnp.asarray(draft[:num]), cold_nfe=COLD_NFE)
+        np.testing.assert_array_equal(np.asarray(jserver.serve(jax.random.key(11), NUM)[0]),
+                                      server.serve(prng.key(11), NUM)[0].numpy())
+    else:
+        server.serve(prng.key(11), NUM)
+    server.serve(prng.key(12), NUM)
+    server.serve(prng.key(13), NUM - 1)
+    n = warm_nfe(COLD_NFE, T0)
+    assert keys == [(NUM, SEQ, n, fused_block)] * 2 + [(NUM - 1, SEQ, n, fused_block)]
+    rk, ts, hs = sampler.refine_loop_inputs(prng.key(14), T0, 1 / COLD_NFE, n)
+    x0 = torch.from_numpy(draft.copy())
+    with torch.inference_mode():
+        assert torch.equal(server._refine_loop(rk, x0, ts, hs),
+                           server._refine_loop_eager(rk, x0, ts, hs))
+
+
 def test_serve_with_row_keyed_draft_and_argmax_final(servers_setup):
     _, _, model, _ = servers_setup
     draft = uniform_draft(27, device="cpu")

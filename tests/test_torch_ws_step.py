@@ -22,10 +22,12 @@ from repro.kernels.ws_step.ref import (
 )
 from repro_torch import prng
 from repro_torch.core.paths import WarmStartPath
+from repro_torch.kernels import launches
 from repro_torch.kernels.ws_step import (
-    make_ws_step_fn, near_tie_rows, seed_from_key, ws_step, ws_step_ref,
+    key_words, make_ws_step_fn, near_tie_rows, seed_from_key, ws_step, ws_step_ref,
     ws_step_ref_streamed,
 )
+from repro_torch.kernels.ws_step import ops as ws_ops
 
 TIE_TOL = 1e-5
 
@@ -266,3 +268,75 @@ def test_grouped_draw_equals_draw_rows_tree_with_ties_and_empty_leaves(empty):
         if keep_x:
             lg_x[i], g_x[i] = 0.0, 0.0
     _assert_grouped_equals_butterfly([m, s, best, bidx, lg_x, g_x])
+
+
+@pytest.mark.parametrize("seed", [0, 7, -1, 2 ** 31 - 1])
+def test_device_key_words_equal_seed_from_key(seed):
+    """The words a kernel reads from a key on the card are the key's int64
+    data, a view with no copy, and equal ``seed_from_key``'s integers: for a
+    key, a row of split keys (as the refine loop indexes them) and a folded
+    key. A host key still goes to the launch as the two integers."""
+    key = prng.key(seed)
+    steps = prng.split(key, 5)
+    for k in (key, steps[3], prng.fold_in(key, 9)):
+        words = key_words(k)
+        assert words.dtype == torch.int64 and words.shape == (2,)
+        assert words.data_ptr() == k.data_ptr()
+        assert tuple(words.tolist()) == seed_from_key(k)
+        assert all(0 <= w < 2 ** 32 for w in seed_from_key(k))
+    assert ws_ops._kernel_seed(steps[3], torch.device("cpu")) == seed_from_key(steps[3])
+
+
+def test_capture_tally_is_thread_local():
+    """While a thread captures a graph its launches go to the graph's tally;
+    another thread's launch in that time reaches ``launches``; a replay adds
+    the whole tally."""
+    import collections
+    import threading
+
+    from repro_torch import counts
+
+    name = "tally_probe"
+    before = launches[name]
+    tally = collections.Counter()
+    go, done = threading.Event(), threading.Event()
+
+    def other():
+        go.wait(10)
+        counts.count(name)
+        done.set()
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    with counts.counting_into(tally):
+        counts.count(name)
+        go.set()
+        assert done.wait(10)
+        counts.count(name)
+    worker.join(10)
+    assert not worker.is_alive()
+    assert tally == {name: 2} and launches[name] == before + 1
+    counts.count(name)
+    counts.add(tally)
+    assert launches[name] == before + 4
+    del launches[name]
+
+
+def test_graph_cache_imports_counting_not_the_kernel_library():
+    """``graphs.py`` takes its launch tallies from ``counts.py`` (standard
+    library only) and imports nothing of the kernel library; on a CPU
+    tensor the cache just calls ``fn`` and counts nothing."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    code = ("import sys, repro_torch.graphs as g, torch; "
+            "out = g.GraphCache('probe')(('k',), lambda x: x + 1, torch.zeros(2)); "
+            "print(sorted(m for m in sys.modules if m.startswith('repro_torch')), "
+            "out.tolist(), len(g.counts.launches))")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, env={**os.environ, "PYTHONPATH": str(src)})
+    assert res.stdout.split() == ["['repro_torch',", "'repro_torch.counts',",
+                                  "'repro_torch.graphs']", "[1.0,", "1.0]", "0"]

@@ -301,3 +301,16 @@ def test_keyed_wrapper_checks_its_inputs_and_refuses_2_32_elements():
                              torch.zeros(1))
     with pytest.raises(NotImplementedError, match="2\\*\\*32"):
         keyed_gumbel((0, 0), 1 << 16, 1 << 16)
+
+
+def test_keyed_step_device_key_words_equal_seed_from_key():
+    """The default step inside a refine graph indexes the card's (n, 2) step
+    keys: each row's words, read in place, are ``seed_from_key``'s, so the
+    keyed kernel hashes the same noise as from the host's integers."""
+    from repro_torch.kernels.ws_step import key_words, seed_from_key
+
+    keys = prng.split(prng.key(21), 13)
+    for i in range(keys.shape[0]):
+        words = key_words(keys[i])
+        assert words.data_ptr() == keys[i].data_ptr()
+        assert tuple(words.tolist()) == seed_from_key(keys[i])
