@@ -1123,7 +1123,7 @@ def run_counted(what, fn, engine, layers, fused_block=1):
     return out, report, got
 
 
-def busy_share(fn):
+def busy_share(fn, what="a scheduler run"):
     """Run ``fn`` under torch.profiler: the union of the kernels' device
     intervals over the wall time (kernels of the draft and refine streams
     that overlap count once), and their summed device time."""
@@ -1138,7 +1138,7 @@ def busy_share(fn):
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     if not spans:
-        print("profile of a scheduler run: the trace holds no device time (not measured)")
+        print(f"profile of {what}: the trace holds no device time (not measured)")
         return {"busy_share": None}
     busy, cur_s, cur_e, total = 0.0, *spans[0], 0.0
     for s_, e_ in spans:
@@ -1151,7 +1151,7 @@ def busy_share(fn):
     busy += cur_e - cur_s
     res = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_sum_ms": total / 1e3,
            "busy_share": busy / 1e3 / wall_ms, "kernels": len(spans)}
-    print(f"profile of a scheduler run: device busy {res['device_busy_ms']:.1f} ms of "
+    print(f"profile of {what}: device busy {res['device_busy_ms']:.1f} ms of "
           f"{wall_ms:.1f} ms wall ({res['busy_share']:.1%}; kernels' summed time "
           f"{res['device_sum_ms']:.1f} ms, {len(spans)} kernels)")
     return res
@@ -1914,6 +1914,354 @@ def main_path(engine):
     return counts, per_serve, serve, model
 
 
+# -- training ------------------------------------------------------------------
+
+TRAIN_STEPS = 30
+GRAD_TOL = 1e-3      # x max |g| of the parameter: kernel path vs autograd through the plain
+MOONS_GRID, MOONS_STEPS, MOONS_COLD_NFE = 128, 300, 20
+
+
+def train_argv(ckpt_dir: str, steps: int = TRAIN_STEPS):
+    """``launch/train.py``'s flags for the DiT at full width, as a user calls it."""
+    return ["--arch", "dfm-dit", "--t0", str(T0), "--batch-size", str(NUM),
+            "--seq-len", str(SEQ), "--steps", str(steps), "--checkpoint-dir", ckpt_dir,
+            "--device", "cuda"]
+
+
+def train_batch(cfg):
+    """The first batch of ``launch/train``'s pairs (32 x 256), on the card,
+    and the trainer's first step key."""
+    from repro_torch import prng
+    from repro_torch.core.coupling import pair_iterator
+    from repro_torch.launch import train as launch_train
+
+    args = launch_train.parse_args(train_argv("unused"))
+    src, tgt, rng = launch_train.training_pairs(cfg, args)
+    x_src, x_tgt = next(pair_iterator(src, tgt, NUM, rng))
+    batch = {"x_src": torch.from_numpy(x_src).cuda(), "x_tgt": torch.from_numpy(x_tgt).cuda()}
+    return batch, prng.split(prng.key(args.seed + 1), 2)[1]
+
+
+def check_train_gradients(cfg, batch, key):
+    """Gradient gate: one backward of the WS-DFM loss of the model as the
+    trainer runs it (attention through ``FlashAttentionFn``: the kernel
+    forward, the matmul gradient) against the same loss differentiated by
+    autograd through ``flash_attention_ref``, on the card. Every parameter's
+    gradient within GRAD_TOL x its max |g|, finite and not all zero."""
+    import repro_torch.models.attention as attention
+    from repro_torch.convert import jax_leaves
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import loss_and_grads, make_loss_fn
+
+    model = build_model(cfg, device="cuda", seed=0)
+    leaves = jax_leaves(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    loss_fn = make_loss_fn(model, cfg, WarmStartPath(T0))
+    launches.clear()
+    loss, _, grads = loss_and_grads(loss_fn, model, leaves, batch, key)
+    loss = loss.detach()
+    torch.cuda.synchronize()
+    n_kernel = launches["flash_attn"]
+    if dict(launches) != {"flash_attn": cfg.num_layers}:
+        fail(f"gradient gate: one forward and backward launched {dict(launches)}, expected "
+             f"flash_attn x {cfg.num_layers} (the backward launches none)")
+    kernel_path = attention.flash_attention
+    attention.flash_attention = flash_attention_ref
+    try:
+        loss_ref, _, grads_ref = loss_and_grads(loss_fn, model, leaves, batch, key)
+        loss_ref = loss_ref.detach()
+    finally:
+        attention.flash_attention = kernel_path
+    torch.cuda.synchronize()
+    if launches["flash_attn"] != n_kernel:
+        fail("gradient gate: the plain path launched the kernel")
+    worst, worst_name, checked = 0.0, None, 0
+    for leaf, ps in leaves.items():
+        for p, g, r in zip(ps, grads[leaf], grads_ref[leaf]):
+            name = names[id(p)]
+            scale = float(r.abs().max())
+            if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0.0 or scale == 0.0:
+                fail(f"gradient gate: {name} has no usable gradient (max |g| "
+                     f"{float(g.abs().max())}, plain {scale})")
+            err = float((g - r).abs().max()) / scale
+            if err > worst:
+                worst, worst_name = err, name
+            checked += 1
+    if checked != sum(1 for _ in model.parameters()):
+        fail(f"gradient gate: checked {checked} parameters")
+    print(f"gradient gate: {checked} parameters, loss {float(loss):.6f} (plain "
+          f"{float(loss_ref):.6f}); worst |g - g_plain| / max|g_plain| {worst:.3e} "
+          f"({worst_name}), tolerance {GRAD_TOL:g}; flash_attn {n_kernel} launches")
+    if worst > GRAD_TOL:
+        fail(f"gradient gate: {worst_name} off by {worst:.3e} of its max |g|")
+    return {"params": checked, "loss": float(loss), "loss_plain": float(loss_ref),
+            "max_rel_err": worst, "worst_param": worst_name, "tolerance": GRAD_TOL,
+            "flash_attn_launches": n_kernel}
+
+
+def _train_category(name: str) -> str:
+    if "flash_attn_kernel" in name:
+        return "flash_attn"
+    low = name.lower()
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "gemm"
+    if "multi_tensor_apply" in name:
+        return "foreach (optimizer)"
+    return "other"
+
+
+def _phase_profile(run, what):
+    """Device ms of ``run`` by kind of kernel, and the attention backward's
+    products (the kernels of ``aten::bmm``: the backbone's dense layers are
+    ``aten::mm``), under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in avgs
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    if not kernels:
+        print(f"profile of the {what}: the trace holds no device time (not measured)")
+        return {"device_ms": None}
+    by_kind = {}
+    for name, ms, _ in kernels:
+        by_kind[_train_category(name)] = by_kind.get(_train_category(name), 0.0) + ms
+    bmm = sum(e.device_time_total / 1e3 for e in avgs
+              if e.device_type == DeviceType.CPU and e.key == "aten::bmm")
+    res = {"device_ms": sum(ms for _, ms, _ in kernels), "wall_ms": wall_ms,
+           "kernel_launches": sum(c for _, _, c in kernels), "by_kind_ms": by_kind,
+           "bmm_ms": bmm}
+    print(f"profile of the {what}: device {res['device_ms']:.2f} ms of {wall_ms:.2f} ms wall, "
+          f"{res['kernel_launches']} kernels; by kind "
+          + json.dumps({k: round(v, 3) for k, v in by_kind.items()})
+          + f"; aten::bmm {bmm:.3f} ms")
+    return res
+
+
+def profile_train_step(trainer, state, batch, key):
+    """One more step, phase by phase under the profiler (forward: the loss;
+    backward: ``torch.autograd.grad``; optimizer: clipping and the AdamW
+    update), then three whole steps for the device's busy share."""
+    from repro_torch.convert import jax_leaves
+    from repro_torch.training.train_step import apply_gradients, grads_of, make_loss_fn
+
+    model = state.params
+    leaves = jax_leaves(model)
+    loss_fn = make_loss_fn(model, model.cfg, trainer.path)
+    held = {}
+
+    def forward():
+        held["loss"] = loss_fn(model, batch, key)[0]
+
+    def backward():
+        held["grads"] = grads_of(held["loss"], leaves)
+
+    def optimizer():
+        held["state"] = apply_gradients(state, leaves, held["grads"], trainer.optimizer,
+                                        trainer.run.grad_clip)[0]
+
+    phases = {"forward": _phase_profile(forward, "train step's forward"),
+              "backward": _phase_profile(backward, "train step's backward"),
+              "optimizer": _phase_profile(optimizer, "train step's optimizer")}
+    bwd = phases["backward"]
+    if bwd.get("device_ms") is not None:
+        bwd["attn_backward_matmul_ms"] = bwd["bmm_ms"]
+        bwd["backbone_gemm_ms"] = bwd["by_kind_ms"].get("gemm", 0.0) - bwd["bmm_ms"]
+    st = held["state"]
+
+    def three_steps():
+        nonlocal st
+        for _ in range(3):
+            st, _ = trainer._step_fn(st, batch, key)
+
+    phases["steps_busy"] = busy_share(three_steps, "three train steps")
+    return phases
+
+
+def moons_experiment():
+    """The paper's two-moons study (§4.1) in the structure of the JAX
+    package's ``examples/quickstart.py``: a 4 x 128 DiT, vocab 128, trained
+    300 steps cold (t0 = 0, noise sources) and warm (t0 = 0.8, KNN pairs of
+    a pretty-good corruption draft), then ``WarmStartPipeline.generate`` of
+    4000 samples each: SKL against held-out moons, NFE 20 cold and 4 warm."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs.base import ModelConfig, RunConfig
+    from repro_torch.core import CorruptionDraft, WarmStartPath, WarmStartPipeline
+    from repro_torch.core.coupling import KNNRefinementCoupling, pair_iterator
+    from repro_torch.data import moons_dataset, symmetric_kl
+    from repro_torch.kernels import launches
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+
+    cfg = ModelConfig(
+        name="moons", family="dense", num_layers=4, d_model=128, num_heads=4,
+        num_kv_heads=4, d_ff=512, vocab_size=MOONS_GRID, pattern=("attn",),
+        norm="layernorm", mlp_gated=False, act="gelu", tie_embeddings=False,
+        dtype="float32", max_seq_len=2)
+
+    def train(src, tgt, t0, seed):
+        run = RunConfig(total_steps=MOONS_STEPS, batch_size=256, learning_rate=1e-3,
+                        warmup_steps=20, log_every=100, seed=seed)
+        trainer = Trainer(build_model(cfg, device="cuda", seed=seed), cfg, run,
+                          path=WarmStartPath(t0=t0))
+        t = time.perf_counter()
+        state = trainer.fit(trainer.init_state(),
+                            pair_iterator(src, tgt, 256, np.random.default_rng(seed)))
+        torch.cuda.synchronize()
+        ce = [m["ce"] for _, m in trainer.history]
+        if not all(math.isfinite(float(x)) for x in trainer.step_losses):
+            fail(f"moons t0={t0}: a non-finite loss")
+        return state.params, {"train_s": time.perf_counter() - t, "ce": ce,
+                              "median_step_ms": statistics.median(trainer.step_ms()[1:])}
+
+    data = moons_dataset(8192, seed=0)
+    eval_ref = moons_dataset(4000, seed=42)
+    rng = np.random.default_rng(0)
+    out = {}
+    launches.clear()
+    src = rng.integers(0, MOONS_GRID, size=data.shape).astype(np.int32)
+    model, out["cold_train"] = train(src, data, 0.0, 0)
+    pipe = WarmStartPipeline(model_fn=model.dfm_apply, draft=None, path=WarmStartPath(0.0),
+                             cold_nfe=MOONS_COLD_NFE, vocab_size=MOONS_GRID, seq_len=2,
+                             device="cuda")
+    x_cold, rep = pipe.generate(prng.key(1), 4000)
+    draft = CorruptionDraft(data=data, vocab_size=MOONS_GRID, corruption=0.05, jitter=2,
+                            device="cuda")
+    drafts = draft.generate(prng.key(2), 4096).cpu().numpy()
+    src_w, tgt_w = KNNRefinementCoupling(k=3, k_inject=2).build(data, drafts, rng)
+    model_w, out["warm_train"] = train(src_w, tgt_w, 0.8, 1)
+    pipe_w = WarmStartPipeline(model_fn=model_w.dfm_apply, draft=draft,
+                               path=WarmStartPath(0.8), cold_nfe=MOONS_COLD_NFE,
+                               vocab_size=MOONS_GRID, seq_len=2, device="cuda")
+    x_warm, rep_w = pipe_w.generate(prng.key(3), 4000)
+    counts = dict(launches)
+    for what, x in (("cold", x_cold), ("warm", x_warm)):
+        if x.shape != (4000, 2) or int(x.min()) < 0 or int(x.max()) >= MOONS_GRID:
+            fail(f"moons {what}: samples {tuple(x.shape)} outside the grid")
+    skl_cold = symmetric_kl(x_cold.cpu().numpy(), eval_ref)
+    skl_warm = symmetric_kl(x_warm.cpu().numpy(), eval_ref)
+    if (rep.warm_nfe, rep_w.warm_nfe, rep_w.cold_nfe) != (MOONS_COLD_NFE, 4, MOONS_COLD_NFE):
+        fail(f"moons NFE: cold {rep.warm_nfe}, warm {rep_w.warm_nfe} of {rep_w.cold_nfe}")
+    if not (math.isfinite(skl_cold) and math.isfinite(skl_warm)):
+        fail(f"moons SKL not finite: cold {skl_cold}, warm {skl_warm}")
+    out.update({"skl_cold": skl_cold, "skl_warm": skl_warm, "nfe_cold": rep.warm_nfe,
+                "nfe_warm": rep_w.warm_nfe, "guaranteed_factor": rep_w.guaranteed_factor,
+                "launches": counts})
+    print(f"moons: SKL cold {skl_cold:.4f} at {rep.warm_nfe} NFE, warm {skl_warm:.4f} at "
+          f"{rep_w.warm_nfe} NFE (x{rep_w.guaranteed_factor:.1f} guaranteed); training "
+          f"{out['cold_train']['train_s']:.1f} s / {out['warm_train']['train_s']:.1f} s "
+          f"({out['cold_train']['median_step_ms']:.2f} / "
+          f"{out['warm_train']['median_step_ms']:.2f} ms a step); launches {counts}")
+    return out
+
+
+def train_path():
+    """The training path at full width: the gradient gate, then
+    ``launch/train.main`` (``dfm_dit`` CONFIG, 32 x 256, t0 = 0.8, AMSGrad,
+    TRAIN_STEPS steps, a checkpoint) with exact launch counts, finite loss
+    and grad norm at every step, the checkpoint restored bitwise (weights,
+    optimizer state, logits), a profile of one step by phase, and the moons
+    study."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.checkpoint.io import flatten
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.training import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = get_config("dfm-dit").replace(max_seq_len=max(4096, SEQ))
+    batch, key = train_batch(cfg)
+    grad_gate = check_train_gradients(cfg, batch, key)
+    torch.cuda.empty_cache()
+
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()    # what earlier phases still hold
+        launches.clear()
+        t = time.perf_counter()
+        trainer, state, path = launch_train.main(train_argv(ckpt_dir))
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        counts = dict(launches)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attn": cfg.num_layers * TRAIN_STEPS}
+        if counts != want:
+            fail(f"training: launches {counts}, expected {want}")
+        losses = torch.stack(trainer.step_losses).cpu()
+        gnorms = torch.stack(trainer.step_grad_norms).cpu()
+        if len(losses) != TRAIN_STEPS or not bool(torch.isfinite(losses).all()) \
+                or not bool(torch.isfinite(gnorms).all()):
+            fail(f"training: losses {losses.tolist()} grad norms {gnorms.tolist()}")
+        step_ms = trainer.step_ms()
+        model = state.params
+        n_params = sum(p.numel() for p in model.parameters())
+
+        other = build_model(cfg, device="cuda", seed=1)
+        template = Trainer(other, cfg, RunConfig(t0=T0)).init_state()
+        restored = restore_checkpoint(ckpt_dir, template)
+        mine, theirs = flatten(state), flatten(restored)
+        if sorted(mine) != sorted(theirs) or any(
+                mine[k].dtype != theirs[k].dtype or mine[k].tobytes() != theirs[k].tobytes()
+                for k in mine):
+            fail("checkpoint: the restored state differs from the trained one")
+        with torch.no_grad():
+            t_b = torch.full((NUM,), T0, device="cuda")
+            if not torch.equal(model(batch["x_src"], t_b), other(batch["x_src"], t_b)):
+                fail("checkpoint: the restored model's logits differ")
+        print(f"checkpoint {path}: {len(mine)} leaves restored bitwise, logits equal")
+        del template, restored, other, mine, theirs
+        torch.cuda.empty_cache()
+        phases = profile_train_step(trainer, state, batch, key)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    tokens = NUM * SEQ
+    median_ms = statistics.median(step_ms[1:])
+    model_flops = 6 * n_params * tokens
+    train = {
+        "config": cfg.name, "params": n_params, "batch": NUM, "seq_len": SEQ, "t0": T0,
+        "optimizer": "adamw, amsgrad, float32 moments", "steps": TRAIN_STEPS,
+        "lr_schedule": "warmup_cosine(3e-4, 100, steps)", "grad_clip": 1.0,
+        "first_step_ms": step_ms[0], "median_step_ms": median_ms, "step_ms": step_ms,
+        "tokens_per_s": tokens / median_ms * 1e3,
+        "model_flop_share": model_flops / (median_ms / 1e3) / F32_OPS_PER_S,
+        "model_flops_per_step": model_flops,
+        "max_memory_allocated_bytes": peak, "allocated_before_bytes": base,
+        "peak_above_start_bytes": peak - base, "launches": counts,
+        "launches_per_step": {"flash_attn": cfg.num_layers},
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "grad_norm_first": float(gnorms[0]), "grad_norm_last": float(gnorms[-1]),
+        "launch_train_main_s": main_s, "grad_gate": grad_gate, "phases": phases,
+    }
+    print(f"training: dfm_dit CONFIG ({n_params / 1e6:.1f}M params), {NUM} x {SEQ}, "
+          f"{TRAIN_STEPS} steps through launch.train.main: first step {step_ms[0]:.1f} ms, "
+          f"median {median_ms:.2f} ms ({train['tokens_per_s']:.0f} tokens/s, model-FLOP "
+          f"share {train['model_flop_share']:.1%} of 67 TFLOP/s), peak memory "
+          f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
+          f"{base / 2**30:.2f} GiB held before), loss {train['loss_first']:.4f} -> {train['loss_last']:.4f}, "
+          f"launches {counts}")
+    train["moons"] = moons_experiment()
+    train["phase_s"] = time.perf_counter() - t_phase
+    return train, counts
+
+
 def _category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
@@ -2099,6 +2447,9 @@ def main() -> int:
     sched, sched_counts = scheduler_path(model, engine)
     pipe, pipe_counts = pipeline_path(model)
     pipe["small_vs_cpu"] = small_pipe
+    del model
+    torch.cuda.empty_cache()
+    train, train_counts = train_path()
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -2128,6 +2479,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn/kernel.py:94",
          "tpu_kernel": "flash_attention_pallas",
          "launches": counts.get("flash_attn", 0), "launches_per_serve": per_serve["flash_attn"],
+         "launches_train": train_counts["flash_attn"],
+         "launches_per_train_step": train["launches_per_step"]["flash_attn"],
          "max_abs_err": max(flash_errs), "max_err": max(flash_errs),
          "shape": [NUM, SEQ, 12, 64], **flash_num,
          "bound_us": flash_num["bound_ms"] * 1e3},
@@ -2188,6 +2541,7 @@ def main() -> int:
     print(json.dumps({"serve": serve}))
     print(json.dumps({"scheduler": sched}))
     print(json.dumps({"pipeline": pipe}))
+    print(json.dumps({"train": train}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 """Model configs for the PyTorch port: this package's own copy of the JAX
-package's ``repro/configs/base.py`` ``ModelConfig`` (the port imports
-nothing of the JAX package). Field names, defaults and derived values
-are identical, so a config means the same model on both sides.
+package's ``repro/configs/base.py`` ``ModelConfig`` and ``RunConfig`` (the
+port imports nothing of the JAX package). Field names, defaults and
+derived values are identical, so a config means the same model and the
+same run on both sides.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 from typing import Optional, Tuple
 
 
@@ -158,3 +161,27 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Trainer/launcher knobs (the JAX package's ``RunConfig``, same fields
+    and defaults; the checkpoint directory sits under the temp directory,
+    ``$TMPDIR`` when set)."""
+    arch: str = "dfm_dit"
+    shape: str = "train_4k"
+    t0: float = 0.8                  # warm-start time (0 = cold-start DFM)
+    cold_nfe: int = 1024             # baseline step count (paper text exps)
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 300
+    batch_size: int = 32
+    seed: int = 0
+    grad_clip: float = 1.0
+    amsgrad: bool = True             # paper uses AMSGrad
+    optimizer: str = "adamw"         # adamw | adafactor
+    moments_dtype: str = "float32"   # bfloat16 for >=100B configs
+    remat: str = "none"              # none | block | full
+    checkpoint_dir: str = dataclasses.field(
+        default_factory=lambda: os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    log_every: int = 10

@@ -1,4 +1,4 @@
-"""JAX parameters -> the torch ``Model``'s state dict, and the LSTM's tree.
+"""JAX parameters <-> the torch ``Model``'s state dict, and the LSTM's tree.
 
 The JAX package checkpoints a parameter tree as a flat numpy dict keyed by
 ``|``-joined tree paths (``checkpoint/io.py::_flatten``, the layout of its
@@ -16,12 +16,17 @@ torch parameters of the same path. A tied-embedding config has no
 The LSTM draft (``models/lstm.py``) is functional in both packages: its
 flat leaves ``embed|table``, ``layers|{i}|wx|w``, ``layers|{i}|wh|w`` and
 ``head|w`` become the same tree of torch tensors.
+
+The other way, :func:`torch_params_to_jax` stacks the layers back into the
+JAX leaves (checkpoints the JAX package restores), and :func:`jax_leaves`
+groups the model's parameters by JAX leaf, in JAX's leaf order, for the
+optimizers and the global norm.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +36,7 @@ from repro_torch.device import resolve_device
 _BLOCK = re.compile(r"^stack\|blocks\|p(\d+)\|(.+)$")
 _LSTM_LAYER = re.compile(r"^layers\|(\d+)\|(wx|wh)\|w$")
 _REM = re.compile(r"^stack\|rem\|r(\d+)\|(.+)$")
+_TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
 
 
 def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -62,6 +68,58 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
             out[name.replace("|", ".")] = torch.from_numpy(arr.copy())
     return out
 
+
+
+def jax_leaf_name(torch_name: str, reps: int, n_pattern: int) -> Tuple[str, Optional[int]]:
+    """``blocks.{i}.rest`` -> (``stack|blocks|p{i % P}|rest``, slice ``i // P``)
+    for the ``reps * P`` stacked layers, (``stack|rem|r{j}|rest``, None) for
+    remainder layer ``j``; any other name -> (its ``|`` path, None)."""
+    m = _TORCH_BLOCK.match(torch_name)
+    if m is None:
+        return torch_name.replace(".", "|"), None
+    layer, rest = int(m.group(1)), m.group(2).replace(".", "|")
+    if layer < reps * n_pattern:
+        return f"stack|blocks|p{layer % n_pattern}|{rest}", layer // n_pattern
+    return f"stack|rem|r{layer - reps * n_pattern}|{rest}", None
+
+
+def jax_leaves(model) -> Dict[str, List[torch.nn.Parameter]]:
+    """The model's parameters grouped as the JAX package's parameter tree:
+    ``{leaf name: [parameter, ...]}`` in JAX's leaf order (dict keys sorted
+    level by level), a stacked leaf listing its layers in slice order."""
+    cfg = model.cfg
+    reps, n_pattern = cfg.scan_split()[0], len(cfg.pattern)
+    slots: Dict[str, dict] = {}
+    for name, param in model.named_parameters():
+        leaf, idx = jax_leaf_name(name, reps, n_pattern)
+        slots.setdefault(leaf, {})[idx] = param
+    out = {}
+    for leaf in sorted(slots, key=lambda k: k.split("|")):
+        by_idx = slots[leaf]
+        out[leaf] = ([by_idx[i] for i in range(reps)] if None not in by_idx
+                     else [by_idx[None]])
+    return out
+
+
+def torch_params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`jax_params_to_torch`: a state dict (names as
+    ``Model.state_dict`` gives them) -> the JAX package's flat
+    ``{"a|b|c": array}`` (``checkpoint/io.py::_flatten`` of its parameter
+    tree), layer ``r * P + p`` stacked back as slice ``r`` of
+    ``stack|blocks|p{p}|...``. Arrays are numpy, on the host."""
+    reps, n_pattern = cfg.scan_split()[0], len(cfg.pattern)
+    out: Dict[str, np.ndarray] = {}
+    stacked: Dict[str, list] = {}
+    for name, tensor in state.items():
+        arr = tensor.detach().cpu().numpy()
+        leaf, idx = jax_leaf_name(name, reps, n_pattern)
+        if idx is None:
+            out[leaf] = arr
+        else:
+            stacked.setdefault(leaf, [None] * reps)[idx] = arr
+    for leaf, arrs in stacked.items():
+        out[leaf] = np.stack(arrs)
+    return out
 
 
 def jax_lstm_params_to_torch(flat: Mapping[str, np.ndarray], *, device="cuda") -> dict:

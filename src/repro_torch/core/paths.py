@@ -5,7 +5,9 @@ The linear warm-start path runs on ``t in [t0, 1]`` between a draft
 distribution and the data; ``kappa(t) = (t - t0) / (1 - t0)``. The CTMC
 generator used at sampling time is ``u = (p1 - onehot(x_t)) / (1 - t)``
 for this schedule, independent of t0; the guaranteed speed-up comes from
-the shortened horizon ``1 - t0`` (see ``guarantees.py``).
+the shortened horizon ``1 - t0`` (see ``guarantees.py``). Training draws
+``t`` and ``x_t`` from the path with the port's threefry PRNG, equal to the
+JAX package's for the same key.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch import prng
@@ -34,11 +37,49 @@ class WarmStartPath:
         if not (0.0 <= self.t0 < 1.0):
             raise ValueError(f"t0 must lie in [0, 1), got {self.t0}")
 
+    # ---- schedule -------------------------------------------------------
+
+    def kappa(self, t: torch.Tensor) -> torch.Tensor:
+        """Mixture weight toward the data sample x1 at time t (float32)."""
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return torch.clamp((t - self.t0) / (1.0 - self.t0), 0.0, 1.0)
+
+    def kappa_dot(self, t: torch.Tensor) -> torch.Tensor:
+        """d kappa / dt (constant for the linear schedule)."""
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return torch.full_like(t, 1.0 / (1.0 - self.t0))
+
     def velocity_scale(self, t: torch.Tensor) -> torch.Tensor:
         """Scalar multiplying ``(p1 - onehot(x_t))`` in the CTMC generator:
         ``1 / max(1 - t, eps)`` in float32."""
         t = torch.as_tensor(t, dtype=torch.float32)
         return 1.0 / torch.clamp_min(1.0 - t, self.eps)
+
+    # ---- sampling the path ----------------------------------------------
+
+    def sample_t(self, rng: torch.Tensor, shape=(), *, device=None) -> torch.Tensor:
+        """t ~ Uniform[t0, 1): ``t0 + (1 - t0) * jax.random.uniform(rng,
+        shape)`` as the JAX package's jitted train step computes it, with the
+        product and the sum fused into one float32 rounding (XLA contracts
+        them into an FMA under jit; op by op it rounds twice)."""
+        u = prng.uniform(rng, shape, device=device)
+        span = float(np.float32(1.0 - self.t0))
+        lo = float(np.float32(self.t0))
+        # a float32 product is exact in float64: one rounding of the sum
+        return (u.double() * span + lo).float()
+
+    def interpolate(self, rng: torch.Tensor, x_src: torch.Tensor, x_tgt: torch.Tensor,
+                    t: torch.Tensor) -> torch.Tensor:
+        """Draw ``x_t`` token-wise from the pinned marginal: ``x_tgt`` where
+        ``jax.random.uniform(rng, x_src.shape) < kappa(t)``, else ``x_src``.
+
+        ``t`` broadcasts against ``x_src.shape[:-1]`` (one time per row)."""
+        k = self.kappa(t)
+        k = k.reshape(k.shape + (1,) * (x_src.ndim - k.ndim))
+        take_tgt = prng.uniform(rng, x_src.shape, device=x_src.device) < k
+        return torch.where(take_tgt, x_tgt, x_src)
+
+    # ---- step count / guarantee -----------------------------------------
 
     def num_steps(self, h: float) -> int:
         """Euler steps needed to cover [t0, 1] at step size h."""

@@ -53,6 +53,34 @@ def test_profiler_names_map_to_their_kernel(smoke, name, kind):
     assert smoke._category(name) == kind
 
 
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::flash_attn_kernel<64>(float const*, float const*)",
+     "flash_attn"),
+    ("sm90_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize128x128x8", "gemm"),
+    ("void cutlass::Kernel2<cutlass_80_simt_sgemm_128x128_8x4_nn_align1>(Params)", "gemm"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<at::native::"
+     "(anonymous namespace)::TensorListMetadata<2>, at::native::(anonymous namespace)::"
+     "BinaryOpListAlphaFunctor<float, 2, 2, 0>, std::multiplies<float>, float>(...)",
+     "foreach (optimizer)"),
+    ("void at::native::(anonymous namespace)::cunn_SoftMaxForward<4, float, float, float, "
+     "at::native::(anonymous namespace)::SoftMaxForwardEpilogue>(float*, float const*, int)",
+     "other"),
+])
+def test_train_profiler_names_map_to_their_kind(smoke, name, kind):
+    assert smoke._train_category(name) == kind
+
+
+def test_train_argv_is_launch_train_at_full_width(smoke):
+    """The training phase drives ``launch/train.py`` with its own flags:
+    the DiT at full width, 32 x 256, t0 = 0.8, on the card."""
+    from repro_torch.launch.train import parse_args
+
+    args = parse_args(smoke.train_argv("ckpt"))
+    assert (args.arch, args.smoke, args.t0, args.batch_size, args.seq_len, args.steps,
+            args.checkpoint_dir, args.device) == ("dfm-dit", False, smoke.T0, smoke.NUM,
+                                                  smoke.SEQ, smoke.TRAIN_STEPS, "ckpt", "cuda")
+
+
 PTXAS_LOG = """\
 ptxas info    : Compiling entry function '_ZN21post_attn_proj_kernelILi32ELi1ELi128ELi0EEEv' for 'sm_90a'
 ptxas info    : Function properties for _ZN21post_attn_proj_kernelILi32ELi1ELi128ELi0EEEv

@@ -806,3 +806,72 @@ def test_graph_capture_of_a_synchronising_step_raises(card):
     out, _ = EulerSampler(path=path, num_steps=4, step_fn=step_fn, jit=False).sample(
         prng.key(0), model.dfm_apply, x0)
     assert out.shape == (2, 16)
+
+
+@pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
+    (32, 256, 12, 12, 64, False, None),     # the DiT's training shape
+    (4, 200, 8, 2, 64, True, None),         # GQA, causal
+    (2, 130, 4, 1, 32, False, 17),          # MQA, a band
+])
+def test_flash_attention_fn_grads_match_plain_autograd(card, b, s, h, kh, d, causal, window):
+    """``FlashAttentionFn`` on the card (one kernel launch forward, the
+    matmul gradient backward) against autograd through the plain version on
+    the same inputs: each gradient within 1e-4 of its max |g| (the forward
+    output agrees to 1e-4 abs; float32 products in another order)."""
+    g = torch.Generator(device=card).manual_seed(s + h)
+    q, k, v = (torch.randn(shape, generator=g, device=card)
+               for shape in ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    w = torch.randn((b, s, h, d), generator=g, device=card)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    before = launches["flash_attn"]
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    torch.sum(out * w).backward()
+    assert launches["flash_attn"] == before + 1      # the backward launches no kernel
+    rq, rk, rv = (x.clone().requires_grad_() for x in (q, k, v))
+    torch.sum(flash_attention_ref(rq, rk, rv, causal=causal, window=window) * w).backward()
+    for got, want in ((tq.grad, rq.grad), (tk.grad, rk.grad), (tv.grad, rv.grad)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_flash_attn_launch_refuses_inputs_that_require_grad(card):
+    """Only ``FlashAttentionFn`` launches the kernel for inputs that require
+    grad: a launch that would cut the graph raises; under no_grad the
+    serving path launches as before."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((1, 16, 2, 32), generator=g, device=card).requires_grad_()
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        flash_ops._launch(q, q, q, torch.empty_like(q), causal=False, window=None, scale=0.1)
+    with torch.no_grad():
+        out = flash_attention(q, q, q, causal=False)
+    assert out.grad_fn is None
+
+
+def test_backbone_trains_through_the_kernel_on_card(card):
+    """One train step of a tiny DiT on the card: every parameter gets a
+    gradient that is not all zero (wq, wk, wv of every block included), the
+    forward launches flash_attn once a block and the backward none."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.convert import jax_leaves
+    from repro_torch.training import Trainer
+    from repro_torch.training.train_step import loss_and_grads, make_loss_fn
+
+    model = Model(tiny_config(), device=card, seed=0)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, 27, (4, 64)).astype(np.int32)).to(card)
+             for k in ("x_src", "x_tgt")}
+    leaves = jax_leaves(model)
+    before = launches["flash_attn"]
+    _, _, grads = loss_and_grads(make_loss_fn(model, model.cfg, WarmStartPath(0.8)), model,
+                                 leaves, batch, prng.key(0))
+    assert launches["flash_attn"] - before == model.cfg.num_layers
+    for name, gs in grads.items():
+        assert all(bool(x.abs().sum() > 0) for x in gs), name
+    trainer = Trainer(model, model.cfg, RunConfig(batch_size=4, log_every=1))
+    state = trainer.fit(trainer.init_state(), iter([(batch["x_src"].cpu().numpy(),
+                                                     batch["x_tgt"].cpu().numpy())] * 3),
+                        steps=3)
+    assert int(state.step) == 3 and len(trainer.step_ms()) == 3
+    assert all(bool(torch.isfinite(x)) for x in trainer.step_losses + trainer.step_grad_norms)

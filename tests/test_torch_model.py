@@ -5,8 +5,6 @@ here, XLA's ``_sdpa`` in JAX), and the AR serving entry points
 ``init_cache``/``prefill``/``decode_step`` at 1e-5 on the draft configs
 (rmsnorm, bias, gated MLP, tied head, no RoPE, GQA)."""
 
-import re
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,7 +17,7 @@ from repro.models import build_model as jax_build_model
 from repro.models.common import time_embed as jax_time_embed
 from repro.models.rope import apply_rope as jax_apply_rope, rope_angles as jax_rope_angles
 from repro_torch.configs import dfm_dit
-from repro_torch.convert import jax_params_to_torch
+from repro_torch.convert import jax_leaves, jax_params_to_torch, torch_params_to_jax
 from repro_torch.models import Model
 from repro_torch.models.model import check_supported
 from repro_torch.models.rope import apply_rope, rope_angles
@@ -152,22 +150,15 @@ def test_convert_round_trip(name):
     no head leaf and no torch head."""
     jm, params, model = _draft_pair(name)
     flat = _flatten(params)
-    state = {k: v.numpy() for k, v in model.state_dict().items()}
-    reps, n_pat = model.cfg.scan_split()[0], len(model.cfg.pattern)
-    back = {}
-    for k, v in state.items():
-        m = re.match(r"^blocks\.(\d+)\.(.+)$", k)
-        if m is None:
-            back[k.replace(".", "|")] = v
-            continue
-        layer, rest = int(m.group(1)), m.group(2).replace(".", "|")
-        if layer < reps * n_pat:   # slice layer // P of pattern position layer % P
-            back.setdefault(f"stack|blocks|p{layer % n_pat}|{rest}", [None] * reps)[
-                layer // n_pat] = v
-        else:
-            back[f"stack|rem|r{layer - reps * n_pat}|{rest}"] = v
-    back = {k: np.stack(v) if isinstance(v, list) else v for k, v in back.items()}
+    back = torch_params_to_jax(model.state_dict(), model.cfg)
     assert set(back) == set(flat)
+    # the optimizers' grouping: JAX's leaf order, layers in slice order
+    leaves = jax_leaves(model)
+    assert list(leaves) == list(flat)
+    for k, ps in leaves.items():
+        np.testing.assert_array_equal(
+            np.stack([p.detach().numpy() for p in ps]) if k.startswith("stack|blocks|")
+            else ps[0].detach().numpy(), flat[k])
     for k, v in flat.items():
         np.testing.assert_array_equal(back[k], v)
     tied = model.cfg.tie_embeddings
