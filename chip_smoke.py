@@ -38,9 +38,25 @@ key read on the card against the host's words, and the launch counts of
 each call (a replay counts what was captured; a call that captures counts
 its eager warm-up run too); it prints the capture times, the draft's wall
 and device time and busy share, and the graphed and eager times side by
-side. It prints the card,
-``{"serve": ...}``, ``{"scheduler": ...}`` and ``{"pipeline": ...}`` lines, a
-``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": ...}``. Any
+side. The scheduler's masked per-row refine is one graph per compile key
+(two row-t0 mixes of one key: one capture, each replay == its eager
+launches) and is timed against its eager launches; the LSTM draft is one
+graph per call shape, == its eager launches. A capture that a
+synchronisation broke must leave the default CUDA generator drawing and a
+fresh capture working.
+
+After the training phase, the drafting policies run on the trained DiT and
+the AR engine over the 16 scheduler requests: ``AdaptiveT0Policy`` on a
+calibration fitted to the text corpus (single- and multi-time probe),
+``per_row_t0`` with ``speculative`` accept against speculation off, and
+``BanditT0Policy`` through ``serve_requests`` and ``serve_stream``, with
+exact launch counts, every request ending once, accepted == its pre-pass
+drafts, rejected == speculation off, one ``draft_fn`` call a bucket, the
+bandit's pulls == priors + rows refined, and a small policy scheduler on the
+card == the CPU. It prints the card,
+``{"serve": ...}``, ``{"scheduler": ...}``, ``{"pipeline": ...}``, ``{"train":
+...}`` and ``{"policy": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
 """
@@ -1082,23 +1098,32 @@ def sched_requests():
             for i, (L, n, t0) in enumerate(SCHED_REQUESTS)]
 
 
-def expected_launches(report, prefills, layers, fused_block=1, captured=()):
+def expected_launches(report, prefills, layers, fused_block=1, captured=(), refine_captured=(),
+                      drafts=None, probe_evals=0):
     """Exact kernel launches of one scheduler run from its micro-batches:
     per micro-batch, n refine steps (ceil(n / K) backbone evaluations with
-    fused blocks) and a draft of bucket_len tokens (bucket_len - 1 decode
-    steps), plus one 1-token prefill per prefix computed and one eager
-    decode (the capture's warm-up) per decode key ``(rows, prefix,
-    seq_len)`` captured."""
+    fused blocks; twice for the first micro-batch of a compile key captured
+    in the run: the capture's warm-up) and a draft of bucket_len tokens
+    (bucket_len - 1 decode steps), plus one 1-token prefill per prefix
+    computed and one eager decode (the capture's warm-up) per decode key
+    ``(rows, prefix, seq_len)`` captured. In policy mode the drafts are the
+    pre-pass's (``drafts``: the bucket length of each ``draft_fn`` call) and
+    ``probe_evals`` backbone evaluations of the probe launch flash_attn too."""
     want = {k: 0 for k in ("ws_step_rows", "ws_fused", "flash_attn") + DRAFT_KERNELS}
+    seen = set()
     for b in report["batches"]:
         n = b["nfe"]
-        evals = n if fused_block == 1 else -(-n // fused_block)
+        key = (b["bucket_len"], b["padded_rows"], n)
+        runs = 2 if key in refine_captured and key not in seen else 1
+        seen.add(key)
+        evals = runs * (n if fused_block == 1 else -(-n // fused_block))
         want["ws_step_rows" if fused_block == 1 else "ws_fused"] += evals
         want["flash_attn"] += evals * layers
-        steps = b["bucket_len"] - 1
+    for blen in (drafts if drafts is not None else [b["bucket_len"] for b in report["batches"]]):
         for name in ("qkv_rope", "attn_cached", "post_attn"):
-            want[name] += steps * layers
-        want["head"] += steps
+            want[name] += (blen - 1) * layers
+        want["head"] += blen - 1
+    want["flash_attn"] += probe_evals * layers
     steps = prefills + sum(seq_len - 1 for _, _, seq_len in captured)
     for name in ("qkv_rope", "attn_cached", "post_attn"):
         want[name] += steps * layers
@@ -1106,18 +1131,22 @@ def expected_launches(report, prefills, layers, fused_block=1, captured=()):
     return want
 
 
-def run_counted(what, fn, engine, layers, fused_block=1):
-    """Run ``fn() -> (out, report)`` with the launch counts from 0 and gate
-    them against the run's micro-batches."""
+def run_counted(what, sched, fn, engine, layers, fused_block=1, **policy):
+    """Run ``fn() -> (out, report)`` (a run of ``sched``) with the launch
+    counts from 0 and gate them against the run's micro-batches and the
+    graphs it captured (``policy``: see :func:`expected_launches`)."""
     from repro_torch.kernels import launches
 
     pre, keys = engine.stats.prefill_computes, set(engine.graphs.capture_s)
+    refine_keys = set(sched.graphs.capture_s)
     launches.clear()
     out, report = fn()
     torch.cuda.synchronize()
     got = dict(launches)
+    policy = {k: v() if callable(v) else v for k, v in policy.items()}
     want = expected_launches(report, engine.stats.prefill_computes - pre, layers, fused_block,
-                             set(engine.graphs.capture_s) - keys)
+                             set(engine.graphs.capture_s) - keys,
+                             set(sched.graphs.capture_s) - refine_keys, **policy)
     if {k: got.get(k, 0) for k in want} != want or set(got) - set(want):
         fail(f"{what}: launches {got}, expected {want}")
     return out, report, got
@@ -1157,6 +1186,57 @@ def busy_share(fn, what="a scheduler run"):
     return res
 
 
+def check_scheduler_refine_graph(model):
+    """The scheduler's per-row refine at full width (8 rows x 128, cold_nfe
+    64): two calls of one compile key with different row-t0 mixes (the
+    active mask as data) capture once; each replay equals its eager
+    launches bit for bit, with a replay's launch counts."""
+    import numpy as np
+
+    from repro_torch.core.sampler import refine_schedule_rows
+    from repro_torch.kernels import launches
+    from repro_torch.serving import WarmStartScheduler, uniform_draft
+    from repro_torch.serving.scheduler import _derive_row_keys
+
+    sched = WarmStartScheduler(flow_model=model, draft_fn=uniform_draft(VOCAB, device="cuda"),
+                               device="cuda", **SCHED)
+    res = []
+    for i, mix in enumerate([(0.8,) * 8, (0.8, 0.85, 0.9, 0.95, 0.8, 0.9, 0.85, 0.8)]):
+        x = torch.randint(0, VOCAB, (8, 128), generator=torch.Generator().manual_seed(i),
+                          dtype=torch.int32).cuda()
+        _, flow_keys = _derive_row_keys(np.full(8, 50 + i), np.arange(8))
+        sch = refine_schedule_rows(mix, 1.0 / COLD_NFE, COLD_NFE)[:4]
+        runs = []
+        for fn in (lambda: sched._refine_loop((128, 8, 13), flow_keys, x, *sch),
+                   lambda: sched._refine_loop_eager(flow_keys, x, *sch)):
+            before = dict(launches)
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            runs.append((out, grown(before), (time.perf_counter() - t) * 1e3))
+        (g, n_g, ms_g), (e, n_e, ms_e) = runs
+        k = 2 if i == 0 else 1
+        ok = torch.equal(g, e) and n_g == {name: k * c for name, c in n_e.items()}
+        res.append({"row_t0s": list(mix), "equal": ok, "graph_ms": ms_g, "eager_ms": ms_e,
+                    "launches": n_g})
+        if not ok:
+            fail(f"the scheduler's refine graph disagrees with its eager launches: {res}")
+    # one micro-batch's refine: its wall (host clock) against its device time
+    profiles = {name: _profile(lambda fn=fn: (fn(), torch.cuda.synchronize()),
+                               f"scheduler refine 8 x 128, 13 steps ({name})")
+                for name, fn in (
+                    ("graph", lambda: sched._refine_loop((128, 8, 13), flow_keys, x, *sch)),
+                    ("eager", lambda: sched._refine_loop_eager(flow_keys, x, *sch)))}
+    st = sched.graphs.stats()
+    print(f"scheduler refine graph (8 x 128, 13 steps, two row-t0 mixes): captures "
+          f"{st['captures']}, replays {st['replays']}, bitwise equal to eager; graph ms "
+          f"{[round(r['graph_ms'], 1) for r in res]} (the first captures), eager "
+          f"{[round(r['eager_ms'], 1) for r in res]}")
+    if (st["captures"], st["replays"]) != (1, 3):
+        fail(f"the scheduler's refine: {st}, expected one capture and three replays")
+    return {"calls": res, "graphs": st, "profiles": profiles}
+
+
 def scheduler_path(model, engine):
     """The continuous-batching scheduler at full width: the dfm_dit backbone
     drafted by the full-width AR engine (BOS prompt), a fixed set of 16
@@ -1191,25 +1271,49 @@ def scheduler_path(model, engine):
 
     # the first run pays the draft engine's first prefills, the caches and a
     # decode capture per key
-    _, rep_first, _ = run_counted("warm-up run", lambda: sched.serve_requests(reqs), engine,
-                                  layers)
+    _, rep_first, _ = run_counted("warm-up run", sched, lambda: sched.serve_requests(reqs),
+                                  engine, layers)
     gate_captures("warm-up run", rep_first)
-    batch, rep_on, counts = run_counted("serve_requests (overlap on)",
+    refine_first = dict(sched.graphs.stats())
+    first_keys = {(b["bucket_len"], b["padded_rows"], b["nfe"]) for b in rep_first["batches"]}
+    if sched.graphs.captures != len(first_keys):
+        fail(f"warm-up run: {sched.graphs.captures} refine captures for the compile keys "
+             f"{sorted(first_keys)}")
+    batch, rep_on, counts = run_counted("serve_requests (overlap on)", sched,
                                         lambda: sched.serve_requests(reqs), engine, layers)
     gate_captures("serve_requests (overlap on)", rep_on)
     streamed, rep_stream, _ = run_counted(
-        "serve_stream", lambda: (list(sched.serve_stream(reqs)), sched.stream_report),
+        "serve_stream", sched, lambda: (list(sched.serve_stream(reqs)), sched.stream_report),
         engine, layers)
     gate_captures("serve_stream", rep_stream)
-    serial, rep_off, _ = run_counted(
-        "serve_requests (overlap off)",
-        lambda: scheduler(overlap=False).serve_requests(reqs), engine, layers)
+    off = scheduler(overlap=False)
+    serial, rep_off, _ = run_counted("serve_requests (overlap off)", off,
+                                     lambda: off.serve_requests(reqs), engine, layers)
     gate_captures("serve_requests (overlap off)", rep_off)
     alone_id = 7
+    lone = scheduler()
     alone, rep_alone, _ = run_counted(
-        "one request alone", lambda: scheduler().serve_requests([reqs[alone_id]]), engine,
+        "one request alone", lone, lambda: lone.serve_requests([reqs[alone_id]]), engine,
         layers)
     gate_captures("one request alone", rep_alone)
+    # overlap off on the scheduler whose graphs are captured (the new
+    # scheduler's run above pays its captures), then the parent's refine:
+    # eager launches, overlap on and off, on the same scheduler
+    sched.overlap = False
+    steady_off = sched.serve_requests(reqs)
+    rep_off_steady = steady_off[1]
+    eager_runs = []
+    for overlap in (True, False):
+        sched.overlap = overlap
+        sched._refine_loop = lambda key, *a: sched._refine_loop_eager(*a)
+        eager_runs.append(sched.serve_requests(reqs))
+        del sched._refine_loop
+    sched.overlap = True
+    rep_eager_on, rep_eager_off = eager_runs[0][1], eager_runs[1][1]
+    for res_e, _ in eager_runs + [steady_off]:
+        if any(not np.array_equal(res_e[rid].tokens, r.tokens) for rid, r in batch.items()):
+            fail("the scheduler's refine graphs disagree with their eager launches")
+    refine_graph = check_scheduler_refine_graph(model)
 
     stream_by_id = {c.request_id: c for c in streamed}
     diffs = {"stream_vs_batch": 0, "overlap_off_vs_on": 0}
@@ -1241,9 +1345,10 @@ def scheduler_path(model, engine):
         fail(f"second run's jit_cache {rep_on['jit_cache']}")
 
     # fused blocks: K = 2 draws per backbone evaluation
+    fsched = scheduler(fused_block=2)
     fused, rep_fused, fused_counts = run_counted(
-        "serve_requests (fused_block=2)",
-        lambda: scheduler(fused_block=2).serve_requests(reqs), engine, layers, fused_block=2)
+        "serve_requests (fused_block=2)", fsched, lambda: fsched.serve_requests(reqs), engine,
+        layers, fused_block=2)
     gate_captures("serve_requests (fused_block=2)", rep_fused)
     prompt = draft_prompt(NUM)
     path = WarmStartPath(t0=T0)
@@ -1274,7 +1379,16 @@ def scheduler_path(model, engine):
     print(f"scheduler wall: overlap on {rep_on['wall_time_s']:.3f} s (draft "
           f"{rep_on['draft_time_s']:.3f} s, flow {rep_on['flow_time_s']:.3f} s), overlap off "
           f"{rep_off['wall_time_s']:.3f} s (draft {rep_off['draft_time_s']:.3f} s, flow "
-          f"{rep_off['flow_time_s']:.3f} s); {rep_on['samples_per_s']:.2f} samples/s")
+          f"{rep_off['flow_time_s']:.3f} s, its refine captures included; with the graphs "
+          f"captured {rep_off_steady['wall_time_s']:.3f} s, draft "
+          f"{rep_off_steady['draft_time_s']:.3f} s, flow {rep_off_steady['flow_time_s']:.3f} s); "
+          f"{rep_on['samples_per_s']:.2f} samples/s; the "
+          f"refine as eager launches (the parent's): overlap on "
+          f"{rep_eager_on['wall_time_s']:.3f} s (flow {rep_eager_on['flow_time_s']:.3f} s), "
+          f"off {rep_eager_off['wall_time_s']:.3f} s (flow "
+          f"{rep_eager_off['flow_time_s']:.3f} s); refine graphs: first run "
+          f"{refine_first['captures']} captures, ms by key "
+          f"{json.dumps(refine_first['capture_ms'])}")
     report = {
         "config": model.cfg.name, "draft": "AR engine, dfm_dit CONFIG as causal decoder, "
         "BOS prompt", **SCHED, "requests": len(reqs), "rows": rep_on["rows"],
@@ -1307,6 +1421,15 @@ def scheduler_path(model, engine):
                       "flow_s": rep_first["flow_time_s"], "decode_captures": captures[0]},
         "decode_captures_after_each_run": captures,
         "decode_graphs": engine.graphs.stats(),
+        "refine_graphs": sched.graphs.stats(), "refine_graphs_first_run": refine_first,
+        "refine_graph_check": refine_graph,
+        "overlap_off_graphs_captured": {"wall_s": rep_off_steady["wall_time_s"],
+                                        "draft_s": rep_off_steady["draft_time_s"],
+                                        "flow_s": rep_off_steady["flow_time_s"]},
+        "eager_refine": {"wall_s_overlap_on": rep_eager_on["wall_time_s"],
+                         "flow_s_overlap_on": rep_eager_on["flow_time_s"],
+                         "wall_s_overlap_off": rep_eager_off["wall_time_s"],
+                         "flow_s_overlap_off": rep_eager_off["flow_time_s"]},
     }
     counts_path = {"ws_step_rows": counts.get("ws_step_rows", 0),
                    "ws_fused": fused_counts.get("ws_fused", 0) + server_counts.get("ws_fused", 0)}
@@ -1428,6 +1551,38 @@ def check_small_pipeline_against_cpu():
     return {"tokens_differ": diff, "near_tie_tokens": ties, "parted_at_step": parted_at}
 
 
+def check_lstm_graph(lstm, lparams):
+    """The §4.2 LSTM draft at 32 x 256 (255 + 1 tokens a row): one graph
+    replay a call against its eager launches, bit for bit over 5 keys, each
+    timed on the host clock to the card's end; the capture's ms; one replay
+    profiled (device time, busy share)."""
+    from repro_torch import prng
+
+    outs, times = {}, {}
+    for name, fn in (("graph", lstm.generate), ("eager", lstm._generate_eager)):
+        for i in range(5):
+            t = time.perf_counter()
+            x = fn(lparams, prng.key(950 + i), NUM, SEQ)
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+            outs.setdefault(name, []).append(x)
+    differ = sum(int((a != b).sum()) for a, b in zip(outs["graph"], outs["eager"]))
+    st = lstm.graphs.stats()
+    profile = _profile(lambda: (lstm.generate(lparams, prng.key(960), NUM, SEQ),
+                                torch.cuda.synchronize()), "LSTM draft (graph)")
+    res = {"graph_ms": times["graph"], "eager_ms": times["eager"],
+           "graph_ms_median": statistics.median(times["graph"]),
+           "eager_ms_median": statistics.median(times["eager"]), "tokens_differ": differ,
+           "graphs": st, "profile": profile}
+    print(f"LSTM draft 32 x 256: graph replay {res['graph_ms_median']:.2f} ms (median of 5; "
+          f"{[round(v, 2) for v in times['graph']]}), eager {res['eager_ms_median']:.1f} ms "
+          f"({[round(v, 1) for v in times['eager']]}); tokens differing {differ}; captures "
+          f"{st['captures']}, replays {st['replays']}, capture ms {json.dumps(st['capture_ms'])}")
+    if differ or st["captures"] != 1:
+        fail(f"the LSTM draft's graph disagrees with its eager launches: {res}")
+    return res
+
+
 def with_jit_off(pipe):
     """The same pipeline with its sampler's loop as eager launches
     (``EulerSampler(jit=False)``)."""
@@ -1540,6 +1695,7 @@ def pipeline_path(model):
             return refine(prng.key(400), x_cal, t_cal, 1.0 / COLD_NFE)
 
     cal = draft.calibrate_cost_ratio(nfe_fn, rng=prng.key(401), num=NUM, seq_len=SEQ)
+    lstm_graph = check_lstm_graph(lstm, lparams)
 
     def counted(what, fn, want, want_evals, smp):
         """Run ``fn``, one call of ``smp``'s refine graph, and gate its launches:
@@ -1638,7 +1794,7 @@ def pipeline_path(model):
         "fused_block_2": {"flow_ms": fused_wall * 1e3, "backbone_evals": st_fused.nfe,
                           "capture_call_ms": fused_walls[0] * 1e3},
         "launches_per_warm_generate": per_warm, "launches_path": counts,
-        "graphs": graphs,
+        "graphs": graphs, "lstm_graph": lstm_graph,
         "profile": profile,
         # every kernel the profiled generate launched (the draft's too), per NFE
         "profile_launches_per_nfe": (profile["kernel_launches"] / nfe
@@ -2259,7 +2415,403 @@ def train_path():
           f"launches {counts}")
     train["moons"] = moons_experiment()
     train["phase_s"] = time.perf_counter() - t_phase
-    return train, counts
+    return train, counts, model
+
+
+# -- the drafting policies -------------------------------------------------------------
+
+POLICY_TIMES = (0.3, 0.5, 0.7)      # the multi-time probe
+POLICY_PER_TIER = 64                # rows a corruption tier in the calibration
+
+
+def check_failed_capture_recovers():
+    """After a capture that a synchronisation broke, the default CUDA
+    generator draws (no ``generator=``) and a fresh GraphCache captures and
+    replays a good function, bitwise equal to its eager run."""
+    from repro_torch.graphs import GraphCache, GraphCaptureError
+
+    x = torch.arange(8, device="cuda", dtype=torch.float32)
+    try:
+        GraphCache("a synchronising function")("k", lambda t: t * t.sum().item(), x)
+        fail("a capture that reads the card on the host did not raise")
+    except GraphCaptureError as err:
+        raised = str(err).split(";")[0][:160]
+    drew = torch.randn(4, device="cuda")
+    good = GraphCache("a good function")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    equal = []
+    for _ in range(3):
+        inp = torch.randn(4096, generator=g, device="cuda")
+        equal.append(torch.equal(good("k", lambda t: torch.sin(t) * 2 + torch.cumsum(t, 0),
+                                      inp), torch.sin(inp) * 2 + torch.cumsum(inp, 0)))
+    torch.cuda.synchronize()
+    res = {"raised": raised, "default_generator_draws": bool(torch.isfinite(drew).all()),
+           "fresh_capture_equal": equal, "captures": good.captures, "replays": good.replays}
+    print(f"failed capture: {raised}; then the default generator draws, a fresh capture "
+          f"replays bitwise {equal} ({good.captures} capture, {good.replays} replays)")
+    if not all(equal) or (good.captures, good.replays) != (1, 3):
+        fail(f"after a failed capture: {res}")
+    return res
+
+
+class TimedScorer:
+    """A probe with each call timed to the card's end and recorded."""
+
+    def __init__(self, score):
+        self.score, self.calls = score, []
+
+    @property
+    def graphs(self):
+        return self.score.graphs
+
+    def __call__(self, tokens):
+        t = time.perf_counter()
+        out = self.score(tokens).cpu()
+        self.calls.append({"rows": int(out.shape[0]), "ms": (time.perf_counter() - t) * 1e3,
+                           "scores": out.numpy()})
+        return out
+
+
+class RecordingDraft:
+    """``draft_fn`` with each call timed to its stream's end and its rows
+    kept on the host by their key words."""
+
+    def __init__(self, draft_fn):
+        self.draft_fn, self.calls, self.rows = draft_fn, [], {}
+
+    def __call__(self, keys, seq_len):
+        t = time.perf_counter()
+        x = self.draft_fn(keys, seq_len)
+        host = x.cpu()
+        self.calls.append({"rows": int(keys.shape[0]), "seq_len": int(seq_len),
+                           "ms": (time.perf_counter() - t) * 1e3})
+        for k, row in zip(keys.tolist(), host):
+            self.rows[(tuple(k), int(seq_len))] = row
+        return x
+
+
+def request_draft(draft, req, blen):
+    """A request's rows as the pre-pass drafted them (by their row keys)."""
+    import numpy as np
+
+    from repro_torch.serving.scheduler import _derive_row_keys
+
+    keys, _ = _derive_row_keys(np.full(req.num_samples, req.seed),
+                               np.arange(req.sample_offset, req.sample_offset + req.num_samples))
+    return torch.stack([draft.rows[(tuple(k), blen)] for k in keys.tolist()])
+
+
+def request_min_scores(reqs, calls, min_bucket, max_bucket):
+    """Each scored request's minimum row score in one pre-pass: its probe
+    calls are one a bucket, ascending, each over the bucket's scored
+    requests' rows in request order."""
+    from repro_torch.serving import bucket_seq_len
+
+    by_bucket = {}
+    for r in reqs:
+        if r.t0 is None:
+            blen = bucket_seq_len(r.seq_len, min_bucket=min_bucket, max_bucket=max_bucket)
+            by_bucket.setdefault(blen, []).append(r)
+    out = {}
+    for (blen, rs), call in zip(sorted(by_bucket.items()), calls):
+        at = 0
+        for r in rs:
+            out[r.request_id] = float(call["scores"][at:at + r.num_samples].min())
+            at += r.num_samples
+    return out
+
+
+def check_small_policy_against_cpu():
+    """A small policy scheduler (smoke DiT, its probe, per-row t0,
+    speculative, 5 requests) on the card equals the same on the CPU: tokens,
+    t0s, per-row t0s, the accepted set, the t0 histogram and the speculative
+    counts."""
+    from repro_torch.configs.dfm_dit import smoke_config
+    from repro_torch.drafting import AdaptiveT0Policy, T0Calibration, make_quality_scorer
+    from repro_torch.models import Model
+    from repro_torch.serving import ServeRequest, WarmStartScheduler, uniform_draft
+
+    spec = [(32, 3, None), (24, 2, None), (32, 1, 0.5), (14, 4, None), (18, 2, None)]
+    out = []
+    for device in ("cuda", "cpu"):
+        model = Model(smoke_config(), device="cpu", seed=3).to(device)
+        pol = AdaptiveT0Policy(
+            scorer=make_quality_scorer(model.dfm_apply, device=device),
+            calibration=T0Calibration(scores=(-3.6, -3.0), t0s=(0.5, 0.9), t0_floor=0.5,
+                                      t0_ceil=0.9), bin_width=0.1)
+        sched = WarmStartScheduler(flow_model=model, draft_fn=uniform_draft(VOCAB, device=device),
+                                   cold_nfe=16, default_t0=T0, max_rows=8, t0_policy=pol,
+                                   per_row_t0=True, speculative=True, accept_score=-3.3,
+                                   device=device)
+        reqs = [ServeRequest(request_id=i, seq_len=L, num_samples=n, seed=30 + i, t0=t0)
+                for i, (L, n, t0) in enumerate(spec)]
+        res, rep = sched.serve_requests(reqs)
+        out.append(({rid: (r.tokens.tolist(), r.nfe, r.t0, r.row_t0s, r.micro_batch)
+                     for rid, r in sorted(res.items())},
+                    rep["policy"]["t0_histogram"], rep["speculative"]["eligible"],
+                    rep["speculative"]["accepted"]))
+    card, cpu = out
+    accepted = sorted(rid for rid, v in card[0].items() if v[1] == 0)
+    print(f"small policy scheduler (smoke config, probe, per-row t0, speculative, 5 "
+          f"requests): card == CPU {card == cpu}; accepted {accepted}, t0 histogram "
+          f"{card[1]}, eligible {card[2]}")
+    if card != cpu:
+        fail("the small policy scheduler on the card disagrees with the CPU")
+    return {"equal": True, "accepted": accepted, "t0_histogram": card[1]}
+
+
+def policy_path(model, engine):
+    """The drafting policies at full width on the trained DiT, drafted by the
+    full-width AR engine, over the 16 scheduler requests (explicit t0s kept,
+    the rest scored): (a) AdaptiveT0Policy on a calibration fitted to the
+    text corpus, single- and multi-time probe; (b) the same with per-row t0
+    and speculative accept (accept_score between the smallest and largest
+    request minimum), against speculation off; (c) BanditT0Policy (epsilon
+    0, per-row t0) through serve_requests and serve_stream. Every run's
+    launch counts, every request ending once, accepted = its drafts, rejected
+    = speculation off, bandit pulls = priors + rows refined, one draft_fn
+    call a bucket in the pre-pass and none in the draft stage."""
+    import numpy as np
+
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.drafting import (
+        AdaptiveT0Policy, BanditT0Policy, fit_t0_calibration, make_quality_scorer,
+    )
+    from repro_torch.serving import WarmStartScheduler, bucket_seq_len
+
+    t_phase = time.perf_counter()
+    layers = model.cfg.num_layers
+    reqs = sched_requests()
+    data = SyntheticCorpus(seed=0).sequences(4 * POLICY_PER_TIER, SEQ, seed=11)
+    probes = {"single": TimedScorer(make_quality_scorer(model.dfm_apply, device="cuda")),
+              "multi": TimedScorer(make_quality_scorer(model.dfm_apply, device="cuda",
+                                                       probe_times=POLICY_TIMES))}
+    n_times = {"single": 1, "multi": len(POLICY_TIMES)}
+    cals = {}
+    for name, probe in probes.items():
+        t = time.perf_counter()
+        cals[name] = fit_t0_calibration(probe, data, VOCAB, num_per_tier=POLICY_PER_TIER,
+                                        device="cuda")
+        torch.cuda.synchronize()
+        print(f"calibration ({name}-time probe, {POLICY_PER_TIER} rows a tier, 3 tiers): "
+              f"anchors {list(zip(cals[name].scores, cals[name].t0s))}, floor "
+              f"{cals[name].t0_floor}, ceil {cals[name].t0_ceil}, "
+              f"{(time.perf_counter() - t) * 1e3:.1f} ms")
+    probe_captures = {n: p.graphs.captures for n, p in probes.items()}
+
+    def scheduler(draft, **kw):
+        return WarmStartScheduler(flow_model=model, draft_fn=draft, device="cuda", **SCHED,
+                                  **kw)
+
+    def counted(what, sched, draft, probe_name, fn):
+        """``fn()`` gated: exact launches (pre-pass drafts, probe evaluations
+        incl. capture warm-ups, refine), one draft_fn call a bucket."""
+        probe = probes[probe_name]
+        c0, p0, d0 = len(probe.calls), probe.graphs.captures, len(draft.calls)
+        t = time.perf_counter()
+        out, rep, got = run_counted(
+            what, sched, fn, engine, layers,
+            drafts=lambda: [c["seq_len"] for c in draft.calls[d0:]],
+            probe_evals=lambda: n_times[probe_name] * (len(probe.calls) - c0
+                                                       + probe.graphs.captures - p0))
+        wall = time.perf_counter() - t
+        launches_by_run[what] = got
+        buckets = sorted({bucket_seq_len(r.seq_len, min_bucket=SCHED["min_bucket"],
+                                         max_bucket=SCHED["max_bucket"]) for r in reqs})
+        streamed = isinstance(out, list)
+        calls = [c["seq_len"] for c in draft.calls[d0:]]
+        if (not streamed and calls != buckets) or (streamed and set(calls) != set(buckets)):
+            fail(f"{what}: draft_fn calls {calls}, expected one a bucket {buckets} in the "
+                 f"pre-pass and none in the draft stage")
+        return out, rep, wall, probe.calls[c0:], draft.calls[d0:]
+
+    launches_by_run = {}
+
+    def results_of(out):
+        return {c.request_id: c for c in out} if isinstance(out, list) else out
+
+    def gate_requests(what, out, rep):
+        res = results_of(out)
+        ids = [c.request_id for c in out] if isinstance(out, list) else list(res)
+        if sorted(ids) != list(range(len(reqs))):
+            fail(f"{what}: requests ended {sorted(ids)}, expected each of {len(reqs)} once")
+        for r in reqs:
+            got = res[r.request_id]
+            toks = np.asarray(got.tokens)
+            if toks.shape != (r.num_samples, r.seq_len) or toks.min() < 0 or toks.max() >= VOCAB:
+                fail(f"{what}: request {r.request_id} tokens {toks.shape}")
+            if r.t0 is not None and (got.nfe == 0 or got.t0 != r.t0):
+                fail(f"{what}: explicit-t0 request {r.request_id} served at {got.t0}, "
+                     f"nfe {got.nfe}")
+            if got.nfe and (got.nfe != warm_nfe(COLD_NFE, got.t0)
+                            or (got.row_t0s and got.t0 != min(got.row_t0s))):
+                fail(f"{what}: request {r.request_id} nfe {got.nfe} t0 {got.t0} rows "
+                     f"{got.row_t0s}")
+        if isinstance(out, list) and not rep["conservation"]["balanced"]:
+            fail(f"{what}: ledger {rep['conservation']}")
+
+    def mean_nfe(out):
+        vals = []
+        for c in results_of(out).values():
+            vals.append(float(np.mean([warm_nfe(COLD_NFE, t) for t in c.row_t0s]))
+                        if c.row_t0s else float(c.nfe))
+        return float(np.mean(vals))
+
+    runs = {}
+    rows = sum(r.num_samples for r in reqs)
+    # a batch pre-pass probes once a bucket that holds a scored request
+    n_prepass = len({bucket_seq_len(r.seq_len, min_bucket=SCHED["min_bucket"],
+                                    max_bucket=SCHED["max_bucket"])
+                     for r in reqs if r.t0 is None})
+
+    def record(name, out, rep, wall, pcalls, dcalls, probe_name):
+        """The run's numbers; a batch run's probe calls split into the
+        pre-pass's and the bandit's reward probes after them."""
+        streamed = isinstance(out, list)
+        pre = pcalls if streamed else pcalls[:n_prepass]
+        runs[name] = {
+            "probe": probe_name, "wall_s": wall, "report_wall_s": rep.get("wall_time_s"),
+            "prepass_ms": rep["policy"]["prepass_time_s"] * 1e3,
+            "prepass_draft_ms": sum(c["ms"] for c in dcalls),
+            "prepass_probe_ms": sum(c["ms"] for c in pre),
+            "probe_ms_each": [c["ms"] for c in pcalls], "probe_rows_each":
+            [c["rows"] for c in pcalls],
+            "reward_probe_ms_each": None if streamed else [c["ms"] for c in pcalls[n_prepass:]],
+            "draft_calls": [[c["rows"], c["seq_len"], c["ms"]] for c in dcalls],
+            "scored_requests": rep["policy"]["scored_requests"],
+            "t0_histogram": rep["policy"].get("t0_histogram"),
+            "speculative": rep.get("speculative"), "mean_request_nfe": mean_nfe(out),
+            "requests_per_s": len(reqs) / wall, "samples_per_s": rows / wall,
+            "micro_batches": len(rep["batches"]),
+            "nfe_per_micro_batch": [b["nfe"] for b in rep["batches"]],
+            "flow_s": rep["flow_time_s"], "draft_s": rep["draft_time_s"],
+        }
+
+    # the fixed-t0 yardstick on the same requests and weights
+    base_draft = RecordingDraft(engine.as_draft_fn())
+    fixed = scheduler(base_draft)
+    t = time.perf_counter()
+    res_fixed, rep_fixed = fixed.serve_requests(reqs)
+    torch.cuda.synchronize()
+    wall_fixed = time.perf_counter() - t
+    t = time.perf_counter()
+    res_fixed, rep_fixed = fixed.serve_requests(reqs)       # replays only
+    torch.cuda.synchronize()
+    wall_fixed = time.perf_counter() - t
+
+    # (a) the calibrated policy, single- and multi-time
+    for name in ("single", "multi"):
+        pol = AdaptiveT0Policy(scorer=probes[name], calibration=cals[name])
+        draft = RecordingDraft(engine.as_draft_fn())
+        sched = scheduler(draft, t0_policy=pol)
+        out, rep, wall, pc, dc = counted(f"policy ({name}-time)", sched, draft, name,
+                                         lambda sched=sched: sched.serve_requests(reqs))
+        gate_requests(f"policy ({name}-time)", out, rep)
+        record(f"adaptive_{name}", out, rep, wall, pc, dc, name)
+        out, rep, wall, pc, dc = counted(f"policy ({name}-time), again", sched, draft, name,
+                                         lambda sched=sched: sched.serve_requests(reqs))
+        record(f"adaptive_{name}_again", out, rep, wall, pc, dc, name)
+
+    # (b) per-row t0 with speculation off, then on at a threshold that splits
+    pol = AdaptiveT0Policy(scorer=probes["single"], calibration=cals["single"])
+    draft = RecordingDraft(engine.as_draft_fn())
+    sched_off = scheduler(draft, t0_policy=pol, per_row_t0=True)
+    res_off, rep_off, wall, pc, dc = counted("per-row t0, speculation off", sched_off, draft,
+                                             "single", lambda: sched_off.serve_requests(reqs))
+    gate_requests("per-row t0, speculation off", res_off, rep_off)
+    record("per_row", res_off, rep_off, wall, pc, dc, "single")
+    mins = request_min_scores(reqs, pc, SCHED["min_bucket"], SCHED["max_bucket"])
+    # halfway between the two middle request minima: both sides accept and
+    # reject, and no minimum lies near the threshold
+    vals = sorted(set(mins.values()))
+    if len(vals) < 2:
+        fail(f"speculative: the request minima {mins} do not split")
+    thr = (vals[(len(vals) - 1) // 2] + vals[(len(vals) + 1) // 2]) / 2.0 if len(vals) > 2 \
+        else (vals[0] + vals[1]) / 2.0
+    draft_on = RecordingDraft(engine.as_draft_fn())
+    sched_on = scheduler(draft_on, t0_policy=pol, per_row_t0=True, speculative=True,
+                         accept_score=thr)
+    res_on, rep_on, wall, pc, dc = counted("per-row t0, speculative", sched_on, draft_on,
+                                           "single", lambda: sched_on.serve_requests(reqs))
+    gate_requests("per-row t0, speculative", res_on, rep_on)
+    record("speculative", res_on, rep_on, wall, pc, dc, "single")
+    accepted = sorted(rid for rid, r in res_on.items() if r.nfe == 0)
+    rejected_diff = 0
+    for r in reqs:
+        got = res_on[r.request_id]
+        if got.nfe == 0:
+            blen = bucket_seq_len(r.seq_len, min_bucket=SCHED["min_bucket"],
+                                  max_bucket=SCHED["max_bucket"])
+            want = request_draft(draft_on, r, blen)[:, :r.seq_len].numpy()
+            if (got.micro_batch != -1 or r.t0 is not None or mins[r.request_id] < thr
+                    or not np.array_equal(got.tokens, want)):
+                fail(f"accepted request {r.request_id}: not its pre-pass drafts, or not "
+                     f"eligible (min score {mins.get(r.request_id)} vs {thr})")
+        else:
+            other = res_off[r.request_id]
+            rejected_diff += int((np.asarray(got.tokens) != np.asarray(other.tokens)).sum())
+            if (got.t0, got.row_t0s, got.nfe) != (other.t0, other.row_t0s, other.nfe):
+                fail(f"rejected request {r.request_id}: t0s differ from speculation off")
+    spec = rep_on["speculative"]
+    print(f"speculative: accept_score {thr:.6f} (request minima {json.dumps(mins)}); "
+          f"accepted {accepted}, eligible {spec['eligible']}; rejected requests' tokens "
+          f"differing from speculation off: {rejected_diff}")
+    if rejected_diff or not (0 < len(accepted) < spec["eligible"]):
+        fail(f"speculative: {rejected_diff} rejected tokens differ, accepted {accepted} of "
+             f"{spec['eligible']}")
+
+    # (c) the bandit, epsilon 0, per-row t0: batch and stream
+    scored_rows = sum(r.num_samples for r in reqs if r.t0 is None)
+    bandit = {}
+    for how in ("batch", "stream"):
+        pol = BanditT0Policy(scorer=probes["single"], calibration=cals["single"],
+                             exploration="epsilon", epsilon=0.0)
+        draft = RecordingDraft(engine.as_draft_fn())
+        sched = scheduler(draft, t0_policy=pol, per_row_t0=True)
+        if how == "batch":
+            fn = lambda sched=sched: sched.serve_requests(reqs)         # noqa: E731
+        else:
+            fn = lambda sched=sched: (list(sched.serve_stream(reqs)),   # noqa: E731
+                                      sched.stream_report)
+        out, rep, wall, pc, dc = counted(f"bandit ({how})", sched, draft, "single", fn)
+        gate_requests(f"bandit ({how})", out, rep)
+        record(f"bandit_{how}", out, rep, wall, pc, dc, "single")
+        stats = rep["bandit"]
+        pulls = sum(a["count"] for ctx in stats.values() for a in ctx["arms"].values())
+        want = len(stats) * pol.prior_weight + scored_rows
+        bandit[how] = {"contexts": len(stats), "pulls": pulls, "priors_plus_rows": want,
+                       "reward_probes": sched._c_reward_probes.value, "arm_stats": stats}
+        print(f"bandit ({how}): {len(stats)} contexts, pulls {pulls} = priors "
+              f"{len(stats) * pol.prior_weight} + rows refined {scored_rows}; "
+              f"{sched._c_reward_probes.value} reward probes, probe ms "
+              f"{[round(c['ms'], 2) for c in pc]}")
+        if abs(pulls - want) > 1e-9:
+            fail(f"bandit ({how}): pulls {pulls}, expected {want}")
+
+    small = check_small_policy_against_cpu()
+    res = {"config": model.cfg.name, "weights": f"trained {TRAIN_STEPS} steps (the training "
+           "phase)", "requests": len(reqs), "scored": sum(r.t0 is None for r in reqs),
+           "calibration": {n: {"scores": c.scores, "t0s": c.t0s, "floor": c.t0_floor,
+                               "ceil": c.t0_ceil} for n, c in cals.items()},
+           "probe_times": POLICY_TIMES, "probe_captures": {n: p.graphs.stats()
+                                                         for n, p in probes.items()},
+           "probe_captures_by_calibration": probe_captures,
+           "fixed": {"wall_s": wall_fixed, "requests_per_s": len(reqs) / wall_fixed,
+                     "samples_per_s": rep_fixed["rows"] / wall_fixed,
+                     "mean_request_nfe": rep_fixed["mean_request_nfe"],
+                     "nfe_per_micro_batch": [b["nfe"] for b in rep_fixed["batches"]]},
+           "runs": runs, "accept_score": thr, "request_min_scores": mins,
+           "accepted": accepted, "bandit": bandit, "small_vs_cpu": small,
+           "launches_by_run": launches_by_run,
+           "launches": {k: sum(c.get(k, 0) for c in launches_by_run.values())
+                        for k in ("flash_attn", "ws_step_rows") + DRAFT_KERNELS},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"policy: fixed t0 {wall_fixed:.3f} s ({len(reqs) / wall_fixed:.2f} requests/s); "
+          + "; ".join(f"{k} {v['wall_s']:.3f} s (pre-pass {v['prepass_ms']:.1f} ms: draft "
+                      f"{v['prepass_draft_ms']:.1f}, probe {v['prepass_probe_ms']:.1f}; mean "
+                      f"NFE {v['mean_request_nfe']:.2f})" for k, v in runs.items()))
+    return res
 
 
 def _category(name: str) -> str:
@@ -2383,6 +2935,7 @@ def main() -> int:
         if len(found) != count or any(v.get("spill") != 0 for v in found.values()):
             fail(f"{kernel} must build its {count} instantiations without spills: {found}")
     _build.library()
+    failed_capture = check_failed_capture_recovers()
 
     ws_checks = [check_ws_step(8192, 27, 1.0, 0), check_ws_step(64, 50257, 1.0, 1),
                  check_ws_step(64, 50257, 0.7, 2), check_ws_step(64, 262144, 1.0, 3)]
@@ -2449,7 +3002,9 @@ def main() -> int:
     pipe["small_vs_cpu"] = small_pipe
     del model
     torch.cuda.empty_cache()
-    train, train_counts = train_path()
+    train, train_counts, trained = train_path()
+    policy = policy_path(trained, engine)
+    policy["failed_capture"] = failed_capture
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -2480,6 +3035,7 @@ def main() -> int:
          "tpu_kernel": "flash_attention_pallas",
          "launches": counts.get("flash_attn", 0), "launches_per_serve": per_serve["flash_attn"],
          "launches_train": train_counts["flash_attn"],
+         "launches_policy": policy["launches"]["flash_attn"],
          "launches_per_train_step": train["launches_per_step"]["flash_attn"],
          "max_abs_err": max(flash_errs), "max_err": max(flash_errs),
          "shape": [NUM, SEQ, 12, 64], **flash_num,
@@ -2542,6 +3098,7 @@ def main() -> int:
     print(json.dumps({"scheduler": sched}))
     print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"policy": policy}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,9 +21,10 @@ noise: on the CPU in plain torch (``euler_step_probs`` +
 The scheduler's loop is row-keyed (the ``_rows`` functions): every request
 row has its own flow key and enters the shared schedule at its own step,
 and its step keys ``fold_in(flow_keys[b], key_idx[i, b])`` are folded on
-the host once per micro-batch and uploaded in one copy. ``fused_block =
-K > 1`` runs K draws per backbone evaluation through the ``ws_fused``
-kernel (``fused_fn``).
+the host once per micro-batch and uploaded in one copy (``rows_loop_inputs``);
+the loop itself (``rows_loop``) reads nothing on the host, so the scheduler
+captures it once per compile key. ``fused_block = K > 1`` runs K draws per
+backbone evaluation through the ``ws_fused`` kernel (``fused_fn``).
 """
 
 from __future__ import annotations
@@ -164,6 +165,55 @@ def _pad_blocks(arr: torch.Tensor, n: int, nf: int, pad_value) -> torch.Tensor:
     return torch.cat([arr, pad], dim=0)
 
 
+def rows_loop_inputs(flow_keys: torch.Tensor, ts, hs, active, key_idx, *,
+                     fused_block: int = 1):
+    """The host's half of :func:`scan_refine_loop_rows`: the step keys
+    ``fold_in(flow_keys[b], key_idx[i, b])`` and the schedule as host tensors
+    ``(step_keys (n, B, 2), ts (n, B), hs (n, B), active (n, B) bool)``, each
+    uploaded in one copy by the caller. With ``fused_block = K > 1`` every
+    array is blocked to ``(ceil(n/K), K, ...)``, the tail block padded with
+    ``t = 1, h = 0`` steps (frozen by the kernel) and inactive."""
+    fk = prng.key_data(flow_keys).cpu()
+    ts = torch.as_tensor(np.asarray(ts), dtype=torch.float32)
+    hs = torch.as_tensor(np.asarray(hs), dtype=torch.float32)
+    key_idx = torch.as_tensor(np.asarray(key_idx), dtype=torch.int64)
+    act = torch.as_tensor(np.asarray(active, dtype=bool))
+    if fused_block > 1:
+        n = ts.shape[0]
+        k = min(fused_block, n)
+        nb = -(-n // k)
+
+        def blocked(arr, pad_value):
+            return _pad_blocks(arr, nb * k, n, pad_value).reshape((nb, k) + tuple(arr.shape[1:]))
+
+        ts, hs, key_idx, act = (blocked(ts, 1.0), blocked(hs, 0.0), blocked(key_idx, 0),
+                                blocked(act, False))
+    return prng.fold_in(fk, key_idx), ts, hs, act
+
+
+def rows_loop(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+              one_step: Callable, x: torch.Tensor, step_keys: torch.Tensor, ts: torch.Tensor,
+              hs: torch.Tensor, act: torch.Tensor, *,
+              fused_fn: Optional[Callable] = None) -> torch.Tensor:
+    """The device's half of :func:`scan_refine_loop_rows` on
+    :func:`rows_loop_inputs`' arrays, on ``x``'s device: it reads nothing on
+    the host, so one CUDA graph holds it for every active mask of a shape.
+    Each step keeps an inactive row's token with ``torch.where`` (JAX's
+    ``jnp.where``; bitwise the step's own draw when the row is active). With
+    ``fused_fn`` each block is one backbone evaluation at the block's first
+    step time and one ``fused_fn(keys (K, B, 2), logits, x, ts (K, B), hs
+    (K, B))`` launch, whose ``h = 0`` steps freeze their rows."""
+    if fused_fn is not None:
+        for i in range(ts.shape[0]):
+            logits = logits_fn(x, ts[i, 0])
+            x = fused_fn(step_keys[i], logits, x, ts[i], hs[i])
+        return x
+    for i in range(ts.shape[0]):
+        logits = logits_fn(x, ts[i])
+        x = torch.where(act[i][:, None], one_step(step_keys[i], logits, x, ts[i], hs[i]), x)
+    return x
+
+
 def scan_refine_loop_rows(logits_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
                           one_step: Callable, x_init: torch.Tensor, flow_keys: torch.Tensor,
                           ts, hs, active, key_idx, *, fused_block: int = 1,
@@ -185,40 +235,17 @@ def scan_refine_loop_rows(logits_fn: Callable[[torch.Tensor, torch.Tensor], torc
         padded with ``t = 1, h = 0`` steps.
 
     Rows on steps where ``active`` is False pass through unchanged; the
-    backbone still evaluates the whole batch at every step. The step keys
-    and the schedule go to the device in one copy each before the loop.
+    backbone still evaluates the whole batch at every step. It is
+    :func:`rows_loop_inputs` on the host, one copy of each array to the
+    device, and :func:`rows_loop` (the part a CUDA graph captures).
     """
+    if fused_block > 1 and fused_fn is None:
+        raise ValueError("fused_block > 1 requires fused_fn "
+                         "(see repro_torch.kernels.make_ws_fused_fn)")
+    inputs = rows_loop_inputs(flow_keys, ts, hs, active, key_idx, fused_block=fused_block)
     dev = x_init.device
-    fk = prng.key_data(flow_keys).cpu()
-    ts = torch.as_tensor(np.asarray(ts), dtype=torch.float32)
-    hs = torch.as_tensor(np.asarray(hs), dtype=torch.float32)
-    key_idx = torch.as_tensor(np.asarray(key_idx), dtype=torch.int64)
-    n = ts.shape[0]
-    x = x_init
-    if fused_block > 1:
-        if fused_fn is None:
-            raise ValueError("fused_block > 1 requires fused_fn "
-                             "(see repro_torch.kernels.make_ws_fused_fn)")
-        k = min(fused_block, n)
-        nb = -(-n // k)
-        bts = _pad_blocks(ts, nb * k, n, 1.0).reshape((nb, k) + tuple(ts.shape[1:])).to(dev)
-        bhs = _pad_blocks(hs, nb * k, n, 0.0).reshape((nb, k) + tuple(hs.shape[1:])).to(dev)
-        bidx = _pad_blocks(key_idx, nb * k, n, 0).reshape((nb, k) + tuple(key_idx.shape[1:]))
-        bkeys = prng.fold_in(fk[None, None], bidx).to(dev)       # (nb, K, B, 2)
-        for i in range(nb):
-            logits = logits_fn(x, bts[i, 0])
-            x = fused_fn(bkeys[i], logits, x, bts[i], bhs[i])
-        return x
-
-    act = np.asarray(active, dtype=bool)
-    step_keys = prng.fold_in(fk[None], key_idx).to(dev)          # (n, B, 2)
-    ts, hs = ts.to(dev), hs.to(dev)
-    act_d = torch.as_tensor(act).to(dev)
-    for i in range(n):
-        logits = logits_fn(x, ts[i])
-        x_next = one_step(step_keys[i], logits, x, ts[i], hs[i])
-        x = x_next if act[i].all() else torch.where(act_d[i][:, None], x_next, x)
-    return x
+    return rows_loop(logits_fn, one_step, x_init, *(a.to(dev) for a in inputs),
+                     fused_fn=fused_fn if fused_block > 1 else None)
 
 
 def make_euler_one_step(path: WarmStartPath, *, temperature: float = 1.0,

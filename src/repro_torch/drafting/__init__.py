@@ -1,13 +1,22 @@
-"""The draft stage (port of the JAX package's ``drafting/ar_engine.py``,
-``drafting/ref.py`` and the cost-ratio part of ``drafting/quality.py``): a
-KV-cached draft engine over a transformer or the LSTM, its cache-free
-oracle, and the measured draft/NFE cost ratio."""
+"""The draft stage and its policies (port of the JAX package's
+``drafting/``: ``ar_engine.py``, ``ref.py``, ``quality.py``, ``policy.py``
+and ``bandit.py``): a KV-cached draft engine over a transformer or the
+LSTM, its cache-free oracle, the quality probe and its score -> t0
+calibration, the per-request adaptive t0 and the bandit over t0 arms, and
+the measured draft/NFE cost ratio. (``distill.py`` is not ported yet.)"""
 
 from repro_torch.drafting.ar_engine import (
     ARDraftEngine, DraftEngineStats, LSTMDraftAdapter, TransformerDraftAdapter, row_gumbel,
 )
-from repro_torch.drafting.quality import CostRatioReport, measure_cost_ratio
+from repro_torch.drafting.quality import (
+    CostRatioReport, T0Calibration, fit_t0_calibration, make_quality_scorer, measure_cost_ratio,
+)
+from repro_torch.drafting.policy import AdaptiveT0Policy, bin_t0
+from repro_torch.drafting.bandit import BanditT0Policy, default_accept_score
 from repro_torch.drafting.ref import oracle_generate_rows
 
 __all__ = ["ARDraftEngine", "DraftEngineStats", "LSTMDraftAdapter", "TransformerDraftAdapter",
-           "row_gumbel", "measure_cost_ratio", "CostRatioReport", "oracle_generate_rows"]
+           "row_gumbel", "T0Calibration", "fit_t0_calibration", "make_quality_scorer",
+           "measure_cost_ratio", "CostRatioReport",
+           "AdaptiveT0Policy", "bin_t0", "BanditT0Policy", "default_accept_score",
+           "oracle_generate_rows"]

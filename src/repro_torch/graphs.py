@@ -22,8 +22,11 @@ by asking for the CPU); on the card the result comes from one replay:
 ``fn`` reads its inputs through its arguments, or through buffers the
 caller keeps fixed for the cache's lifetime (the draft engine's KV
 cache), and never synchronises with the host. A capture that fails
-raises :class:`GraphCaptureError`, naming the statement that broke it;
-nothing falls back to eager launches.
+raises :class:`GraphCaptureError`, naming the statement that broke it,
+after releasing what the capture held (the default CUDA generator's
+capture state, the half-built graph); nothing falls back to eager
+launches. Captures take a process-wide lock: one at a time, whichever
+thread asks.
 
 Launch counts (:mod:`repro_torch.counts`) count what ran: the warm-up's
 launches reach ``launches`` as they happen; during the capture, which
@@ -40,6 +43,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import os
+import threading
 import time
 import traceback
 from typing import Any, Callable, Dict, Hashable, Tuple
@@ -73,6 +77,31 @@ def _where(err: BaseException) -> str:
         return "an unknown statement"
     f = ours[-1]
     return f"{f.filename}:{f.lineno} ({f.line})"
+
+
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _end_failed_capture(graph, pool, side, dev: torch.device) -> None:
+    """Leave the card as a capture that never began would. A capture that
+    ``fn`` invalidated ends without its epilogue: the default CUDA generator
+    stays in capture mode (its next draw outside a graph raises "Offset
+    increment outside graph capture") until its state is replaced by a copy,
+    which keeps its seed and offset; and the caching allocator keeps routing
+    to the graph's pool until that pool is ended (the allocator's own entry
+    point, which raises when the capture's end already did it). Then the
+    half-built graph is reset and the side stream drained."""
+    gen = torch.cuda.default_generators[dev.index]
+    gen.graphsafe_set_state(gen.clone_state())
+    end_pool = (getattr(torch._C, "_cuda_endAllocateToPool", None)
+                or getattr(torch._C, "_cuda_endAllocateCurrentStreamToPool", None))
+    if end_pool is not None:
+        try:
+            end_pool(dev.index, pool)
+        except RuntimeError:
+            pass                    # the capture's end already ended the pool
+    graph.reset()
+    side.synchronize()
 
 
 def _clone(out):
@@ -135,21 +164,26 @@ class GraphCache:
         with torch.cuda.stream(side):
             fn(*static)
         graph = torch.cuda.CUDAGraph()
+        pool = torch.cuda.graph_pool_handle()      # private to this graph
         tally: collections.Counter = collections.Counter()
         raised = []
-        try:
-            with counts.counting_into(tally), torch.cuda.graph(
-                    graph, stream=side, capture_error_mode="thread_local"):
-                try:
-                    out = fn(*static)
-                except Exception as err:
-                    raised.append(err)
-                    raise
-        except Exception as err:
-            cause = raised[0] if raised else err
-            raise GraphCaptureError(
-                f"capturing {self.what} (key {key}) failed at {_where(cause)}: {cause}"
-                + (f"; {self.hint}" if self.hint else "")) from cause
+        # one capture at a time in the process: the scheduler's draft worker
+        # and its refine thread would otherwise capture at once
+        with _CAPTURE_LOCK:
+            try:
+                with counts.counting_into(tally), torch.cuda.graph(
+                        graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+                    try:
+                        out = fn(*static)
+                    except Exception as err:
+                        raised.append(err)
+                        raise
+            except Exception as err:
+                _end_failed_capture(graph, pool, side, dev)
+                cause = raised[0] if raised else err
+                raise GraphCaptureError(
+                    f"capturing {self.what} (key {key}) failed at {_where(cause)}: {cause}"
+                    + (f"; {self.hint}" if self.hint else "")) from cause
         torch.cuda.current_stream(dev).wait_stream(side)
         self.captures += 1
         self.capture_s[key] = time.perf_counter() - t0

@@ -14,24 +14,35 @@ own CUDA stream; its tokens pass to the refine stream with an event and
 ``record_stream``, and each stage synchronises its own stream before it
 reads the clock (the JAX engine's ``block_until_ready``).
 
-The refine of a micro-batch is one call of the shared masked per-row loop
-(:func:`repro_torch.core.sampler.scan_refine_loop_rows`): eager launches,
-one backbone evaluation and one ``ws_step`` per-row launch per step, or
-one ``ws_fused`` launch per K steps with ``fused_block = K``. The loop
-never writes the draft tokens in place, so a retried dispatch reuses them
-as they are (the JAX engine donates the buffer and snapshots it first).
-The compile-key accounting and its ``jit_cache.*`` counters keep the JAX
-package's names, so the two reports compare key for key; the refine is
-not captured per key yet (its draft is: the AR draft engine replays one
-CUDA graph per ``(rows, prefix_len, bucket_len)``, captured on the worker
-thread's stream).
+The refine of a micro-batch is the shared masked per-row loop
+(:func:`repro_torch.core.sampler.rows_loop`: one backbone evaluation and
+one ``ws_step`` per-row launch per step, or one ``ws_fused`` launch per K
+steps with ``fused_block = K``), on the card one CUDA graph replay per
+micro-batch, captured once per ``MicroBatch.compile_key`` (JAX's
+``jax.jit(refine)``); the step keys, the schedule and the active mask are
+the graph's inputs, so one graph serves every mix of row t0s of its key.
+The graph reads the drafts from its own static copy, so a retried dispatch
+reuses them as they are (the JAX engine donates the buffer and snapshots it
+first). The ``jit_cache.*`` counters keep the JAX package's names, so the
+two reports compare key for key: a miss is a capture, a hit a replay. The
+AR draft engine replays one CUDA graph per ``(rows, prefix_len,
+bucket_len)``, captured on the worker thread's stream.
+
+With a ``t0_policy`` (:class:`repro_torch.drafting.AdaptiveT0Policy` or
+:class:`repro_torch.drafting.BanditT0Policy`) a scoring pre-pass drafts
+every request before packing (one ``draft_fn`` call per bucket, on the
+draft stream), probes the drafts of requests without a t0 override and
+gives them the policy's t0 (``per_row_t0``: one per row); ``speculative``
+ships a request whose every row clears ``accept_score`` as its drafts
+(``ACCEPTED_DRAFT``, no refine); a bandit learns from the probe re-run on
+the refined rows. The draft stage then assembles the pre-pass drafts and
+never drafts again.
 
 Sampling is row-keyed: every sample row's PRNG stream is derived from its
 request's seed and its index within the request, so a request's output
 is invariant to micro-batch packing, and equals the JAX package's.
 
-Not ported yet, each refused by the constructor: the ``t0_policy``
-scoring pre-pass and bandit, ``speculative`` serving, the distilled tier,
+Not ported yet, each refused by the constructor: the distilled tier,
 ``pair_buffer`` and ``mesh``. With them off, the reports carry the JAX
 package's keys with the same ``None`` values.
 """
@@ -54,9 +65,11 @@ from repro_torch import prng
 from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import (
-    make_euler_one_step_rows, refine_schedule_rows, scan_refine_loop_rows,
+    make_euler_one_step_rows, refine_schedule_rows, rows_loop, rows_loop_inputs,
 )
 from repro_torch.device import resolve_device
+from repro_torch.drafting.quality import to_host
+from repro_torch.graphs import GraphCache
 from repro_torch.kernels.ws_fused import make_ws_fused_fn
 from repro_torch.obs import MetricsRegistry, NullTracer, parse_metric_key
 from repro_torch.serving.batcher import (
@@ -66,8 +79,6 @@ from repro_torch.serving.batcher import (
     priority_rank, split_request, usable_rows,
 )
 from repro_torch.serving.engine import DispatchFailure, DispatchRetryPolicy, PerNFECostModel
-
-
 
 
 def _key_label(key: Any) -> str:
@@ -418,16 +429,35 @@ class WarmStartScheduler:
         (see :mod:`repro_torch.serving.batcher`).
       overlap: draft micro-batch k+1 on a worker thread while micro-batch k
         refines (off: strictly serial).
+      t0_policy: optional :class:`repro_torch.drafting.AdaptiveT0Policy` or
+        :class:`repro_torch.drafting.BanditT0Policy` (the policy protocol:
+        ``scores_and_t0`` / ``t0_for_drafts`` and the ``calibration`` /
+        ``bin_width`` / ``t0_floor`` attributes). Requests submitted without
+        a t0 override are drafted in a scoring pre-pass and get the
+        policy's (binned) t0 from the measured draft quality; the pre-pass
+        drafts are reused (never drafted twice). A bandit policy also learns
+        from the probe re-run on each refined micro-batch, priced by the
+        per-NFE cost model.
       t0_bin_width: grouping bin for per-request t0 values (see
-        ``batcher.pack_requests``); 0 groups by exact t0.
+        ``batcher.pack_requests``); defaults to ``t0_policy.bin_width`` with
+        a policy, else 0 (exact-t0 grouping).
+      per_row_t0: keep the pre-pass's per-row t0 vector: rows enter the
+        masked refine at their own step; the request's bound stays
+        ``warm_nfe(cold_nfe, min(row_t0s))``.
+      speculative: draft-and-verify: a scored request whose every row's
+        probe score clears ``accept_score`` ships its drafts with zero refine
+        steps (``ACCEPTED_DRAFT``, ``nfe == 0``, ``micro_batch == -1``);
+        rejected requests serve exactly as with speculation off. Explicit-t0
+        requests are never accepted. Needs ``t0_policy``.
+      accept_score: the acceptance threshold; ``None`` takes the policy's
+        own (bandit) or its calibration's top anchor score.
       retry_policy: :class:`DispatchRetryPolicy` for refine-dispatch faults.
       class_slo_factor: per-priority-class SLO scaling for ``serve_stream``.
       tracer / metrics: ``repro_torch.obs`` span tracer (default no-op) and
         metrics registry (default a private one); report sections are
         derived from the registry, under the JAX package's counter names.
       device: where the refine runs: the card unless ``"cpu"`` is asked for.
-      mesh / t0_policy / per_row_t0 / speculative / accept_score /
-        distilled_model / distilled_params / distilled_nfe /
+      mesh / distilled_model / distilled_params / distilled_nfe /
         distilled_accept_score / pair_buffer: not ported yet; each is taken
         at the JAX package's default, and any other value raises
         ``NotImplementedError`` naming the slice that will port it.
@@ -467,17 +497,6 @@ class WarmStartScheduler:
     ):
         if mesh is not None:
             raise _not_ported("mesh (sharded refine)", "the multi-card slice")
-        if t0_policy is not None:
-            raise _not_ported("t0_policy (scoring pre-pass, bandit)",
-                              "the drafting-policies slice")
-        if per_row_t0:
-            raise _not_ported("per_row_t0 (per-row t0 from the policy)",
-                              "the drafting-policies slice")
-        if speculative:
-            raise _not_ported("speculative serving", "the drafting-policies slice")
-        if accept_score is not None:
-            raise _not_ported("accept_score (speculative acceptance)",
-                              "the drafting-policies slice")
         if distilled_model is not None:
             raise _not_ported("the distilled tier", "the distilled-tier slice")
         if distilled_params is not None:
@@ -508,17 +527,47 @@ class WarmStartScheduler:
         self.max_bucket = max_bucket
         self.row_quantum = row_quantum
         self.overlap = overlap
-        self.t0_bin_width = float(t0_bin_width or 0.0)
+        self.t0_policy = t0_policy
+        if t0_bin_width is None:
+            t0_bin_width = (getattr(t0_policy, "bin_width", 0.0)
+                            if t0_policy is not None else 0.0)
+        self.t0_bin_width = float(t0_bin_width)
+        self.per_row_t0 = bool(per_row_t0)
+        self.speculative = bool(speculative)
+        if self.speculative and t0_policy is None:
+            raise ValueError("speculative serving needs a t0_policy: acceptance is decided by "
+                             "the policy's quality probe")
+        if accept_score is None and t0_policy is not None:
+            accept_score = getattr(t0_policy, "accept_score", None)
+            if accept_score is None:
+                scores = getattr(getattr(t0_policy, "calibration", None), "scores", None)
+                if scores:
+                    accept_score = float(scores[-1])
+        self.accept_score = None if accept_score is None else float(accept_score)
+        if self.speculative and self.accept_score is None:
+            raise ValueError("speculative serving needs an accept_score (none given and the "
+                             "policy carries no calibration to derive one)")
+        # bandit mode: the policy learns online from refined outcomes
+        self._bandit_mode = (t0_policy is not None and hasattr(t0_policy, "update")
+                             and hasattr(t0_policy, "scorer"))
+        # request_id -> (bucket_len, per-row draft probe scores): the context
+        # each in-flight row's arm was selected under (bandit mode only)
+        self._row_scores: Dict[int, Tuple[int, np.ndarray]] = {}
 
         self.tracer = tracer if tracer is not None else NullTracer()
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         m = self.metrics
+        self._c_reward_probes = m.counter("bandit.reward_probes")
+        self._c_spec_eligible = m.counter("speculative.eligible")
+        self._c_spec_accepted = m.counter("speculative.accepted")
         self._c_cache_hits = m.counter("jit_cache.hits")
         self._c_cache_misses = m.counter("jit_cache.misses")
         self._c_fused_blocks = m.counter("fused.blocks_dispatched")
         self._c_fused_steps = m.counter("fused.steps_fused")
         self._c_dispatch_retries = m.counter("dispatch.retries")
         self._c_dispatch_failures = m.counter("dispatch.failures")
+        if t0_policy is not None and hasattr(t0_policy, "bind_metrics"):
+            t0_policy.bind_metrics(m)
 
         self._queue: List[ServeRequest] = []
         self._next_id = 0
@@ -552,20 +601,38 @@ class WarmStartScheduler:
                           if fused_block > 1 else None)
         self._draft_stream = (torch.cuda.Stream(self.device)
                               if self.device.type == "cuda" else None)
+        self.graphs = GraphCache("the scheduler's refine loop")
 
-    def _refine_loop(self, flow_keys, x, ts, hs, active, key_idx) -> torch.Tensor:
-        """The masked per-row refine of one micro-batch (eager launches)."""
+    def _loop(self, x, step_keys, ts, hs, act) -> torch.Tensor:
+        return rows_loop(self.flow_model.dfm_apply, self._one_step, x, step_keys, ts, hs, act,
+                         fused_fn=self._fused_fn)
+
+    def _refine_inputs(self, flow_keys, ts, hs, active, key_idx):
+        return rows_loop_inputs(flow_keys, ts, hs, active, key_idx,
+                                fused_block=self.fused_block)
+
+    def _refine_loop(self, key, flow_keys, x, ts, hs, active, key_idx) -> torch.Tensor:
+        """The masked per-row refine of one micro-batch: on the card one replay
+        of the graph of its compile key ``key``, the step keys, schedule and
+        active mask copied in as data."""
+        inputs = self._refine_inputs(flow_keys, ts, hs, active, key_idx)
         with torch.inference_mode():
-            return scan_refine_loop_rows(
-                self.flow_model.dfm_apply, self._one_step, x, flow_keys, ts, hs, active,
-                key_idx, fused_block=self.fused_block, fused_fn=self._fused_fn)
+            return self.graphs(key, self._loop, x, *inputs)
+
+    def _refine_loop_eager(self, flow_keys, x, ts, hs, active, key_idx) -> torch.Tensor:
+        """The same refine as eager launches (the graph's yardstick)."""
+        inputs = self._refine_inputs(flow_keys, ts, hs, active, key_idx)
+        with torch.inference_mode():
+            return self._loop(x, *(a.to(x.device) for a in inputs))
 
     # ---- request intake --------------------------------------------------
 
     def submit(self, *, seq_len: int, num_samples: int = 1, seed: int = 0,
                t0: Optional[float] = None, tier: str = GUARANTEED_TIER) -> int:
-        """Enqueue one request; returns its request_id. ``t0=None`` serves at
-        ``default_t0``. Rejects unservable requests here (bucket overflow,
+        """Enqueue one request; returns its request_id. ``t0=None`` means the
+        engine decides: the policy's t0 with a ``t0_policy``, else
+        ``default_t0``; an explicit t0 is honoured verbatim (never scored).
+        Rejects unservable requests here (bucket overflow,
         too many samples, the unported distilled tier), so one bad request
         can never poison a queued batch."""
         bucket_seq_len(seq_len, min_bucket=self.min_bucket, max_bucket=self.max_bucket)
@@ -600,21 +667,58 @@ class WarmStartScheduler:
             seeds[r], idx[r] = 0, -(r + 1)
         return seeds, idx
 
-    def _stage_keys_and_draft(self, mb: MicroBatch):
+    def _draft_stream_ctx(self):
+        stream = self._draft_stream
+        return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+    def _draft_rows(self, seeds, idx, blen: int) -> np.ndarray:
+        """The drafts of the rows keyed by ``(seeds, idx)`` at bucket length
+        ``blen``, on the host: one ``draft_fn`` call on the draft stream, its
+        rows padded up to the row quantum with padding-row streams (seed 0,
+        negative indices), as a micro-batch's are, so the draft engine's
+        decode graphs see the row counts the draft stage uses. Row-keyed
+        drafts do not depend on their neighbours, so the real rows are the
+        ones an unpadded call gives."""
+        n = len(seeds)
+        padded = pad_rows(n, self.row_quantum)
+        seeds = np.concatenate([np.asarray(seeds, np.int32), np.zeros(padded - n, np.int32)])
+        idx = np.concatenate([np.asarray(idx, np.int32),
+                              -(np.arange(n, padded, dtype=np.int32) + 1)])
+        draft_keys, _ = _derive_row_keys(seeds, idx)
+        with self._draft_stream_ctx(), torch.no_grad():
+            x = self.draft_fn(draft_keys, blen)
+            if x.device.type != self.device.type or tuple(x.shape) != (padded, blen):
+                raise ValueError(f"draft_fn returned {tuple(x.shape)} on {x.device}, expected "
+                                 f"({padded}, {blen}) on {self.device}")
+            return x[:n].cpu().numpy()       # on the draft stream: waits for the draft
+
+    def _stage_keys_and_draft(self, mb: MicroBatch,
+                              predrafted: Optional[Dict[int, np.ndarray]] = None):
         """Draft stage for one micro-batch (runs on the worker thread):
         derive per-row keys, draft at bucket length on the draft stream,
         wait for it. Returns ``(x, flow_keys, t_draft, ready)``: ``ready``
-        is the event the refine stream waits on (None on the CPU)."""
+        is the event the refine stream waits on (None on the CPU).
+
+        ``predrafted`` (policy mode) maps request_id -> that request's
+        ``(num_samples, bucket_len)`` drafts from the scoring pre-pass; they
+        are assembled (padding rows zero) and uploaded instead of drafted
+        again: the pre-pass used the same row keys."""
         with self.tracer.span("draft", track="draft_worker", bucket=mb.bucket_len,
-                              rows=mb.rows, predrafted=False):
+                              rows=mb.rows, predrafted=predrafted is not None):
             t0 = time.perf_counter()
             seeds, idx = self._mb_row_streams(mb)
             draft_keys, flow_keys = _derive_row_keys(seeds, idx)
             ready = None
             stream = self._draft_stream
-            ctx = torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
-            with ctx, torch.no_grad():
-                x = self.draft_fn(draft_keys, mb.bucket_len)
+            with self._draft_stream_ctx(), torch.no_grad():
+                if predrafted is not None:
+                    x = np.zeros((mb.padded_rows, mb.bucket_len), np.int32)
+                    for span in mb.spans:
+                        x[span.row_offset:span.row_offset + span.rows] = \
+                            predrafted[span.request.request_id]
+                    x = torch.from_numpy(x).to(self.device)
+                else:
+                    x = self.draft_fn(draft_keys, mb.bucket_len)
                 if stream is not None:
                     ready = torch.cuda.Event()
                     ready.record(stream)
@@ -641,7 +745,7 @@ class WarmStartScheduler:
             try:
                 if self._dispatch_fault_hook is not None:
                     self._dispatch_fault_hook(mb, attempt)
-                out = self._refine_loop(flow_keys, x, ts, hs, active, key_idx)
+                out = self._refine_loop(mb.compile_key, flow_keys, x, ts, hs, active, key_idx)
                 if self.device.type == "cuda":
                     torch.cuda.current_stream(self.device).synchronize()
                 return out
@@ -697,7 +801,41 @@ class WarmStartScheduler:
                                               rows=mb.rows)
             t_flow = time.perf_counter() - t0
             self.cost_model.observe(key, t_flow, len(ts), compiled=was_miss)
+            # the bandit's verify step after the cost observation, so the
+            # reward probe's own time never enters the per-NFE refine EWMA
+            if self._bandit_mode and self._row_scores:
+                with self.tracer.span("reward_probe", track="refine_dispatch",
+                                      bucket=mb.bucket_len):
+                    self._observe_rewards(mb, x)
         return x, t_flow
+
+    def _observe_rewards(self, mb: MicroBatch, x) -> None:
+        """The bandit's reward for one refined micro-batch (the verify step):
+        the probe re-run on the refined tokens (one scored batch per
+        micro-batch), each row's arm fed its refined score less its refine
+        seconds priced by the measured per-NFE cost model. Rows whose
+        (bucket, draft score) context the pre-pass did not record
+        (explicit-t0 requests, chunks) are skipped."""
+        pending = [(span, self._row_scores.pop(span.request.request_id))
+                   for span in mb.spans if span.request.request_id in self._row_scores]
+        if not pending:
+            return
+        refined = to_host(self.t0_policy.scorer(x))
+        self._c_reward_probes.inc()
+        row_t0s = mb.row_t0s
+        cold_s = self.cost_model.cost_for_nfe(self.cold_nfe)
+        for span, (blen, draft_scores) in pending:
+            for r in range(span.rows):
+                t0r = float(row_t0s[span.row_offset + r])
+                nfe_r = guarantees.warm_nfe(self.cold_nfe, t0r)
+                row_s = self.cost_model.cost_for_nfe(nfe_r, mb.compile_key)
+                if row_s is not None and cold_s:
+                    cost_norm = row_s / cold_s
+                else:
+                    cost_norm = nfe_r / self.cold_nfe
+                self.t0_policy.update(blen, float(draft_scores[r]), t0r,
+                                      quality_score=float(refined[span.row_offset + r]),
+                                      cost_norm=cost_norm)
 
     # ---- jit-cache / fused-dispatch reporting ----------------------------
 
@@ -741,26 +879,140 @@ class WarmStartScheduler:
             self._queue = requests + self._queue
             raise
 
-    def _pipeline(self, batches: Sequence[MicroBatch]) -> Iterator[tuple]:
+    def _policy_prepass(self, requests: Sequence[ServeRequest]):
+        """Traced wrapper of :meth:`_policy_prepass_inner` (the span carries
+        the scored and accepted counts)."""
+        with self.tracer.span("scoring_prepass", track="scoring",
+                              requests=len(requests)) as sp:
+            out = self._policy_prepass_inner(requests)
+            sp["scored"] = out[2]["scored_requests"]
+            sp["accepted"] = len(out[3])
+        return out
+
+    def _policy_prepass_inner(self, requests: Sequence[ServeRequest]):
+        """The scoring pre-pass (``t0_policy`` mode).
+
+        Drafts every request at its bucket length (one row-keyed
+        :meth:`_draft_rows` call per bucket), scores the drafts of requests
+        without a t0 override and resolves their t0 through the policy.
+        Returns ``(resolved_requests, predrafted, policy_report, accepted)``:
+        the drafts are reused by the pipeline (never drafted twice), equal to
+        what the draft stage would draft, since the row keys are the same.
+
+        With ``speculative`` a scored request whose every row's probe score
+        clears ``accept_score`` leaves ``resolved_requests`` for ``accepted``
+        (``[{"request", "tokens", "t0", "scores"}]``, tokens at bucket
+        length): it never packs or refines. The policy picks every scored
+        request's t0 before any accept decision, so a rejected request serves
+        exactly as with speculation off. In bandit mode the pre-pass records
+        each scored row's (bucket, draft score) context for its reward and
+        credits acceptances to the bandit's accept counters.
+        """
+        t_start = time.perf_counter()
+        by_bucket: Dict[int, List[ServeRequest]] = {}
+        for req in requests:
+            blen = bucket_seq_len(req.seq_len, min_bucket=self.min_bucket,
+                                  max_bucket=self.max_bucket)
+            by_bucket.setdefault(blen, []).append(req)
+
+        predrafted: Dict[int, np.ndarray] = {}
+        resolved_t0: Dict[int, float] = {}
+        resolved_rows: Dict[int, Tuple[float, ...]] = {}
+        accepted_info: Dict[int, dict] = {}
+        scored = 0
+        eligible = 0
+        for blen, reqs in sorted(by_bucket.items()):
+            seeds, idx, offsets = [], [], {}
+            for req in reqs:
+                offsets[req.request_id] = len(seeds)
+                seeds.extend([req.seed] * req.num_samples)
+                idx.extend(range(req.sample_offset, req.sample_offset + req.num_samples))
+            x = self._draft_rows(seeds, idx, blen)
+            need_score = [r for r in reqs if r.t0 is None]
+            if need_score:
+                rows = np.concatenate([x[offsets[r.request_id]:offsets[r.request_id]
+                                         + r.num_samples] for r in need_score])
+                if hasattr(self.t0_policy, "scores_and_t0"):
+                    scores_rows, t0_rows = self.t0_policy.scores_and_t0(rows)
+                else:
+                    scores_rows = None
+                    t0_rows = self.t0_policy.t0_for_drafts(rows)
+                at = 0
+                for r in need_score:
+                    rs = t0_rows[at:at + r.num_samples]
+                    sc = None if scores_rows is None else scores_rows[at:at + r.num_samples]
+                    at += r.num_samples
+                    # distilled-tier requests are never accepted (the tier is
+                    # not ported; the condition keeps JAX's accept stream)
+                    if self.speculative and sc is not None and r.tier != DISTILLED_TIER:
+                        eligible += 1
+                        if float(sc.min()) >= self.accept_score:
+                            accepted_info[r.request_id] = {"t0": float(rs.min()),
+                                                           "scores": np.array(sc)}
+                            if self._bandit_mode:
+                                for v in sc:
+                                    self.t0_policy.observe_accept(blen, float(v))
+                            continue
+                    if self._bandit_mode and sc is not None and r.tier != DISTILLED_TIER:
+                        self._row_scores[r.request_id] = (blen, np.array(sc))
+                    if self.per_row_t0:
+                        resolved_rows[r.request_id] = tuple(float(v) for v in rs)
+                    resolved_t0[r.request_id] = float(rs.min())
+                scored += len(need_score)
+            for req in reqs:
+                o = offsets[req.request_id]
+                predrafted[req.request_id] = x[o:o + req.num_samples]
+
+        resolved: List[ServeRequest] = []
+        accepted: List[dict] = []
+        for req in requests:
+            info = accepted_info.get(req.request_id)
+            if info is not None:
+                accepted.append({"request": req, "tokens": predrafted[req.request_id],
+                                 "t0": info["t0"], "scores": info["scores"]})
+                continue
+            if req.t0 is not None:
+                resolved.append(req)
+            else:
+                resolved.append(dataclasses.replace(
+                    req, t0=resolved_t0[req.request_id],
+                    row_t0s=resolved_rows.get(req.request_id, ())))
+        self.metrics.counter("policy.scored_requests").inc(scored)
+        self._c_spec_eligible.inc(eligible)
+        self._c_spec_accepted.inc(len(accepted))
+        report = {
+            "scored_requests": scored,
+            "prepass_time_s": time.perf_counter() - t_start,
+            "t0_histogram": dict(sorted(_histogram(list(resolved_t0.values())).items())),
+            "speculative": (None if not self.speculative else {
+                "eligible": eligible, "accepted": len(accepted),
+                "accept_score": self.accept_score}),
+        }
+        return resolved, predrafted, report, accepted
+
+    def _pipeline(self, batches: Sequence[MicroBatch],
+                  predrafted: Optional[Dict[int, np.ndarray]] = None) -> Iterator[tuple]:
         """``(k, mb, x, t_draft, t_flow)`` per micro-batch, in order: the
         draft of batch k+1 on the worker thread while batch k refines."""
         if not self.overlap or len(batches) <= 1:
             for k, mb in enumerate(batches):
-                x, flow_keys, t_draft, ready = self._stage_keys_and_draft(mb)
+                x, flow_keys, t_draft, ready = self._stage_keys_and_draft(mb, predrafted)
                 x, t_flow = self._stage_refine(mb, x, flow_keys, ready)
                 yield k, mb, x, t_draft, t_flow
             return
         with ThreadPoolExecutor(max_workers=1) as pool:
-            fut = pool.submit(self._stage_keys_and_draft, batches[0])
+            fut = pool.submit(self._stage_keys_and_draft, batches[0], predrafted)
             for k, mb in enumerate(batches):
                 x, flow_keys, t_draft, ready = fut.result()
                 if k + 1 < len(batches):
-                    fut = pool.submit(self._stage_keys_and_draft, batches[k + 1])
+                    fut = pool.submit(self._stage_keys_and_draft, batches[k + 1], predrafted)
                 x, t_flow = self._stage_refine(mb, x, flow_keys, ready)
                 yield k, mb, x, t_draft, t_flow
 
     def serve_requests(self, requests: Sequence[ServeRequest]
                        ) -> Tuple[Dict[int, RequestResult], dict]:
+        # the wall clock starts before the pre-pass: in policy mode the
+        # pre-pass is the draft stage (plus scoring), so the rates pay for it
         wall0 = time.perf_counter()
         results: Dict[int, RequestResult] = {}
         batch_reports: List[dict] = []
@@ -770,11 +1022,17 @@ class WarmStartScheduler:
             if req.tier == DISTILLED_TIER:
                 raise ValueError("tier='distilled' needs distilled_model/distilled_params "
                                  "on the scheduler")
+        policy_report, predrafted, accepted = None, None, []
+        resolved = list(requests)
+        if self.t0_policy is not None:
+            resolved, predrafted, policy_report, accepted = self._policy_prepass(requests)
+            # serial (never hidden behind a refine): in draft_total and the wall
+            draft_total += policy_report["prepass_time_s"]
         batches = pack_requests(
-            requests, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
+            resolved, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
             max_rows=self.max_rows, min_bucket=self.min_bucket, max_bucket=self.max_bucket,
             row_quantum=self.row_quantum, t0_bin_width=self.t0_bin_width)
-        for k, mb, x, t_draft, t_flow in self._pipeline(batches):
+        for k, mb, x, t_draft, t_flow in self._pipeline(batches, predrafted):
             draft_total += t_draft
             flow_total += t_flow
             x_host = x.cpu().numpy()
@@ -791,6 +1049,16 @@ class WarmStartScheduler:
                 "nfe": mb.n_steps, "tier": mb.tier,
                 "draft_time_s": t_draft, "flow_time_s": t_flow,
             })
+        # speculatively accepted requests end here: their pre-pass drafts, cut
+        # to the request's length, with zero refine steps (micro_batch -1)
+        for acc in accepted:
+            req = acc["request"]
+            results[req.request_id] = RequestResult(
+                request_id=req.request_id, tokens=np.asarray(acc["tokens"])[:, :req.seq_len],
+                nfe=0, t0=acc["t0"],
+                bucket_len=bucket_seq_len(req.seq_len, min_bucket=self.min_bucket,
+                                          max_bucket=self.max_bucket),
+                micro_batch=-1)
 
         wall = time.perf_counter() - wall0
         overlapped = max(0.0, draft_total + flow_total - wall)
@@ -799,7 +1067,7 @@ class WarmStartScheduler:
 
         def req_mean_nfe(r: RequestResult) -> float:
             # heterogeneous rows: the request spent the mean of its rows'
-            # own step counts (r.nfe stays the worst-row bound)
+            # own step counts (r.nfe stays the worst-row bound); accepted 0
             if r.row_t0s:
                 return float(np.mean([guarantees.warm_nfe(self.cold_nfe, t)
                                       for t in r.row_t0s]))
@@ -821,23 +1089,51 @@ class WarmStartScheduler:
             "mean_request_nfe": float(np.mean(nfe_values)) if nfe_values else 0.0,
             "jit_cache": self._jit_cache_delta(cache_snap),
             "mesh": None,
-            "adaptive_t0": False,
-            "policy": None,
-            "speculative": None,
-            "bandit": None,
+            "adaptive_t0": self.t0_policy is not None,
+            "policy": policy_report,
+            "speculative": (None if not self.speculative else {
+                "enabled": True,
+                "eligible": policy_report["speculative"]["eligible"],
+                "accepted": len(accepted),
+                "accept_rate": (len(accepted) / policy_report["speculative"]["eligible"]
+                                if policy_report["speculative"]["eligible"] else 0.0),
+                "accept_score": self.accept_score,
+                # the worst probe score that shipped unrefined
+                "min_accepted_score": (min(float(np.min(a["scores"])) for a in accepted)
+                                       if accepted else None),
+            }),
+            "bandit": self.t0_policy.arm_stats() if self._bandit_mode else None,
             "distilled": None,
             "batches": batch_reports,
         }
+        self._row_scores.clear()
         return results, report
 
     # ---- streaming / SLO-aware admission ---------------------------------
+
+    def _t0_lower_bound(self, req: ServeRequest) -> float:
+        """The shallowest t0 this request could be served at: what the
+        deadline estimator prices refine work at before the request is
+        scored (at flush time)."""
+        if req.t0 is not None:
+            return float(req.t0)
+        if self.t0_policy is not None:
+            floor = getattr(getattr(self.t0_policy, "calibration", None), "t0_floor", None)
+            if floor is not None:
+                # the policy snaps the calibrated t0 down onto its bin grid,
+                # up to one bin below the calibration floor: back off a bin
+                width = float(getattr(self.t0_policy, "bin_width", 0.0))
+                pfloor = float(getattr(self.t0_policy, "t0_floor", 0.0))
+                return max(0.0, pfloor, float(floor) - width)
+            return 0.0
+        return self.default_t0
 
     def _stream_est_latency_s(self, fb: FillingBucket, unit: int, backlog_s: float) -> float:
         """Estimated time from 'flush now' to 'results out' for a filling
         bucket: pipeline backlog + draft-stage EWMA + measured per-NFE
         refine cost x worst-case steps (a first-dispatch surcharge for a new
         compile key). Zero until the first measurement."""
-        t0_lb = min(self.default_t0 if r.t0 is None else float(r.t0) for r in fb.requests)
+        t0_lb = min(self._t0_lower_bound(r) for r in fb.requests)
         n_steps = guarantees.warm_nfe(self.cold_nfe, t0_lb)
         key = (fb.bucket_len, pad_rows(fb.rows, unit), n_steps)
         est = self.cost_model.estimate_s(key, n_steps, include_compile=True)
@@ -847,9 +1143,27 @@ class WarmStartScheduler:
         est = self.cost_model.estimate_s(mb.compile_key, mb.n_steps, include_compile=True)
         return (self._draft_cost_ewma or 0.0) + (est or 0.0)
 
-    def _flush_bucket(self, fb: FillingBucket, reason: str, now: float) -> List[dict]:
+    def _score_chunks_t0(self, chunks: Sequence[ServeRequest]) -> float:
+        """Admission-time t0 of an oversize request under a policy: its rows
+        drafted and scored chunk by chunk (each within the micro-batch row
+        cap), the minimum over all rows, so every chunk gets the
+        request-level t0 the batch path's pre-pass would give."""
+        t0_min = 1.0
+        for chunk in chunks:
+            blen = bucket_seq_len(chunk.seq_len, min_bucket=self.min_bucket,
+                                  max_bucket=self.max_bucket)
+            x = self._draft_rows(np.full((chunk.num_samples,), chunk.seed, np.int32),
+                                 np.arange(chunk.sample_offset,
+                                           chunk.sample_offset + chunk.num_samples,
+                                           dtype=np.int32), blen)
+            t0_min = min(t0_min, float(self.t0_policy.t0_for_drafts(x).min()))
+        return t0_min
+
+    def _flush_bucket(self, fb: FillingBucket, reason: str, now: float,
+                      stats: dict) -> List[dict]:
         """FillingBucket -> dispatched micro-batches (the state machine's
-        edge to DISPATCHED)."""
+        edge to DISPATCHED). Under a policy the scoring pre-pass runs here,
+        per flushed bucket, as the batch path's runs per bucket."""
         occupancy = fb.rows
         self.tracer.instant("bucket_flush", track="flush", reason=reason,
                             bucket=fb.bucket_len, rows=occupancy, requests=len(fb.requests))
@@ -857,6 +1171,16 @@ class WarmStartScheduler:
         self.metrics.histogram("bucket.flush_rows", buckets=(1, 2, 4, 8, 16, 32, 64, 128),
                                bucket=fb.bucket_len).observe(occupancy)
         reqs = fb.flush()               # deadline order
+        predrafted = None
+        if self.t0_policy is not None:
+            reqs, predrafted, prep, accepted = self._policy_prepass(reqs)
+            stats["prepass_time_s"] += prep["prepass_time_s"]
+            # accepted requests skip packing; the loop yields them as
+            # ACCEPTED_DRAFT terminals
+            for acc in accepted:
+                acc["reason"] = reason
+                acc["flushed_s"] = now
+            stats["accepted_pending"].extend(accepted)
         batches = pack_requests(
             reqs, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
             max_rows=self.max_rows, min_bucket=self.min_bucket, max_bucket=self.max_bucket,
@@ -867,7 +1191,8 @@ class WarmStartScheduler:
                                     flow_id=span.request.root_id, flow_ph="t",
                                     request_id=span.request.root_id, bucket=mb.bucket_len,
                                     reason=reason)
-        return [{"mb": mb, "reason": reason, "flushed_s": now} for mb in batches]
+        return [{"mb": mb, "predrafted": predrafted, "reason": reason, "flushed_s": now}
+                for mb in batches]
 
     def serve_stream(
         self,
@@ -943,6 +1268,8 @@ class WarmStartScheduler:
         filling: Dict[Tuple[int, str, str], FillingBucket] = {}
         ready: List[dict] = []          # flushed micro-batches -> pipeline
         partials: Dict[int, dict] = {}  # parent_id -> chunk reassembly
+        stats = {"prepass_time_s": 0.0, "accepted_pending": []}
+        spec_min_score: Optional[float] = None
         mb_reports: List[dict] = []
         latencies: List[float] = []
         class_latencies: Dict[str, List[float]] = {c: [] for c in PRIORITY_CLASSES}
@@ -1012,6 +1339,9 @@ class WarmStartScheduler:
             if req.num_samples > usable_rows(self.max_rows, unit):
                 pieces = split_request(req, max_rows=self.max_rows, unit=unit,
                                        alloc_id=lambda: next(self._chunk_ids))
+                if self.t0_policy is not None and req.t0 is None:
+                    t0 = self._score_chunks_t0(pieces)
+                    pieces = [dataclasses.replace(p, t0=t0) for p in pieces]
                 m.counter("serve.split_requests").inc()
                 partials[req.request_id] = {
                     "tokens": None, "rows_done": 0, "chunks_done": 0,
@@ -1025,7 +1355,7 @@ class WarmStartScheduler:
                 fb = filling.get(fkey)
                 if fb is not None and fb.would_overflow(piece.num_samples,
                                                         max_rows=self.max_rows, unit=unit):
-                    ready.extend(self._flush_bucket(fb, "full", now))
+                    ready.extend(self._flush_bucket(fb, "full", now, stats))
                     fb = None
                 if fb is None:
                     fb = FillingBucket(blen)
@@ -1172,14 +1502,61 @@ class WarmStartScheduler:
                             now, est_latency_s=self._stream_est_latency_s(fb, unit, backlog_s),
                             idle_timeout_s=idle_timeout_s, max_rows=self.max_rows, unit=unit))
                         if reason:
-                            ready.extend(self._flush_bucket(fb, reason, now))
+                            ready.extend(self._flush_bucket(fb, reason, now, stats))
                             del filling[fkey]
+                    # speculative accepts end here: their pre-pass drafts ship
+                    # as ACCEPTED_DRAFT terminals with zero refine steps
+                    while stats["accepted_pending"]:
+                        acc = stats["accepted_pending"].pop(0)
+                        req = acc["request"]
+                        now_a = clock.time()
+                        if req.root_id in resolved:
+                            continue
+                        if req.cancelled or req.expired(now_a):
+                            item = terminal(req, CANCELLED if req.cancelled else TIMED_OUT,
+                                            now_a)
+                            if item is not None:
+                                yield item
+                            continue
+                        resolved.add(req.request_id)
+                        s_min = float(np.min(acc["scores"]))
+                        spec_min_score = (s_min if spec_min_score is None
+                                          else min(spec_min_score, s_min))
+                        deadline = class_deadline(req)
+                        met = None if deadline is None else now_a <= deadline
+                        latency = now_a - req.arrival_s
+                        latencies.append(latency)
+                        class_latencies[req.priority].append(latency)
+                        count_terminal(ACCEPTED_DRAFT, req.priority)
+                        m.histogram("serve.latency_s", priority=req.priority).observe(latency)
+                        if deadline is not None:
+                            m.counter("serve.slo_total", priority=req.priority,
+                                      served=True).inc()
+                            if met:
+                                m.counter("serve.slo_met", priority=req.priority).inc()
+                        tracer.instant("request_terminal", track="terminal",
+                                       flow_id=req.request_id, flow_ph="f",
+                                       request_id=req.request_id, status=ACCEPTED_DRAFT,
+                                       priority=req.priority, latency_ms=latency * 1e3)
+                        if t_first is None:
+                            t_first = now_a
+                        yield CompletedRequest(
+                            request_id=req.request_id,
+                            tokens=np.asarray(acc["tokens"])[:, :req.seq_len], nfe=0,
+                            t0=acc["t0"],
+                            bucket_len=bucket_seq_len(req.seq_len, min_bucket=self.min_bucket,
+                                                      max_bucket=self.max_bucket),
+                            micro_batch=-1, arrival_s=req.arrival_s, finished_s=now_a,
+                            latency_s=latency, flush_reason=acc["reason"], deadline_s=deadline,
+                            slo_met=met, chunks=1, status=ACCEPTED_DRAFT,
+                            priority=req.priority)
                     # pipeline: the NEXT micro-batch drafts while this one refines
                     if draft_fut is None and ready:
                         draft_pending = pop_ready()
                         if draft_pending is not None:
                             draft_fut = pool.submit(self._stage_keys_and_draft,
-                                                    draft_pending["mb"])
+                                                    draft_pending["mb"],
+                                                    draft_pending["predrafted"])
                     if draft_fut is not None:
                         x, flow_keys, t_draft, ev = draft_fut.result()
                         current, draft_fut, draft_pending = draft_pending, None, None
@@ -1187,7 +1564,8 @@ class WarmStartScheduler:
                             draft_pending = pop_ready()
                             if draft_pending is not None:
                                 draft_fut = pool.submit(self._stage_keys_and_draft,
-                                                        draft_pending["mb"])
+                                                        draft_pending["mb"],
+                                                        draft_pending["predrafted"])
                         try:
                             x, t_flow = self._stage_refine(current["mb"], x, flow_keys, ev)
                         except DispatchFailure:
@@ -1226,6 +1604,7 @@ class WarmStartScheduler:
         admission = source.stats()
         statuses = (COMPLETED, ACCEPTED_DRAFT, DISTILLED, CANCELLED, TIMED_OUT, SHED, FAILED)
         terminal_counts = {s: dsum("serve.terminal", status=s) for s in statuses}
+        scored_requests = dsum("policy.scored_requests")
         resolved_total = sum(terminal_counts.values())
         flush_reasons = {labels["reason"]: v for (n, labels), v in parsed if n == "serve.flush"}
         slo_served = dsum("serve.slo_total", served=True)
@@ -1275,10 +1654,20 @@ class WarmStartScheduler:
             "draft_time_s": draft_total,
             "flow_time_s": flow_total,
             "jit_cache": self._jit_cache_delta(m0),
-            "adaptive_t0": False,
-            "policy": None,
-            "speculative": None,
-            "bandit": None,
+            "adaptive_t0": self.t0_policy is not None,
+            "policy": (None if self.t0_policy is None else
+                       {"scored_requests": scored_requests,
+                        "prepass_time_s": stats["prepass_time_s"]}),
+            "speculative": (None if not self.speculative else {
+                "enabled": True,
+                "accepted": terminal_counts[ACCEPTED_DRAFT],
+                "eligible": scored_requests,
+                "accept_rate": (terminal_counts[ACCEPTED_DRAFT] / scored_requests
+                                if scored_requests else 0.0),
+                "accept_score": self.accept_score,
+                "min_accepted_score": spec_min_score,
+            }),
+            "bandit": self.t0_policy.arm_stats() if self._bandit_mode else None,
             "distilled": None,
             "admission": admission,
             "terminal": dict(terminal_counts),
@@ -1299,3 +1688,12 @@ class WarmStartScheduler:
             },
             "batches": mb_reports,
         }
+        self._row_scores.clear()
+
+
+def _histogram(values: List[float]) -> Dict[str, int]:
+    out: Dict[str, int] = {}
+    for v in values:
+        k = f"{v:.3f}"
+        out[k] = out.get(k, 0) + 1
+    return out

@@ -808,6 +808,113 @@ def test_graph_capture_of_a_synchronising_step_raises(card):
     assert out.shape == (2, 16)
 
 
+def test_failed_capture_leaves_the_generator_and_the_next_capture_working(card):
+    """After a capture that a synchronisation broke, the default CUDA
+    generator draws outside a graph (no ``generator=``), and a fresh
+    GraphCache captures a good function once and replays it, bitwise equal
+    to its eager run."""
+    from repro_torch.graphs import GraphCache
+
+    x = torch.arange(8, device=card, dtype=torch.float32)
+    with pytest.raises(GraphCaptureError, match="item"):
+        GraphCache("a synchronising function")("k", lambda t: t * t.sum().item(), x)
+    assert torch.randn(4, device=card).shape == (4,)
+    torch.cuda.synchronize()
+
+    def fn(t):
+        return torch.sin(t) * 2.0 + torch.cumsum(t, 0)
+
+    good = GraphCache("a good function")
+    g = torch.Generator(device=card).manual_seed(0)
+    for _ in range(3):
+        inp = torch.randn(64, generator=g, device=card)
+        assert torch.equal(good("k", fn, inp), fn(inp))
+    assert (good.captures, good.replays) == (1, 3)
+    assert torch.randn(4, device=card).shape == (4,)
+
+
+def _rows_case(card, row_t0s, seed, b=8, n=16):
+    from repro_torch.core.sampler import refine_schedule_rows
+    from repro_torch.serving.scheduler import _derive_row_keys
+
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randint(0, 27, (b, n), generator=g, device=card, dtype=torch.int32)
+    _, flow_keys = _derive_row_keys(np.full(b, seed), np.arange(b))
+    return (flow_keys, x) + tuple(refine_schedule_rows(row_t0s, 1.0 / 20, 20)[:4])
+
+
+@pytest.mark.parametrize("fused_block", [1, 2])
+def test_scheduler_refine_graph_equals_eager_for_mixed_row_t0s(card, fused_block):
+    """The scheduler's masked per-row refine is one graph per compile key:
+    calls with different row-t0 mixes of one key (10 steps, the active mask
+    as data) capture once and replay, each bitwise equal to its eager
+    launches, with the launch counts of a replay (a capturing call counts
+    its warm-up too)."""
+    from repro_torch.serving import WarmStartScheduler
+
+    model = _refine_model(card)
+    sched = WarmStartScheduler(flow_model=model, draft_fn=uniform_draft(27, device=card),
+                               cold_nfe=20, default_t0=0.8, fused_block=fused_block,
+                               device=card)
+    mixes = [(0.5,) * 8, (0.5, 0.7, 0.8, 0.9, 0.55, 0.6, 0.9, 0.75),
+             (0.9, 0.5, 0.9, 0.9, 0.9, 0.9, 0.9, 0.9)]
+    for i, mix in enumerate(mixes):
+        case = _rows_case(card, mix, i)
+        got, n_got = _grew(lambda: sched._refine_loop((16, 8, 10), *case))
+        want, n_want = _grew(lambda: sched._refine_loop_eager(*case))
+        runs = 2 if i == 0 else 1
+        assert torch.equal(got, want) and n_got == {k: runs * c for k, c in n_want.items()}, i
+        assert torch.equal(case[1], _rows_case(card, mix, i)[1])      # drafts untouched
+    assert (sched.graphs.captures, sched.graphs.replays) == (1, 3)
+
+
+def test_lstm_generate_graph_equals_eager(card):
+    """LSTMModel.generate on the card is one graph replay a call, captured
+    once per (num, seq_len, temperature, bos): tokens equal the eager loop's
+    bit for bit, and other weights of the same shapes replay the same graph."""
+    lstm = LSTMModel(LSTMConfig(vocab_size=27, hidden=64, num_layers=2, embed_dim=32))
+    params = lstm.init(0, device=card)
+    for seed in (1, 2, 3):
+        assert torch.equal(lstm.generate(params, prng.key(seed), 8, 40),
+                           lstm._generate_eager(params, prng.key(seed), 8, 40))
+    other = lstm.init(5, device=card)
+    assert torch.equal(lstm.generate(other, prng.key(4), 8, 40),
+                       lstm._generate_eager(other, prng.key(4), 8, 40))
+    assert (lstm.graphs.captures, lstm.graphs.replays) == (1, 4)
+    assert torch.equal(lstm.generate(params, prng.key(1), 8, 40, 0.7, 3),
+                       lstm._generate_eager(params, prng.key(1), 8, 40, 0.7, 3))
+    assert lstm.graphs.captures == 2
+
+
+def test_policy_scheduler_on_card_equals_cpu(card):
+    """A tiny policy scheduler (the probe of a tiny DiT, per-row t0,
+    speculative) on the card equals the same one on the CPU: tokens, t0s,
+    per-row t0s, the accepted set, the t0 histogram, the speculative counts."""
+    from repro_torch.drafting import AdaptiveT0Policy, T0Calibration, make_quality_scorer
+    from repro_torch.serving import ServeRequest, WarmStartScheduler
+
+    spec = [(16, 3, None), (12, 2, None), (16, 1, 0.5), (7, 4, None), (9, 2, None)]
+    out = {}
+    for dev in (card, "cpu"):
+        model = Model(tiny_config(vocab_size=27).replace(num_layers=2), device="cpu",
+                      seed=2).to(dev)
+        scorer = make_quality_scorer(model.dfm_apply, device=dev)
+        pol = AdaptiveT0Policy(scorer=scorer, calibration=T0Calibration(
+            scores=(-3.6, -3.0), t0s=(0.5, 0.9), t0_floor=0.5, t0_ceil=0.9), bin_width=0.1)
+        sched = WarmStartScheduler(flow_model=model, draft_fn=uniform_draft(27, device=dev),
+                                   cold_nfe=20, default_t0=0.8, max_rows=8, t0_policy=pol,
+                                   per_row_t0=True, speculative=True, accept_score=-3.3,
+                                   device=dev)
+        reqs = [ServeRequest(request_id=i, seq_len=L, num_samples=n, seed=30 + i, t0=t0)
+                for i, (L, n, t0) in enumerate(spec)]
+        res, rep = sched.serve_requests(reqs)
+        out[dev] = ({rid: (r.tokens.tolist(), r.nfe, r.t0, r.row_t0s, r.micro_batch)
+                     for rid, r in res.items()},
+                    rep["policy"]["t0_histogram"], rep["speculative"]["accepted"],
+                    rep["speculative"]["eligible"])
+    assert out[card] == out["cpu"]
+
+
 @pytest.mark.parametrize("b,s,h,kh,d,causal,window", [
     (32, 256, 12, 12, 64, False, None),     # the DiT's training shape
     (4, 200, 8, 2, 64, True, None),         # GQA, causal

@@ -365,11 +365,39 @@ def test_batch_path_requeues_on_dispatch_failure_and_stays_retryable():
     assert set(results) == set(ids)
 
 
+# the drafting-policies keywords, ported: their cases below check JAX's behaviour
+POLICY_KEYWORDS = ("t0_policy", "speculative", "per_row_t0", "accept_score")
+
+
+def check_policy_keyword_as_jax(kw):
+    """Both constructors on ``kw`` raise the same ValueError, or build
+    schedulers with the same policy settings."""
+    outs = []
+    for S in (J, T):
+        try:
+            sched = make(S, fresh=True, **kw)
+        except ValueError as err:
+            outs.append(("ValueError", str(err)))
+        else:
+            outs.append((sched.per_row_t0, sched.speculative, sched.accept_score,
+                         sched.t0_bin_width, sched._bandit_mode, sched.t0_policy is None))
+    assert outs[0] == outs[1]
+    return outs[1]
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(t0_policy=object()), "t0_policy"), (dict(speculative=True), "speculative"),
     (dict(distilled_model=object()), "distilled"), (dict(pair_buffer=object()), "pair_buffer"),
     (dict(mesh=object()), "mesh")])
 def test_unported_features_raise(kw, match):
+    """Keywords of slices still to port raise NotImplementedError naming
+    them; ``t0_policy`` and ``speculative`` are ported and behave as JAX's (a
+    duck-typed policy builds; ``speculative`` without a policy raises JAX's
+    ValueError)."""
+    if match in POLICY_KEYWORDS:
+        got = check_policy_keyword_as_jax(kw)
+        assert (got[0] == "ValueError") == (match == "speculative")
+        return
     with pytest.raises(NotImplementedError, match=match):
         make(T, **kw)
 
@@ -399,7 +427,13 @@ def test_jax_keywords_are_taken_at_their_defaults(name):
     (dict(distilled_model=object()), "the distilled-tier slice"),
     (dict(pair_buffer=object()), "the distilled-tier slice")])
 def test_unported_keywords_name_their_slice(kw, slice_name):
+    """Keywords of slices still to port name their slice; those of the
+    drafting-policies slice are ported and build what JAX builds."""
     (name,) = kw
+    if name in POLICY_KEYWORDS:
+        assert check_policy_keyword_as_jax(kw)[:3] == (
+            name == "per_row_t0", False, kw.get("accept_score"))
+        return
     with pytest.raises(NotImplementedError, match=name.split("_")[0]) as err:
         make(T, fresh=True, **kw)
     assert slice_name in str(err.value)
