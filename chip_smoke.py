@@ -53,9 +53,28 @@ calibration fitted to the text corpus (single- and multi-time probe),
 exact launch counts, every request ending once, accepted == its pre-pass
 drafts, rejected == speculation off, one ``draft_fn`` call a bucket, the
 bandit's pulls == priors + rows refined, and a small policy scheduler on the
-card == the CPU. It prints the card,
-``{"serve": ...}``, ``{"scheduler": ...}``, ``{"pipeline": ...}``, ``{"train":
-...}`` and ``{"policy": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+card == the CPU.
+
+The distilled phase then serves the distilled tier behind the trained DiT
+on the same probe and calibration: the 16 requests served guaranteed with a
+``PairBuffer`` attached (70 pairs, their refined rows == the served
+tokens), ``train_distilled`` on them (finite loss, the checkpoint round
+trip bitwise), the floor at the median of the minimum scores of the
+requests routed distilled (the odd ones), then the mix through
+``serve_requests`` (twice) and ``serve_stream`` with a ``SpanTracer``:
+served and fallbacks both > 0, every distilled request at NFE K and at or
+above the floor, guaranteed and fallback requests bitwise those of the
+all-guaranteed run, the ledger balanced and equal to the registry, a
+valid trace with one ``request_fallback`` a fallback, exact launch counts,
+one capture per distilled key, each replay == its eager launches with K
+``ws_step_rows`` launches; it times the head (K = 1, 2), the gate probe and
+a guaranteed micro-batch at (32, 256), and runs ``python -m
+repro_torch.launch.serve --scheduler --draft ar-kv --tier distilled
+--check-distilled --stream --trace-out ...`` at its defaults (exit 0).
+
+It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
+``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}`` and
+``{"distilled": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -1108,14 +1127,20 @@ def expected_launches(report, prefills, layers, fused_block=1, captured=(), refi
     computed and one eager decode (the capture's warm-up) per decode key
     ``(rows, prefix, seq_len)`` captured. In policy mode the drafts are the
     pre-pass's (``drafts``: the bucket length of each ``draft_fn`` call) and
-    ``probe_evals`` backbone evaluations of the probe launch flash_attn too."""
+    ``probe_evals`` backbone evaluations of the probe launch flash_attn too.
+    A distilled micro-batch runs n = K steps of the head: K ws_step_rows
+    launches and no backbone (the head's products are plain PyTorch)."""
     want = {k: 0 for k in ("ws_step_rows", "ws_fused", "flash_attn") + DRAFT_KERNELS}
     seen = set()
     for b in report["batches"]:
         n = b["nfe"]
-        key = (b["bucket_len"], b["padded_rows"], n)
+        distilled = b.get("tier") == "distilled"
+        key = (b["bucket_len"], b["padded_rows"], n) + (("distilled",) if distilled else ())
         runs = 2 if key in refine_captured and key not in seen else 1
         seen.add(key)
+        if distilled:
+            want["ws_step_rows"] += runs * n
+            continue
         evals = runs * (n if fused_block == 1 else -(-n // fused_block))
         want["ws_step_rows" if fused_block == 1 else "ws_fused"] += evals
         want["flash_attn"] += evals * layers
@@ -2811,6 +2836,350 @@ def policy_path(model, engine):
           + "; ".join(f"{k} {v['wall_s']:.3f} s (pre-pass {v['prepass_ms']:.1f} ms: draft "
                       f"{v['prepass_draft_ms']:.1f}, probe {v['prepass_probe_ms']:.1f}; mean "
                       f"NFE {v['mean_request_nfe']:.2f})" for k, v in runs.items()))
+    return res, probes["single"], cals["single"]
+
+
+DISTILL_NFE = 1          # K of the served mix; the head is also timed at K = 2
+DISTILL_EPOCHS = 8       # the launcher's
+
+
+class TimedPairBuffer:
+    """A ``PairBuffer`` whose ``add_batch`` calls are timed."""
+
+    def __init__(self):
+        from repro_torch.drafting import PairBuffer
+
+        self.buf, self.add_ms = PairBuffer(), []
+
+    def add_batch(self, *args, **kw):
+        t = time.perf_counter()
+        out = self.buf.add_batch(*args, **kw)
+        self.add_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+
+def one_micro_batch(tier, t0, k=DISTILL_NFE, seed=5000):
+    """32 one-row requests of 256 tokens at ``t0`` packed: one (256, 32) micro-batch."""
+    from repro_torch.serving import ServeRequest, pack_requests
+
+    reqs = [ServeRequest(request_id=i, seq_len=SEQ, num_samples=1, seed=seed + i, t0=t0,
+                         tier=tier) for i in range(NUM)]
+    (mb,) = pack_requests(reqs, cold_nfe=COLD_NFE, default_t0=T0, max_rows=NUM,
+                          row_quantum=4, distilled_nfe=k)
+    return mb
+
+
+def distilled_path(model, engine, probe, cal):
+    """The distilled tier at full width behind the trained DiT (the teacher),
+    drafted by the full-width AR engine, on the policy phase's probe and
+    calibration: harvest the 16 requests' pairs from a guaranteed run, train
+    the head on them, calibrate the floor over the requests routed
+    distilled, serve the mix (alternate requests distilled) through
+    serve_requests and serve_stream with a tracer, time the head, the gate
+    probe and a guaranteed micro-batch at (32, 256), then run the launcher's
+    ``--check-distilled``. Every gate fails the run."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.sampler import refine_schedule_rows
+    from repro_torch.drafting import (
+        AdaptiveT0Policy, DistilledRefiner, restore_distilled, save_distilled, train_distilled,
+    )
+    from repro_torch.kernels import launches
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.obs import SpanTracer, load_trace, validate_trace, write_chrome_trace
+    from repro_torch.serving import (
+        DISTILLED, DISTILLED_TIER, GUARANTEED_TIER, WarmStartScheduler, bucket_seq_len,
+    )
+    from repro_torch.serving.scheduler import _derive_row_keys
+
+    t_phase = time.perf_counter()
+    layers = model.cfg.num_layers
+    reqs = sched_requests()
+    rows = sum(r.num_samples for r in reqs)
+    totals = {}
+    walls = {}
+
+    def scheduler(draft, **kw):
+        return WarmStartScheduler(flow_model=model, draft_fn=draft, device="cuda", **SCHED,
+                                  t0_policy=AdaptiveT0Policy(scorer=probe, calibration=cal),
+                                  **kw)
+
+    def counted(what, sched, draft, fn):
+        """``fn()`` with exact launch counts (pre-pass drafts of every round,
+        probe evaluations incl. the gate's and capture warm-ups, refine and
+        head steps)."""
+        c0, p0, d0 = len(probe.calls), probe.graphs.captures, len(draft.calls)
+        t = time.perf_counter()
+        out, rep, got = run_counted(
+            what, sched, fn, engine, layers,
+            drafts=lambda: [c["seq_len"] for c in draft.calls[d0:]],
+            probe_evals=lambda: len(probe.calls) - c0 + probe.graphs.captures - p0)
+        walls[what] = time.perf_counter() - t
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, rep
+
+    def results_of(out):
+        return {c.request_id: c for c in out} if isinstance(out, list) else out
+
+    # 1. harvest: the 16 requests guaranteed, a pair buffer attached
+    buf = TimedPairBuffer()
+    draft_g = RecordingDraft(engine.as_draft_fn())
+    sched_g = scheduler(draft_g, pair_buffer=buf)
+    res_g, rep_g = counted("distilled: harvest", sched_g, draft_g,
+                           lambda: sched_g.serve_requests(reqs))
+    pairs = len(buf.buf)
+    pool = {n: refined.tolist() for n, (_, refined, _) in buf.buf.snapshot().items()}
+    unmatched = 0
+    for r in reqs:
+        blen = bucket_seq_len(r.seq_len, min_bucket=SCHED["min_bucket"],
+                              max_bucket=SCHED["max_bucket"])
+        for row in np.asarray(res_g[r.request_id].tokens).tolist():
+            at = next((i for i, h in enumerate(pool.get(blen, [])) if h[:r.seq_len] == row),
+                      None)
+            if at is None:
+                unmatched += 1
+            else:
+                pool[blen].pop(at)
+    print(f"distilled harvest: {pairs} pairs of {rows} rows ({buf.buf.stats()}), served rows "
+          f"without their harvested row: {unmatched}; add_batch ms "
+          f"{[round(v, 3) for v in buf.add_ms]}")
+    if pairs != rows or unmatched or any(pool.values()):
+        fail(f"harvest: {pairs} pairs for {rows} rows, {unmatched} served rows unmatched")
+    x32 = torch.randint(0, VOCAB, (NUM, SEQ), generator=torch.Generator(device="cuda")
+                        .manual_seed(25), device="cuda", dtype=torch.int32)
+    copy_ms = time_ms(lambda: x32.cpu(), reps=5, inner=10)
+    sched_g.pair_buffer = None
+    res_g2, rep_g2 = counted("distilled: all guaranteed, again", sched_g, draft_g,
+                             lambda: sched_g.serve_requests(reqs))
+    if any(not np.array_equal(res_g[i].tokens, res_g2[i].tokens) for i in res_g):
+        fail("the all-guaranteed run is not deterministic")
+
+    # 2. train the head on the card; the checkpoint round trip bitwise
+    head = DistilledRefiner(vocab_size=VOCAB)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    dparams, drep = train_distilled(head, buf.buf, key=13, epochs=DISTILL_EPOCHS, device="cuda")
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t) * 1e3
+    with tempfile.TemporaryDirectory() as d:
+        save_distilled(d, dparams, step=drep.steps)
+        back = restore_distilled(d, head, device="cuda")
+    ckpt_equal = all(torch.equal(back[k], dparams[k]) for k in dparams)
+    print(f"distilled head trained: {drep.as_dict()}, {train_ms:.1f} ms "
+          f"({train_ms / max(drep.steps, 1):.2f} ms a step); checkpoint round trip bitwise "
+          f"{ckpt_equal}")
+    if not (math.isfinite(drep.first_loss) and math.isfinite(drep.final_loss)
+            and math.isfinite(drep.final_agreement)) or not ckpt_equal:
+        fail(f"distilled training: {drep.as_dict()}, checkpoint bitwise {ckpt_equal}")
+
+    # 3. the floor: the mix served with the floor open, then the median of the
+    # minimum scores of the requests routed distilled
+    routed = {r.request_id for r in reqs if r.request_id % 2}
+    mix = [dataclasses.replace(r, tier=DISTILLED_TIER) if r.request_id in routed else r
+           for r in reqs]
+    draft_d = RecordingDraft(engine.as_draft_fn())
+    sched_d = scheduler(draft_d, distilled_model=head, distilled_params=dparams,
+                        distilled_nfe=DISTILL_NFE, distilled_accept_score=-1e9)
+    gates, gate_ms = {}, []
+    loops = []
+    gate_fn, loop_fn = sched_d._distill_gate, sched_d._distill_loop
+
+    def recording_gate(mb, x):
+        t = time.perf_counter()
+        out = gate_fn(mb, x)
+        gate_ms.append((time.perf_counter() - t) * 1e3)
+        gates.update(out)
+        return out
+
+    def recording_loop(key, x, inputs):
+        out = loop_fn(key, x, inputs)
+        loops.append((key, x.clone(), inputs, out.clone()))
+        return out
+
+    sched_d._distill_gate, sched_d._distill_loop = recording_gate, recording_loop
+    res_open, rep_open = counted("distilled: floor open", sched_d, draft_d,
+                                 lambda: sched_d.serve_requests(mix))
+    mins = {rid: gates[rid][1] for rid in sorted(routed)}
+    vals = sorted(set(mins.values()))
+    if rep_open["distilled"]["served"] != len(routed) or len(vals) < 2:
+        fail(f"floor calibration: served {rep_open['distilled']}, minima {mins}")
+    floor = (vals[len(vals) // 2 - 1] + vals[len(vals) // 2]) / 2.0
+    sched_d.distilled_accept_score = floor
+    print(f"distilled floor {floor:.6f}: the median of the routed requests' minimum scores "
+          f"{json.dumps(mins)}")
+
+    # 4. the mix behind the floor: batch (twice: captures, then replays) and stream
+    def gate_run(what, out, rep):
+        res = results_of(out)
+        d = rep["distilled"]
+        if sorted(res) != list(range(len(reqs))) or not (d["served"] > 0 and d["fallbacks"] > 0):
+            fail(f"{what}: requests {sorted(res)}, distilled {d}")
+        for r in reqs:
+            got, want = res[r.request_id], res_g[r.request_id]
+            served = r.request_id in routed and gates[r.request_id][0]
+            if isinstance(out, list) and (got.status == DISTILLED) != served:
+                fail(f"{what}: request {r.request_id} status {got.status}")
+            if served:
+                if got.nfe != DISTILL_NFE or gates[r.request_id][1] < floor:
+                    fail(f"{what}: distilled request {r.request_id} nfe {got.nfe} score "
+                         f"{gates[r.request_id][1]} under the floor {floor}")
+            elif (not np.array_equal(got.tokens, want.tokens) or got.nfe != want.nfe
+                  or got.t0 != want.t0 or got.nfe != warm_nfe(COLD_NFE, got.t0)):
+                kind = "fallback" if r.request_id in routed else "guaranteed"
+                fail(f"{what}: {kind} request {r.request_id} differs from the all-guaranteed "
+                     f"run (nfe {got.nfe}/{want.nfe}, t0 {got.t0}/{want.t0})")
+        return res
+
+    gates.clear()
+    out_b, rep_b = counted("distilled: mix (batch)", sched_d, draft_d,
+                           lambda: sched_d.serve_requests(mix))
+    gate_run("distilled: mix (batch)", out_b, rep_b)
+    gates.clear()
+    loops.clear()
+    out_b2, rep_b2 = counted("distilled: mix (batch), again", sched_d, draft_d,
+                             lambda: sched_d.serve_requests(mix))
+    res_b2 = gate_run("distilled: mix (batch), again", out_b2, rep_b2)
+    replays = {}
+    for key, x, inputs, out in loops:
+        if key in replays:
+            continue
+        eager = sched_d._distill_loop_eager(x, inputs)
+        before = dict(launches)
+        again = loop_fn(key, x, inputs)
+        torch.cuda.synchronize()
+        grew = {k: c - before.get(k, 0) for k, c in launches.items() if c != before.get(k, 0)}
+        replays[str(key)] = {"equal_eager": bool(torch.equal(eager, out)),
+                             "equal_again": bool(torch.equal(again, out)), "launches": grew}
+        if not (torch.equal(eager, out) and torch.equal(again, out)) \
+                or grew != {"ws_step_rows": DISTILL_NFE}:
+            fail(f"distilled graph {key}: {replays[str(key)]}")
+    d_keys = sorted(str(k) for k in sched_d._compiled if k[-1] == DISTILLED_TIER)
+    captured = sorted(str(k) for k in sched_d.graphs.capture_s if k[-1] == DISTILLED_TIER)
+    if not d_keys or d_keys != captured or sched_d.graphs.captures != len(
+            sched_d.graphs.capture_s) or sorted(replays) != d_keys:
+        fail(f"distilled captures: keys {d_keys}, captured {captured}, replayed {sorted(replays)}")
+
+    gates.clear()
+    tracer = SpanTracer()
+    sched_d.tracer = tracer
+    m0 = sched_d.metrics.snapshot()
+    out_s, rep_s = counted("distilled: mix (stream)", sched_d, draft_d,
+                           lambda: (list(sched_d.serve_stream(mix)), sched_d.stream_report))
+    res_s = gate_run("distilled: mix (stream)", out_s, rep_s)
+    sched_d.tracer = None
+    ledger = {s_: sched_d.metrics.sum_counters("serve.terminal", m0, status=s_)
+              for s_ in rep_s["terminal"]}
+    with tempfile.TemporaryDirectory() as d:
+        doc = write_chrome_trace(os.path.join(d, "trace.json"), tracer)
+    problems = validate_trace(doc, expected_requests=len(reqs))
+    n_fallback_events = sum(e.get("name") == "request_fallback" for e in doc["traceEvents"])
+    stream_equal = all(np.array_equal(res_s[i].tokens, res_b2[i].tokens)
+                       and res_s[i].nfe == res_b2[i].nfe for i in res_s)
+    print(f"distilled mix: batch {rep_b2['distilled']}, stream {rep_s['distilled']}; stream == "
+          f"batch {stream_equal}; ledger {rep_s['conservation']}; trace problems {problems}, "
+          f"{n_fallback_events} request_fallback events; replays {replays}")
+    if (not rep_s["conservation"]["balanced"] or ledger != rep_s["terminal"]
+            or sched_d.metrics.sum_counters("distilled.fallbacks", m0)
+            != rep_s["distilled"]["fallbacks"]
+            or sched_d.metrics.sum_counters("serve.admitted", m0) != len(reqs)
+            or problems or n_fallback_events != rep_s["distilled"]["fallbacks"]
+            or not stream_equal):
+        fail(f"distilled stream: ledger {rep_s['conservation']}, report {rep_s['terminal']} vs "
+             f"registry {ledger}, trace {problems}, fallback events {n_fallback_events}, "
+             f"stream == batch {stream_equal}")
+    phase_launches = dict(totals)
+
+    # 5. (32, 256): the head at K = 1 and 2, the gate probe, a guaranteed micro-batch
+    heads = {}
+    for k in (1, 2):
+        s_k = sched_d if k == DISTILL_NFE else scheduler(
+            draft_d, distilled_model=head, distilled_params=dparams, distilled_nfe=k,
+            distilled_accept_score=floor)
+        mb = one_micro_batch(DISTILLED_TIER, T0, k)
+        _, inputs = s_k._distill_inputs(mb)
+        loop = s_k._distill_loop if s_k is not sched_d else loop_fn
+        out = loop(mb.compile_key, x32, inputs)
+        before = dict(launches)
+        out = loop(mb.compile_key, x32, inputs)
+        torch.cuda.synchronize()
+        grew = {n: c - before.get(n, 0) for n, c in launches.items() if c != before.get(n, 0)}
+        graph = s_k.graphs._graphs[mb.compile_key].graph
+        heads[k] = {"key": str(mb.compile_key), "replay_ms": time_ms(graph.replay),
+                    "call_ms": time_ms(lambda: loop(mb.compile_key, x32, inputs)),
+                    "eager_ms": time_ms(lambda: s_k._distill_loop_eager(x32, inputs)),
+                    "equal_eager": bool(torch.equal(out, s_k._distill_loop_eager(x32, inputs))),
+                    "launches_a_replay": grew}
+        if not heads[k]["equal_eager"] or grew != {"ws_step_rows": k}:
+            fail(f"the head at K = {k}, (32, 256): {heads[k]}")
+    gate_probe_ms = time_ms(lambda: probe.score(x32), reps=5, inner=3)
+    g_mb = one_micro_batch(GUARANTEED_TIER, T0)
+    ts, hs, active, key_idx, _ = refine_schedule_rows(g_mb.row_t0s, 1.0 / COLD_NFE, COLD_NFE)
+    _, flow_keys = _derive_row_keys(*sched_d._mb_row_streams(g_mb))
+    refine_ms = time_ms(lambda: sched_d._refine_loop(g_mb.compile_key, flow_keys, x32, ts, hs,
+                                                     active, key_idx), reps=3, inner=1)
+    print(f"(32, 256): the head a replay {heads[1]['replay_ms'] * 1e3:.1f} us at K = 1, "
+          f"{heads[2]['replay_ms'] * 1e3:.1f} us at K = 2 (a call {heads[1]['call_ms']:.3f} / "
+          f"{heads[2]['call_ms']:.3f} ms, eager {heads[1]['eager_ms']:.3f} / "
+          f"{heads[2]['eager_ms']:.3f} ms); gate probe {gate_probe_ms:.2f} ms; a guaranteed "
+          f"micro-batch {g_mb.compile_key} {refine_ms:.2f} ms")
+
+    # 6. the launcher at its own defaults
+    with tempfile.TemporaryDirectory() as d:
+        trace_path = os.path.join(d, "trace.json")
+        argv = ["--scheduler", "--draft", "ar-kv", "--tier", "distilled", "--check-distilled",
+                "--stream", "--trace-out", trace_path]
+        t = time.perf_counter()
+        try:
+            serve_launcher.main(argv)
+        except SystemExit as err:
+            if err.code not in (0, None):
+                fail(f"launch.serve {' '.join(argv)} exited {err.code}")
+        launcher_s = time.perf_counter() - t
+        launcher_problems = validate_trace(load_trace(trace_path))
+    print(f"launch.serve --check-distilled: exit 0 in {launcher_s:.1f} s, trace problems "
+          f"{launcher_problems}")
+    if launcher_problems:
+        fail(f"the launcher's trace: {launcher_problems}")
+
+    def mean_nfe(res):
+        return float(np.mean([r.nfe for r in res.values()]))
+
+    wall_g, wall_mix = walls["distilled: all guaranteed, again"], \
+        walls["distilled: mix (batch), again"]
+    res = {
+        "config": model.cfg.name, "teacher": f"trained {TRAIN_STEPS} steps (the training phase)",
+        "head": dataclasses.asdict(head), "k": DISTILL_NFE, "requests": len(reqs),
+        "routed_distilled": sorted(routed), "pairs": pairs,
+        "harvest_add_ms_each": buf.add_ms, "harvest_copy_ms_32x256": copy_ms,
+        "train": {**drep.as_dict(), "ms": train_ms, "ms_a_step": train_ms / max(drep.steps, 1)},
+        "checkpoint_bitwise": ckpt_equal, "floor": floor, "request_min_scores": mins,
+        "served": {"batch": rep_b2["distilled"]["served"], "stream": rep_s["distilled"]["served"]},
+        "fallbacks": {"batch": rep_b2["distilled"]["fallbacks"],
+                      "stream": rep_s["distilled"]["fallbacks"]},
+        "gate_ms_each": gate_ms,
+        "head_32x256": heads, "gate_probe_ms_32x256": gate_probe_ms,
+        "guaranteed_micro_batch_32x256": {"key": str(g_mb.compile_key), "ms": refine_ms},
+        "distilled_micro_batch_32x256_ms": heads[DISTILL_NFE]["call_ms"] + gate_probe_ms,
+        "mean_request_nfe": {"mix": mean_nfe(res_b2), "all_guaranteed": mean_nfe(res_g2)},
+        "requests_per_s": {"mix": len(reqs) / wall_mix, "all_guaranteed": len(reqs) / wall_g},
+        "wall_s": walls, "batches_mix": [{k: b[k] for k in ("bucket_len", "padded_rows", "nfe",
+                                                            "tier", "flow_time_s")}
+                                         for b in rep_b2["batches"]],
+        "graphs": {"distilled_keys": d_keys, "captures": sched_d.graphs.stats()},
+        "replays": replays, "trace_events": len(doc["traceEvents"]),
+        "fallback_events": n_fallback_events, "stream_equals_batch": stream_equal,
+        "launcher_s": launcher_s, "launches": phase_launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(f"distilled: {len(reqs) / wall_mix:.2f} requests/s (mean NFE "
+          f"{res['mean_request_nfe']['mix']:.2f}) against all guaranteed "
+          f"{len(reqs) / wall_g:.2f} (mean NFE {res['mean_request_nfe']['all_guaranteed']:.2f}); "
+          f"phase {res['phase_s']:.1f} s")
     return res
 
 
@@ -3003,8 +3372,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train, train_counts, trained = train_path()
-    policy = policy_path(trained, engine)
+    policy, probe, cal = policy_path(trained, engine)
     policy["failed_capture"] = failed_capture
+    distilled = distilled_path(trained, engine, probe, cal)
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -3036,6 +3406,7 @@ def main() -> int:
          "launches": counts.get("flash_attn", 0), "launches_per_serve": per_serve["flash_attn"],
          "launches_train": train_counts["flash_attn"],
          "launches_policy": policy["launches"]["flash_attn"],
+         "launches_distilled": distilled["launches"].get("flash_attn", 0),
          "launches_per_train_step": train["launches_per_step"]["flash_attn"],
          "max_abs_err": max(flash_errs), "max_err": max(flash_errs),
          "shape": [NUM, SEQ, 12, 64], **flash_num,
@@ -3059,6 +3430,7 @@ def main() -> int:
                        "JAX package, core/sampler.py:73)",
          "launches": sched_counts["ws_step_rows"],
          "launches_per_run": sched["launches_per_run"].get("ws_step_rows", 0),
+         "launches_distilled": distilled["launches"].get("ws_step_rows", 0),
          "max_abs_err": max(c["max_abs_err"] for c in rows_checks),
          "mismatches": sum(c["mismatches"] for c in rows_checks),
          "near_ties": sum(c["near_ties"] for c in rows_checks),
@@ -3099,6 +3471,7 @@ def main() -> int:
     print(json.dumps({"pipeline": pipe}))
     print(json.dumps({"train": train}))
     print(json.dumps({"policy": policy}))
+    print(json.dumps({"distilled": distilled}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

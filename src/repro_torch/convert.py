@@ -143,3 +143,22 @@ def jax_lstm_params_to_torch(flat: Mapping[str, np.ndarray], *, device="cuda") -
             "layers": [{"wx": {"w": t(f"layers|{i}|wx|w")}, "wh": {"w": t(f"layers|{i}|wh|w")}}
                        for i in range(len(layer_ids))],
             "head": {"w": t("head|w")}}
+
+
+# the distilled head's leaves, in the JAX tree's order (dict keys sorted)
+DISTILLED_LEAVES = ("b1", "b2", "copy_gate", "embed", "mix", "out", "out_b", "t_film",
+                     "w1", "w2")
+
+
+def jax_distilled_params_to_torch(params: Mapping[str, np.ndarray], *,
+                                  device="cuda") -> Dict[str, torch.Tensor]:
+    """A JAX ``DistilledRefiner`` params dict (its ten leaves, numpy arrays
+    or anything ``np.asarray`` reads) -> the port's head params: the same
+    names and shapes, float32 tensors on ``device``. A missing or unknown
+    leaf raises."""
+    dev = resolve_device(device)
+    if set(params) != set(DISTILLED_LEAVES):
+        raise KeyError(f"distilled head leaves {sorted(params)}, expected "
+                       f"{list(DISTILLED_LEAVES)}")
+    return {k: torch.from_numpy(np.array(params[k], dtype=np.float32)).to(dev)
+            for k in DISTILLED_LEAVES}

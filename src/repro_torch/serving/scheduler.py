@@ -1,5 +1,5 @@
 """Continuous-batching warm-start serving engine (port of the JAX package's
-``serving/scheduler.py``, guaranteed tier).
+``serving/scheduler.py``).
 
 Request-level front end over the paper's two-stage pipeline:
 
@@ -38,13 +38,22 @@ ships a request whose every row clears ``accept_score`` as its drafts
 the refined rows. The draft stage then assembles the pre-pass drafts and
 never drafts again.
 
+The distilled tier (``distilled_model`` / ``distilled_params``): a
+``tier="distilled"`` micro-batch runs K = ``distilled_nfe`` steps of the
+distilled head through the same masked row loop, keyed on a third stream
+(``DISTILL_STREAM``), on the card one CUDA graph replay per distilled
+compile key with the head's weights copied in as graph inputs; the policy's
+probe then scores the rows, and a request whose minimum row score misses
+``distilled_accept_score`` is served again as a fresh guaranteed request,
+bit-identical to one. With a ``pair_buffer`` every guaranteed refine adds
+its ``(draft, refined, t0)`` rows to it (the head's training set).
+
 Sampling is row-keyed: every sample row's PRNG stream is derived from its
 request's seed and its index within the request, so a request's output
 is invariant to micro-batch packing, and equals the JAX package's.
 
-Not ported yet, each refused by the constructor: the distilled tier,
-``pair_buffer`` and ``mesh``. With them off, the reports carry the JAX
-package's keys with the same ``None`` values.
+Not ported yet, refused by the constructor: ``mesh``. With it off, the
+reports carry the JAX package's ``"mesh": None``.
 """
 
 from __future__ import annotations
@@ -65,7 +74,8 @@ from repro_torch import prng
 from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import (
-    make_euler_one_step_rows, refine_schedule_rows, rows_loop, rows_loop_inputs,
+    distill_schedule_rows, make_euler_one_step_rows, refine_schedule_rows, rows_loop,
+    rows_loop_inputs,
 )
 from repro_torch.device import resolve_device
 from repro_torch.drafting.quality import to_host
@@ -73,7 +83,8 @@ from repro_torch.graphs import GraphCache
 from repro_torch.kernels.ws_fused import make_ws_fused_fn
 from repro_torch.obs import MetricsRegistry, NullTracer, parse_metric_key
 from repro_torch.serving.batcher import (
-    ACCEPTED_DRAFT, CANCELLED, COMPLETED, DISTILLED, DISTILLED_TIER, DRAFT_STREAM, FAILED,
+    ACCEPTED_DRAFT, CANCELLED, COMPLETED, DISTILL_STREAM, DISTILLED, DISTILLED_TIER,
+    DRAFT_STREAM, FAILED,
     FLOW_STREAM, GUARANTEED_TIER, PRIORITY_CLASSES, SHED, TIMED_OUT, CancelToken,
     FillingBucket, MicroBatch, ServeRequest, bucket_seq_len, pack_requests, pad_rows,
     priority_rank, split_request, usable_rows,
@@ -391,23 +402,35 @@ class AdmissionQueue:
             return len(self._items)
 
 
-def _derive_row_keys(seeds, sample_idx) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(draft_keys, flow_keys), each (B, 2) on the host: fold (seed, sample
-    index) into two independent streams. Depends only on the request's own
-    seed and the row's index within the request, never on batch position.
-    Negative indices (padding rows) fold in as their uint32 bits, as JAX's
+def _row_base_keys(seeds, sample_idx) -> torch.Tensor:
+    """(B, 2) ``fold_in(key(seed), sample index)`` on the host. Negative
+    indices (padding rows) fold in as their uint32 bits, as JAX's
     ``fold_in`` takes them."""
     seeds = torch.as_tensor(np.asarray(seeds), dtype=torch.int64)
     idx = torch.as_tensor(np.asarray(sample_idx), dtype=torch.int64)
     keys = torch.stack([torch.zeros_like(seeds), seeds & prng.MASK], dim=-1)
-    base = prng.fold_in(keys, idx)
+    return prng.fold_in(keys, idx)
+
+
+def _derive_row_keys(seeds, sample_idx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(draft_keys, flow_keys), each (B, 2) on the host: fold (seed, sample
+    index) into two independent streams. Depends only on the request's own
+    seed and the row's index within the request, never on batch position."""
+    base = _row_base_keys(seeds, sample_idx)
     return prng.fold_in(base, DRAFT_STREAM), prng.fold_in(base, FLOW_STREAM)
+
+
+def _derive_distill_keys(seeds, sample_idx) -> torch.Tensor:
+    """(B, 2) keys on the host on the distilled tier's own stream
+    (``fold_in(., DISTILL_STREAM)`` of the same base). Distilled sampling
+    never consumes a key of the DRAFT/FLOW streams, so a fallback's
+    guaranteed refine draws exactly what a fresh guaranteed request would."""
+    return prng.fold_in(_row_base_keys(seeds, sample_idx), DISTILL_STREAM)
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({where}); the port's scheduler "
-        f"serves the guaranteed tier")
+        f"{what} is not ported to repro_torch yet ({where})")
 
 
 class WarmStartScheduler:
@@ -456,11 +479,20 @@ class WarmStartScheduler:
       tracer / metrics: ``repro_torch.obs`` span tracer (default no-op) and
         metrics registry (default a private one); report sections are
         derived from the registry, under the JAX package's counter names.
+      distilled_model / distilled_params: a distilled few-step head
+        (:class:`repro_torch.drafting.DistilledRefiner`, ``dfm_apply(params,
+        tokens, t)``) and its params (a dict of tensors on ``device``),
+        enabling ``tier="distilled"`` requests: K = ``distilled_nfe`` steps
+        of the head instead of the guaranteed refine, behind the policy
+        probe's quality floor. Needs ``t0_policy``.
+      distilled_nfe: steps the distilled tier runs (1 or 2).
+      distilled_accept_score: the tier's quality floor: a request whose
+        minimum row probe score falls below it is served again on the
+        guaranteed path. Defaults to ``accept_score``.
+      pair_buffer: a :class:`repro_torch.drafting.PairBuffer`; every
+        guaranteed refine adds its ``(draft, refined, t0)`` rows to it.
       device: where the refine runs: the card unless ``"cpu"`` is asked for.
-      mesh / distilled_model / distilled_params / distilled_nfe /
-        distilled_accept_score / pair_buffer: not ported yet; each is taken
-        at the JAX package's default, and any other value raises
-        ``NotImplementedError`` naming the slice that will port it.
+      mesh: not ported yet; anything but None raises ``NotImplementedError``.
         (``flow_params`` is not taken: ``flow_model`` holds its weights.)
     """
 
@@ -497,17 +529,6 @@ class WarmStartScheduler:
     ):
         if mesh is not None:
             raise _not_ported("mesh (sharded refine)", "the multi-card slice")
-        if distilled_model is not None:
-            raise _not_ported("the distilled tier", "the distilled-tier slice")
-        if distilled_params is not None:
-            raise _not_ported("distilled_params", "the distilled-tier slice")
-        if distilled_nfe != 1:
-            raise _not_ported(f"distilled_nfe={distilled_nfe}", "the distilled-tier slice")
-        if distilled_accept_score is not None:
-            raise _not_ported("distilled_accept_score", "the distilled-tier slice")
-        if pair_buffer is not None:
-            raise _not_ported("pair_buffer (self-distillation harvest)",
-                              "the distilled-tier slice")
         if cold_nfe < 1:
             raise ValueError(f"cold_nfe must be >= 1, got {cold_nfe}")
         if fused_block < 1:
@@ -547,6 +568,32 @@ class WarmStartScheduler:
         if self.speculative and self.accept_score is None:
             raise ValueError("speculative serving needs an accept_score (none given and the "
                              "policy carries no calibration to derive one)")
+        # the distilled tier: a self-distilled K-step head served as a cheap
+        # SLO class behind a calibrated probe-score quality floor
+        self.distilled_model = distilled_model
+        self.distilled_params = distilled_params
+        self.distilled_nfe = int(distilled_nfe)
+        self.pair_buffer = pair_buffer
+        if distilled_model is not None:
+            if not 1 <= self.distilled_nfe <= 2:
+                raise ValueError(f"distilled_nfe must be 1 or 2 (the tier's whole point is a "
+                                 f"1-2 step refine), got {distilled_nfe}")
+            if t0_policy is None:
+                raise ValueError("the distilled tier needs a t0_policy: its quality floor is "
+                                 "the policy's probe score")
+            if distilled_accept_score is None:
+                distilled_accept_score = self.accept_score
+            if distilled_accept_score is None:
+                raise ValueError("distilled tier needs a quality floor (distilled_accept_score, "
+                                 "or a policy calibration to derive one)")
+            if not distilled_params:
+                raise ValueError("distilled_model needs its distilled_params")
+            for name, leaf in distilled_params.items():
+                if leaf.device.type != self.device.type:
+                    raise ValueError(f"distilled_params[{name!r}] lives on {leaf.device}, "
+                                     f"scheduler on {self.device}")
+        self.distilled_accept_score = (None if distilled_accept_score is None
+                                       else float(distilled_accept_score))
         # bandit mode: the policy learns online from refined outcomes
         self._bandit_mode = (t0_policy is not None and hasattr(t0_policy, "update")
                              and hasattr(t0_policy, "scorer"))
@@ -566,6 +613,9 @@ class WarmStartScheduler:
         self._c_fused_steps = m.counter("fused.steps_fused")
         self._c_dispatch_retries = m.counter("dispatch.retries")
         self._c_dispatch_failures = m.counter("dispatch.failures")
+        self._c_distill_fallbacks = m.counter("distilled.fallbacks")
+        self._c_distill_gate_evals = m.counter("distilled.gate_evals")
+        self._c_distill_downgrades = m.counter("distilled.oversize_downgrades")
         if t0_policy is not None and hasattr(t0_policy, "bind_metrics"):
             t0_policy.bind_metrics(m)
 
@@ -601,6 +651,8 @@ class WarmStartScheduler:
                           if fused_block > 1 else None)
         self._draft_stream = (torch.cuda.Stream(self.device)
                               if self.device.type == "cuda" else None)
+        # one graph per compile key: the guaranteed refine's and, under keys
+        # suffixed with the tier, the distilled loop's
         self.graphs = GraphCache("the scheduler's refine loop")
 
     def _loop(self, x, step_keys, ts, hs, act) -> torch.Tensor:
@@ -625,6 +677,37 @@ class WarmStartScheduler:
         with torch.inference_mode():
             return self._loop(x, *(a.to(x.device) for a in inputs))
 
+    def _distill_fn(self, x, step_keys, ts, hs, act, *leaves) -> torch.Tensor:
+        """K steps of the distilled head through the masked row loop (no fused
+        block), on the head's params as ``leaves`` (sorted by name)."""
+        params = dict(zip(sorted(self.distilled_params), leaves))
+        return rows_loop(lambda xt, tb: self.distilled_model.dfm_apply(params, xt, tb),
+                         self._one_step, x, step_keys, ts, hs, act)
+
+    def _distill_inputs(self, mb: MicroBatch):
+        """``(n_steps, (step keys, ts, hs, active))``: the K-step schedule on
+        the DISTILL_STREAM keys of ``mb``'s rows."""
+        ts, hs, active, key_idx, _ = distill_schedule_rows(mb.row_t0s, self.distilled_nfe)
+        seeds, idx = self._mb_row_streams(mb)
+        return len(ts), rows_loop_inputs(_derive_distill_keys(seeds, idx), ts, hs, active,
+                                         key_idx)
+
+    def _distill_leaves(self) -> Tuple[torch.Tensor, ...]:
+        return tuple(self.distilled_params[k] for k in sorted(self.distilled_params))
+
+    def _distill_loop(self, key, x, inputs) -> torch.Tensor:
+        """The distilled tier's dispatch: on the card one replay of the graph of
+        its compile key ``key``; the head's weights are graph inputs copied in
+        at each call, so new params replay the same graph."""
+        with torch.inference_mode():
+            return self.graphs(key, self._distill_fn, x, *inputs, *self._distill_leaves())
+
+    def _distill_loop_eager(self, x, inputs) -> torch.Tensor:
+        """The same distilled loop as eager launches (the graph's yardstick)."""
+        with torch.inference_mode():
+            return self._distill_fn(x, *(a.to(x.device) for a in inputs),
+                                    *self._distill_leaves())
+
     # ---- request intake --------------------------------------------------
 
     def submit(self, *, seq_len: int, num_samples: int = 1, seed: int = 0,
@@ -632,15 +715,17 @@ class WarmStartScheduler:
         """Enqueue one request; returns its request_id. ``t0=None`` means the
         engine decides: the policy's t0 with a ``t0_policy``, else
         ``default_t0``; an explicit t0 is honoured verbatim (never scored).
-        Rejects unservable requests here (bucket overflow,
-        too many samples, the unported distilled tier), so one bad request
-        can never poison a queued batch."""
+        ``tier="distilled"`` asks for the distilled head behind its quality
+        floor (needs ``distilled_model``); a request that misses the floor
+        falls back to the guaranteed path. Rejects unservable requests here
+        (bucket overflow, too many samples), so one bad request can never
+        poison a queued batch."""
         bucket_seq_len(seq_len, min_bucket=self.min_bucket, max_bucket=self.max_bucket)
         padded = pad_rows(num_samples, self.row_quantum)
         if padded > self.max_rows:
             raise ValueError(f"num_samples {num_samples} pads to {padded} rows > max_rows "
                              f"{self.max_rows} (split the request)")
-        if tier == DISTILLED_TIER:
+        if tier == DISTILLED_TIER and self.distilled_model is None:
             raise ValueError("tier='distilled' needs distilled_model/distilled_params "
                              "on the scheduler")
         rid = self._next_id
@@ -759,28 +844,40 @@ class WarmStartScheduler:
                 sleep(policy.backoff_s(attempt))
         raise AssertionError("unreachable")  # pragma: no cover
 
+    def _count_key(self, key, sp) -> bool:
+        """The jit-cache accounting of one dispatch of ``key``; True on a miss
+        (the key's first dispatch: a capture on the card)."""
+        was_miss = key not in self._compiled
+        if was_miss:
+            self._compiled.add(key)
+            self._c_cache_misses.inc()
+        else:
+            self._c_cache_hits.inc()
+        self.metrics.counter("jit_cache.per_key", key=_key_label(key),
+                             kind="miss" if was_miss else "hit").inc()
+        sp["cache"] = "miss" if was_miss else "hit"
+        return was_miss
+
     def _stage_refine(self, mb: MicroBatch, x, flow_keys, ready=None):
         """Flow stage for one micro-batch: the masked per-row refine on the
-        calling thread's stream, after the draft's ``ready`` event."""
+        calling thread's stream, after the draft's ``ready`` event.
+        Distilled-tier micro-batches go to :meth:`_stage_distill`."""
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             x.record_stream(stream)
+        if mb.tier == DISTILLED_TIER:
+            return self._stage_distill(mb, x)
+        # the harvest's drafts, read after the draft's event and before the
+        # timed window that feeds the cost model
+        harvest = x.cpu().numpy() if self.pair_buffer is not None else None
         span = self.tracer.span("refine", track="refine_dispatch", bucket=mb.bucket_len,
                                 rows=mb.rows, padded_rows=mb.padded_rows, tier=mb.tier,
                                 key=str(mb.compile_key))
         with span as sp:
             t0 = time.perf_counter()
             key = mb.compile_key
-            was_miss = key not in self._compiled
-            if was_miss:
-                self._compiled.add(key)
-                self._c_cache_misses.inc()
-            else:
-                self._c_cache_hits.inc()
-            self.metrics.counter("jit_cache.per_key", key=_key_label(key),
-                                 kind="miss" if was_miss else "hit").inc()
-            sp["cache"] = "miss" if was_miss else "hit"
+            was_miss = self._count_key(key, sp)
             ts, hs, active, key_idx, _ = refine_schedule_rows(
                 mb.row_t0s, 1.0 / self.cold_nfe, self.cold_nfe)
             sp["nfe"] = len(ts)
@@ -807,7 +904,50 @@ class WarmStartScheduler:
                 with self.tracer.span("reward_probe", track="refine_dispatch",
                                       bucket=mb.bucket_len):
                     self._observe_rewards(mb, x)
+            # the self-distillation harvest, also after the cost observation:
+            # the guaranteed path is the teacher, no extra forward passes
+            if harvest is not None:
+                self.pair_buffer.add_batch(harvest, x.cpu().numpy(), mb.row_t0s,
+                                           mask=mb.row_mask)
         return x, t_flow
+
+    def _stage_distill(self, mb: MicroBatch, x):
+        """Distilled-tier flow stage: K = ``distilled_nfe`` steps of the head
+        through the same masked row loop, keyed on DISTILL_STREAM. No NFE
+        gate runs here: the tier's contract is the quality floor
+        (:meth:`_distill_gate`). One attempt: a failure raises
+        :class:`DispatchFailure`."""
+        span = self.tracer.span("distill", track="refine_dispatch", bucket=mb.bucket_len,
+                                rows=mb.rows, padded_rows=mb.padded_rows, tier=mb.tier,
+                                key=str(mb.compile_key))
+        with span as sp:
+            t0 = time.perf_counter()
+            key = mb.compile_key
+            was_miss = self._count_key(key, sp)
+            n_steps, inputs = self._distill_inputs(mb)
+            sp["nfe"] = n_steps
+            try:
+                x = self._distill_loop(key, x, inputs)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+            except Exception as err:  # noqa: BLE001 — device faults vary
+                self._c_dispatch_failures.inc()
+                raise DispatchFailure(key, 1, err) from err
+            t_flow = time.perf_counter() - t0
+            self.cost_model.observe(key, t_flow, n_steps, compiled=was_miss)
+        return x, t_flow
+
+    def _distill_gate(self, mb: MicroBatch, x) -> Dict[int, Tuple[bool, float]]:
+        """The distilled tier's quality floor: the policy's probe on the
+        distilled rows, each request's minimum row score against
+        ``distilled_accept_score``. ``request_id -> (passed, min score)``."""
+        self._c_distill_gate_evals.inc()
+        scores = to_host(self.t0_policy.scorer(x))
+        out: Dict[int, Tuple[bool, float]] = {}
+        for span in mb.spans:
+            mn = float(scores[span.row_offset:span.row_offset + span.rows].min())
+            out[span.request.request_id] = (mn >= self.distilled_accept_score, mn)
+        return out
 
     def _observe_rewards(self, mb: MicroBatch, x) -> None:
         """The bandit's reward for one refined micro-batch (the verify step):
@@ -1014,30 +1154,48 @@ class WarmStartScheduler:
         # the wall clock starts before the pre-pass: in policy mode the
         # pre-pass is the draft stage (plus scoring), so the rates pay for it
         wall0 = time.perf_counter()
+        for req in requests:
+            if req.tier == DISTILLED_TIER and self.distilled_model is None:
+                raise ValueError("tier='distilled' needs distilled_model/distilled_params "
+                                 "on the scheduler")
+        policy_report = None
+        accepted: List[dict] = []
+        # the as-submitted requests: a distilled request that misses its floor
+        # is served again from this one (t0 unresolved), as a fresh request
+        originals = {r.request_id: r for r in requests}
         results: Dict[int, RequestResult] = {}
         batch_reports: List[dict] = []
         cache_snap = self._jit_cache_snapshot()
         draft_total = flow_total = 0.0
-        for req in requests:
-            if req.tier == DISTILLED_TIER:
-                raise ValueError("tier='distilled' needs distilled_model/distilled_params "
-                                 "on the scheduler")
-        policy_report, predrafted, accepted = None, None, []
-        resolved = list(requests)
-        if self.t0_policy is not None:
-            resolved, predrafted, policy_report, accepted = self._policy_prepass(requests)
-            # serial (never hidden behind a refine): in draft_total and the wall
-            draft_total += policy_report["prepass_time_s"]
-        batches = pack_requests(
-            resolved, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
-            max_rows=self.max_rows, min_bucket=self.min_bucket, max_bucket=self.max_bucket,
-            row_quantum=self.row_quantum, t0_bin_width=self.t0_bin_width)
-        for k, mb, x, t_draft, t_flow in self._pipeline(batches, predrafted):
+        batches: List[MicroBatch] = []
+        distill_stats = {"requests": 0, "served": 0, "fallbacks": 0, "min_served_score": None}
+        fallback: List[ServeRequest] = []
+
+        def finish(k: int, mb: MicroBatch, x, t_draft: float, t_flow: float) -> None:
+            nonlocal draft_total, flow_total
             draft_total += t_draft
             flow_total += t_flow
+            gate = self._distill_gate(mb, x) if mb.tier == DISTILLED_TIER else None
             x_host = x.cpu().numpy()
             for span, span_t0, span_rows in zip(mb.spans, mb.t0_spans, mb.row_t0_spans):
                 req = span.request
+                if gate is not None:
+                    passed, mn = gate[req.request_id]
+                    if not passed:
+                        self._c_distill_fallbacks.inc()
+                        distill_stats["fallbacks"] += 1
+                        fallback.append(dataclasses.replace(originals[req.request_id],
+                                                            tier=GUARANTEED_TIER))
+                        continue
+                    distill_stats["served"] += 1
+                    ms = distill_stats["min_served_score"]
+                    distill_stats["min_served_score"] = mn if ms is None else min(ms, mn)
+                    results[req.request_id] = RequestResult(
+                        request_id=req.request_id,
+                        tokens=x_host[span.row_offset:span.row_offset + span.rows, :req.seq_len],
+                        nfe=self.distilled_nfe, t0=span_t0, bucket_len=mb.bucket_len,
+                        micro_batch=k)
+                    continue
                 results[req.request_id] = RequestResult(
                     request_id=req.request_id,
                     tokens=x_host[span.row_offset:span.row_offset + span.rows, :req.seq_len],
@@ -1049,6 +1207,39 @@ class WarmStartScheduler:
                 "nfe": mb.n_steps, "tier": mb.tier,
                 "draft_time_s": t_draft, "flow_time_s": t_flow,
             })
+
+        # round 0 serves the submitted mix; round 1 (only when a distilled
+        # request misses its floor) serves the fallbacks as guaranteed
+        # requests, so the loop ends after at most two rounds
+        pending = list(requests)
+        while pending:
+            distill_stats["requests"] += sum(1 for r in pending if r.tier == DISTILLED_TIER)
+            predrafted = None
+            resolved = pending
+            if self.t0_policy is not None:
+                resolved, predrafted, pr, acc_round = self._policy_prepass(pending)
+                accepted.extend(acc_round)
+                if policy_report is None:
+                    policy_report = pr
+                else:
+                    policy_report["scored_requests"] += pr["scored_requests"]
+                    policy_report["prepass_time_s"] += pr["prepass_time_s"]
+                    if policy_report.get("speculative") and pr.get("speculative"):
+                        for f in ("eligible", "accepted"):
+                            policy_report["speculative"][f] += pr["speculative"][f]
+                # serial (never hidden behind a refine): in draft_total and the wall
+                draft_total += pr["prepass_time_s"]
+            round_batches = pack_requests(
+                resolved, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
+                max_rows=self.max_rows, min_bucket=self.min_bucket, max_bucket=self.max_bucket,
+                row_quantum=self.row_quantum, t0_bin_width=self.t0_bin_width,
+                distilled_nfe=self.distilled_nfe)
+            k0 = len(batches)
+            batches.extend(round_batches)
+            for k, mb, x, t_draft, t_flow in self._pipeline(round_batches, predrafted):
+                finish(k0 + k, mb, x, t_draft, t_flow)
+            pending, fallback = fallback, []
+
         # speculatively accepted requests end here: their pre-pass drafts, cut
         # to the request's length, with zero refine steps (micro_batch -1)
         for acc in accepted:
@@ -1103,7 +1294,9 @@ class WarmStartScheduler:
                                        if accepted else None),
             }),
             "bandit": self.t0_policy.arm_stats() if self._bandit_mode else None,
-            "distilled": None,
+            "distilled": (None if self.distilled_model is None else {
+                "enabled": True, "nfe": self.distilled_nfe,
+                "gate_score": self.distilled_accept_score, **distill_stats}),
             "batches": batch_reports,
         }
         self._row_scores.clear()
@@ -1133,9 +1326,14 @@ class WarmStartScheduler:
         bucket: pipeline backlog + draft-stage EWMA + measured per-NFE
         refine cost x worst-case steps (a first-dispatch surcharge for a new
         compile key). Zero until the first measurement."""
-        t0_lb = min(self._t0_lower_bound(r) for r in fb.requests)
-        n_steps = guarantees.warm_nfe(self.cold_nfe, t0_lb)
-        key = (fb.bucket_len, pad_rows(fb.rows, unit), n_steps)
+        if fb.requests and fb.requests[0].tier == DISTILLED_TIER:
+            # buckets are tier-homogeneous: a distilled bucket runs K head steps
+            n_steps = self.distilled_nfe
+            key = (fb.bucket_len, pad_rows(fb.rows, unit), n_steps, DISTILLED_TIER)
+        else:
+            t0_lb = min(self._t0_lower_bound(r) for r in fb.requests)
+            n_steps = guarantees.warm_nfe(self.cold_nfe, t0_lb)
+            key = (fb.bucket_len, pad_rows(fb.rows, unit), n_steps)
         est = self.cost_model.estimate_s(key, n_steps, include_compile=True)
         return backlog_s + (self._draft_cost_ewma or 0.0) + (est or 0.0)
 
@@ -1184,7 +1382,8 @@ class WarmStartScheduler:
         batches = pack_requests(
             reqs, cold_nfe=self.cold_nfe, default_t0=self.default_t0,
             max_rows=self.max_rows, min_bucket=self.min_bucket, max_bucket=self.max_bucket,
-            row_quantum=self.row_quantum, t0_bin_width=self.t0_bin_width)
+            row_quantum=self.row_quantum, t0_bin_width=self.t0_bin_width,
+            distilled_nfe=self.distilled_nfe)
         for mb in batches:
             for span in mb.spans:
                 self.tracer.instant("request_packed", track="flush",
@@ -1270,6 +1469,10 @@ class WarmStartScheduler:
         partials: Dict[int, dict] = {}  # parent_id -> chunk reassembly
         stats = {"prepass_time_s": 0.0, "accepted_pending": []}
         spec_min_score: Optional[float] = None
+        distill_min_score: Optional[float] = None
+        # the as-admitted distilled requests: a fallback is admitted again from
+        # this one (t0 unresolved), so it serves as a fresh guaranteed request
+        originals: Dict[int, ServeRequest] = {}
         mb_reports: List[dict] = []
         latencies: List[float] = []
         class_latencies: Dict[str, List[float]] = {c: [] for c in PRIORITY_CLASSES}
@@ -1305,6 +1508,7 @@ class WarmStartScheduler:
             if root in resolved:
                 return None
             resolved.add(root)
+            originals.pop(root, None)
             part = partials.pop(root, None)
             n_chunks = part["num_chunks"] if part is not None else 1
             count_terminal(status, req.priority)
@@ -1322,17 +1526,27 @@ class WarmStartScheduler:
                 flush_reason="", deadline_s=None, slo_met=None, chunks=n_chunks,
                 status=status, priority=req.priority)
 
-        def admit(req: ServeRequest, now: float):
+        def admit(req: ServeRequest, now: float, *, fallback: bool = False):
             nonlocal first_arrival_s
             if req.parent_id is not None:
                 raise ValueError(
                     f"request {req.request_id} carries chunk metadata "
                     f"(parent_id={req.parent_id}); submit the parent request whole — "
                     f"the admission loop splits it")
-            m.counter("serve.admitted").inc()
+            if not fallback:
+                # a fallback was admitted once already: one offer, one terminal
+                m.counter("serve.admitted").inc()
             if req.tier == DISTILLED_TIER:
-                raise ValueError("tier='distilled' request admitted but the scheduler "
-                                 "has no distilled model")
+                if self.distilled_model is None:
+                    raise ValueError("tier='distilled' request admitted but the scheduler "
+                                     "has no distilled model")
+                if req.num_samples > usable_rows(self.max_rows, unit):
+                    # chunks share one fate, which a per-chunk gate could split:
+                    # oversize distilled requests serve on the guaranteed path
+                    self._c_distill_downgrades.inc()
+                    req = dataclasses.replace(req, tier=GUARANTEED_TIER)
+                else:
+                    originals[req.request_id] = req
             if first_arrival_s is None or req.arrival_s < first_arrival_s:
                 first_arrival_s = req.arrival_s
             pieces = [req]
@@ -1380,11 +1594,14 @@ class WarmStartScheduler:
             """One finished micro-batch -> CompletedRequests. Spans whose
             request was cancelled or timed out in flight are masked out; the
             sibling rows are untouched."""
-            nonlocal draft_total, flow_total, t_first
+            nonlocal draft_total, flow_total, t_first, distill_min_score
             draft_total += t_draft
             flow_total += t_flow
             mb = pending["mb"]
             k = next(mb_index)
+            # the quality floor of a distilled micro-batch, before the clock
+            # read: the probe is part of serving it
+            gate = self._distill_gate(mb, x) if mb.tier == DISTILLED_TIER else None
             finished_s = clock.time()
             m.histogram("serve.queue_wait_s").observe(finished_s - pending["flushed_s"])
             mb_reports.append({
@@ -1408,7 +1625,27 @@ class WarmStartScheduler:
                     if item is not None:
                         out.append(item)
                     continue
-                nfe = guarantees.warm_nfe(self.cold_nfe, span_t0)
+                status, nfe = COMPLETED, guarantees.warm_nfe(self.cold_nfe, span_t0)
+                if gate is not None:
+                    # distilled requests are never chunked (oversize ones were
+                    # downgraded at admission): the gate decides the request
+                    passed, mn = gate[req.request_id]
+                    if not passed:
+                        # the floor missed: admitted again from the as-admitted
+                        # request, as a fresh guaranteed one, without counting
+                        # serve.admitted again
+                        self._c_distill_fallbacks.inc()
+                        tracer.instant("request_fallback", track="flush", flow_id=req.root_id,
+                                       flow_ph="t", request_id=req.root_id, score=mn,
+                                       gate_score=self.distilled_accept_score)
+                        admit(dataclasses.replace(originals.pop(req.request_id),
+                                                  tier=GUARANTEED_TIER),
+                              finished_s, fallback=True)
+                        continue
+                    originals.pop(req.request_id, None)
+                    distill_min_score = (mn if distill_min_score is None
+                                         else min(distill_min_score, mn))
+                    status, nfe = DISTILLED, self.distilled_nfe
                 toks = x_host[span.row_offset:span.row_offset + span.rows, :req.seq_len]
                 if req.parent_id is not None:
                     part = partials[req.parent_id]
@@ -1433,24 +1670,24 @@ class WarmStartScheduler:
                 latency = finished_s - arrival
                 latencies.append(latency)
                 class_latencies[req.priority].append(latency)
-                count_terminal(COMPLETED, req.priority)
+                count_terminal(status, req.priority)
                 m.histogram("serve.latency_s", priority=req.priority).observe(latency)
                 if deadline is not None:
                     m.counter("serve.slo_total", priority=req.priority, served=True).inc()
                     if met:
                         m.counter("serve.slo_met", priority=req.priority).inc()
                 tracer.instant("request_terminal", track="terminal", flow_id=rid,
-                               flow_ph="f", request_id=rid, status=COMPLETED,
+                               flow_ph="f", request_id=rid, status=status,
                                priority=req.priority, latency_ms=latency * 1e3)
                 if t_first is None:
                     t_first = finished_s
                 out.append(CompletedRequest(
                     request_id=rid, tokens=tokens, nfe=nfe, t0=span_t0,
                     bucket_len=mb.bucket_len, micro_batch=k,
-                    row_t0s=span_rows if chunks == 1 else (),
+                    row_t0s=span_rows if chunks == 1 and status != DISTILLED else (),
                     arrival_s=arrival, finished_s=finished_s, latency_s=latency,
                     flush_reason=pending["reason"], deadline_s=deadline, slo_met=met,
-                    chunks=chunks, status=COMPLETED, priority=req.priority))
+                    chunks=chunks, status=status, priority=req.priority))
             return out
 
         def admitted(req: ServeRequest) -> None:
@@ -1668,7 +1905,17 @@ class WarmStartScheduler:
                 "min_accepted_score": spec_min_score,
             }),
             "bandit": self.t0_policy.arm_stats() if self._bandit_mode else None,
-            "distilled": None,
+            "distilled": (None if self.distilled_model is None else {
+                "enabled": True,
+                "nfe": self.distilled_nfe,
+                "gate_score": self.distilled_accept_score,
+                "served": terminal_counts[DISTILLED],
+                "fallbacks": dsum("distilled.fallbacks"),
+                "gate_evals": dsum("distilled.gate_evals"),
+                "oversize_downgrades": dsum("distilled.oversize_downgrades"),
+                # the worst probe score that shipped distilled
+                "min_served_score": distill_min_score,
+            }),
             "admission": admission,
             "terminal": dict(terminal_counts),
             "by_class": by_class_report,

@@ -136,3 +136,16 @@ def test_head_ablation_cuts_every_phase_out_of_the_kernel():
     for name in tool.VARIANTS:
         if name != "base":
             assert tool.variant_source(text, name) != text
+
+
+def test_expected_launches_count_a_distilled_micro_batch_as_k_steps(smoke):
+    """A distilled micro-batch adds K ws_step_rows launches and no backbone
+    (the head is plain PyTorch), twice when its key was captured in the run;
+    a guaranteed one n steps of the backbone."""
+    report = {"batches": [
+        {"bucket_len": 128, "padded_rows": 8, "nfe": 2, "tier": "distilled"},
+        {"bucket_len": 128, "padded_rows": 8, "nfe": 2, "tier": "distilled"},
+        {"bucket_len": 128, "padded_rows": 8, "nfe": 13, "tier": "guaranteed"}]}
+    want = smoke.expected_launches(report, 0, 12, refine_captured={(128, 8, 2, "distilled")},
+                                   drafts=[])
+    assert (want["ws_step_rows"], want["flash_attn"]) == (2 * 2 + 2 + 13, 13 * 12)

@@ -868,6 +868,66 @@ def test_scheduler_refine_graph_equals_eager_for_mixed_row_t0s(card, fused_block
     assert (sched.graphs.captures, sched.graphs.replays) == (1, 3)
 
 
+def _distilled_case(card, k, row_t0s, seed, n=16):
+    """A distilled scheduler on the card (an untrained head, K = ``k``), one
+    packed distilled micro-batch of ``row_t0s`` (one row a request) and its
+    drafts."""
+    from repro_torch.drafting import AdaptiveT0Policy, DistilledRefiner, T0Calibration
+    from repro_torch.serving import ServeRequest, WarmStartScheduler, pack_requests
+
+    head = DistilledRefiner(vocab_size=27)
+    pol = AdaptiveT0Policy(scorer=lambda t: t.float().mean(-1),
+                           calibration=T0Calibration(scores=(0.0, 1.0), t0s=(0.5, 0.9)))
+    sched = WarmStartScheduler(flow_model=_refine_model(card),
+                               draft_fn=uniform_draft(27, device=card), cold_nfe=20,
+                               default_t0=0.8, t0_policy=pol, device=card, distilled_model=head,
+                               distilled_params=head.init(1, device=card), distilled_nfe=k,
+                               distilled_accept_score=0.0)
+    reqs = [ServeRequest(request_id=i, seq_len=n, num_samples=1, seed=seed + i, t0=t0,
+                         tier="distilled") for i, t0 in enumerate(row_t0s)]
+    (mb,) = pack_requests(reqs, cold_nfe=20, default_t0=0.8, t0_bin_width=0.5,
+                          distilled_nfe=k)
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randint(0, 27, (mb.padded_rows, n), generator=g, device=card, dtype=torch.int32)
+    return sched, head, mb, x
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_distilled_graph_equals_eager_one_capture_a_key(card, k):
+    """The distilled tier's K head steps are one graph per distilled compile
+    key: two micro-batches of one key (other row t0s, other seeds) capture
+    once and replay, each bitwise equal to its eager launches, K ws_step_rows
+    launches a replay (the head is plain products: no counted kernel)."""
+    sched, _, mb, x = _distilled_case(card, k, (0.5, 0.6, 0.7, 0.9), 3)
+    _, mb2, x2 = _distilled_case(card, k, (0.9, 0.8, 0.55, 0.5), 9)[1:]
+    assert mb.compile_key == mb2.compile_key == (16, 4, k, "distilled")
+    for i, (m, xs) in enumerate(((mb, x), (mb2, x2))):
+        n, inputs = sched._distill_inputs(m)
+        assert n == k
+        got, n_got = _grew(lambda: sched._distill_loop(m.compile_key, xs, inputs))
+        want, n_want = _grew(lambda: sched._distill_loop_eager(xs, inputs))
+        runs = 2 if i == 0 else 1
+        assert n_want == {"ws_step_rows": k}
+        assert torch.equal(got, want) and n_got == {"ws_step_rows": runs * k}, i
+    assert (sched.graphs.captures, sched.graphs.replays) == (1, 2)
+
+
+def test_new_head_params_replay_the_same_graph(card):
+    """The head's weights are graph inputs: a scheduler given new params
+    (``train_distilled`` returns new tensors) replays the captured graph with
+    them, bitwise equal to their eager launches and unlike the old output."""
+    sched, head, mb, x = _distilled_case(card, 1, (0.5, 0.6, 0.7, 0.9), 3)
+    n, inputs = sched._distill_inputs(mb)
+    old = sched._distill_loop(mb.compile_key, x, inputs)
+    params = head.init(7, device=card)
+    params["copy_gate"] = torch.tensor(-3.0, device=card)        # a head that does not copy
+    sched.distilled_params = params
+    new = sched._distill_loop(mb.compile_key, x, inputs)
+    assert torch.equal(new, sched._distill_loop_eager(x, inputs))
+    assert not torch.equal(new, old)
+    assert (sched.graphs.captures, sched.graphs.replays) == (1, 2)
+
+
 def test_lstm_generate_graph_equals_eager(card):
     """LSTMModel.generate on the card is one graph replay a call, captured
     once per (num, seq_len, temperature, bos): tokens equal the eager loop's

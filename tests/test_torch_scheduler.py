@@ -367,6 +367,8 @@ def test_batch_path_requeues_on_dispatch_failure_and_stays_retryable():
 
 # the drafting-policies keywords, ported: their cases below check JAX's behaviour
 POLICY_KEYWORDS = ("t0_policy", "speculative", "per_row_t0", "accept_score")
+DISTILLED_KEYWORDS = ("distilled_model", "distilled_params", "distilled_nfe",
+                      "distilled_accept_score", "pair_buffer")
 
 
 def check_policy_keyword_as_jax(kw):
@@ -385,24 +387,47 @@ def check_policy_keyword_as_jax(kw):
     return outs[1]
 
 
+def check_distilled_keyword_as_jax(kw):
+    """Both constructors on ``kw`` raise the same ValueError, or build
+    schedulers with the same distilled-tier settings."""
+    outs = []
+    for S in (J, T):
+        try:
+            sched = make(S, fresh=True, **kw)
+        except ValueError as err:
+            outs.append(("ValueError", str(err)))
+        else:
+            outs.append((sched.distilled_model is None, sched.distilled_nfe,
+                         sched.distilled_accept_score,
+                         sched.pair_buffer is kw.get("pair_buffer")))
+    assert outs[0] == outs[1]
+    return outs[1]
+
+
 @pytest.mark.parametrize("kw,match", [
     (dict(t0_policy=object()), "t0_policy"), (dict(speculative=True), "speculative"),
     (dict(distilled_model=object()), "distilled"), (dict(pair_buffer=object()), "pair_buffer"),
     (dict(mesh=object()), "mesh")])
 def test_unported_features_raise(kw, match):
-    """Keywords of slices still to port raise NotImplementedError naming
-    them; ``t0_policy`` and ``speculative`` are ported and behave as JAX's (a
-    duck-typed policy builds; ``speculative`` without a policy raises JAX's
-    ValueError)."""
+    """Keywords of slices still to port (``mesh``) raise NotImplementedError
+    naming them; ``t0_policy`` and ``speculative`` are ported and behave as
+    JAX's (a duck-typed policy builds; ``speculative`` without a policy
+    raises JAX's ValueError), and so are the distilled tier's (a head
+    without a policy raises JAX's ValueError; a pair buffer is kept)."""
     if match in POLICY_KEYWORDS:
         got = check_policy_keyword_as_jax(kw)
         assert (got[0] == "ValueError") == (match == "speculative")
+        return
+    if match in ("distilled", "pair_buffer"):
+        got = check_distilled_keyword_as_jax(kw)
+        assert (got[0] == "ValueError") == (match == "distilled")
         return
     with pytest.raises(NotImplementedError, match=match):
         make(T, **kw)
 
 
-# JAX's constructor keywords that the port takes only at their defaults
+# JAX's constructor keywords of the policy and distilled-tier slices, at
+# their defaults
 JAX_DEFAULTS = dict(per_row_t0=False, accept_score=None, distilled_params=None,
                     distilled_nfe=1, distilled_accept_score=None)
 
@@ -428,11 +453,19 @@ def test_jax_keywords_are_taken_at_their_defaults(name):
     (dict(pair_buffer=object()), "the distilled-tier slice")])
 def test_unported_keywords_name_their_slice(kw, slice_name):
     """Keywords of slices still to port name their slice; those of the
-    drafting-policies slice are ported and build what JAX builds."""
+    drafting-policies and distilled-tier slices are ported and build what
+    JAX builds (a head without a policy, or a K other than 1 or 2 with one,
+    raises JAX's ValueError)."""
     (name,) = kw
     if name in POLICY_KEYWORDS:
         assert check_policy_keyword_as_jax(kw)[:3] == (
             name == "per_row_t0", False, kw.get("accept_score"))
+        return
+    if name in DISTILLED_KEYWORDS:
+        got = check_distilled_keyword_as_jax(kw)
+        assert (got[0] == "ValueError") == (name == "distilled_model")
+        if name != "distilled_model":
+            assert got[1:3] == (kw.get("distilled_nfe", 1), kw.get("distilled_accept_score"))
         return
     with pytest.raises(NotImplementedError, match=name.split("_")[0]) as err:
         make(T, fresh=True, **kw)
