@@ -72,9 +72,24 @@ a guaranteed micro-batch at (32, 256), and runs ``python -m
 repro_torch.launch.serve --scheduler --draft ar-kv --tier distilled
 --check-distilled --stream --trace-out ...`` at its defaults (exit 0).
 
+Last, the dense zoo: every kernel against its plain version at the zoo's
+shapes (``post_attn`` at d_model 3072 with F = 12288 and 9216, its slices
+streamed in stages; ``qkv_rope`` and ``attn_cached`` at head_dim 128 and
+16; the head at (3072, 49152) tied and (3072, 256000); ``ws_step`` and
+``ws_step_rows`` at V = 49152 and 262144; ``flash_attn`` at head_dim 128 and
+256 with gemma3-1b's 512-token window in both masks, and 16), their times
+there, starcoder2-3b at its published widths (float32, random weights, seed
+0) served 8 x 256 at t0 = 0.8 (13 NFE) drafted by the same config as a
+causal decoder (seed 1) through the four draft kernels as one graph replay,
+with exact launch counts, prefill == scan and graph == eager bitwise and its
+logits against the plain CPU path; gemma3-1b's logits at 1 x 600 tokens
+against the CPU; the four archs' smoke configs served on the card == the
+CPU.
+
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
-``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}`` and
-``{"distilled": ...}`` lines, a ``{"kernels": [...]}`` line and, last,
+``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
+``{"distilled": ...}`` and ``{"zoo": ...}`` lines, a ``{"kernels": [...]}``
+line (the zoo's shapes under ``zoo``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -222,10 +237,11 @@ def check_ws_step(r, v, temperature, seed):
     return res
 
 
-def measure_ws_step(r, v):
+def measure_ws_step(r, v, plain_n=20):
     """``ms`` is the kernel the serve's refine graph launches, the step key
     read on the card (``ws_step_dkey_kernel``); ``byvalue_ms`` the same body
-    with the key's words passed by value (eager callers with a host key)."""
+    with the key's words passed by value (eager callers with a host key).
+    The plain version is timed over ``plain_n`` calls a graph."""
     from repro_torch import prng
     from repro_torch.core.paths import WarmStartPath
     from repro_torch.kernels.ws_step import (
@@ -249,7 +265,7 @@ def measure_ws_step(r, v):
     ms = graph_ms(lambda: ops._launch(logits, x, a, out, words, 1.0), n=50)
     byvalue_ms = graph_ms(lambda: ops._launch(logits, x, a, out, seed, 1.0), n=50)
     call_ms = time_ms(lambda: ws_step(dkey, logits, x, t, h, path))
-    plain_ms = graph_ms(plain)
+    plain_ms = graph_ms(plain, n=plain_n, reps=7 if plain_n >= 20 else 3)
     nbytes = r * v * 4 + 3 * r * 4
     bms, by = bound_ms(nbytes, WS_OPS_PER_ELEMENT * r * v)
     return {"ms": ms, "byvalue_ms": byvalue_ms, "call_ms": call_ms, "plain_ms": plain_ms,
@@ -538,19 +554,30 @@ def check_flash(b, s, h, kh, d, causal, window, seed, t=None):
     return err
 
 
-def measure_flash(b, s, h, d):
+def measure_flash(b, s, h, d, kh=None, window=None):
+    """Bidirectional attention at (b, s, h, d) with kh KV heads (default h)
+    and an optional window. The library call is SDPA on the same inputs
+    with the KV heads repeated to h (and the window as a boolean mask);
+    the bound counts the (query, key) pairs the window keeps."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref, ops
+    from repro_torch.kernels.flash_attn.ref import attention_mask
 
-    q, k, v = flash_inputs(b, s, h, h, d, 0)
+    kh = kh or h
+    q, k, v = flash_inputs(b, s, h, kh, d, 0)
     out = torch.empty_like(q)
     scale = 1.0 / math.sqrt(d)
-    ms = graph_ms(lambda: ops._launch(q, k, v, out, causal=False, window=None, scale=scale))
-    call_ms = time_ms(lambda: flash_attention(q, k, v, causal=False))
-    plain_ms = graph_ms(lambda: flash_attention_ref(q, k, v, causal=False))
-    qt, kt, vt = (z.transpose(1, 2).contiguous() for z in (q, k, v))
-    library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
-    nbytes = 4 * b * s * h * d * 4
-    nops = 4.0 * b * h * s * s * d
+    ms = graph_ms(lambda: ops._launch(q, k, v, out, causal=False, window=window, scale=scale))
+    call_ms = time_ms(lambda: flash_attention(q, k, v, causal=False, window=window))
+    plain_ms = graph_ms(lambda: flash_attention_ref(q, k, v, causal=False, window=window))
+    qt, kt, vt = (z.transpose(1, 2).repeat_interleave(h // z.shape[2], dim=1).contiguous()
+                  for z in (q, k, v))
+    mask = (None if window is None
+            else attention_mask(s, s, causal=False, window=window, device="cuda"))
+    library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    pairs = float(s * s if mask is None else mask.sum())
+    nbytes = 2 * b * s * (h + kh) * d * 4
+    nops = 4.0 * b * h * pairs * d
     # the function's bound: its products at the fastest rate that float32
     # inputs reach (TF32 on the tensor cores). For reference only, printed:
     # the floor of this kernel's 3xTF32 split (three TF32 products each) and
@@ -558,14 +585,16 @@ def measure_flash(b, s, h, d):
     bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S)
     split_ms, split_by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
     f32_ms, f32_by = bound_ms(nbytes, nops)
-    print(f"flash_attn at ({b}, {s}, {h}, {d}): {ms * 1e3:.1f} us device, "
+    print(f"flash_attn at ({b}, {s}, {h}, kv {kh}, {d}, window {window}): "
+          f"{ms * 1e3:.1f} us device, "
           f"{nops / ms * 1e-9:.1f} TFLOP/s of the products ({3 * nops / ms * 1e-9:.1f} TF32 "
           f"TFLOP/s of 3xTF32); bound {bms * 1e3:.1f} us ({by}); computed floors for "
           f"reference: 3xTF32 on the tensor cores {split_ms * 1e3:.1f} us ({split_by}), "
           f"float32 on the CUDA cores {f32_ms * 1e3:.1f} us ({f32_by}); plain "
           f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us")
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": library_ms}
+            "bound_by": by, "library_ms": library_ms,
+            "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "window": window}}
 
 
 def ptxas_usage(build_log: str) -> dict:
@@ -685,25 +714,27 @@ def cycle(items):
 HEAD_COLD_SETS = 650       # x 83 KB = 54 MB of head weights, more than the 50 MB L2
 
 
-def measure_draft_kernels():
-    """Device time of each draft kernel at the main path's decode shape
-    (R = 32 rows, one token each, T = 271, the cursor at the last row so
-    every key is valid), its plain version, the wrapper call, the bound.
-    As in a decode step, which streams 12 layers' weights and caches
-    through the 50 MB L2, the timed launches cycle through 10 weight sets
-    (qkv_rope's 7.1 MB x 9 others between two uses of one set) and two
-    caches (53 MB each), so every launch reads them cold. The head is timed
-    warm (one weight set) and cold: a graph of HEAD_COLD_SETS launches, each
-    on its own weight set (54 MB in all, more than the L2), as a decode
-    step finds it after 12 layers' weights."""
+def measure_draft_kernels(case=None, vocab=VOCAB, n_sets=10, tied=False, cold_head=True):
+    """Device time of each draft kernel at a decode shape (default the main
+    path's: R = 32 rows, one token each, T = 271, the cursor at the last row
+    so every key is valid), its plain version, the wrapper call, the bound.
+    As in a decode step, which streams every layer's weights and caches
+    through the 50 MB L2, the timed launches cycle through ``n_sets`` weight
+    sets (at the DiT's widths 10: qkv_rope's 7.1 MB x 9 others between two
+    uses of one set) and two caches (53 MB each at the DiT's), so every
+    launch reads them cold. The head (``vocab`` columns; ``tied``: the table
+    transposed) is timed warm (one weight set) and, with ``cold_head``, cold:
+    a graph of HEAD_COLD_SETS launches, each on its own weight set (54 MB in
+    all at the DiT's head, more than the L2), as a decode step finds it
+    after 12 layers' weights."""
     from repro_torch.kernels.draft_decode import (
         attn_cached, attn_cached_ref, head, head_ref, ops, post_attn, post_attn_ref, qkv_rope,
         qkv_rope_ref,
     )
 
-    case = DRAFT_CASES[0]
+    case = case or DRAFT_CASES[0]
     _, b, s, t, d, f, h, kh, hd, norm, _, _, act, _ = case
-    sets = [draft_case_inputs(case, i) for i in range(10)]
+    sets = [draft_case_inputs(case, i) for i in range(n_sets)]
     ln1, attn_p, ln2, mlp_p, x, kbuf, vbuf = sets[0]
     r, qd, kd = b * s, h * hd, kh * hd
     start = torch.tensor(t - 1, dtype=torch.int32, device="cuda")
@@ -715,8 +746,8 @@ def measure_draft_kernels():
     q = torch.empty((r, qd), device="cuda")
     a = torch.empty((r, qd), device="cuda")
     x1, u, out = torch.empty_like(x), torch.empty((r, f), device="cuda"), torch.empty_like(x)
-    w = torch.randn((d, VOCAB), device="cuda")
-    logits = torch.empty((r, VOCAB), device="cuda")
+    w = torch.randn((vocab, d), device="cuda").T if tied else torch.randn((d, vocab), device="cuda")
+    logits = torch.empty((r, vocab), device="cuda")
     ops._launch_qkv_rope(x, ln1, attn_p, q, kbuf, vbuf, start, **qkw)
     layer = cycle(sets)
     caches = cycle([(z[5], z[6]) for z in sets[:2]])
@@ -744,12 +775,15 @@ def measure_draft_kernels():
 
     col = torch.arange(t, device="cuda")
     mask = ((col <= t - 1) & (col < int(start_host) + s)).view(1, 1, 1, t)
+    # SDPA's K/V: the caches' views, with GQA's KV heads repeated to H beforehand
+    sdpa_kv = cycle([tuple(c.view(b, t, kh, hd).transpose(1, 2) if kh == h else
+                           c.view(b, t, kh, hd).transpose(1, 2).repeat_interleave(h // kh, 1)
+                           for c in (z[5], z[6])) for z in sets[:2]])
 
     def sdpa():
-        kv = caches()
+        kv = sdpa_kv()
         return torch.nn.functional.scaled_dot_product_attention(
-            q.view(b, s, h, hd).transpose(1, 2), kv[0].view(b, t, kh, hd).transpose(1, 2),
-            kv[1].view(b, t, kh, hd).transpose(1, 2), attn_mask=mask)
+            q.view(b, s, h, hd).transpose(1, 2), kv[0], kv[1], attn_mask=mask)
 
     entry("attn_cached",
           lambda: ops._launch_attn_cached(q, *caches(), start, a, **akw),
@@ -772,15 +806,17 @@ def measure_draft_kernels():
           lambda: ops._launch_head(out, ln1, w, logits, norm=norm, eps=1e-6),
           lambda: head(out, ln1, w, norm=norm, eps=1e-6),
           lambda: head_ref(out, ln1, w, norm=norm, eps=1e-6),
-          4 * (d * VOCAB + 2 * d + r * d + r * VOCAB), 2.0 * r * d * VOCAB + 8.0 * r * d)
-    heads = cycle([torch.randn((d, VOCAB), device="cuda") for _ in range(HEAD_COLD_SETS)])
-    res["head"]["cold_ms"] = graph_ms(
-        lambda: ops._launch_head(out, ln1, heads(), logits, norm=norm, eps=1e-6),
-        n=HEAD_COLD_SETS, reps=5)
-    print(f"head at decode shape, cold ({HEAD_COLD_SETS} weight sets): "
-          f"{res['head']['cold_ms'] * 1e3:.2f} us device")
+          4 * (d * vocab + 2 * d + r * d + r * vocab), 2.0 * r * d * vocab + 8.0 * r * d)
+    res["head"]["shape"]["V"] = vocab
+    if cold_head:
+        heads = cycle([torch.randn((d, vocab), device="cuda") for _ in range(HEAD_COLD_SETS)])
+        res["head"]["cold_ms"] = graph_ms(
+            lambda: ops._launch_head(out, ln1, heads(), logits, norm=norm, eps=1e-6),
+            n=HEAD_COLD_SETS, reps=5)
+        print(f"head at decode shape, cold ({HEAD_COLD_SETS} weight sets): "
+              f"{res['head']['cold_ms'] * 1e3:.2f} us device")
     for name, m in res.items():
-        print(f"{name} at decode shape: {m['ms'] * 1e3:.1f} us device (bound "
+        print(f"{name} at decode shape {m['shape']}: {m['ms'] * 1e3:.1f} us device (bound "
               f"{m['bound_ms'] * 1e3:.2f} us, {m['bound_by']}), call {m['call_ms'] * 1e3:.1f} us, "
               f"plain {m['plain_ms'] * 1e3:.1f} us"
               + (f", library {m['library_ms'] * 1e3:.1f} us" if m["library_ms"] else ""))
@@ -799,25 +835,25 @@ def draft_engine(cfg=None):
                          max_len=MAX_LEN)
 
 
-def draft_prompt(rows):
+def draft_prompt(rows, vocab=VOCAB):
     """The shared prompt, one numpy-seeded row repeated."""
     import numpy as np
 
-    row = np.random.default_rng(7).integers(0, VOCAB, PROMPT).astype(np.int32)
+    row = np.random.default_rng(7).integers(0, vocab, PROMPT).astype(np.int32)
     return torch.from_numpy(np.tile(row, (rows, 1)))
 
 
-def check_prefill_equals_scan(engine):
+def check_prefill_equals_scan(engine, rows=NUM):
     """Full width: the 16-token batched prefill, 16 single-token calls and
     chunks of 3 + 1 + 4 + 8 give the same logits and cache, bitwise."""
     from repro_torch.kernels.draft_decode import DraftDecoder
 
     model = engine.adapter.model
     dec = DraftDecoder(model)
-    toks = draft_prompt(NUM).to("cuda")
+    toks = draft_prompt(rows, model.cfg.vocab_size).to("cuda")
     runs = []
     for split in ((PROMPT,), (1,) * PROMPT, (3, 1, 4, PROMPT - 8)):
-        cache, parts, pos = model.init_cache(NUM, MAX_LEN, torch.float32), [], 0
+        cache, parts, pos = model.init_cache(rows, MAX_LEN, torch.float32), [], 0
         for w in split:
             lg, cache = dec.forward_chunk(toks[:, pos:pos + w], cache, pos)
             parts.append(lg)
@@ -826,7 +862,8 @@ def check_prefill_equals_scan(engine):
     (ref, ref_cache), *others = runs
     diffs = [int((lg != ref).sum()) + sum(int((c[k] != ref_cache[k]).sum())
                                           for k in ("k", "v", "pos")) for lg, c in others]
-    print(f"full-width forward_chunk, {NUM} rows x {PROMPT} tokens: batched prefill vs 16 "
+    print(f"full-width forward_chunk ({model.cfg.name}), {rows} rows x {PROMPT} tokens: "
+          f"batched prefill vs 16 "
           f"single-token calls, and vs chunks 3+1+4+8: {diffs} elements differ "
           f"(logits and every cache leaf, bitwise)")
     if any(diffs):
@@ -1872,8 +1909,8 @@ def grown(before: dict) -> dict:
     return {k: c - before.get(k, 0) for k, c in launches.items() if c != before.get(k, 0)}
 
 
-def serve_eager(server, engine, rng, prompt):
-    """``server.serve(rng, NUM)``'s draft and refine as eager launches (the
+def serve_eager(server, engine, rng, prompt, num=NUM):
+    """``server.serve(rng, num)``'s draft and refine as eager launches (the
     graphs' yardstick), timed as ``serve`` times them: (tokens, draft s,
     flow s)."""
     from repro_torch import prng
@@ -1881,7 +1918,7 @@ def serve_eager(server, engine, rng, prompt):
 
     k_draft, k_flow = prng.split(rng, 2)
     t0 = time.perf_counter()
-    x = engine._generate_rows_eager(prng.split(k_draft, NUM), SEQ, prompt)
+    x = engine._generate_rows_eager(prng.split(k_draft, num), SEQ, prompt)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     keys, ts, hs = refine_loop_inputs(k_flow, T0, 1.0 / COLD_NFE, 13)
@@ -1979,21 +2016,24 @@ def check_small_serve_against_cpu():
 
 def check_full_width_logits(model, tokens, t):
     """Full-width backbone logits through the kernels on the card against
-    the plain CPU path on the same weights."""
-    from repro_torch.configs.dfm_dit import CONFIG
-    from repro_torch.models import Model
+    the plain CPU path on the same weights (a copy of the model moved to the
+    host: no second random init)."""
+    import copy
 
+    ref_model = copy.deepcopy(model).to("cpu")
     with torch.inference_mode():
         got = model.dfm_apply(tokens, t).cpu()
-        ref_model = Model(CONFIG, device="cpu")
-        ref_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
         want = ref_model.dfm_apply(tokens.cpu(), t.cpu())
+    del ref_model
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    print(f"full-width dfm_apply, 1 x {SEQ} tokens, card kernels vs CPU plain: max abs err "
-          f"{err:.3e} (logits up to {scale:.2f})")
+    print(f"full-width dfm_apply ({model.cfg.name}), {tokens.shape[0]} x {tokens.shape[1]} "
+          f"tokens, card kernels vs CPU plain: max abs err {err:.3e} (logits up to "
+          f"{scale:.2f})")
     if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
-        fail(f"full-width logits disagree with the plain path: {err}")
+        fail(f"full-width logits of {model.cfg.name} disagree with the plain path: {err}")
+    return {"config": model.cfg.name, "tokens": list(tokens.shape), "max_abs_err": err,
+            "max_abs_logit": scale}
 
 
 def main_path(engine):
@@ -3183,6 +3223,283 @@ def distilled_path(model, engine, probe, cal):
     return res
 
 
+# -- the dense zoo -------------------------------------------------------------------
+
+ZOO_ARCH, ZOO_ROWS = "starcoder2-3b", 8   # at its published widths; 8 rows (the DiT: 32)
+ZOO_LOGIT_TOKENS = 64                      # the full-width logits against the CPU, 1 x 64
+GEMMA_TOKENS = 600                         # past gemma3-1b's 512-token local window
+SMOKE_ARCHS = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "gemma3-1b")
+# the draft kernels at the zoo's layers (the fields of DRAFT_CASES): starcoder2-3b's
+# decode (R = 8) and prefill (R = 32) layer, minitron-4b's at R = 8 and 32 (F = 9216),
+# command-r-plus-104b's smoke layer (head_dim 16)
+ZOO_DRAFT_CASES = [
+    ("starcoder2-3b decode", ZOO_ROWS, 1, MAX_LEN, 3072, 12288, 24, 2, 128, "layernorm",
+     True, False, "gelu", True),
+    ("starcoder2-3b prefill", 2, PROMPT, MAX_LEN, 3072, 12288, 24, 2, 128, "layernorm",
+     True, False, "gelu", True),
+    ("minitron-4b decode", ZOO_ROWS, 1, 64, 3072, 9216, 24, 8, 128, "layernorm", False,
+     False, "relu", True),
+    ("minitron-4b 32 rows", 32, 1, 64, 3072, 9216, 24, 8, 128, "layernorm", False, False,
+     "relu", True),
+    ("command-r-plus-104b smoke", 8, 4, 64, 128, 256, 8, 2, 16, "layernorm", False, True,
+     "silu", True),
+]
+
+
+def check_zoo_head(d, v, tied, r, seed):
+    """The head at (D, V) (``tied``: the table transposed) against its plain
+    version on R rows."""
+    from repro_torch.kernels.draft_decode import head, head_ref
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((r, d), generator=g, device="cuda")
+    fn = {"scale": 1.0 + 0.1 * torch.randn(d, generator=g, device="cuda"),
+          "bias": 0.1 * torch.randn(d, generator=g, device="cuda")}
+    w = (0.02 * torch.randn((v, d), generator=g, device="cuda")).T if tied else \
+        torch.randn((d, v), generator=g, device="cuda") / math.sqrt(d)
+    got = head(x, fn, w, norm="layernorm", eps=1e-5)
+    want = head_ref(x, fn, w, norm="layernorm", eps=1e-5)
+    err, scale = float((got - want).abs().max()), max(1.0, float(want.abs().max()))
+    print(f"head D={d} V={v} tied={tied} R={r}: max abs err {err:.3e} (limit "
+          f"{PROJ_TOL * scale:.1e})")
+    if not math.isfinite(err) or err > PROJ_TOL * scale:
+        fail(f"head kernel disagrees with its plain version at ({d}, {v}): {err}")
+    return err
+
+
+def zoo_kernel_gates():
+    """Each kernel against its plain version at the zoo's shapes: the draft
+    kernels at ZOO_DRAFT_CASES (post_attn's up and down stream their slices
+    in stages there), the head at starcoder2-3b's tied (3072, 49152) and
+    minitron-4b's untied (3072, 256000), ws_step and ws_step_rows at V =
+    49152 (the serve's step) and 262144 (gemma3-1b's vocabulary), flash_attn
+    at starcoder2-3b's refine shape and gemma3-1b's head_dim 256 with its
+    512-token window in both masks."""
+    draft = [check_draft_kernels(c, 50 + i) for i, c in enumerate(ZOO_DRAFT_CASES)]
+    errs = {k: max(e[k]["abs"] for e in draft) for k in DRAFT_KERNELS}
+    errs["head"] = max(errs["head"], check_zoo_head(3072, 49152, True, ZOO_ROWS, 60),
+                       check_zoo_head(3072, 256000, False, ZOO_ROWS, 61),
+                       check_zoo_head(3072, 49152, True, 32, 62))
+    ws = [check_ws_step(ZOO_ROWS * SEQ, 49152, 1.0, 63), check_ws_step(8, 262144, 0.7, 64)]
+    rows = [check_ws_step_rows(ZOO_ROWS, SEQ, 49152, 65), check_ws_step_rows(2, 8, 262144, 66)]
+    flash = [check_flash(ZOO_ROWS, SEQ, 24, 2, 128, False, None, 67),
+             check_flash(ZOO_ROWS, SEQ, 24, 2, 128, True, None, 68),
+             check_flash(4, 1024, 4, 1, 256, False, 512, 69),
+             check_flash(4, 1024, 4, 1, 256, True, 512, 70),
+             check_flash(2, 100, 8, 2, 16, True, None, 71)]
+    errs.update({"ws_step": max(c["max_abs_err"] for c in ws),
+                 "ws_step_rows": max(c["max_abs_err"] for c in rows),
+                 "flash_attn": max(flash)})
+    return errs
+
+
+def zoo_measure():
+    """Device times at the zoo's shapes beside the plain versions, the
+    library calls and the bounds: ws_step at the starcoder2-3b serve's step
+    (2048 rows x 49152), flash_attn at its refine (8 x 256, 24 heads, kv 2,
+    head_dim 128) and at gemma3-1b's local layer (4 x 1024, 4 heads, kv 1,
+    head_dim 256, window 512), the draft kernels at its decode (R = 8, T =
+    271, three weight sets cycled: each is 384 MB, every read is cold; the
+    tied head 3072 x 49152)."""
+    res = {"ws_step": measure_ws_step(ZOO_ROWS * SEQ, 49152, plain_n=2),
+           "flash_attn": measure_flash(ZOO_ROWS, SEQ, 24, 128, kh=2),
+           "flash_attn_hd256": measure_flash(4, 1024, 4, 256, kh=1, window=512)}
+    res.update(measure_draft_kernels(ZOO_DRAFT_CASES[0], vocab=49152, n_sets=3, tied=True,
+                                     cold_head=False))
+    return res
+
+
+def zoo_path():
+    """starcoder2-3b at its published widths (float32, seed 0) served through
+    ``WarmStartServer`` at ZOO_ROWS x SEQ, drafted by the same config as a
+    causal decoder (seed 1) through the draft kernels: the NFE guarantee,
+    exact launch counts a serve, batched prefill == token scan, graph ==
+    eager (a serve, bitwise), the full-width logits against the CPU; draft,
+    flow and per-NFE time, samples/s, the draft cost ratio, peak memory and
+    the busy share (a profiled serve)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Model
+    from repro_torch.serving import WarmStartServer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(ZOO_ARCH).replace(dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    engine = ARDraftEngine(TransformerDraftAdapter(
+        model=Model(cfg, device="cuda", seed=DRAFT_SEED), decode_impl="kernel"),
+        max_len=MAX_LEN)
+    n_params = sum(p.numel() for p in model.parameters())
+    check_prefill_equals_scan(engine, rows=ZOO_ROWS)
+    prompt = draft_prompt(ZOO_ROWS, cfg.vocab_size)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=cfg,
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    layers, steps = cfg.num_layers, (SEQ - 1) * cfg.num_layers
+    per_serve = {"ws_step": nfe, "flash_attn": nfe * layers, "qkv_rope": steps,
+                 "attn_cached": steps, "post_attn": steps, "head": SEQ - 1}
+    prefill = {"qkv_rope": layers, "attn_cached": layers, "post_attn": layers, "head": 1}
+
+    launches.clear()
+    reports, last = [], None
+    for i in range(3):
+        before = dict(launches)
+        x, rep = server.serve(prng.key(300 + i), ZOO_ROWS)
+        for name, n in per_serve.items():
+            want = n * 2 + prefill.get(name, 0) if i == 0 else n   # capture warm-ups
+            if launches[name] - before.get(name, 0) != want:
+                fail(f"{cfg.name} serve {i}: {name} launched "
+                     f"{launches[name] - before.get(name, 0)} times, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{cfg.name} serve {i}: nfe {rep['nfe']} backbone_evals "
+                 f"{rep['backbone_evals']}, expected {nfe}")
+        if x.shape != (ZOO_ROWS, SEQ) or int(x.min()) < 0 or int(x.max()) >= cfg.vocab_size:
+            fail(f"{cfg.name} serve {i}: tokens {tuple(x.shape)} outside [0, {cfg.vocab_size})")
+        reports.append(rep)
+        last = x
+    counts = dict(launches)
+    for name in per_serve:
+        if counts.get(name, 0) <= 0:
+            fail(f"{name} was not launched on the {cfg.name} path")
+    caps = (engine.graphs.captures, server.graphs.captures)
+    if caps != (1, 1):
+        fail(f"{cfg.name}: 3 serves must capture the decode and the refine once each: {caps}")
+    print(f"zoo path: {cfg.name} ({n_params / 1e9:.3f}B params, float32) x 3 serves of "
+          f"{ZOO_ROWS} x {SEQ}, drafted by {cfg.name} as a causal decoder (seed "
+          f"{DRAFT_SEED}), t0={T0}, cold_nfe={COLD_NFE}: nfe {nfe} per serve, guarantee gate "
+          f"passed, launches {counts} (per serve {per_serve}; the first serve twice that and "
+          f"{prefill})")
+
+    # graph == eager: a serve (new key: the decode's and the refine's replays) against
+    # the same serve as eager launches, tokens bitwise
+    rng = prng.key(310)
+    x, _ = server.serve(rng, ZOO_ROWS)
+    want, t_draft, t_flow = serve_eager(server, engine, rng, prompt, num=ZOO_ROWS)
+    torch.cuda.synchronize()
+    vs_eager = {"serve_differ": int((x != want).sum()),
+                "eager_draft_ms": t_draft * 1e3, "eager_flow_ms": t_flow * 1e3,
+                "captures": [engine.graphs.captures, server.graphs.captures]}
+    print(f"{cfg.name} graphs vs eager launches: {vs_eager}")
+    if vs_eager["serve_differ"] or (engine.graphs.captures, server.graphs.captures) != caps:
+        fail(f"{cfg.name}: the serve's graphs disagree with their eager launches: {vs_eager}")
+
+    logits = check_full_width_logits(model, last[:1, :ZOO_LOGIT_TOKENS],
+                                     torch.full((1,), T0, device="cuda"))
+    profile = _profile(lambda: server.serve(prng.key(321), ZOO_ROWS), f"{cfg.name} serve")
+    steady = reports[1:]
+    res = {
+        "config": cfg.name, "dtype": cfg.dtype, "params": n_params, "rows": ZOO_ROWS,
+        "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe,
+        "draft": {"config": cfg.name + " (causal decoder)", "seed": DRAFT_SEED,
+                  "prompt": PROMPT, "max_len": MAX_LEN, "decode_steps": SEQ - 1,
+                  "stats": engine.stats.as_dict()},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms": statistics.median(r["draft_time_s"] for r in steady) * 1e3,
+        "flow_ms": statistics.median(r["flow_time_s"] for r in steady) * 1e3,
+        "per_nfe_ms": statistics.median(r["per_nfe_s"] for r in steady) * 1e3,
+        "samples_per_s": statistics.median(
+            ZOO_ROWS / (r["draft_time_s"] + r["flow_time_s"]) for r in steady),
+        "draft_cost_ratio": statistics.median(
+            r["speedup_report"].draft_cost_ratio for r in steady),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "busy_share": profile.get("busy_share"), "profile": profile,
+        "launches_per_serve": per_serve,
+        "vs_eager": vs_eager,
+        "logits_vs_cpu": logits, "capture_ms": {"decode": engine.graphs.stats()["capture_ms"],
+                                               "refine": server.graphs.stats()["capture_ms"]},
+    }
+    del model, engine, server
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{cfg.name} serve ({ZOO_ROWS} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+          f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.1f} ms an NFE), "
+          f"{res['samples_per_s']:.2f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.3f}, peak memory {res['peak_memory_gb']:.1f} GiB; the "
+          f"phase took {res['seconds']:.1f} s")
+    return res, counts
+
+
+def check_gemma_logits():
+    """gemma3-1b at its published widths (float32, seed 0): dfm_apply on the
+    card (flash_attn at head_dim 256 in each of the 26 layers; the local
+    ones under the 512-token window) against the CPU plain path at 1 x
+    GEMMA_TOKENS tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launches
+    from repro_torch.models import Model
+
+    cfg = get_config("gemma3-1b").replace(dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (1, GEMMA_TOKENS), dtype=torch.int32,
+                         generator=torch.Generator(device="cuda").manual_seed(5), device="cuda")
+    before = launches["flash_attn"]
+    res = check_full_width_logits(model, toks, torch.full((1,), T0, device="cuda"))
+    res["flash_attn_launches"] = launches["flash_attn"] - before
+    if res["flash_attn_launches"] != cfg.num_layers:
+        fail(f"gemma3-1b's dfm_apply launched flash_attn {res['flash_attn_launches']} times, "
+             f"expected {cfg.num_layers}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_zoo_smoke_against_cpu():
+    """The four archs' smoke configs served small (4 x 32 tokens, t0 = 0.8,
+    cold_nfe = 16) on the card and on the CPU, same seeded weights, keys and
+    prompt, drafted by the arch as a causal decoder through the engine's
+    ``auto`` choice (the draft kernels for the dense three, the plain path
+    for gemma3-1b, as JAX's ``auto`` picks): the tokens must be equal."""
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Model
+    from repro_torch.serving import WarmStartServer
+
+    res = {}
+    for arch in SMOKE_ARCHS:
+        cfg = get_smoke_config(arch)
+        prompt = draft_prompt(4, cfg.vocab_size)[:, :4]
+        out, kernel_path = {}, {}
+        for device in ("cuda", "cpu"):
+            path = WarmStartPath(t0=T0)
+            flow = Model(cfg, device="cpu", seed=3).to(device)
+            adapter = TransformerDraftAdapter(model=Model(cfg, device="cpu", seed=4).to(device))
+            eng = ARDraftEngine(adapter, max_len=4 + 32 - 1)
+            server = WarmStartServer(
+                flow_model=flow, flow_cfg=cfg, path=path, cold_nfe=16,
+                draft_generate=lambda rng, num, eng=eng: eng.generate_rows(
+                    prng.split(rng, num), 32, prompt),
+                step_fn=make_ws_step_fn(path, device=device), device=device)
+            before = launches["qkv_rope"]
+            out[device] = server.serve(prng.key(5), 4)[0].cpu()
+            kernel_path[device] = adapter.exact_batched_prefill
+            ran = launches["qkv_rope"] > before
+            if device == "cuda" and ran != adapter.exact_batched_prefill:
+                fail(f"{arch}: the draft kernels ran {launches['qkv_rope'] - before} times "
+                     f"with the kernel path {adapter.exact_batched_prefill}")
+        diff = int((out["cuda"] != out["cpu"]).sum())
+        res[arch] = {"differ": diff, "draft_kernels": kernel_path["cuda"]}
+        if kernel_path["cuda"] != (arch != "gemma3-1b"):
+            fail(f"{arch}: the draft engine's auto choice is {kernel_path['cuda']}")
+    print(f"zoo smoke configs served on the card vs the CPU (4 x 32 tokens, 4 steps; "
+          f"tokens differing, draft on the kernels): {res}")
+    if any(r["differ"] for r in res.values()):
+        fail(f"a zoo smoke config's serve on the card disagrees with the CPU: {res}")
+    return res
+
+
 def _category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
@@ -3288,13 +3605,15 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
-    # flash_attn and qkv_rope at head dims 32, 64, 128; post_attn's wo, down, up and
-    # gated up; the head at 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
+    # flash_attn at head dims 16, 32, 64, 128, 256; qkv_rope and attn_cached at 16, 32,
+    # 64, 128; post_attn's wo, down, up and gated up, each whole and staged; the head at
+    # 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
     # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
     # the noise given and keyed; ws_fused at each with lg in registers and re-read; the
     # device-key ws_step and keyed ws_step_gumbel (the refine graphs' steps) at each G
-    for kernel, count in (("flash_attn_kernel", 3), ("post_attn_proj_kernel", 4),
-                          ("qkv_rope_kernel", 3), ("head_proj_kernel", 8),
+    for kernel, count in (("flash_attn_kernel", 5), ("post_attn_proj_kernel", 8),
+                          ("qkv_rope_kernel", 4), ("attn_cached_kernel", 4),
+                          ("head_proj_kernel", 8),
                           ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
                           ("ws_step_gumbel_kernel", 10), ("ws_fused_kernel", 10),
                           ("ws_step_dkey_kernel", 5), ("ws_step_gumbel_dkey_kernel", 5)):
@@ -3375,6 +3694,19 @@ def main() -> int:
     policy, probe, cal = policy_path(trained, engine)
     policy["failed_capture"] = failed_capture
     distilled = distilled_path(trained, engine, probe, cal)
+    del trained, engine
+    torch.cuda.empty_cache()
+
+    t_zoo = time.perf_counter()
+    zoo_errs = zoo_kernel_gates()
+    zoo_num = zoo_measure()
+    zoo, zoo_counts = zoo_path()
+    zoo["gemma3_1b_logits"] = check_gemma_logits()
+    zoo["smoke_vs_cpu"] = check_zoo_smoke_against_cpu()
+    zoo["kernel_errors"] = zoo_errs
+    zoo["phase_seconds"] = time.perf_counter() - t_zoo
+    print(f"zoo phases (kernel gates, measurements, {ZOO_ARCH} serve, gemma3-1b logits, "
+          f"smoke configs): {zoo['phase_seconds']:.1f} s")
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -3457,6 +3789,21 @@ def main() -> int:
          "keyed_checks": keyed_checks,
          "shape": [NUM * SEQ, VOCAB], **gumbel_num, "bound_us": gumbel_num["bound_ms"] * 1e3},
     ]
+    zoo_launches = dict(zoo_counts)
+    zoo_launches["flash_attn"] = (zoo_launches.get("flash_attn", 0)
+                                  + zoo["gemma3_1b_logits"]["flash_attn_launches"])
+    for k in kernels:
+        name = k["name"]
+        if name not in zoo_errs:
+            continue
+        k["max_abs_err"] = max(k["max_abs_err"], zoo_errs[name])
+        if name in zoo_num:
+            k["zoo"] = {"config": ZOO_ARCH, "launches": zoo_launches.get(name, 0),
+                        "max_abs_err": zoo_errs[name], **zoo_num[name]}
+            k["zoo"]["bound_us"] = k["zoo"]["bound_ms"] * 1e3
+    next(k for k in kernels if k["name"] == "flash_attn")["zoo_hd256"] = {
+        "config": "gemma3-1b", **zoo_num["flash_attn_hd256"],
+        "launches": zoo["gemma3_1b_logits"]["flash_attn_launches"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -3472,6 +3819,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"policy": policy}))
     print(json.dumps({"distilled": distilled}))
+    print(json.dumps({"zoo": zoo}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

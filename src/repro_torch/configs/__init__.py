@@ -1,21 +1,41 @@
 """Model and run configs of the port (own copies of the JAX package's).
 
 ``get_config`` / ``get_smoke_config`` map an ``--arch`` id to its full and
-reduced config as the JAX registry does, for the one architecture the port
-runs, ``dfm-dit``; the rest of the zoo raises.
+reduced config as the JAX registry does, for the architectures the port
+runs: the DiT (``dfm-dit``) and the dense zoo (``starcoder2-3b``,
+``minitron-4b``, ``command-r-plus-104b``, ``gemma3-1b``). The rest of the
+zoo (MoE, MLA, encoder-decoder, recurrent and VLM families) raises.
 """
 
-from repro_torch.configs import dfm_dit
+from repro_torch.configs import (
+    command_r_plus_104b, dfm_dit, gemma3_1b, minitron_4b, starcoder2_3b,
+)
 from repro_torch.configs.base import ModelConfig, RunConfig
 
-_MODULES = {"dfm-dit": dfm_dit}
+_MODULES = {
+    "gemma3-1b": gemma3_1b,
+    "starcoder2-3b": starcoder2_3b,
+    "minitron-4b": minitron_4b,
+    "command-r-plus-104b": command_r_plus_104b,
+    "dfm-dit": dfm_dit,
+}
+
+# the JAX registry's other ids, by the family the port still lacks
+_NOT_PORTED = {
+    "arctic-480b": "MoE", "deepseek-v3-671b": "MLA and MoE", "whisper-medium":
+    "encoder-decoder", "xlstm-1.3b": "recurrent (xLSTM)", "zamba2-2.7b":
+    "recurrent (Mamba2 hybrid)", "qwen2-vl-72b": "VLM",
+}
 
 
 def _module(arch: str):
-    if arch not in _MODULES:
+    if arch in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {arch!r} is not ported to repro_torch yet (the model-zoo slice); "
-            f"available: {sorted(_MODULES)}")
+            f"arch {arch!r} is not ported to repro_torch yet: its {_NOT_PORTED[arch]} "
+            f"layers are missing (MoE, MLA, encoder-decoder, recurrent and VLM families); "
+            f"available: {list_archs()}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     return _MODULES[arch]
 
 
@@ -27,4 +47,10 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ModelConfig", "RunConfig", "get_config", "get_smoke_config"]
+def list_archs():
+    """The ids this registry holds, sorted (the JAX ``list_archs`` lists its
+    whole zoo)."""
+    return sorted(_MODULES)
+
+
+__all__ = ["ModelConfig", "RunConfig", "get_config", "get_smoke_config", "list_archs"]

@@ -5,12 +5,15 @@ The JAX package checkpoints a parameter tree as a flat numpy dict keyed by
 ``arrays.npz``). Layer weights there are stacked along a leading axis per
 pattern position (``stack|blocks|p0|attn|wq|w`` is ``(L, d, H*hd)``); the
 torch model keeps one module per layer, in the order the JAX stack runs
-them: repeat ``r`` of the scanned group, pattern position ``p``, then the
-remainder layers ``stack|rem|r{j}|...`` (unstacked).
+them: the prefix layers ``stack|pre|x{j}|...``, then repeat ``r`` of the
+scanned group, pattern position ``p`` (Gemma3's six positions are
+``p0``-``p5``), then the remainder layers ``stack|rem|r{j}|...``
+(prefix and remainder unstacked).
 
 Every other leaf maps by name: biases (``...|wq|b``), the gated MLP's
-``mlp|gate|w`` and norms without a bias (rmsnorm: ``scale`` only) have
-torch parameters of the same path. A tied-embedding config has no
+``mlp|gate|w``, norms without a bias (rmsnorm: ``scale`` only), qk-norm's
+``attn|qnorm|scale``/``attn|knorm|scale`` and the post-norms
+``post_attn``/``post_ffn`` have torch parameters of the same path. A tied-embedding config has no
 ``head`` leaf and no torch ``head``: both read the embedding table.
 
 The LSTM draft (``models/lstm.py``) is functional in both packages: its
@@ -36,32 +39,36 @@ from repro_torch.device import resolve_device
 _BLOCK = re.compile(r"^stack\|blocks\|p(\d+)\|(.+)$")
 _LSTM_LAYER = re.compile(r"^layers\|(\d+)\|(wx|wh)\|w$")
 _REM = re.compile(r"^stack\|rem\|r(\d+)\|(.+)$")
+_PRE = re.compile(r"^stack\|pre\|x(\d+)\|(.+)$")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
 
 
 def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """``{"a|b|c": array}`` -> ``{"a.b.c": tensor}`` for ``Model.load_state_dict``.
 
-    Layer ``r * P + p`` of the torch stack is repeat ``r`` of pattern
-    position ``p`` (P positions, R repeats); remainder layer ``j`` is layer
-    ``R * P + j``. Prefix-layer leaves (``stack|pre|...``) raise: the port
-    runs no config that has them.
+    Prefix layer ``j`` is layer ``j``; layer ``X + r * P + p`` of the torch
+    stack is repeat ``r`` of pattern position ``p`` (X prefix layers, P
+    positions, R repeats); remainder layer ``j`` is layer ``X + R * P + j``.
     """
     block_leaves = {m.group(1): np.asarray(flat[m.string]).shape[0]
                     for m in map(_BLOCK.match, flat) if m}
+    n_pre = len({m.group(1) for m in map(_PRE.match, flat) if m})
     n_pattern = len(block_leaves)
     n_stacked = n_pattern * max(block_leaves.values(), default=0)
     out: Dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         arr = np.asarray(arr)
-        m, rem = _BLOCK.match(name), _REM.match(name)
+        m, rem, pre = _BLOCK.match(name), _REM.match(name), _PRE.match(name)
         if m is not None:
             pos, rest = int(m.group(1)), m.group(2).replace("|", ".")
             for r in range(arr.shape[0]):
-                out[f"blocks.{r * n_pattern + pos}.{rest}"] = torch.from_numpy(arr[r].copy())
-        elif rem is not None:
-            layer = n_stacked + int(rem.group(1))
-            out[f"blocks.{layer}.{rem.group(2).replace('|', '.')}"] = torch.from_numpy(arr.copy())
+                out[f"blocks.{n_pre + r * n_pattern + pos}.{rest}"] = torch.from_numpy(
+                    arr[r].copy())
+        elif rem is not None or pre is not None:
+            layer = (n_pre + n_stacked + int(rem.group(1)) if rem is not None
+                     else int(pre.group(1)))
+            rest = (rem or pre).group(2).replace("|", ".")
+            out[f"blocks.{layer}.{rest}"] = torch.from_numpy(arr.copy())
         elif name.startswith("stack|"):
             raise KeyError(f"stack leaf {name} has no counterpart in the torch model")
         else:
@@ -70,14 +77,20 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
 
 
 
-def jax_leaf_name(torch_name: str, reps: int, n_pattern: int) -> Tuple[str, Optional[int]]:
-    """``blocks.{i}.rest`` -> (``stack|blocks|p{i % P}|rest``, slice ``i // P``)
-    for the ``reps * P`` stacked layers, (``stack|rem|r{j}|rest``, None) for
-    remainder layer ``j``; any other name -> (its ``|`` path, None)."""
+def jax_leaf_name(torch_name: str, reps: int, n_pattern: int,
+                  n_pre: int = 0) -> Tuple[str, Optional[int]]:
+    """``blocks.{i}.rest`` -> (``stack|pre|x{i}|rest``, None) for the
+    ``n_pre`` prefix layers, then, with ``l = i - n_pre``,
+    (``stack|blocks|p{l % P}|rest``, slice ``l // P``) for the ``reps * P``
+    stacked layers and (``stack|rem|r{j}|rest``, None) for remainder layer
+    ``j``; any other name -> (its ``|`` path, None)."""
     m = _TORCH_BLOCK.match(torch_name)
     if m is None:
         return torch_name.replace(".", "|"), None
     layer, rest = int(m.group(1)), m.group(2).replace(".", "|")
+    if layer < n_pre:
+        return f"stack|pre|x{layer}|{rest}", None
+    layer -= n_pre
     if layer < reps * n_pattern:
         return f"stack|blocks|p{layer % n_pattern}|{rest}", layer // n_pattern
     return f"stack|rem|r{layer - reps * n_pattern}|{rest}", None
@@ -91,7 +104,7 @@ def jax_leaves(model) -> Dict[str, List[torch.nn.Parameter]]:
     reps, n_pattern = cfg.scan_split()[0], len(cfg.pattern)
     slots: Dict[str, dict] = {}
     for name, param in model.named_parameters():
-        leaf, idx = jax_leaf_name(name, reps, n_pattern)
+        leaf, idx = jax_leaf_name(name, reps, n_pattern, len(cfg.prefix))
         slots.setdefault(leaf, {})[idx] = param
     out = {}
     for leaf in sorted(slots, key=lambda k: k.split("|")):
@@ -105,14 +118,14 @@ def torch_params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.
     """The inverse of :func:`jax_params_to_torch`: a state dict (names as
     ``Model.state_dict`` gives them) -> the JAX package's flat
     ``{"a|b|c": array}`` (``checkpoint/io.py::_flatten`` of its parameter
-    tree), layer ``r * P + p`` stacked back as slice ``r`` of
-    ``stack|blocks|p{p}|...``. Arrays are numpy, on the host."""
+    tree), layer ``X + r * P + p`` stacked back as slice ``r`` of
+    ``stack|blocks|p{p}|...`` after the X prefix layers. Arrays are numpy, on the host."""
     reps, n_pattern = cfg.scan_split()[0], len(cfg.pattern)
     out: Dict[str, np.ndarray] = {}
     stacked: Dict[str, list] = {}
     for name, tensor in state.items():
         arr = tensor.detach().cpu().numpy()
-        leaf, idx = jax_leaf_name(name, reps, n_pattern)
+        leaf, idx = jax_leaf_name(name, reps, n_pattern, len(cfg.prefix))
         if idx is None:
             out[leaf] = arr
         else:

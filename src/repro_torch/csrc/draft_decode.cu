@@ -29,7 +29,8 @@
 // at R = 32, normalised the same rows in each of its 144 blocks, walked K with 4-byte
 // loads (16 in flight a warp) and met its 8 slices through shared memory. Now:
 //   * a cluster of 8 blocks of 128 threads along grid x owns one head of q, k or v (hd
-//     columns, whole RoPE pairs j, j + hd / 2) x 32 token rows: (H + 2 KH) x 8 = 288
+//     = 16, 32, 64 or 128 columns, whole RoPE pairs j, j + hd / 2) x 32 token rows:
+//     (H + 2 KH) x 8 = 288
 //     blocks at the decode shape, one wave, and every weight is read once for 32 rows.
 //     Rows past R are zero-filled;
 //   * rank s takes the s-th contiguous slice of D, 8 * ceil(D / 64) wide (a function of
@@ -48,8 +49,8 @@
 //     sum_p M2_p + n_p (m_p - mean)^2), then normalises its own slice in place. No block
 //     reads a whole row;
 //   * the product runs on the tensor cores as 3xTF32 mma.sync.m16n8k8 (tf32_mma.cuh):
-//     4 warps, each on both 16-row halves x hd / 32 n8 blocks, k8 steps in increasing k
-//     from the slice's start;
+//     4 warps, each on both 16-row halves x hd / 32 n8 blocks (hd = 16: one half x one
+//     n8 block), k8 steps in increasing k from the slice's start;
 //   * the 8 partial tiles meet as in post_attn: rank s adds rows 4s .. 4s + 3 in rank
 //     order 0 .. 7 through DSMEM, adds the bias, applies RoPE with a thread on each
 //     pair, and stores q, or the k/v cache row at the cursor. The bias and the cursor
@@ -122,6 +123,16 @@
 //     rank order 0 .. 7, then the bias and the epilogue (residual; act, or act(gate) *
 //     up); a second cluster.sync() keeps every block's shared memory alive until the
 //     last remote read.
+//   * a slice whose slab and rows do not fit in shared memory at once (at d_model 3072:
+//     up's K = 3072 slice of 384 k rows x 128 columns needs 262 912 B, down's K = 12 288
+//     slice 598 784 B, more than 232 448) streams through two buffers of post_stage(W)
+//     k rows (64 at W = 128, else 128; 99.6 KB and 107.8 KB a block, two blocks an SM):
+//     stage c + 1's slab and rows are copied while stage c is normalised (up) and
+//     summed. Each thread's FMA chains run on across the stages in increasing k from 0,
+//     so the staged path gives the bits of the whole-slice path at any K where both fit
+//     (card test), and the engine's bitwise gates hold at d_model 3072. The whole-slice
+//     path stays where it fits (every projection of the DiT's layer). The cluster is
+//     not widened instead: 16 slices would change the order of every sum.
 // So every output's sum runs in an order that depends on K only. A block's copy, its
 // FMAs and its launch and cluster syncs run one after the other; waiting for the copy
 // in stages along k did not overlap them (all of it is in flight at once). Left for
@@ -131,8 +142,9 @@
 //
 // attn_cached. A block of 256 threads owns one (token row, query head). Warp w
 // computes the scores of keys w, w + 8, ...: each lane takes hd/32 dims of q and k,
-// then an xor-butterfly sums the lanes. Every key's score is thus computed the same
-// way whichever warp takes it. The max (exact in any order), then p = exp(s - m) in
+// then an xor-butterfly sums the lanes (hd = 16: 16 lanes a key, one dim each, two
+// keys a warp at once, 2w and 2w + 1, then 2w + 16, ...). Every key's score is thus
+// computed the same way whichever warp takes it. The max (exact in any order), then p = exp(s - m) in
 // shared memory; then thread (slice, d) sums p[t] * v[t, d] and p[t] over the
 // slice-th contiguous quarter (hd = 64) of the T keys in order, and the slice sums
 // are added in slice order. All T = max_len keys are read whatever the position:
@@ -500,6 +512,17 @@ __host__ __device__ constexpr int post_smem_floats(int slice, int W) {
   return slice * W + kRowTile * (slice + 4) + kRowTile * W + 2 * kRowTile;
 }
 
+// The staged path (a slice whose slab and rows do not fit at once): k rows of a stage,
+// 32 KB of weight slab at W >= 64.
+__host__ __device__ constexpr int post_stage(int W) { return W >= 128 ? 64 : 128; }
+
+// Shared floats of a staged block: two buffers of a stage's slab (stage, W) and rows
+// (32, stage + 4), the partial tile, the rows' mean and 1 / std. A function of W alone.
+__host__ __device__ constexpr int post_staged_floats(int W) {
+  return 2 * (post_stage(W) * W + kRowTile * (post_stage(W) + 4)) + kRowTile * W +
+         2 * kRowTile;
+}
+
 // Start copying the (rows, cols) tile at src (row stride lds) into dst (row stride ldd);
 // elements at or past (nr, nc) are zero-filled (their copy reads base, a valid address).
 // cols is a multiple of 4. vec: 16-byte copies, for lds, ldd, src and dst 16-byte aligned.
@@ -583,72 +606,31 @@ __device__ __forceinline__ void row_stats(const PostArgs& a, int r0, float* mu, 
   }
 }
 
-// One projection of post_attn: out = epilogue(in @ w + b) for a 32-row x NT-column tile
-// per cluster of 8 blocks, each block summing one slice of K (see the note on top).
-template <int NT, int NC, int THREADS, int EPI>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(THREADS)
-post_attn_proj_kernel(PostArgs a) {
-  constexpr int W = NT * NC;              // slab columns: NT of w[0], then NT of w[1]
-  constexpr int TC = 8 * W / THREADS;     // columns a thread owns, beside 4 rows
-  static_assert((TC == 2 || TC == 4) && NT % TC == 0 && 4 * NT % THREADS == 0,
-                "a thread owns 4 rows x TC columns of one weight and whole output rows");
-  extern __shared__ float4 smem4[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int slice = post_slice(a.K), xsld = slice + 4;
-  float* ws = reinterpret_cast<float*>(smem4);
-  float* xs = ws + slice * W;
-  float* part = xs + kRowTile * xsld;
-  float* mu = part + kRowTile * W;
-  float* inv = mu + kRowTile;
-  const int n0 = static_cast<int>(blockIdx.x) / kCluster * NT;
-  const int r0 = static_cast<int>(blockIdx.y) * kRowTile;
-  const int k0 = rank * slice;
-  const int len = max(0, min(a.K, k0 + slice) - k0);
-  const int len4 = (len + 3) & ~3;
-  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
-  const bool vec = a.vec != 0;
-
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    copy_tile<THREADS>(ws + c * NT, W, a.w[c] + static_cast<size_t>(k0) * a.N + n0, a.N, len4,
-                       NT, a.K - k0, a.N - n0, a.w[c], vec);
-  copy_tile<THREADS>(xs, xsld, a.in + static_cast<size_t>(r0) * a.K + k0, a.K, kRowTile, len4,
-                     a.R - r0, a.K - k0, a.in, vec);
-  cp_async_commit();
-  if (a.ln_scale != nullptr) row_stats<THREADS>(a, r0, mu, inv);   // while the copy runs
-
-  cp_async_wait<0>();
-  __syncthreads();
-  if (a.ln_scale != nullptr) {
-    const int nr = min(kRowTile, a.R - r0);
-    for (int i = tid; i < nr * len; i += THREADS) {
-      const int t = i / len, k = i % len;
-      float* p = xs + t * xsld + k;
-      const float y = (*p - mu[t]) * inv[t];
-      *p = a.norm == kLayerNorm ? y * a.ln_scale[k0 + k] + a.ln_bias[k0 + k]
-                                : y * (1.0f + a.ln_scale[k0 + k]);
-    }
-    __syncthreads();
+// ln2 applied in place to rows t < nr, columns k < len of a (32, ld) tile of rows whose
+// column k is column kb + k of the row: the same formula element by element on either path.
+__device__ __forceinline__ void normalise_rows(const PostArgs& a, float* xs, int ld, int nr,
+                                               int len, int kb, const float* mu,
+                                               const float* inv, int threads) {
+  for (int i = threadIdx.x; i < nr * len; i += threads) {
+    const int t = i / len, k = i % len;
+    float* p = xs + t * ld + k;
+    const float y = (*p - mu[t]) * inv[t];
+    *p = a.norm == kLayerNorm ? y * a.ln_scale[kb + k] + a.ln_bias[kb + k]
+                              : y * (1.0f + a.ln_scale[kb + k]);
   }
+}
 
-  // rows row0 + 4 i (i < 4) x slab columns col0 .. col0 + TC - 1; a warp covers 16
-  // rows x 8 column groups, so its x and w reads are one 64- and one TC * 32-byte run
-  const int row0 = (w % 2) * 16 + lane / 8;
-  const int col0 = (w / 2 * 8 + lane % 8) * TC;
-  float acc[4][TC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
-  const float* xp = xs + row0 * xsld;
-  const float* wp = ws + col0;
+// acc[i][j] += x[row0 + 4 i][k] * w[k][col0 + j] for k = 0 .. n - 1 in increasing k, one
+// FMA chain each: xp points at row row0 (row stride xld), wp at column col0 (row stride W).
+template <int TC, int W>
+__device__ __forceinline__ void fma_slab(float (&acc)[4][TC], const float* xp, int xld,
+                                         const float* wp, int n) {
 #pragma unroll 2
-  for (int k = 0; k < len4; k += 4) {
+  for (int k = 0; k < n; k += 4) {
     float x[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(xp + 4 * i * xsld + k);
+      const float4 v = *reinterpret_cast<const float4*>(xp + 4 * i * xld + k);
       x[i][0] = v.x;
       x[i][1] = v.y;
       x[i][2] = v.z;
@@ -672,6 +654,102 @@ post_attn_proj_kernel(PostArgs a) {
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(x[i][kk], wv[j], acc[i][j]);
+    }
+  }
+}
+
+// One projection of post_attn: out = epilogue(in @ w + b) for a 32-row x NT-column tile
+// per cluster of 8 blocks, each block summing one slice of K (see the note on top).
+// STAGED: the slice's slab and rows stream through two buffers of post_stage(W) k rows
+// (for a slice that does not fit in shared memory at once); each thread's FMA chains run
+// on across the stages in increasing k from 0, so both paths give the same bits.
+template <int NT, int NC, int THREADS, int EPI, bool STAGED>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(THREADS)
+post_attn_proj_kernel(PostArgs a) {
+  constexpr int W = NT * NC;              // slab columns: NT of w[0], then NT of w[1]
+  constexpr int TC = 8 * W / THREADS;     // columns a thread owns, beside 4 rows
+  constexpr int CH = post_stage(W), CLD = CH + 4;   // the staged path's stage, row stride
+  static_assert((TC == 2 || TC == 4) && NT % TC == 0 && 4 * NT % THREADS == 0,
+                "a thread owns 4 rows x TC columns of one weight and whole output rows");
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int slice = post_slice(a.K), xsld = slice + 4;
+  float* ws = reinterpret_cast<float*>(smem4);   // staged: 2 x (CH, W) slabs, 2 x (32, CLD) rows
+  float* xs = ws + (STAGED ? 2 * CH * W : slice * W);
+  float* part = xs + kRowTile * (STAGED ? 2 * CLD : xsld);
+  float* mu = part + kRowTile * W;
+  float* inv = mu + kRowTile;
+  const int n0 = static_cast<int>(blockIdx.x) / kCluster * NT;
+  const int r0 = static_cast<int>(blockIdx.y) * kRowTile;
+  const int k0 = rank * slice;
+  const int len = max(0, min(a.K, k0 + slice) - k0);
+  const int len4 = (len + 3) & ~3;
+  const int nr = min(kRowTile, a.R - r0);
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const bool vec = a.vec != 0;
+
+  // rows row0 + 4 i (i < 4) x slab columns col0 .. col0 + TC - 1; a warp covers 16
+  // rows x 8 column groups, so its x and w reads are one 64- and one TC * 32-byte run
+  const int row0 = (w % 2) * 16 + lane / 8;
+  const int col0 = (w / 2 * 8 + lane % 8) * TC;
+  float acc[4][TC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc[i][j] = 0.f;
+
+  if constexpr (!STAGED) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      copy_tile<THREADS>(ws + c * NT, W, a.w[c] + static_cast<size_t>(k0) * a.N + n0, a.N,
+                         len4, NT, a.K - k0, a.N - n0, a.w[c], vec);
+    copy_tile<THREADS>(xs, xsld, a.in + static_cast<size_t>(r0) * a.K + k0, a.K, kRowTile,
+                       len4, a.R - r0, a.K - k0, a.in, vec);
+    cp_async_commit();
+    if (a.ln_scale != nullptr) row_stats<THREADS>(a, r0, mu, inv);   // while the copy runs
+
+    cp_async_wait<0>();
+    __syncthreads();
+    if (a.ln_scale != nullptr) {
+      normalise_rows(a, xs, xsld, nr, len, k0, mu, inv, THREADS);
+      __syncthreads();
+    }
+    fma_slab<TC, W>(acc, xs + row0 * xsld, xsld, ws + col0, len4);
+  } else {
+    // stage c: k rows k0 + c CH .. of the slab and of the rows, into buffer c & 1
+    const int nst = (len4 + CH - 1) / CH;
+    auto copy_stage = [&](int c) {
+      const int kc = k0 + c * CH, kn = min(CH, len4 - c * CH);
+      float* wb = ws + (c & 1) * CH * W;
+#pragma unroll
+      for (int h = 0; h < NC; ++h)
+        copy_tile<THREADS>(wb + h * NT, W, a.w[h] + static_cast<size_t>(kc) * a.N + n0, a.N,
+                           kn, NT, a.K - kc, a.N - n0, a.w[h], vec);
+      copy_tile<THREADS>(xs + (c & 1) * kRowTile * CLD, CLD,
+                         a.in + static_cast<size_t>(r0) * a.K + kc, a.K, kRowTile, kn,
+                         a.R - r0, a.K - kc, a.in, vec);
+    };
+    if (nst > 0) copy_stage(0);
+    cp_async_commit();
+    if (a.ln_scale != nullptr) row_stats<THREADS>(a, r0, mu, inv);   // while stage 0 lands
+    for (int c = 0; c < nst; ++c) {
+      if (c + 1 < nst) {
+        copy_stage(c + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // stage c (and the statistics) are visible to every thread
+      float* xb = xs + (c & 1) * kRowTile * CLD;
+      if (a.ln_scale != nullptr) {
+        normalise_rows(a, xb, CLD, nr, min(CH, len - c * CH), k0 + c * CH, mu, inv, THREADS);
+        __syncthreads();
+      }
+      fma_slab<TC, W>(acc, xb + row0 * CLD, CLD, ws + (c & 1) * CH * W + col0,
+                      min(CH, len4 - c * CH));
+      __syncthreads();   // the next copy overwrites this buffer
     }
   }
 #pragma unroll
@@ -709,17 +787,26 @@ post_attn_proj_kernel(PostArgs a) {
   cluster.sync();   // no block leaves while another may still read its partials
 }
 
-template <int NT, int NC, int THREADS, int EPI>
-int launch_post(const PostArgs& a, cudaStream_t stream) {
+template <int NT, int NC, int THREADS, int EPI, bool STAGED>
+int launch_post_path(const PostArgs& a, size_t smem, cudaStream_t stream) {
   static const cudaError_t attr =
-      cudaFuncSetAttribute(post_attn_proj_kernel<NT, NC, THREADS, EPI>,
+      cudaFuncSetAttribute(post_attn_proj_kernel<NT, NC, THREADS, EPI, STAGED>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const size_t smem = post_smem_floats(post_slice(a.K), NT * NC) * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((a.N + NT - 1) / NT * kCluster, (a.R + kRowTile - 1) / kRowTile);
-  post_attn_proj_kernel<NT, NC, THREADS, EPI><<<grid, THREADS, smem, stream>>>(a);
+  post_attn_proj_kernel<NT, NC, THREADS, EPI, STAGED><<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The whole slice at once where it fits (staged = 0), else (or with staged = 1) in stages.
+template <int NT, int NC, int THREADS, int EPI>
+int launch_post(const PostArgs& a, int staged, cudaStream_t stream) {
+  const size_t whole = post_smem_floats(post_slice(a.K), NT * NC) * sizeof(float);
+  if (staged == 0 && whole <= kMaxSmem)
+    return launch_post_path<NT, NC, THREADS, EPI, false>(a, whole, stream);
+  const size_t smem = post_staged_floats(NT * NC) * sizeof(float);
+  static_assert(post_staged_floats(NT * NC) * sizeof(float) <= kMaxSmem, "a stage must fit");
+  return launch_post_path<NT, NC, THREADS, EPI, true>(a, smem, stream);
 }
 
 bool aligned16(const void* p) {
@@ -750,7 +837,11 @@ template <int HD>
 struct QkvTile {
   static constexpr int kWld = HD + 8;                 // slab row: B fragments hit 32 banks
   static constexpr int kChunk = HD <= 64 ? 128 : 64;  // k rows of a stage, if the slab is staged
-  static constexpr int kNt = HD / 32;                 // n8 blocks of a warp
+  // a warp's share of the (2 x 16 rows) x (HD / 8 n8 blocks) tile: both 16-row halves x
+  // HD / 32 n8 blocks, or at HD = 16 one half x one n8 block
+  static constexpr int kMt = HD >= 32 ? 2 : 1;        // 16-row halves of a warp
+  static constexpr int kNt = HD >= 32 ? HD / 32 : 1;  // n8 blocks of a warp
+  static_assert(HD == 16 || HD % 32 == 0, "head_dim 16 or a multiple of 32");
   // rows of the slab's buffer: the whole slice, or two stages
   static __host__ __device__ constexpr int slab_rows(int slice) {
     return slice <= kChunk ? slice : 2 * kChunk;
@@ -778,7 +869,8 @@ template <int HD>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kQkvThreads)
 qkv_rope_kernel(QkvArgs a) {
   using Tile = QkvTile<HD>;
-  constexpr int WLD = Tile::kWld, CH = Tile::kChunk, NT = Tile::kNt, HALF = HD / 2;
+  constexpr int WLD = Tile::kWld, CH = Tile::kChunk, MT = Tile::kMt, NT = Tile::kNt;
+  constexpr int HALF = HD / 2;
   constexpr int kLanes = kQkvThreads / kRowTile;   // lanes on a row's statistics
   constexpr int kPairs = (4 * HALF + kQkvThreads - 1) / kQkvThreads;   // a thread's pairs
   extern __shared__ float4 smem4[];
@@ -929,12 +1021,13 @@ qkv_rope_kernel(QkvArgs a) {
   }
 
   // the product on the tensor cores: 3xTF32 mma.sync.m16n8k8, warp w on both 16-row
-  // halves of the tile x the w-th NT n8 blocks, k8 steps in increasing k from the slice's
-  // start
-  const int g = lane / 4, tq = lane % 4, n0 = w * NT * 8;
-  float acc[2][NT][4];
+  // halves of the tile x the w-th NT n8 blocks (HD = 16: half w % 2 x n8 block w / 2),
+  // k8 steps in increasing k from the slice's start
+  const int g = lane / 4, tq = lane % 4;
+  const int m0 = MT == 2 ? 0 : w % 2, n0 = MT == 2 ? w * NT * 8 : w / 2 * 8;
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -948,14 +1041,14 @@ qkv_rope_kernel(QkvArgs a) {
       cp_async_wait<0>();
     }
     __syncthreads();   // the chunk, and the normalised rows, are visible to every warp
-    const float* xa = xs + g * xld + c * CH + tq;
+    const float* xa = xs + (16 * m0 + g) * xld + c * CH + tq;
     const float* wb = ws + (c & 1) * CH * WLD + tq * WLD + n0 + g;
     const int kn = min(CH, len8 - c * CH);
 #pragma unroll 4
     for (int kk = 0; kk < kn; kk += 8) {
-      uint32_t ah[2][4], al[2][4];
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const float* p = xa + 16 * mt * xld + kk;
         split(p[0], ah[mt][0], al[mt][0]);
         split(p[8 * xld], ah[mt][1], al[mt][1]);
@@ -969,16 +1062,16 @@ qkv_rope_kernel(QkvArgs a) {
         split(p[0], bh[0], bl[0]);
         split(p[4 * WLD], bh[1], bl[1]);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh, bl);
+        for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ah[mt], al[mt], bh, bl);
       }
     }
     __syncthreads();   // the next chunk's copy overwrites this buffer
   }
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      float* p = part + (16 * mt + g) * WLD + n0 + 8 * nt + 2 * tq;
+      float* p = part + (16 * (m0 + mt) + g) * WLD + n0 + 8 * nt + 2 * tq;
       *reinterpret_cast<float2*>(p) = make_float2(acc[mt][nt][0], acc[mt][nt][1]);
       *reinterpret_cast<float2*>(p + 8 * WLD) = make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
@@ -1049,7 +1142,9 @@ attn_cached_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                    const float* __restrict__ vc, const int* __restrict__ cache_pos,
                    float* __restrict__ out, int S, int T, int H, int KH, int pos0,
                    float scale) {
-  constexpr int kPer = HD / 32;               // dims of q and k per lane
+  constexpr int kPer = HD >= 32 ? HD / 32 : 1;  // dims of q and k per lane
+  constexpr int kLanes = HD / kPer;             // lanes on a key's score: 32, or 16 at HD = 16
+  constexpr int kKeys = 32 / kLanes;            // keys a warp scores at once
   constexpr int kPvSlices = kAttnThreads / HD;  // contiguous key slices of p @ v
   extern __shared__ float4 smem4[];
   float* sc = reinterpret_cast<float*>(smem4);  // T scores, then probabilities
@@ -1064,19 +1159,36 @@ attn_cached_kernel(const float* __restrict__ q, const float* __restrict__ kc,
   const int ld = KH * HD;
   const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
 
+  // lane l takes dims (l % kLanes) kPer .. of key kKeys i + l / kLanes; the lanes of a key
+  // meet in an xor butterfly over kLanes, so every key's score has one order
+  const int kl = lane % kLanes;
   float qv[kPer];
-  const float* qrow = q + static_cast<size_t>(r) * H * HD + h * HD + lane * kPer;
+  const float* qrow = q + static_cast<size_t>(r) * H * HD + h * HD + kl * kPer;
 #pragma unroll
   for (int e = 0; e < kPer; ++e) qv[e] = qrow[e];
-  const float* kbase = kc + static_cast<size_t>(b) * T * ld + kvh * HD + lane * kPer;
+  const float* kbase = kc + static_cast<size_t>(b) * T * ld + kvh * HD + kl * kPer;
+  if constexpr (kKeys == 1) {
 #pragma unroll 8
-  for (int t = w; t < T; t += kAttnThreads / 32) {
-    const float* krow = kbase + static_cast<size_t>(t) * ld;
-    float d = 0.f;
+    for (int t = w; t < T; t += kAttnThreads / 32) {
+      const float* krow = kbase + static_cast<size_t>(t) * ld;
+      float d = 0.f;
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
-    d = warp_sum(d);
-    if (lane == 0) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+      for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
+      d = warp_sum(d);
+      if (lane == 0) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+    }
+  } else {
+#pragma unroll 8
+    for (int t0 = kKeys * w; t0 < T; t0 += kKeys * (kAttnThreads / 32)) {
+      const int t = t0 + lane / kLanes;
+      const float* krow = kbase + static_cast<size_t>(min(t, T - 1)) * ld;
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
+#pragma unroll
+      for (int o = kLanes / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      if (kl == 0 && t < T) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+    }
   }
   __syncthreads();
 
@@ -1161,6 +1273,7 @@ extern "C" int draft_qkv_rope_launch(const void* x, const void* ln_scale, const 
           aligned16(wq) && aligned16(wk) && aligned16(wv);
   auto st = static_cast<cudaStream_t>(stream);
   switch (HD) {
+    case 16: return launch_qkv<16>(a, st);
     case 32: return launch_qkv<32>(a, st);
     case 64: return launch_qkv<64>(a, st);
     case 128: return launch_qkv<128>(a, st);
@@ -1182,6 +1295,7 @@ extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const
   auto* of = static_cast<float*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   switch (HD) {
+    case 16: return launch_attn<16>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
     case 32: return launch_attn<32>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
     case 64: return launch_attn<64>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
     case 128: return launch_attn<128>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
@@ -1190,13 +1304,14 @@ extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const
 }
 
 // post_attn: three cluster launches on the stream, x1 (R, D) and u (R, F) scratch from
-// the caller.
+// the caller. staged: 0 takes each projection's whole slice at once where it fits, 1
+// streams every slice in stages (the same bits).
 extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* wo,
                                       const void* bo, const void* ln_scale, const void* ln_bias,
                                       const void* wup, const void* bup, const void* wgate,
                                       const void* bgate, const void* wdown, const void* bdown,
                                       void* x1, void* u, void* out, int R, int D, int QD, int F,
-                                      int norm, float eps, int act, void* stream) {
+                                      int norm, float eps, int act, int staged, void* stream) {
   if (R <= 0) return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   auto vec = [](const PostArgs& p) {
@@ -1210,7 +1325,7 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
   p.resid = static_cast<const float*>(x);
   p.out = static_cast<float*>(x1);
   p.R = R; p.K = QD; p.N = D; p.norm = norm; p.eps = eps; p.vec = vec(p);
-  int rc = launch_post<32, 1, 128, kEpiResid>(p, st);
+  int rc = launch_post<32, 1, 128, kEpiResid>(p, staged, st);
   if (rc != 0) return rc;
 
   p = PostArgs{};
@@ -1223,8 +1338,8 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
   p.b[1] = static_cast<const float*>(bgate);
   p.out = static_cast<float*>(u);
   p.R = R; p.K = D; p.N = F; p.norm = norm; p.eps = eps; p.act = act; p.vec = vec(p);
-  rc = wgate != nullptr ? launch_post<64, 2, 256, kEpiAct>(p, st)
-                        : launch_post<128, 1, 256, kEpiAct>(p, st);
+  rc = wgate != nullptr ? launch_post<64, 2, 256, kEpiAct>(p, staged, st)
+                        : launch_post<128, 1, 256, kEpiAct>(p, staged, st);
   if (rc != 0) return rc;
 
   p = PostArgs{};
@@ -1234,7 +1349,7 @@ extern "C" int draft_post_attn_launch(const void* a, const void* x, const void* 
   p.resid = static_cast<const float*>(x1);
   p.out = static_cast<float*>(out);
   p.R = R; p.K = F; p.N = D; p.norm = norm; p.eps = eps; p.vec = vec(p);
-  return launch_post<64, 1, 128, kEpiResid>(p, st);
+  return launch_post<64, 1, 128, kEpiResid>(p, staged, st);
 }
 
 extern "C" int draft_head_launch(const void* x, const void* ln_scale, const void* ln_bias,

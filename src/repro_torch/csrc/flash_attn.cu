@@ -9,7 +9,7 @@
 // Layout. q (B, S, H, D), k and v (B, T, KH, D), o (B, S, H, D), all
 // contiguous float32: the JAX wrapper's layout, read in place, so no
 // transpose or GQA copy runs around the kernel. Query head h reads KV
-// head h / (H / KH).
+// head h / (H / KH). D = 16, 32, 64, 128 or 256 (gemma3-1b).
 //
 // Bounds on an H100 SXM at the DiT's shape (B = 32, H = 12, S = T = 256,
 // D = 64). Bytes: 4 * 25.2 MB of q, k, v, o is 30 us at 3.35 TB/s. The two
@@ -41,6 +41,20 @@
 //   2t + 1, and the V fragment reads its rows in the same order (a sum
 //   over keys does not depend on their order).
 //
+// - D = 256 (gemma3-1b's head_dim): the 64 x 256 output accumulator of one
+//   block is 128 floats a thread, and ptxas spilled 72 bytes at 255
+//   registers (32-key tiles; H100 SXM, nvcc 12.8). So two blocks share a
+//   query tile (grid z = Tiles::kSplit), each with the scores over all of D
+//   and P.V for 128 columns of V and of the output: Q.K^T runs twice.
+//   tools/flash_tile_sweep.py times the key tile (16, 32) and the split
+//   (1, 2) at gemma3-1b's shapes (4 x 1024, 4 heads, kv 1; bidirectional
+//   with the 512 window / causal with it / bidirectional, ms on an H100 SXM
+//   at 700 W): 32 keys, split 2: 0.513 / 0.303 / 0.667, 241 registers, no
+//   spill (kept); 16 keys, split 2: 0.590 / 0.363 / 0.753, 202 registers;
+//   16 keys, one block: 0.408 / 0.267 / 0.518 but 48 bytes of spill; 32
+//   keys, one block: 0.535 / 0.363 / 0.682, 224 bytes of spill. The spill
+//   gate refuses both one-block tiles.
+//
 // What holds it at about a quarter of the TF32 rate (chip_smoke.py, H100
 // SXM at 700 W: 0.142 ms at the DiT's shape) is the CUDA-core work around
 // each mma: every warp splits every K and V element it reads (3 integer
@@ -63,37 +77,46 @@ using wsfm::mma_3xtf32;
 using wsfm::split;
 
 constexpr int kBlockQ = 64;
-constexpr int kBlockK = 32;  // keys per tile
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -2.3819763e38f;
 
 template <int D>
 struct Tiles {
-  static_assert(D % 8 == 0 && D <= 128, "head_dim must be a multiple of 8, at most 128");
+  static_assert(D % 8 == 0 && D <= 256, "head_dim must be a multiple of 8, at most 256");
+  static constexpr int kBlockK = D <= 128 ? 32 : 32;  // keys per tile
+  // blocks that share a query tile, each computing the scores over all of D and
+  // P.V for its D / kSplit columns of V and of the output (at D = 256 the whole
+  // output accumulator, 128 floats a thread, leaves ptxas spilling)
+  static constexpr int kSplit = D <= 128 ? 1 : 2;
+  static constexpr int kDv = D / kSplit;              // V and output columns of a block
   static constexpr bool kQInRegs = D <= 64;           // else the registers spill
   static constexpr int kLd = D + 4;                   // padded row, in floats
+  static constexpr int kLdv = kDv + 4;
   static constexpr int kQFloats = kBlockQ * kLd;
-  static constexpr int kKVFloats = kBlockK * kLd;
-  static constexpr size_t kSmemBytes = (kQFloats + 4 * kKVFloats) * sizeof(float);
+  static constexpr int kKFloats = kBlockK * kLd;
+  static constexpr int kVFloats = kBlockK * kLdv;
+  static constexpr size_t kSmemBytes = (kQFloats + 2 * kKFloats + 2 * kVFloats) * sizeof(float);
 };
 
+template <int BK>
 __device__ __forceinline__ bool block_runs(int q_start, int k_start, int causal, int window) {
   if (causal) {
     bool run = k_start <= q_start + kBlockQ - 1;
-    if (window > 0) run = run && (k_start + kBlockK - 1 > q_start - window);
+    if (window > 0) run = run && (k_start + BK - 1 > q_start - window);
     return run;
   }
   if (window > 0) {
-    return (k_start + kBlockK - 1 > q_start - window) && (k_start < q_start + kBlockQ + window);
+    return (k_start + BK - 1 > q_start - window) && (k_start < q_start + kBlockQ + window);
   }
   return true;
 }
 
 // True when every (row, key) of the tile attends: no per-element mask.
+template <int BK>
 __device__ __forceinline__ bool tile_full(int q_start, int k_start, int T, int causal,
                                           int window) {
-  const int q_last = q_start + kBlockQ - 1, k_last = k_start + kBlockK - 1;
+  const int q_last = q_start + kBlockQ - 1, k_last = k_start + BK - 1;
   if (k_last >= T) return false;
   if (causal) return k_last <= q_start && (window <= 0 || k_start > q_last - window);
   if (window > 0) return max(k_last - q_start, q_last - k_start) < window;
@@ -113,7 +136,7 @@ __device__ __forceinline__ bool attends(int qi, int ki, int seq_q, int seq_k, in
 }
 
 // ROWS rows of D floats, from row0 of a (rows, stride) matrix into a
-// padded shared tile; rows at or past n are zero-filled.
+// padded shared tile (rows of D + 4); rows at or past n are zero-filled.
 template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, size_t stride, int row0,
                                           int n, int tid) {
@@ -147,14 +170,15 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int T, int H,
                   int KH, float scale, int causal, int window) {
   using Cfg = Tiles<D>;
-  constexpr int BK = kBlockK, LD = Cfg::kLd;
-  constexpr int kDSteps = D / 8;   // k-steps of Q.K^T, n-blocks of P.V
+  constexpr int BK = Cfg::kBlockK, LD = Cfg::kLd, DV = Cfg::kDv, LDV = Cfg::kLdv;
+  constexpr int kDSteps = D / 8;   // k-steps of Q.K^T
+  constexpr int kVSteps = DV / 8;  // n-blocks of P.V
   constexpr int kKSteps = BK / 8;  // n-blocks of Q.K^T, k-steps of P.V
   constexpr int kQRegs = Cfg::kQInRegs ? kDSteps : 1;
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // (kBlockQ, LD)
   float* ks = qs + Cfg::kQFloats;               // 2 x (BK, LD)
-  float* vs = ks + 2 * Cfg::kKVFloats;          // 2 x (BK, LD)
+  float* vs = ks + 2 * Cfg::kKFloats;           // 2 x (BK, LDV)
 
   const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int kvh = h / (H / KH);
@@ -165,13 +189,14 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const size_t kv_stride = static_cast<size_t>(KH) * D;
   const float* kbase = k + (static_cast<size_t>(b) * T * KH + kvh) * D;
-  const float* vbase = v + (static_cast<size_t>(b) * T * KH + kvh) * D;
+  const int dv0 = static_cast<int>(blockIdx.z) * DV;   // this block's V and output columns
+  const float* vbase = v + (static_cast<size_t>(b) * T * KH + kvh) * D + dv0;
 
   // the key blocks that run form one interval
   const int num_k_blocks = (T + BK - 1) / BK;
   int kb_begin = num_k_blocks, kb_end = 0;
   for (int kb = 0; kb < num_k_blocks; ++kb) {
-    if (block_runs(q_start, kb * BK, causal, window)) {
+    if (block_runs<BK>(q_start, kb * BK, causal, window)) {
       kb_begin = min(kb_begin, kb);
       kb_end = kb + 1;
     }
@@ -179,9 +204,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const float* qw = qs + (16 * warp + g) * LD + t;
   uint32_t qh[kQRegs][4], ql[kQRegs][4];
-  float acc[kDSteps][4];
+  float acc[kVSteps][4];
 #pragma unroll
-  for (int nd = 0; nd < kDSteps; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+  for (int nd = 0; nd < kVSteps; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   if (kb_begin < kb_end) {  // uniform in the block; with no tile the output is 0
@@ -189,7 +214,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           static_cast<size_t>(H) * D, q_start, S, tid);
     cp_async_commit();
     load_tile<D, BK>(ks, kbase, kv_stride, kb_begin * BK, T, tid);
-    load_tile<D, BK>(vs, vbase, kv_stride, kb_begin * BK, T, tid);
+    load_tile<DV, BK>(vs, vbase, kv_stride, kb_begin * BK, T, tid);
     cp_async_commit();
     if constexpr (Cfg::kQInRegs) {
       cp_async_wait<1>();  // Q has landed; the first K/V tile may still be in flight
@@ -202,16 +227,16 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = kb_begin; kb < kb_end; ++kb) {
     const int buf = (kb - kb_begin) & 1;
     if (kb + 1 < kb_end) {
-      load_tile<D, BK>(ks + (buf ^ 1) * Cfg::kKVFloats, kbase, kv_stride, (kb + 1) * BK, T, tid);
-      load_tile<D, BK>(vs + (buf ^ 1) * Cfg::kKVFloats, vbase, kv_stride, (kb + 1) * BK, T, tid);
+      load_tile<D, BK>(ks + (buf ^ 1) * Cfg::kKFloats, kbase, kv_stride, (kb + 1) * BK, T, tid);
+      load_tile<DV, BK>(vs + (buf ^ 1) * Cfg::kVFloats, vbase, kv_stride, (kb + 1) * BK, T, tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* kt = ks + buf * Cfg::kKVFloats;
-    const float* vt = vs + buf * Cfg::kKVFloats;
+    const float* kt = ks + buf * Cfg::kKFloats;
+    const float* vt = vs + buf * Cfg::kVFloats;
 
     // S = Q K^T for this warp's 16 rows and the tile's BK keys
     float sc[kKSteps][4];
@@ -242,7 +267,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // scale, mask, online softmax; sc[nk][e] is row (e < 2 ? row : row + 8),
     // key k_start + 8 nk + 2 t + (e & 1)
     const int k_start = kb * BK;
-    const bool edge = !tile_full(q_start, k_start, T, causal, window);
+    const bool edge = !tile_full<BK>(q_start, k_start, T, causal, window);
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int nk = 0; nk < kKSteps; ++nk) {
@@ -267,7 +292,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int nd = 0; nd < kDSteps; ++nd) {
+    for (int nd = 0; nd < kVSteps; ++nd) {
       acc[nd][0] *= alpha[0];
       acc[nd][1] *= alpha[0];
       acc[nd][2] *= alpha[1];
@@ -288,12 +313,12 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       split(sc[nk][2], ph[1], pl[1]);
       split(sc[nk][1], ph[2], pl[2]);
       split(sc[nk][3], ph[3], pl[3]);
-      const float* vr = vt + (8 * nk + 2 * t) * LD + g;
+      const float* vr = vt + (8 * nk + 2 * t) * LDV + g;
 #pragma unroll
-      for (int nd = 0; nd < kDSteps; ++nd) {
+      for (int nd = 0; nd < kVSteps; ++nd) {
         uint32_t bh[2], bl[2];
         split(vr[8 * nd], bh[0], bl[0]);
-        split(vr[LD + 8 * nd], bh[1], bl[1]);
+        split(vr[LDV + 8 * nd], bh[1], bl[1]);
         mma_3xtf32(acc[nd], ph, pl, bh, bl);
       }
     }
@@ -310,9 +335,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = row + 8 * r;
     if (qi < S) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * D + 2 * t;
+      float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * D + dv0 + 2 * t;
 #pragma unroll
-      for (int nd = 0; nd < kDSteps; ++nd) {
+      for (int nd = 0; nd < kVSteps; ++nd) {
         *reinterpret_cast<float2*>(orow + 8 * nd) =
             make_float2(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
       }
@@ -330,7 +355,7 @@ int launch(const float* q, const float* k, const float* v, float* o, int B, int 
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ);
+  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ, Tiles<D>::kSplit);
   flash_attn_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, S, T, H, KH, scale,
                                                           causal, window);
   return static_cast<int>(cudaGetLastError());
@@ -350,9 +375,11 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   auto* of = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch<16>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 32: return launch<32>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 64: return launch<64>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 128: return launch<128>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
+    case 256: return launch<256>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -71,8 +71,8 @@ _SIGNATURES = {
     # q, k cache, v cache, cursor, out, R, S, T, H, KH, hd, pos0, scale, stream
     "draft_attn_cached_launch": [_P] * 5 + [_I] * 7 + [_F, _P],
     # a, x, wo, bo, ln scale, ln bias, wup, bup, wgate, bgate, wdown, bdown,
-    # x1, u, out, R, D, H*hd, F, norm, eps, act, stream
-    "draft_post_attn_launch": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
+    # x1, u, out, R, D, H*hd, F, norm, eps, act, staged (1: every slice in stages), stream
+    "draft_post_attn_launch": [_P] * 15 + [_I] * 5 + [_F, _I, _I, _P],
     # x, ln scale, ln bias, w, ldk, ldn, out, R, D, V, norm, eps, stream
     "draft_head_launch": [_P] * 4 + [_I, _I, _P] + [_I] * 4 + [_F, _P],
 }

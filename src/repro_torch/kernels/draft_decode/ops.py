@@ -50,7 +50,7 @@ POST_WIDTHS = {"wo": 32, "up": 128, "down": 64}
 MAX_GRID_Y = 65535
 MAX_GRID_X = 2 ** 31 - 1
 # the head dims qkv_rope and attn_cached are built for
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def draft_decode_supported(cfg) -> bool:
@@ -138,12 +138,24 @@ def _qkv_smem(d: int, head_dim: int) -> int:
             + 2 * CLUSTER_ROWS) * 4
 
 
+def _post_stage(width: int) -> int:
+    """k rows of a stage of post_attn's staged path (csrc ``post_stage``)."""
+    return 64 if width >= 128 else 128
+
+
 def _post_smem(k: int, width: int) -> int:
-    """Bytes of shared memory of a post_attn block: the weight slab, the rows'
-    slice (padded by 4), the partial tile and the rows' ln2 statistics."""
+    """Bytes of shared memory of a post_attn block. The whole slice at once
+    where it fits: the weight slab, the rows' slice (padded by 4), the
+    partial tile and the rows' ln2 statistics. Else staged (a function of
+    the width alone): two buffers of a stage's slab and rows, the partial
+    tile and the statistics."""
     sl = 4 * -(-k // 32)
-    return (sl * width + CLUSTER_ROWS * (sl + 4) + CLUSTER_ROWS * width
-            + 2 * CLUSTER_ROWS) * 4
+    tail = CLUSTER_ROWS * width + 2 * CLUSTER_ROWS
+    whole = (sl * width + CLUSTER_ROWS * (sl + 4) + tail) * 4
+    if whole <= MAX_SMEM:
+        return whole
+    ch = _post_stage(width)
+    return (2 * (ch * width + CLUSTER_ROWS * (ch + 4)) + tail) * 4
 
 
 def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int,
@@ -265,7 +277,9 @@ def post_attn(a: torch.Tensor, x: torch.Tensor, attn_p: dict, ln: dict, mlp_p: d
     """wo (+b) -> residual -> ln2 -> up (gated when ``mlp_p`` has "gate") ->
     act -> down (+b) -> residual: a (R, H*hd), x (R, D) -> (R, D). On the
     card: three cluster launches (wo + residual; ln2 + up/gate + act; down
-    + residual), one count."""
+    + residual), one count; a projection whose slice of K does not fit in
+    shared memory at once (d_model 3072) streams it in stages, with the
+    same bits."""
     dev = _device(x, "post_attn")
     if dev is None:
         return post_attn_ref(a, x, attn_p, ln, mlp_p, norm=norm, eps=eps, act=act)
@@ -287,7 +301,10 @@ def post_attn(a: torch.Tensor, x: torch.Tensor, attn_p: dict, ln: dict, mlp_p: d
     return out
 
 
-def _launch_post_attn(a, x, attn_p, ln, mlp_p, x1, u, out, *, norm, eps, act) -> None:
+def _launch_post_attn(a, x, attn_p, ln, mlp_p, x1, u, out, *, norm, eps, act,
+                      staged: bool = False) -> None:
+    """The three launches on checked CUDA tensors (no count); ``staged``
+    streams every slice in stages even where it fits at once (the same bits)."""
     gate = mlp_p.get("gate", {})
     with torch.cuda.device(x.device):
         rc = _build.library().draft_post_attn_launch(
@@ -296,7 +313,7 @@ def _launch_post_attn(a, x, attn_p, ln, mlp_p, x1, u, out, *, norm, eps, act) ->
             mlp_p["up"]["w"].data_ptr(), _ptr(mlp_p["up"].get("b")), _ptr(gate.get("w")),
             _ptr(gate.get("b")), mlp_p["down"]["w"].data_ptr(), _ptr(mlp_p["down"].get("b")),
             x1.data_ptr(), u.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], a.shape[1],
-            u.shape[1], _NORM[norm], float(eps), _ACT[act], _stream(x.device))
+            u.shape[1], _NORM[norm], float(eps), _ACT[act], int(staged), _stream(x.device))
     _build.check(rc, "post_attn")
 
 

@@ -2,7 +2,11 @@
 ``models/attention.py::gqa_attention`` and ``init_gqa_cache``).
 
 Masking: ``mode="bidir"`` (the DFM denoiser) sees every position,
-``mode="causal"`` only earlier ones.
+``mode="causal"`` only earlier ones; a ``window`` (a ``local`` layer's
+``sliding_window``, or ``global_window``) keeps keys with ``|k - q| <
+window`` (bidirectional) or ``q - window < k <= q`` (causal). With
+``cfg.qk_norm`` (Gemma3) q and k each pass an rmsnorm over head_dim
+(``qnorm``/``knorm``) after the projections and before RoPE.
 Without a cache the JAX backbone computes this in XLA's einsum ``_sdpa``;
 here it runs through the ``flash_attn`` kernel (its plain version on the
 CPU), which the tests hold against ``_sdpa``. The mask (JAX ``attn_mask``)
@@ -26,7 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.flash_attn.ref import NEG_INF
-from repro_torch.models.common import Dense
+from repro_torch.models.common import Dense, RMSNorm
 from repro_torch.models.rope import apply_rope
 
 
@@ -50,12 +54,19 @@ class GQAAttention(nn.Module):
         self.wv = Dense(d, cfg.num_kv_heads * hd, gen, device, bias=bias)
         self.wo = Dense(cfg.num_heads * hd, d, gen, device, bias=bias,
                         stddev=0.02 / math.sqrt(2 * cfg.num_layers))
+        if cfg.qk_norm:
+            self.qnorm = RMSNorm(hd, cfg.norm_eps, device)
+            self.knorm = RMSNorm(hd, cfg.norm_eps, device)
+        else:
+            self.qnorm = self.knorm = None
 
     def _qkv(self, x, sin, cos):
         b, s, _ = x.shape
         q = self.wq(x).reshape(b, s, self.h, self.hd)
         k = self.wk(x).reshape(b, s, self.kh, self.hd)
         v = self.wv(x).reshape(b, s, self.kh, self.hd)
+        if self.qnorm is not None:
+            q, k = self.qnorm(q), self.knorm(k)
         if sin is not None:
             q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
         return q, k, v

@@ -90,14 +90,20 @@ def activation(name: str, x: torch.Tensor) -> torch.Tensor:
 
 
 class Embedding(nn.Module):
-    """Token lookup into a ``(vocab, d)`` table."""
+    """Token lookup into a ``(vocab, d)`` table; with ``scale`` (Gemma's
+    ``embed_scale``) the rows are multiplied by sqrt(d) in float32, as JAX's
+    ``embed(..., scale=True)`` does. A tied head reads the table unscaled."""
 
-    def __init__(self, vocab: int, dim: int, gen: torch.Generator, device, stddev=0.02):
+    def __init__(self, vocab: int, dim: int, gen: torch.Generator, device, stddev=0.02,
+                 scale: bool = False):
         super().__init__()
         self.table = nn.Parameter(normal_init(gen, (vocab, dim), stddev, device))
+        self.mult = math.sqrt(dim) if scale else None
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens.long(), self.table)
+        x = F.embedding(tokens.long(), self.table)
+        # a Python scalar multiplies a float32 tensor as float32(sqrt(d))
+        return x if self.mult is None else x * self.mult
 
 
 class TimeEmbed(nn.Module):

@@ -1,18 +1,23 @@
 """The torch backbone: embeddings + time conditioning + attention blocks +
-head (port of the JAX package's ``models/model.py`` for dense attention
-configs, in DFM-denoiser and causal modes, with the AR serving entry
-points ``init_cache``, ``prefill`` and ``decode_step``).
+head (port of the JAX package's ``models/model.py`` for the dense attention
+configs: the DiT and the dense zoo, Gemma3's local/global layers, dual
+RoPE, qk-norm, post-norms and scaled embeddings included), in DFM-denoiser
+and causal modes, with the AR serving entry points ``init_cache``,
+``prefill`` and ``decode_step``.
 
 ``Model(cfg, device="cuda", seed=0)`` holds its weights as an
 ``nn.Module`` built from a seeded ``torch.Generator`` on ``device``; a JAX
 checkpoint loads with ``model.load_state_dict(jax_params_to_torch(flat))``
 (``repro_torch.convert``).
 
-The KV cache keeps the JAX tree (``transformer.init_stack_cache``):
-``{"blocks": {"p0": {"k", "v": (L, B, T, KH, hd), "pos": (L,) int32}},
-"rem": {}, "pre": {}}`` for ``pattern=("attn",)``: layer ``r * P + p`` is
-slice ``r`` of ``blocks/p{p}``, remainder layer ``j`` is ``rem/r{j}``
-(unstacked, ``pos`` a scalar).
+The layers run in JAX's stack order (``transformer.apply_stack``): the
+``prefix`` layers, ``reps`` repeats of ``pattern``, then the remainder
+``pattern[:rem]``. The KV cache keeps the JAX tree
+(``transformer.init_stack_cache``): ``{"pre": {"x{j}": ...}, "blocks":
+{"p{p}": {"k", "v": (reps, B, T, KH, hd), "pos": (reps,) int32}}, "rem":
+{"r{j}": ...}}``: prefix layer ``j`` is ``pre/x{j}``, layer ``npre + r * P
++ p`` is slice ``r`` of ``blocks/p{p}``, remainder layer ``j`` is
+``rem/r{j}`` (unstacked, ``pos`` a scalar).
 """
 
 from __future__ import annotations
@@ -26,26 +31,29 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_gqa_cache
 from repro_torch.models.common import Dense, Embedding, TimeEmbed, make_norm
-from repro_torch.models.rope import rope_angles
-from repro_torch.models.transformer import Block
+from repro_torch.models.rope import rope_context
+from repro_torch.models.transformer import KINDS, Block
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense attention config this port runs."""
+    """Raise unless ``cfg`` is a dense attention config this port runs:
+    ``attn``/``local`` layers, layernorm or rmsnorm, standard, dual or no
+    RoPE, qk-norm, post-norms and scaled embeddings allowed, float32. MoE,
+    MLA, encoder-decoder, recurrent and VLM configs, the logit softcap and
+    other dtypes raise."""
     unsupported = []
     if cfg.is_encoder_decoder or cfg.family not in ("dense",):
         unsupported.append(f"family={cfg.family}")
-    if cfg.prefix or set(cfg.pattern) != {"attn"}:
+    if not set(cfg.prefix + cfg.pattern) <= set(KINDS):
         unsupported.append(f"layers={cfg.prefix + cfg.pattern}")
     if cfg.norm not in ("layernorm", "rmsnorm"):
         unsupported.append(f"norm={cfg.norm}")
-    if cfg.rope_type not in ("default", "none"):
+    if cfg.rope_type not in ("default", "none", "dual"):
         unsupported.append(f"rope_type={cfg.rope_type}")
     if cfg.act not in ("gelu", "silu", "relu"):
         unsupported.append(f"act={cfg.act}")
-    for flag in ("qk_norm", "post_norms", "embed_scale", "attn_logit_softcap"):
-        if getattr(cfg, flag):
-            unsupported.append(flag)
+    if cfg.attn_logit_softcap:
+        unsupported.append("attn_logit_softcap")
     if cfg.dtype != "float32" or cfg.param_dtype != "float32":
         unsupported.append(f"dtype={cfg.dtype}/{cfg.param_dtype}")
     if unsupported:
@@ -60,8 +68,8 @@ class Model(nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, gen, dev)
-        self.blocks = nn.ModuleList(Block(cfg, gen, dev) for _ in range(cfg.num_layers))
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, gen, dev, scale=cfg.embed_scale)
+        self.blocks = nn.ModuleList(Block(cfg, gen, dev, kind) for kind in layer_kinds(cfg))
         self.final_norm = make_norm(cfg, dev)
         self.time = TimeEmbed(cfg, gen, dev)
         # tied: the head is the embedding table, transposed (JAX ``unembed``)
@@ -71,11 +79,6 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
-
-    def _rope(self, positions: torch.Tensor):
-        if self.cfg.rope_type == "none":
-            return None, None
-        return rope_angles(positions, self.cfg.head_dim, self.cfg.rope_theta)
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
@@ -93,9 +96,9 @@ class Model(nn.Module):
             x = x + self.time(t)[:, None, :]
         mode = "bidir" if t is not None else "causal"
         pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        sin, cos = self._rope(pos)
+        rope = rope_context(self.cfg, pos)
         for block in self.blocks:
-            x = block(x, sin=sin, cos=cos, mode=mode, window=global_window)
+            x = block(x, rope=rope, mode=mode, global_window=global_window)
         return self._head(x)
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +113,8 @@ class Model(nn.Module):
         layer order (``index`` is the slice of a stacked leaf, or None)."""
         cfg = self.cfg
         reps, rem = cfg.scan_split()
+        for j in range(len(cfg.prefix)):
+            yield "pre", f"x{j}", None
         for r in range(reps):
             for p in range(len(cfg.pattern)):
                 yield "blocks", f"p{p}", r
@@ -122,6 +127,8 @@ class Model(nn.Module):
         cfg = self.cfg
         reps, rem = cfg.scan_split()
         cache: dict = {"blocks": {}, "rem": {}, "pre": {}}
+        for j in range(len(cfg.prefix)):
+            cache["pre"][f"x{j}"] = init_gqa_cache(cfg, batch, max_len, dtype, self.device)
         if reps:
             for p in range(len(cfg.pattern)):
                 one = init_gqa_cache(cfg, batch, max_len, dtype, self.device)
@@ -144,12 +151,12 @@ class Model(nn.Module):
         # offset added as it comes (an int: no copy to the card)
         q_pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
                  + offset).expand(b, s)
-        sin, cos = self._rope(q_pos)
+        rope = rope_context(self.cfg, q_pos)
         new: dict = {"blocks": {}, "rem": {}, "pre": {}}
         cursors: dict = {}
         for block, slot in zip(self.blocks, self.layer_slots()):
-            x, lc = block.forward_cached(x, self.layer_cache(cache, slot), sin=sin, cos=cos,
-                                         q_pos=q_pos, window=global_window)
+            x, lc = block.forward_cached(x, self.layer_cache(cache, slot), rope=rope,
+                                         q_pos=q_pos, global_window=global_window)
             group, name, idx = slot
             if idx is None:
                 new[group][name] = lc
@@ -174,6 +181,13 @@ class Model(nn.Module):
         (logits (B, 1, V), new cache); cache buffers written in place."""
         x, cache = self._forward_cached(tokens, cache, pos, global_window)
         return self._head(x), cache
+
+
+def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The kind of every layer in stack order: the prefix, ``reps`` repeats
+    of the pattern, the remainder (JAX ``apply_stack``)."""
+    reps, rem = cfg.scan_split()
+    return tuple(cfg.prefix) + tuple(cfg.pattern) * reps + tuple(rem)
 
 
 def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0) -> Model:

@@ -1,9 +1,11 @@
-"""Rotary position embeddings (port of the JAX package's ``models/rope.py``
-standard RoPE; the DiT applies it in bidirectional mode too)."""
+"""Rotary position embeddings (port of the JAX package's ``models/rope.py``:
+standard RoPE, which the DiT applies in bidirectional mode too, and
+Gemma3's dual RoPE, ``rope_type="dual"``: local layers rotate at
+``local_rope_theta``, global ones at ``rope_theta``)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,3 +29,17 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor) -> torch.T
     sin = sin[:, :, None, :].to(x.dtype)
     cos = cos[:, :, None, :].to(x.dtype)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope_context(cfg, positions: torch.Tensor) -> dict:
+    """The angles a stack needs at ``positions`` (JAX ``Model._rope_ctx``):
+    ``{"global": (sin, cos), "local": (sin, cos)}``, each pair ``(None,
+    None)`` for ``rope_type="none"``; the local pair is the global one
+    unless ``rope_type="dual"``."""
+    none: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]] = (None, None)
+    if cfg.rope_type == "none":
+        return {"global": none, "local": none}
+    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    local = (rope_angles(positions, cfg.head_dim, cfg.local_rope_theta)
+             if cfg.rope_type == "dual" else angles)
+    return {"global": angles, "local": local}

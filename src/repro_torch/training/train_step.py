@@ -42,12 +42,13 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
     if remat:
         raise _not_ported("remat (activation rematerialisation)", "a later training item")
     if cfg.moe.num_experts:
-        raise _not_ported("the MoE router auxiliary loss", "the model-zoo slice")
+        raise _not_ported("the MoE router auxiliary loss", "the zoo's MoE family")
 
     def loss_fn(model, batch, rng):
         extras = [k for k in EXTRA_KEYS if k in batch]
         if extras:
-            raise _not_ported(f"batch extras {extras}", "the model-zoo slice")
+            raise _not_ported(f"batch extras {extras}", "the zoo's VLM and encoder-decoder "
+                                                             "families")
         x_src, x_tgt = batch["x_src"], batch["x_tgt"]
         rng_t, rng_xt = prng.split(rng, 2)
         t = path.sample_t(rng_t, (x_src.shape[0],), device=x_src.device)

@@ -115,6 +115,11 @@ def test_ws_step_group_sizes_agree_bitwise(card, r, v, temperature):
     (2, 256, 256, 4, 4, 128, False, None),  # D = 128, bidirectional, whole tiles
     (2, 256, 256, 4, 4, 64, False, 5),      # a band narrower than a tile
     (2, 256, 256, 4, 2, 32, True, 5),       # a causal window narrower than a tile
+    (2, 100, 100, 8, 2, 16, True, None),    # D = 16 (command-r-plus's smoke config)
+    (2, 77, 77, 8, 2, 16, False, 20),       # D = 16, a bidirectional band
+    (1, 600, 600, 4, 1, 256, False, 512),   # D = 256 (gemma3-1b's local layer), band cut
+    (1, 300, 300, 4, 1, 256, True, 128),    # D = 256, a causal window
+    (2, 130, 130, 4, 2, 256, True, None),   # D = 256, GQA, a tail
 ])
 def test_flash_attention_kernel_matches_plain(card, b, s, t, h, kh, d, causal, window):
     g = torch.Generator(device=card).manual_seed(s)
@@ -175,6 +180,11 @@ DRAFT_SHAPES = [
     (3, 5, 37, 96, 200, 8, 2, 32, "rmsnorm", True, True, "silu", False),
     (2, 3, 19, 64, 96, 2, 1, 128, "rmsnorm", True, True, "relu", True),
     (3, 11, 24, 128, 512, 4, 2, 32, "layernorm", True, False, "relu", True),  # R = 33
+    # command-r-plus-104b's smoke layer: head_dim 16, GQA, SwiGLU, no bias
+    (3, 5, 37, 128, 256, 8, 2, 16, "layernorm", False, True, "silu", True),
+    # starcoder2-3b's layer at its published widths: the staged post_attn (K = 3072 up,
+    # K = 12288 down), hd 128 GQA 24 / 2
+    (8, 1, 64, 3072, 12288, 24, 2, 128, "layernorm", True, False, "gelu", True),
 ]
 
 
@@ -217,6 +227,8 @@ POST_LAYERS = {
     "full-width-layernorm-gelu": (768, 3072, 12, 12, 64, "layernorm", False, False, "gelu"),
     "gated-rmsnorm-silu-bias": (96, 200, 8, 2, 32, "rmsnorm", True, True, "silu"),
     "odd-widths-layernorm-relu": (90, 198, 8, 2, 32, "layernorm", True, False, "relu"),
+    # starcoder2-3b's widths: up and down take the staged path
+    "staged-starcoder2-3b": (3072, 12288, 24, 2, 128, "layernorm", True, False, "gelu"),
 }
 
 
@@ -239,6 +251,49 @@ def test_post_attn_kernel_is_batch_invariant(card, r, layer):
     assert _close(out, post_attn_ref(a, x, attn_p, ln2, mlp_p, **kw), 1e-4)
 
 
+@pytest.mark.parametrize("layer", sorted(k for k in POST_LAYERS if not k.startswith("staged")))
+def test_post_attn_staged_path_equals_whole_slice_bitwise(card, layer):
+    """Where a slice fits at once, streaming it in stages gives the same bits:
+    each FMA chain runs on across the stages in increasing k."""
+    d, f, h, kh, hd, norm, bias, gated, act = POST_LAYERS[layer]
+    g = torch.Generator(device=card).manual_seed(d + f)
+    _, attn_p, ln2, mlp_p = _layer(g, d, f, h, kh, hd, norm=norm, bias=bias, gated=gated,
+                                   device=card)
+    r = 40
+    a = torch.randn((r, h * hd), generator=g, device=card)
+    x = torch.randn((r, d), generator=g, device=card)
+    outs = []
+    for staged in (False, True):
+        bufs = (torch.empty_like(x), torch.empty((r, f), device=card), torch.empty_like(x))
+        draft_ops._launch_post_attn(a, x, attn_p, ln2, mlp_p, *bufs, norm=norm, eps=1e-6,
+                                    act=act, staged=staged)
+        outs.append(bufs)
+    for whole, staged in zip(*outs):
+        assert torch.equal(whole, staged)
+
+
+@pytest.mark.parametrize("f", [12288, 9216])
+@pytest.mark.parametrize("r", [8, 32])
+def test_post_attn_kernel_at_zoo_widths(card, r, f):
+    """D = 3072 with F = 12288 (starcoder2-3b) and 9216 (minitron-4b): the
+    slices of up and down do not fit at once and stream in stages."""
+    d, h, kh, hd = 3072, 24, 2, 128
+    # up (K = 3072) and down (K = 12288) both take the staged path, whose size
+    # depends on the slab's width alone
+    assert draft_ops._post_smem(d, 128) == draft_ops._post_smem(4 * d, 128)
+    assert draft_ops._post_smem(f, 64) == draft_ops._post_smem(4 * f, 64)
+    g = torch.Generator(device=card).manual_seed(r + f)
+    _, attn_p, ln2, mlp_p = _layer(g, d, f, h, kh, hd, norm="layernorm", bias=True,
+                                   gated=False, device=card)
+    a = torch.randn((r, h * hd), generator=g, device=card)
+    x = torch.randn((r, d), generator=g, device=card)
+    kw = dict(norm="layernorm", eps=1e-5, act="gelu" if f == 12288 else "relu")
+    before = launches["post_attn"]
+    out = post_attn(a, x, attn_p, ln2, mlp_p, **kw)
+    assert launches["post_attn"] == before + 1
+    assert _close(out, post_attn_ref(a, x, attn_p, ln2, mlp_p, **kw), 1e-4)
+
+
 # d, h, kh, hd, norm, bias, rope, unaligned: the full-width layer; head dims 32 and 128
 # (D = 640: the slab of 80 k rows streams in two stages of 64); GQA; rmsnorm with bias
 # at D = 90 (short and empty slices, 4-byte copies); no RoPE; D = 520, not a multiple
@@ -248,6 +303,7 @@ QKV_LAYERS = {
     "full-width-layernorm": (768, 12, 12, 64, "layernorm", False, True, False),
     "hd32": (256, 8, 8, 32, "layernorm", False, True, False),
     "hd128-staged": (640, 4, 2, 128, "layernorm", True, True, False),
+    "hd16": (128, 8, 2, 16, "layernorm", False, True, False),
     "gqa": (512, 8, 2, 64, "layernorm", False, True, False),
     "rmsnorm-bias-d90": (90, 4, 2, 32, "rmsnorm", True, True, False),
     "no-rope": (256, 4, 2, 64, "layernorm", False, False, False),

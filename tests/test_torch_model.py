@@ -102,17 +102,22 @@ def test_rope_and_time_embed_match_jax():
 
 
 def test_unsupported_configs_raise():
+    """Since the dense zoo, ``local`` layers, qk-norm, post-norms, dual RoPE
+    and scaled embeddings are supported; MoE/MLA/recurrent kinds, the logit
+    softcap and other dtypes still raise."""
     cfg = dfm_dit.smoke_config()
-    for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("local",)),
-                cfg.replace(qk_norm=True), cfg.replace(dtype="bfloat16"),
-                cfg.replace(post_norms=True), cfg.replace(rope_type="mrope"),
+    for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("mamba",)),
+                cfg.replace(attn_logit_softcap=30.0), cfg.replace(dtype="bfloat16"),
+                cfg.replace(prefix=("mla",)), cfg.replace(rope_type="mrope"),
                 cfg.replace(act="swish"), cfg.replace(family="moe")):
         with pytest.raises(NotImplementedError):
             check_supported(bad)
     check_supported(dfm_dit.CONFIG)
     for good in (cfg.replace(norm="rmsnorm"), cfg.replace(tie_embeddings=True),
                  cfg.replace(mlp_gated=True, use_bias=True, act="relu"),
-                 cfg.replace(rope_type="none")):
+                 cfg.replace(rope_type="none"), cfg.replace(pattern=("local",)),
+                 cfg.replace(qk_norm=True, post_norms=True, embed_scale=True),
+                 cfg.replace(rope_type="dual")):
         check_supported(good)
 
 

@@ -466,8 +466,8 @@ def test_make_train_step_refuses_what_the_port_does_not_run():
     with pytest.raises(NotImplementedError, match="patches"):
         loss_fn(model, {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt),
                         "patches": torch.zeros(1)}, prng.key(0))
-    with pytest.raises(NotImplementedError, match="model-zoo"):
-        get_config("gemma3-1b")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        get_config("arctic-480b")
     assert get_config(ARCH).num_layers == 12 and get_smoke_config(ARCH).num_layers == 2
 
 
