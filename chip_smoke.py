@@ -86,10 +86,24 @@ logits against the plain CPU path; gemma3-1b's logits at 1 x 600 tokens
 against the CPU; the four archs' smoke configs served on the card == the
 CPU.
 
+Then the recurrent family: ``flash_attn`` at head_dim 80 (Zamba2's shared
+attention, both masks, no spill) and ``ws_step`` at V = 32000 and 50304
+against their plain versions and timed; zamba2-2.7b (8 rows) and
+xlstm-1.3b (4 rows) at their published widths (float32, seed 0) served at
+256 tokens, 13 NFE, each drafted by its own config as a causal decoder
+(seed 1; the plain decode path, prompt prefilled by scan, the decode one
+graph replay): two serves with exact launch counts and one capture per
+key, the second against its eager launches drafted by a fresh engine and
+the draft's reused and recomputed prefix against that fresh engine,
+bitwise (the JAX engine's reference fault R7 not carried over), the
+logits at 1 x 64 against the CPU; zamba2-2.7b's flow stage profiled; both
+smoke configs served on the card == the CPU.
+
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
-``{"distilled": ...}`` and ``{"zoo": ...}`` lines, a ``{"kernels": [...]}``
-line (the zoo's shapes under ``zoo``) and, last,
+``{"distilled": ...}``, ``{"zoo": ...}`` and ``{"recurrent": ...}`` lines, a
+``{"kernels": [...]}`` line (the zoo's shapes under ``zoo``, the recurrent
+family's under ``recurrent``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -2017,7 +2031,7 @@ def check_small_serve_against_cpu():
 def check_full_width_logits(model, tokens, t):
     """Full-width backbone logits through the kernels on the card against
     the plain CPU path on the same weights (a copy of the model moved to the
-    host: no second random init)."""
+    host: no second random init), within 1e-3 x max(1, max |logit|)."""
     import copy
 
     ref_model = copy.deepcopy(model).to("cpu")
@@ -2029,7 +2043,7 @@ def check_full_width_logits(model, tokens, t):
     scale = float(want.abs().max())
     print(f"full-width dfm_apply ({model.cfg.name}), {tokens.shape[0]} x {tokens.shape[1]} "
           f"tokens, card kernels vs CPU plain: max abs err {err:.3e} (logits up to "
-          f"{scale:.2f})")
+          f"{scale:.2f}; limit 1e-3 relative)")
     if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
         fail(f"full-width logits of {model.cfg.name} disagree with the plain path: {err}")
     return {"config": model.cfg.name, "tokens": list(tokens.shape), "max_abs_err": err,
@@ -3452,23 +3466,25 @@ def check_gemma_logits():
     return res
 
 
-def check_zoo_smoke_against_cpu():
-    """The four archs' smoke configs served small (4 x 32 tokens, t0 = 0.8,
-    cold_nfe = 16) on the card and on the CPU, same seeded weights, keys and
-    prompt, drafted by the arch as a causal decoder through the engine's
-    ``auto`` choice (the draft kernels for the dense three, the plain path
-    for gemma3-1b, as JAX's ``auto`` picks): the tokens must be equal."""
+def check_zoo_smoke_against_cpu(archs=SMOKE_ARCHS):
+    """The archs' smoke configs (default: the dense four) served small (4 x
+    32 tokens, t0 = 0.8, cold_nfe = 16) on the card and on the CPU, same
+    seeded weights, keys and prompt, drafted by the arch as a causal decoder
+    through the engine's ``auto`` choice (the draft kernels for the dense
+    three, the plain path for gemma3-1b and the recurrent family, as JAX's
+    ``auto`` picks): the tokens must be equal."""
     from repro_torch import prng
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.paths import WarmStartPath
     from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
     from repro_torch.kernels import launches
+    from repro_torch.kernels.draft_decode import draft_decode_supported
     from repro_torch.kernels.ws_step import make_ws_step_fn
     from repro_torch.models import Model
     from repro_torch.serving import WarmStartServer
 
     res = {}
-    for arch in SMOKE_ARCHS:
+    for arch in archs:
         cfg = get_smoke_config(arch)
         prompt = draft_prompt(4, cfg.vocab_size)[:, :4]
         out, kernel_path = {}, {}
@@ -3491,13 +3507,213 @@ def check_zoo_smoke_against_cpu():
                      f"with the kernel path {adapter.exact_batched_prefill}")
         diff = int((out["cuda"] != out["cpu"]).sum())
         res[arch] = {"differ": diff, "draft_kernels": kernel_path["cuda"]}
-        if kernel_path["cuda"] != (arch != "gemma3-1b"):
+        if kernel_path["cuda"] != draft_decode_supported(cfg):
             fail(f"{arch}: the draft engine's auto choice is {kernel_path['cuda']}")
-    print(f"zoo smoke configs served on the card vs the CPU (4 x 32 tokens, 4 steps; "
+    print(f"smoke configs served on the card vs the CPU (4 x 32 tokens, 4 steps; "
           f"tokens differing, draft on the kernels): {res}")
     if any(r["differ"] for r in res.values()):
         fail(f"a zoo smoke config's serve on the card disagrees with the CPU: {res}")
     return res
+
+
+# -- the recurrent family ------------------------------------------------------------
+
+REC_ARCH, XLSTM_ARCH = "zamba2-2.7b", "xlstm-1.3b"      # both at their published widths
+REC_SMOKE_ARCHS = (REC_ARCH, XLSTM_ARCH)
+# rows a serve: xlstm-1.3b's draft at 8 rows moves 5.6 GB of mLSTM state a decode
+# step (9.3 s a draft) and its eager yardstick took 31 s a serve, so it serves 4
+REC_ROWS = {REC_ARCH: 8, XLSTM_ARCH: 4}
+REC_HEAD_DIM = 80                              # zamba2-2.7b's shared attention: 32 heads of 80
+
+
+def rec_kernel_gates():
+    """The kernels at the recurrent family's shapes against their plain
+    versions: flash_attn at head_dim 80 (zamba2-2.7b's refine, bidirectional
+    and causal; a ragged causal window) and at the smoke config's head_dim
+    32; ws_step at the serves' (8 x 256, 32000) and (4 x 256, 50304)."""
+    rows = REC_ROWS[REC_ARCH]
+    flash = [check_flash(rows, SEQ, 32, 32, REC_HEAD_DIM, False, None, 80),
+             check_flash(rows, SEQ, 32, 32, REC_HEAD_DIM, True, None, 81),
+             check_flash(2, 77, 4, 2, REC_HEAD_DIM, True, 20, 82),
+             check_flash(4, 32, 4, 4, 32, False, None, 83)]
+    ws = [check_ws_step(rows * SEQ, 32000, 1.0, 84),
+          check_ws_step(REC_ROWS[XLSTM_ARCH] * SEQ, 50304, 1.0, 85)]
+    return {"flash_attn": max(flash), "ws_step": max(c["max_abs_err"] for c in ws),
+            "ws_checks": ws}
+
+
+def rec_measure():
+    """Device times at the recurrent serves' shapes beside the plain versions,
+    SDPA and the bounds: flash_attn at zamba2-2.7b's refine (8 x 256, 32
+    heads of 80), ws_step at its (2048, 32000) and xlstm-1.3b's (1024, 50304)."""
+    rows = REC_ROWS[REC_ARCH]
+    return {"flash_attn": measure_flash(rows, SEQ, 32, REC_HEAD_DIM),
+            "ws_step_v32000": measure_ws_step(rows * SEQ, 32000, plain_n=2),
+            "ws_step_v50304": measure_ws_step(REC_ROWS[XLSTM_ARCH] * SEQ, 50304, plain_n=2)}
+
+
+def check_recurrent_vs_eager(server, engine, prompt, rng, served, warm_draft, warm_x):
+    """The first serve's graphs against their capture warm-ups (each key's
+    eager launches on that serve's inputs), bitwise: the refine's replay
+    against its warm-up, and R7 on the card: the decode replayed for that
+    serve's draft keys with the prefix now reused against the warm-up's
+    decode, which followed a fresh prefill. No new capture."""
+    from repro_torch import prng
+
+    caps = (engine.graphs.captures, server.graphs.captures)
+    keys = prng.split(prng.split(rng, 2)[0], prompt.shape[0])
+    reused = engine.generate_rows(keys, SEQ, prompt)
+    torch.cuda.synchronize()
+    res = {"serve_differ": int((served != warm_x).sum()),
+           "draft_differ": int((reused != warm_draft).sum()),
+           "new_captures": [engine.graphs.captures - caps[0], server.graphs.captures - caps[1]],
+           "stats": engine.stats.as_dict()}
+    print(f"{engine.adapter.model.cfg.name} first serve's refine (graph) vs its eager warm-up, "
+          f"and the draft replayed with the prefix reused vs the warm-up's eager decode after "
+          f"a fresh prefill (bitwise): {res}")
+    if res["serve_differ"] or res["draft_differ"] or any(res["new_captures"]):
+        fail(f"the recurrent serve's graphs or its reused prefix differ from the eager "
+             f"launches after a fresh prefill: {res}")
+    return res
+
+
+def recurrent_serve(arch, profile=True):
+    """``arch`` at its published widths (float32, seed 0) served through
+    ``WarmStartServer`` at REC_ROWS x SEQ, t0 = 0.8, cold_nfe = 64 (13 NFE),
+    drafted by the same config as a causal decoder (seed 1; the plain decode
+    path, prompt prefilled by scan, the decode one graph replay). Two
+    serves: the first captures the decode and the refine, the second
+    replays them with the prefix reused. Gates: the NFE guarantee and exact
+    launches a serve (``ws_step`` 13, ``flash_attn`` 13 x the zshared
+    layers; the first serve twice that), one capture per key, the first
+    serve's graphs == their eager warm-ups and its draft replayed with the
+    prefix reused == the warm-up's fresh decode (:func:`check_recurrent_vs_eager`;
+    a serve of eager launches costs ~24 s here), the full-width logits at 1
+    x 64 against the CPU. Reports draft, flow and
+    per-NFE time, samples/s, the draft cost ratio, peak memory, the capture
+    times and (``profile``) a serve profiled with its draft given (the flow
+    stage: the draft's graph holds ~740k launches, more than the profile's
+    trace is worth reading)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Model
+    from repro_torch.models.model import layer_kinds
+    from repro_torch.serving import WarmStartServer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = REC_ROWS[arch]
+    cfg = get_config(arch).replace(dtype="float32")
+    model = Model(cfg, device="cuda", seed=0)
+    adapter = TransformerDraftAdapter(model=Model(cfg, device="cuda", seed=DRAFT_SEED))
+    engine = ARDraftEngine(adapter, max_len=MAX_LEN)
+    if adapter.exact_batched_prefill or engine.prefill_mode != "scan":
+        fail(f"{arch}: the draft must take the plain path with a scanned prefill")
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = draft_prompt(rows, cfg.vocab_size)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=cfg,
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    shared = sum(k == "zshared" for k in layer_kinds(cfg))
+    per_serve = {"ws_step": nfe, **({"flash_attn": nfe * shared} if shared else {})}
+
+    launches.clear()
+    reports, outs = [], []
+    for i in range(2):
+        before = dict(launches)
+        served, rep = server.serve(prng.key(400 + i), rows)
+        if i == 0:     # the eager warm-ups of the two captures, on this serve's inputs
+            warm_draft, warm_x = engine.graphs.last_warmup, server.graphs.last_warmup
+        grew = grown(before)
+        want = {k: 2 * n if i == 0 else n for k, n in per_serve.items()}  # capture warm-ups
+        if grew != want:
+            fail(f"{arch} serve {i}: launches {grew}, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{arch} serve {i}: nfe {rep['nfe']} backbone_evals {rep['backbone_evals']}")
+        if served.shape != (rows, SEQ) or int(served.min()) < 0 \
+                or int(served.max()) >= cfg.vocab_size:
+            fail(f"{arch} serve {i}: tokens {tuple(served.shape)} outside [0, {cfg.vocab_size})")
+        reports.append(rep)
+        outs.append(served)
+    counts = dict(launches)
+    caps = (engine.graphs.captures, server.graphs.captures)
+    if caps != (1, 1) or engine.stats.prefill_reuses != 1:
+        fail(f"{arch}: two serves must capture the decode and the refine once each and reuse "
+             f"the prefix once: captures {caps}, {engine.stats.as_dict()}")
+    print(f"recurrent path: {arch} ({n_params / 1e9:.3f}B params, float32) x 2 serves of "
+          f"{rows} x {SEQ}, drafted by {arch} as a causal decoder (seed {DRAFT_SEED}), "
+          f"t0={T0}, cold_nfe={COLD_NFE}: nfe {nfe} per serve, guarantee gate passed, launches "
+          f"{counts} (per serve {per_serve}, the first twice that); capture ms (warm-up and "
+          f"capture): decode {engine.graphs.stats()['capture_ms']}, refine "
+          f"{server.graphs.stats()['capture_ms']}")
+
+    vs_eager = check_recurrent_vs_eager(server, engine, prompt, prng.key(400), outs[0],
+                                        warm_draft, warm_x)
+    logits = check_full_width_logits(model, served[:1, :ZOO_LOGIT_TOKENS],
+                                     torch.full((1,), T0, device="cuda"))
+    prof = {"device_ms": None}
+    if profile:
+        holder = {}
+        server.draft_generate = lambda rng, num: warm_draft
+
+        def run():
+            holder["rep"] = server.serve(prng.key(421), rows)[1]
+
+        prof = _profile(run, f"{arch} serve with its draft given (the flow stage)")
+        prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+    steady = reports[1]
+    res = {
+        "config": arch, "dtype": cfg.dtype, "params": n_params, "rows": rows,
+        "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe,
+        "draft": {"config": arch + " (causal decoder)", "seed": DRAFT_SEED, "prompt": PROMPT,
+                  "max_len": MAX_LEN, "decode_steps": SEQ - 1, "prefill": engine.prefill_mode,
+                  "stats": engine.stats.as_dict()},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms": steady["draft_time_s"] * 1e3,
+        "flow_ms": steady["flow_time_s"] * 1e3,
+        "per_nfe_ms": steady["per_nfe_s"] * 1e3,
+        "samples_per_s": rows / (steady["draft_time_s"] + steady["flow_time_s"]),
+        "draft_cost_ratio": steady["speedup_report"].draft_cost_ratio,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flow_busy_share": prof.get("busy_share"), "flow_profile": prof,
+        "launches_per_serve": per_serve, "vs_eager": vs_eager, "logits_vs_cpu": logits,
+        "capture_ms": {"decode": engine.graphs.stats()["capture_ms"],
+                       "refine": server.graphs.stats()["capture_ms"]},
+    }
+    del model, adapter, engine, server
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{arch} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+          f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.1f} ms an NFE), "
+          f"{res['samples_per_s']:.2f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.3f}, peak memory {res['peak_memory_gb']:.1f} GiB; "
+          f"{res['seconds']:.1f} s")
+    return res, counts
+
+
+def recurrent_path():
+    """The recurrent family's phase: the kernels at its shapes, zamba2-2.7b
+    served (profiled), xlstm-1.3b served, both smoke configs card == CPU.
+    Returns (the {"recurrent": ...} record, zamba2-2.7b's serve launches)."""
+    t0 = time.perf_counter()
+    res = {"kernel_errors": rec_kernel_gates(), "kernels": rec_measure()}
+    res[REC_ARCH], counts = recurrent_serve(REC_ARCH)
+    res[XLSTM_ARCH], xlstm_counts = recurrent_serve(XLSTM_ARCH, profile=False)
+    res["smoke_vs_cpu"] = check_zoo_smoke_against_cpu(REC_SMOKE_ARCHS)
+    res["phase_seconds"] = time.perf_counter() - t0
+    counts = {k: counts.get(k, 0) + xlstm_counts.get(k, 0) for k in set(counts) | set(xlstm_counts)}
+    print(f"recurrent phases (kernel gates, measurements, {REC_ARCH} and {XLSTM_ARCH} serves, "
+          f"smoke configs): {res['phase_seconds']:.1f} s")
+    return res, counts
 
 
 def _category(name: str) -> str:
@@ -3605,13 +3821,13 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
-    # flash_attn at head dims 16, 32, 64, 128, 256; qkv_rope and attn_cached at 16, 32,
+    # flash_attn at head dims 16, 32, 64, 80, 128, 256; qkv_rope and attn_cached at 16, 32,
     # 64, 128; post_attn's wo, down, up and gated up, each whole and staged; the head at
     # 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
     # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
     # the noise given and keyed; ws_fused at each with lg in registers and re-read; the
     # device-key ws_step and keyed ws_step_gumbel (the refine graphs' steps) at each G
-    for kernel, count in (("flash_attn_kernel", 5), ("post_attn_proj_kernel", 8),
+    for kernel, count in (("flash_attn_kernel", 6), ("post_attn_proj_kernel", 8),
                           ("qkv_rope_kernel", 4), ("attn_cached_kernel", 4),
                           ("head_proj_kernel", 8),
                           ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
@@ -3707,6 +3923,7 @@ def main() -> int:
     zoo["phase_seconds"] = time.perf_counter() - t_zoo
     print(f"zoo phases (kernel gates, measurements, {ZOO_ARCH} serve, gemma3-1b logits, "
           f"smoke configs): {zoo['phase_seconds']:.1f} s")
+    recurrent, rec_counts = recurrent_path()
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -3804,6 +4021,18 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "flash_attn")["zoo_hd256"] = {
         "config": "gemma3-1b", **zoo_num["flash_attn_hd256"],
         "launches": zoo["gemma3_1b_logits"]["flash_attn_launches"]}
+    rec_num, rec_errs = recurrent["kernels"], recurrent["kernel_errors"]
+    rec_flash = next(k for k in kernels if k["name"] == "flash_attn")
+    rec_flash["max_abs_err"] = max(rec_flash["max_abs_err"], rec_errs["flash_attn"])
+    rec_flash["recurrent"] = {"config": REC_ARCH, "launches": rec_counts.get("flash_attn", 0),
+                              "max_abs_err": rec_errs["flash_attn"], **rec_num["flash_attn"]}
+    rec_ws = next(k for k in kernels if k["name"] == "ws_step")
+    rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], rec_errs["ws_step"])
+    rec_ws["recurrent"] = {"configs": [REC_ARCH, XLSTM_ARCH],
+                           "launches": rec_counts.get("ws_step", 0),
+                           "max_abs_err": rec_errs["ws_step"],
+                           "v32000": rec_num["ws_step_v32000"],
+                           "v50304": rec_num["ws_step_v50304"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -3820,6 +4049,7 @@ def main() -> int:
     print(json.dumps({"policy": policy}))
     print(json.dumps({"distilled": distilled}))
     print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"recurrent": recurrent}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

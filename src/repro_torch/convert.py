@@ -8,7 +8,11 @@ torch model keeps one module per layer, in the order the JAX stack runs
 them: the prefix layers ``stack|pre|x{j}|...``, then repeat ``r`` of the
 scanned group, pattern position ``p`` (Gemma3's six positions are
 ``p0``-``p5``), then the remainder layers ``stack|rem|r{j}|...``
-(prefix and remainder unstacked).
+(prefix and remainder unstacked). Zamba2's shared block
+``stack|zshared|...`` (one copy, unstacked) is the model's ``zshared``
+module; its per-layer ``fuse`` and unused ``ln1`` are ordinary layer leaves.
+The recurrent kinds' leaves (``mamba|a_log``, ``mlstm|wq``,
+``slstm|r_gates``, ...) map by name like the rest.
 
 Every other leaf maps by name: biases (``...|wq|b``), the gated MLP's
 ``mlp|gate|w``, norms without a bias (rmsnorm: ``scale`` only), qk-norm's
@@ -41,6 +45,7 @@ _LSTM_LAYER = re.compile(r"^layers\|(\d+)\|(wx|wh)\|w$")
 _REM = re.compile(r"^stack\|rem\|r(\d+)\|(.+)$")
 _PRE = re.compile(r"^stack\|pre\|x(\d+)\|(.+)$")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
+_SHARED = "stack|zshared|"        # JAX's shared-block leaves; the torch ``zshared.``
 
 
 def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -69,6 +74,9 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
                      else int(pre.group(1)))
             rest = (rem or pre).group(2).replace("|", ".")
             out[f"blocks.{layer}.{rest}"] = torch.from_numpy(arr.copy())
+        elif name.startswith(_SHARED):
+            out["zshared." + name[len(_SHARED):].replace("|", ".")] = torch.from_numpy(
+                arr.copy())
         elif name.startswith("stack|"):
             raise KeyError(f"stack leaf {name} has no counterpart in the torch model")
         else:
@@ -83,7 +91,10 @@ def jax_leaf_name(torch_name: str, reps: int, n_pattern: int,
     ``n_pre`` prefix layers, then, with ``l = i - n_pre``,
     (``stack|blocks|p{l % P}|rest``, slice ``l // P``) for the ``reps * P``
     stacked layers and (``stack|rem|r{j}|rest``, None) for remainder layer
-    ``j``; any other name -> (its ``|`` path, None)."""
+    ``j``; ``zshared.rest`` -> (``stack|zshared|rest``, None); any other
+    name -> (its ``|`` path, None)."""
+    if torch_name.startswith("zshared."):
+        return _SHARED + torch_name[len("zshared."):].replace(".", "|"), None
     m = _TORCH_BLOCK.match(torch_name)
     if m is None:
         return torch_name.replace(".", "|"), None

@@ -9,7 +9,8 @@
 // Layout. q (B, S, H, D), k and v (B, T, KH, D), o (B, S, H, D), all
 // contiguous float32: the JAX wrapper's layout, read in place, so no
 // transpose or GQA copy runs around the kernel. Query head h reads KV
-// head h / (H / KH). D = 16, 32, 64, 128 or 256 (gemma3-1b).
+// head h / (H / KH). D = 16, 32, 64, 80 (Zamba2's shared attention), 128
+// or 256 (gemma3-1b).
 //
 // Bounds on an H100 SXM at the DiT's shape (B = 32, H = 12, S = T = 256,
 // D = 64). Bytes: 4 * 25.2 MB of q, k, v, o is 30 us at 3.35 TB/s. The two
@@ -27,7 +28,11 @@
 // - Grid (B * H, ceil(S / 64)); 4 warps own 16 query rows each (the M of
 //   mma.sync.m16n8k8). Both products are mma.sync TF32 with the 3xTF32
 //   split and float32 accumulators; Q is split once into hi/lo A fragments
-//   (registers for D <= 64, re-split from shared memory for D = 128).
+//   (registers for D <= 64, re-split from shared memory for D = 80 and 128).
+//   At D = 80 a row is 20 16-byte vectors (a 64-row Q tile and a 32-key
+//   tile are 10 and 5 copies a thread) and the padded row of 84 floats
+//   still spreads a fragment's 32 loads over 32 banks; the tiles take
+//   64.5 KB of shared memory.
 // - K/V tiles of 32 keys are double-buffered in shared memory: the 16-byte
 //   cp.async copies of tile j + 1 (zero-filled past T) are in flight while
 //   tile j computes. Rows are padded to D + 4 floats, so the B-fragment
@@ -378,6 +383,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
     case 16: return launch<16>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 32: return launch<32>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 64: return launch<64>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
+    case 80: return launch<80>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 128: return launch<128>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     case 256: return launch<256>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

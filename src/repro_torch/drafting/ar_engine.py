@@ -23,12 +23,20 @@ paper's LSTM (§4.2), whose "cache" is its recurrent state.
   the cache cursors to the prompt length (KV rows past it are masked by
   cache validity, so the previous call's tokens never leak). A recurrent
   adapter (``positional = False``) keeps the post-prefill state itself: its
-  steps make new tensors and never write the snapshot.
+  steps make new tensors and never write the snapshot. A model with
+  recurrent layers (Mamba2, mLSTM, sLSTM, Zamba2's hybrid) behind a
+  positional adapter keeps both kinds in one cache: the KV leaves are
+  rewound, and the recurrent leaves hold the post-prefill state, which the
+  decode steps never write (each returns new tensors), so a reused prefix
+  starts from exactly the state a fresh prefill leaves. (The JAX engine
+  rewinds only the cursors and decodes a hybrid or recurrent model from
+  the state its previous call left: reference fault R7.)
 * **in place** — the cache buffers are written in place where the JAX
   engine donates them. A positional adapter's cache is allocated once per
-  row count and kept for the engine's lifetime (the decode graphs write
-  those very buffers): a new prompt is prefilled into it and its cursors
-  are rewound in place.
+  row count and kept for the engine's lifetime (the decode graphs read and
+  write those very buffers): a new prompt is prefilled from it emptied in
+  place (``clear``), the prefill's recurrent leaves are copied into it
+  (``store``) and its cursors are rewound in place.
 * **row-keyed sampling** — token ``i`` of row ``b`` is
   ``categorical(fold_in(keys[b], i), logits / temperature)``: a row depends
   only on its own key and the prompt (pack-invariant, prefix-stable). The
@@ -44,7 +52,9 @@ prefill equals the scan bitwise and is the default.
 Adapter contract: ``device``, ``init_cache(batch, max_len)``,
 ``decode_step(tok (B,), cache, pos) -> (logits (B, V), cache)``,
 ``prefill_batched(toks (B, S), cache)``, ``positional`` (cursors in the
-cache, rewound in place by ``set_pos``) and ``exact_batched_prefill``. The
+cache, rewound in place by ``set_pos``; such an adapter also has
+``clear(cache, batch)`` and ``store(cache, new)``) and
+``exact_batched_prefill``. The
 adapter holds its model's parameters; on the card its steps must not
 synchronise with the host, or the decode's capture raises.
 """
@@ -62,6 +72,7 @@ import torch
 from repro_torch import prng
 from repro_torch.graphs import GraphCache
 from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supported
+from repro_torch.models.model import IN_PLACE_LEAVES
 
 
 def row_gumbel(keys: torch.Tensor, n: int, vocab: int, device) -> torch.Tensor:
@@ -82,9 +93,10 @@ class TransformerDraftAdapter:
     """A decoder-only causal ``repro_torch.models.Model`` as draft substrate.
 
     The cache is ``Model.init_cache``'s tree (stacked ``(layers, B, T,
-    kv_heads, head_dim)`` k/v leaves and per-layer cursors ``pos``); cache
-    validity masks every position at or past a cursor, which is what makes
-    reusing a buffer across calls safe.
+    kv_heads, head_dim)`` k/v leaves and per-layer cursors ``pos``, and a
+    recurrent layer's state leaves); cache validity masks every position at
+    or past a cursor, which is what makes reusing a buffer across calls
+    safe, and the recurrent leaves are replaced, never written, by a step.
 
     ``decode_impl``: "kernel" runs the ``draft_decode`` kernels (and raises
     on a config outside their subset); "xla" the model's own plain-torch
@@ -148,6 +160,24 @@ class TransformerDraftAdapter:
         for group in ("blocks", "rem", "pre"):
             for leaves in cache.get(group, {}).values():
                 leaves["pos"].fill_(pos)
+        return cache
+
+    def clear(self, cache: dict, batch: int) -> dict:
+        """``cache`` emptied in place: every leaf but the KV buffers (cursors,
+        recurrent states) set to ``init_cache``'s value; KV rows stay,
+        masked past the cursor. Returns ``cache``."""
+        return self.store(cache, self.model.init_cache(batch, 1, self.cache_dtype))
+
+    @staticmethod
+    def store(cache: dict, new: dict) -> dict:
+        """Every leaf of ``new`` but the KV buffers copied into ``cache``'s
+        (same tree), in place: a step's replaced leaves into the buffers a
+        decode graph reads. Returns ``cache``."""
+        for group, slots in new.items():
+            for name, leaves in slots.items():
+                for k, v in leaves.items():
+                    if k not in IN_PLACE_LEAVES:
+                        cache[group][name][k].copy_(v)
         return cache
 
 
@@ -326,8 +356,8 @@ class ARDraftEngine:
             cache = self._caches.get(b)
             if cache is None:
                 cache = self._caches[b] = self.adapter.init_cache(b, self.max_len)
-            logits0, _ = self._prefill(self.adapter.set_pos(cache, 0), prompt)
-            self.adapter.set_pos(cache, p)
+            logits0, out = self._prefill(self.adapter.clear(cache, b), prompt)
+            self.adapter.set_pos(self.adapter.store(cache, out), p)
         else:
             logits0, cache = self._prefill(self.adapter.init_cache(b, self.max_len), prompt)
         self.stats.prefill_computes += 1

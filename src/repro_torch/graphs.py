@@ -35,7 +35,9 @@ launches nothing, the kernels' wrappers count into the graph's tally
 ``launches``. A call that captures thus counts the loop twice, a replay
 once. ``captures`` and ``replays`` are the jit cache's misses and hits;
 ``capture_s`` holds each key's warm-up and capture wall time, apart from
-its replays.
+its replays; ``last_warmup`` holds the output of the latest capture's
+warm-up, that key's eager launches on the inputs of its first call (the
+yardstick a caller may hold the first replay against).
 """
 
 from __future__ import annotations
@@ -132,6 +134,7 @@ class GraphCache:
         self.captures = 0
         self.replays = 0
         self.capture_s: Dict[Hashable, float] = {}
+        self.last_warmup = None
 
     def __len__(self) -> int:
         return len(self._graphs)
@@ -162,7 +165,7 @@ class GraphCache:
         side = self._stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn(*static)
+            warm = fn(*static)
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()      # private to this graph
         tally: collections.Counter = collections.Counter()
@@ -185,6 +188,7 @@ class GraphCache:
                     f"capturing {self.what} (key {key}) failed at {_where(cause)}: {cause}"
                     + (f"; {self.hint}" if self.hint else "")) from cause
         torch.cuda.current_stream(dev).wait_stream(side)
+        self.last_warmup = warm
         self.captures += 1
         self.capture_s[key] = time.perf_counter() - t0
         return _Graph(graph, static, out, tally)
@@ -192,6 +196,7 @@ class GraphCache:
     def clear(self) -> None:
         """Drop every graph and its memory pool (the counters stay)."""
         self._graphs.clear()
+        self.last_warmup = None
 
     def stats(self) -> dict:
         return {"captures": self.captures, "replays": self.replays, "graphs": len(self._graphs),

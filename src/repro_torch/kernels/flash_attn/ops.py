@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import NEG_INF, attention_mask, flash_attention_ref
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -1,23 +1,30 @@
-"""The torch backbone: embeddings + time conditioning + attention blocks +
+"""The torch backbone: embeddings + time conditioning + the block stack +
 head (port of the JAX package's ``models/model.py`` for the dense attention
-configs: the DiT and the dense zoo, Gemma3's local/global layers, dual
-RoPE, qk-norm, post-norms and scaled embeddings included), in DFM-denoiser
-and causal modes, with the AR serving entry points ``init_cache``,
-``prefill`` and ``decode_step``.
+configs, the DiT and the dense zoo with Gemma3's local/global layers, dual
+RoPE, qk-norm, post-norms and scaled embeddings, and for the recurrent
+family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM), in
+DFM-denoiser and causal modes, with the AR serving entry points
+``init_cache``, ``prefill`` and ``decode_step``.
 
 ``Model(cfg, device="cuda", seed=0)`` holds its weights as an
 ``nn.Module`` built from a seeded ``torch.Generator`` on ``device``; a JAX
 checkpoint loads with ``model.load_state_dict(jax_params_to_torch(flat))``
-(``repro_torch.convert``).
+(``repro_torch.convert``). A config with ``zshared`` layers holds the
+shared block once, as ``Model.zshared``.
 
 The layers run in JAX's stack order (``transformer.apply_stack``): the
 ``prefix`` layers, ``reps`` repeats of ``pattern``, then the remainder
-``pattern[:rem]``. The KV cache keeps the JAX tree
+``pattern[:rem]``. The cache keeps the JAX tree
 (``transformer.init_stack_cache``): ``{"pre": {"x{j}": ...}, "blocks":
-{"p{p}": {"k", "v": (reps, B, T, KH, hd), "pos": (reps,) int32}}, "rem":
-{"r{j}": ...}}``: prefix layer ``j`` is ``pre/x{j}``, layer ``npre + r * P
-+ p`` is slice ``r`` of ``blocks/p{p}``, remainder layer ``j`` is
-``rem/r{j}`` (unstacked, ``pos`` a scalar).
+{"p{p}": leaves}, "rem": {"r{j}": ...}}``: prefix layer ``j`` is
+``pre/x{j}``, layer ``npre + r * P + p`` is slice ``r`` of ``blocks/p{p}``
+(every leaf with a leading ``(reps,)``), remainder layer ``j`` is
+``rem/r{j}`` (unstacked, ``pos`` a scalar). A layer's leaves are its
+kind's: ``{"k", "v", "pos"}`` for the attention kinds (``zshared``
+included), ``{"conv", "ssm", "pos"}`` for ``mamba``, ``{"conv", "c", "n",
+"m", "pos"}`` for ``mlstm``, ``{"c", "n", "m", "hid", "pos"}`` for
+``slstm``. KV buffers are written in place; every other leaf of the cache
+a step returns is a new tensor.
 """
 
 from __future__ import annotations
@@ -32,17 +39,37 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_gqa_cache
 from repro_torch.models.common import Dense, Embedding, TimeEmbed, make_norm
 from repro_torch.models.rope import rope_context
-from repro_torch.models.transformer import KINDS, Block
+from repro_torch.models.ssm import init_mamba2_cache
+from repro_torch.models.transformer import ATTN_KINDS, KINDS, Block, SharedBlock
+from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
+
+# the cache leaves written in place (the KV buffers); the others are replaced
+IN_PLACE_LEAVES = ("k", "v")
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
+                     device) -> dict:
+    """One layer's zeroed cache (JAX ``init_block_cache``)."""
+    if kind in ATTN_KINDS:
+        return init_gqa_cache(cfg, batch, max_len, dtype, device)
+    if kind == "mamba":
+        return init_mamba2_cache(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return init_mlstm_cache(cfg, batch, dtype, device)
+    if kind == "slstm":
+        return init_slstm_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense attention config this port runs:
-    ``attn``/``local`` layers, layernorm or rmsnorm, standard, dual or no
+    """Raise unless ``cfg`` is a config this port runs: the dense, ssm or
+    hybrid family with ``attn``, ``local``, ``mamba``, ``mlstm``, ``slstm``
+    and ``zshared`` layers, layernorm or rmsnorm, standard, dual or no
     RoPE, qk-norm, post-norms and scaled embeddings allowed, float32. MoE,
-    MLA, encoder-decoder, recurrent and VLM configs, the logit softcap and
-    other dtypes raise."""
+    MLA, encoder-decoder and VLM configs, the logit softcap and other
+    dtypes raise."""
     unsupported = []
-    if cfg.is_encoder_decoder or cfg.family not in ("dense",):
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid"):
         unsupported.append(f"family={cfg.family}")
     if not set(cfg.prefix + cfg.pattern) <= set(KINDS):
         unsupported.append(f"layers={cfg.prefix + cfg.pattern}")
@@ -70,6 +97,8 @@ class Model(nn.Module):
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, gen, dev, scale=cfg.embed_scale)
         self.blocks = nn.ModuleList(Block(cfg, gen, dev, kind) for kind in layer_kinds(cfg))
+        # Zamba2's shared attention + MLP, held once (JAX ``stack|zshared``)
+        self.zshared = SharedBlock(cfg, gen, dev) if "zshared" in cfg.pattern else None
         self.final_norm = make_norm(cfg, dev)
         self.time = TimeEmbed(cfg, gen, dev)
         # tied: the head is the embedding table, transposed (JAX ``unembed``)
@@ -89,16 +118,18 @@ class Model(nn.Module):
     def forward(self, tokens: torch.Tensor, t: Optional[torch.Tensor] = None, *,
                 global_window: Optional[int] = None) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V). With ``t`` (B,) the model is
-        the DFM denoiser (bidirectional, time-conditioned); without, a
-        causal LM."""
+        the DFM denoiser (bidirectional attention, time-conditioned;
+        recurrent layers stay causal); without, a causal LM."""
         x = self.embed(tokens)
         if t is not None:
             x = x + self.time(t)[:, None, :]
         mode = "bidir" if t is not None else "causal"
         pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
         rope = rope_context(self.cfg, pos)
+        x0 = x
         for block in self.blocks:
-            x = block(x, rope=rope, mode=mode, global_window=global_window)
+            x = block(x, rope=rope, mode=mode, global_window=global_window, x0=x0,
+                      shared=self.zshared)
         return self._head(x)
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -122,25 +153,28 @@ class Model(nn.Module):
             yield "rem", f"r{j}", None
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16) -> dict:
-        """Zeroed KV cache in the JAX ``init_stack_cache`` layout, on the
-        model's device."""
+        """Zeroed cache in the JAX ``init_stack_cache`` layout, on the
+        model's device (recurrent states float32 where JAX keeps them so)."""
         cfg = self.cfg
         reps, rem = cfg.scan_split()
         cache: dict = {"blocks": {}, "rem": {}, "pre": {}}
-        for j in range(len(cfg.prefix)):
-            cache["pre"][f"x{j}"] = init_gqa_cache(cfg, batch, max_len, dtype, self.device)
+
+        def one(kind):
+            return init_block_cache(cfg, kind, batch, max_len, dtype, self.device)
+
+        for j, kind in enumerate(cfg.prefix):
+            cache["pre"][f"x{j}"] = one(kind)
         if reps:
-            for p in range(len(cfg.pattern)):
-                one = init_gqa_cache(cfg, batch, max_len, dtype, self.device)
+            for p, kind in enumerate(cfg.pattern):
                 cache["blocks"][f"p{p}"] = {
-                    k: v.expand((reps,) + v.shape).clone() for k, v in one.items()}
-        for j in range(len(rem)):
-            cache["rem"][f"r{j}"] = init_gqa_cache(cfg, batch, max_len, dtype, self.device)
+                    k: v.expand((reps,) + v.shape).clone() for k, v in one(kind).items()}
+        for j, kind in enumerate(rem):
+            cache["rem"][f"r{j}"] = one(kind)
         return cache
 
     @staticmethod
     def layer_cache(cache: dict, slot) -> dict:
-        """The ``{"k", "v", "pos"}`` views of one layer's cache."""
+        """The views of one layer's cache leaves."""
         group, name, idx = slot
         leaves = cache[group][name]
         return leaves if idx is None else {k: v[idx] for k, v in leaves.items()}
@@ -153,18 +187,23 @@ class Model(nn.Module):
                  + offset).expand(b, s)
         rope = rope_context(self.cfg, q_pos)
         new: dict = {"blocks": {}, "rem": {}, "pre": {}}
-        cursors: dict = {}
+        stacked: dict = {}
+        x0 = x
         for block, slot in zip(self.blocks, self.layer_slots()):
             x, lc = block.forward_cached(x, self.layer_cache(cache, slot), rope=rope,
-                                         q_pos=q_pos, global_window=global_window)
+                                         q_pos=q_pos, global_window=global_window, x0=x0,
+                                         shared=self.zshared)
             group, name, idx = slot
             if idx is None:
                 new[group][name] = lc
             else:
-                cursors.setdefault(name, []).append(lc["pos"])
-        for name, pos in cursors.items():
+                stacked.setdefault(name, []).append(lc)
+        for name, lcs in stacked.items():
+            # KV buffers were written through their slices; the rest restacks
             leaves = cache["blocks"][name]
-            new["blocks"][name] = {"k": leaves["k"], "v": leaves["v"], "pos": torch.stack(pos)}
+            new["blocks"][name] = {
+                k: leaves[k] if k in IN_PLACE_LEAVES else torch.stack([lc[k] for lc in lcs])
+                for k in leaves}
         return x, new
 
     def prefill(self, batch: dict, cache: dict, *,

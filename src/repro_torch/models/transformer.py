@@ -1,16 +1,26 @@
-"""Transformer block of the torch backbone (port of the ``attn`` and
-``local`` branches of the JAX package's ``models/transformer.py::apply_block``):
+"""Blocks of the torch backbone (port of the JAX package's
+``models/transformer.py::apply_block`` for the ``attn``, ``local``,
+``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds):
 
-    x = x + post_attn(attn(norm1(x)));  x = x + post_ffn(mlp(norm2(x)))
+    attn/local:  x = x + post_attn(attn(ln1(x)));  x = x + post_ffn(mlp(ln2(x)))
+    mamba/mlstm/slstm:  x = x + mixer(ln1(x))
+    zshared:  h = fuse([x, x0]);  x = x + attn(ln1'(h));  x = x + mlp(ln2'(x))
 
 ``post_attn``/``post_ffn`` exist only with ``cfg.post_norms`` (Gemma3). A
 ``local`` block attends within ``cfg.sliding_window`` on the local RoPE
 angles; an ``attn`` block within ``global_window`` (None: everywhere) on
-the global ones.
+the global ones. The recurrent kinds (``models/ssm.py``,
+``models/xlstm.py``) are causal whatever the mode. ``zshared`` is Zamba2's
+shared block: each such layer owns only its ``fuse`` projection of
+``[x, x0]`` (``x0`` the embedded input after the time embedding) and runs
+the model's one :class:`SharedBlock` (``ln1'``, attention, ``ln2'``,
+MLP), with the global attention arguments. Like JAX's ``init_block``,
+every layer has an ``ln1``, which a ``zshared`` layer never reads; it is
+kept so the weights convert both ways.
 
 The JAX package stacks the layers' weights and scans over them; here the
-stack is a list of per-layer modules (see ``Model``). Its KV cache keeps
-the JAX layout (``init_stack_cache``), which ``Model`` builds.
+stack is a list of per-layer modules (see ``Model``). Its caches keep the
+JAX layout (``init_stack_cache``), which ``Model`` builds.
 """
 
 from __future__ import annotations
@@ -22,22 +32,45 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import GQAAttention
-from repro_torch.models.common import MLP, make_norm
+from repro_torch.models.common import MLP, Dense, make_norm
+from repro_torch.models.ssm import Mamba2
+from repro_torch.models.xlstm import MLSTM, SLSTM
 
-KINDS = ("attn", "local")   # the layer kinds a Block runs
+KINDS = ("attn", "local", "mamba", "mlstm", "slstm", "zshared")   # the kinds a Block runs
+ATTN_KINDS = ("attn", "local", "zshared")
+RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
+
+
+class SharedBlock(nn.Module):
+    """Zamba2's attention + MLP, shared by every ``zshared`` layer (JAX
+    ``init_shared``: ``stack|zshared|{ln1, attn, ln2, mlp}``)."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        self.ln1 = make_norm(cfg, device)
+        self.attn = GQAAttention(cfg, gen, device)
+        self.ln2 = make_norm(cfg, device)
+        self.mlp = MLP(cfg, gen, device)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device, kind: str = "attn"):
         super().__init__()
+        if kind not in KINDS:
+            raise ValueError(f"unknown layer kind {kind!r}")
         self.kind = kind
         self.window = cfg.sliding_window if kind == "local" else None
         self.ln1 = make_norm(cfg, device)
-        self.attn = GQAAttention(cfg, gen, device)
-        self.ln2 = make_norm(cfg, device)
-        self.mlp = MLP(cfg, gen, device)
-        self.post_attn = make_norm(cfg, device) if cfg.post_norms else None
-        self.post_ffn = make_norm(cfg, device) if cfg.post_norms else None
+        if kind in ("attn", "local"):
+            self.attn = GQAAttention(cfg, gen, device)
+            self.ln2 = make_norm(cfg, device)
+            self.mlp = MLP(cfg, gen, device)
+            self.post_attn = make_norm(cfg, device) if cfg.post_norms else None
+            self.post_ffn = make_norm(cfg, device) if cfg.post_norms else None
+        elif kind == "zshared":
+            self.fuse = Dense(2 * cfg.d_model, cfg.d_model, gen, device)
+        else:
+            setattr(self, kind, RECURRENT[kind](cfg, gen, device))
 
     def _attn_args(self, rope: dict, global_window: Optional[int]):
         """(sin, cos, window) of this block (JAX ``apply_block``'s ``attn_args``)."""
@@ -55,14 +88,34 @@ class Block(nn.Module):
         return x + h
 
     def forward(self, x: torch.Tensor, *, rope: dict, mode: str,
-                global_window: Optional[int] = None) -> torch.Tensor:
+                global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,
+                shared: Optional[SharedBlock] = None) -> torch.Tensor:
+        if self.kind in RECURRENT:
+            return x + getattr(self, self.kind)(self.ln1(x))[0]
         sin, cos, window = self._attn_args(rope, global_window)
+        if self.kind == "zshared":
+            h = self.fuse(torch.cat([x, x0], dim=-1))
+            x = x + shared.attn(shared.ln1(h), sin=sin, cos=cos, mode=mode, window=window)
+            return x + shared.mlp(shared.ln2(x))
         return self._finish(x, self.attn(self.ln1(x), sin=sin, cos=cos, mode=mode,
                                          window=window))
 
     def forward_cached(self, x: torch.Tensor, cache: dict, *, rope: dict, q_pos: torch.Tensor,
-                       global_window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
+                       global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,
+                       shared: Optional[SharedBlock] = None) -> Tuple[torch.Tensor, dict]:
+        """The block over a chunk at positions ``q_pos`` with its cache: KV
+        buffers are written in place, a recurrent state comes back as new
+        tensors (the one given is not written)."""
+        if self.kind in RECURRENT:
+            h, cache = getattr(self, self.kind)(self.ln1(x), cache)
+            return x + h, cache
         sin, cos, window = self._attn_args(rope, global_window)
+        if self.kind == "zshared":
+            h = self.fuse(torch.cat([x, x0], dim=-1))
+            h, cache = shared.attn.forward_cached(shared.ln1(h), cache, sin=sin, cos=cos,
+                                                  q_pos=q_pos, window=window)
+            x = x + h
+            return x + shared.mlp(shared.ln2(x)), cache
         h, cache = self.attn.forward_cached(self.ln1(x), cache, sin=sin, cos=cos,
                                             q_pos=q_pos, window=window)
         return self._finish(x, h), cache

@@ -27,6 +27,7 @@ from repro_torch.optim.schedule import clip_by_global_norm
 from repro_torch.training.state import TrainState
 
 EXTRA_KEYS = ("frames", "patches", "positions")
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm", "zshared")   # served, not trained, by the port
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -43,6 +44,10 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
         raise _not_ported("remat (activation rematerialisation)", "a later training item")
     if cfg.moe.num_experts:
         raise _not_ported("the MoE router auxiliary loss", "the zoo's MoE family")
+    recurrent = sorted(set(cfg.prefix + cfg.pattern) & set(RECURRENT_KINDS))
+    if recurrent:
+        raise _not_ported(f"training {recurrent} layers",
+                          "the recurrent family's training, a later item")
 
     def loss_fn(model, batch, rng):
         extras = [k for k in EXTRA_KEYS if k in batch]

@@ -120,6 +120,10 @@ def test_ws_step_group_sizes_agree_bitwise(card, r, v, temperature):
     (1, 600, 600, 4, 1, 256, False, 512),   # D = 256 (gemma3-1b's local layer), band cut
     (1, 300, 300, 4, 1, 256, True, 128),    # D = 256, a causal window
     (2, 130, 130, 4, 2, 256, True, None),   # D = 256, GQA, a tail
+    (2, 256, 256, 32, 32, 80, False, None), # D = 80 (zamba2-2.7b's shared attention)
+    (2, 256, 256, 32, 32, 80, True, None),  # D = 80, causal
+    (2, 77, 77, 4, 2, 80, True, 20),        # D = 80, GQA, a causal window, a tail
+    (2, 100, 300, 4, 4, 80, False, 37),     # D = 80, S != T, a bidirectional band
 ])
 def test_flash_attention_kernel_matches_plain(card, b, s, t, h, kh, d, causal, window):
     g = torch.Generator(device=card).manual_seed(s)
@@ -1098,3 +1102,29 @@ def test_backbone_trains_through_the_kernel_on_card(card):
                         steps=3)
     assert int(state.step) == 3 and len(trainer.step_ms()) == 3
     assert all(bool(torch.isfinite(x)) for x in trainer.step_losses + trainer.step_grad_norms)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+def test_recurrent_decode_graph_equals_eager_and_a_fresh_engine(card, arch):
+    """The recurrent smoke configs' draft on the card (the plain path,
+    prompt prefilled by scan): the decode graph's tokens equal the eager
+    loop's bitwise, over a computed prefix, the prefix reused, another
+    prompt recomputed into the same buffers and the first recomputed back;
+    each call equals a fresh engine's (the reused state is the post-prefill
+    state: reference fault R7 not carried over); one capture."""
+    from repro_torch.configs import get_smoke_config
+
+    adapter = TransformerDraftAdapter(model=Model(get_smoke_config(arch), device=card, seed=1))
+    eng = ARDraftEngine(adapter, max_len=16)
+    assert eng.prefill_mode == "scan" and not adapter.exact_batched_prefill
+    prompt = torch.tensor([[1, 2, 3]] * 2, dtype=torch.int32)
+    other = torch.tensor([[4, 5, 6], [7, 8, 9]], dtype=torch.int32)
+    for seed, p in ((3, prompt), (4, prompt), (5, other), (6, prompt), (7, prompt)):
+        keys = prng.split(prng.key(seed), 2)
+        got = eng.generate_rows(keys, 12, prompt=p)
+        assert torch.equal(got, eng._generate_rows_eager(keys, 12, prompt=p)), seed
+        fresh = ARDraftEngine(adapter, max_len=16)._generate_rows_eager(keys, 12, prompt=p)
+        assert torch.equal(got, fresh), seed
+    assert eng.graphs.captures == 1
+    assert eng.stats.prefill_reuses >= 3
+

@@ -103,10 +103,11 @@ def test_rope_and_time_embed_match_jax():
 
 def test_unsupported_configs_raise():
     """Since the dense zoo, ``local`` layers, qk-norm, post-norms, dual RoPE
-    and scaled embeddings are supported; MoE/MLA/recurrent kinds, the logit
-    softcap and other dtypes still raise."""
+    and scaled embeddings are supported, and since the recurrent family the
+    ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds; MoE/MLA kinds, the
+    logit softcap and other dtypes still raise."""
     cfg = dfm_dit.smoke_config()
-    for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("mamba",)),
+    for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("moe",)),
                 cfg.replace(attn_logit_softcap=30.0), cfg.replace(dtype="bfloat16"),
                 cfg.replace(prefix=("mla",)), cfg.replace(rope_type="mrope"),
                 cfg.replace(act="swish"), cfg.replace(family="moe")):
@@ -117,7 +118,9 @@ def test_unsupported_configs_raise():
                  cfg.replace(mlp_gated=True, use_bias=True, act="relu"),
                  cfg.replace(rope_type="none"), cfg.replace(pattern=("local",)),
                  cfg.replace(qk_norm=True, post_norms=True, embed_scale=True),
-                 cfg.replace(rope_type="dual")):
+                 cfg.replace(rope_type="dual"), cfg.replace(pattern=("mamba",)),
+                 cfg.replace(family="hybrid", pattern=("mamba", "zshared")),
+                 cfg.replace(family="ssm", pattern=("mlstm", "slstm"))):
         check_supported(good)
 
 

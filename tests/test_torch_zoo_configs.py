@@ -22,7 +22,8 @@ from repro_torch.models.model import check_supported, layer_kinds
 
 ZOO = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "gemma3-1b")
 NOT_PORTED = {"arctic-480b": "MoE", "deepseek-v3-671b": "MLA", "whisper-medium": "encoder",
-              "xlstm-1.3b": "recurrent", "zamba2-2.7b": "recurrent", "qwen2-vl-72b": "VLM"}
+              "qwen2-vl-72b": "VLM"}
+RECURRENT = ("zamba2-2.7b", "xlstm-1.3b")   # ported since the recurrent family
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
@@ -36,7 +37,7 @@ def test_config_fields_equal_jax(arch, which):
 
 
 def test_registry_lists_the_port_and_names_what_is_missing():
-    assert list_archs() == sorted(ZOO + ("dfm-dit",))
+    assert list_archs() == sorted(ZOO + RECURRENT + ("dfm-dit",))
     for arch, family in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=family):
             get_config(arch)
@@ -65,7 +66,7 @@ def test_model_and_draft_kernels_take_what_jax_takes(arch):
 
 def test_check_supported_refuses_the_rest_of_the_zoo():
     cfg = get_smoke_config("gemma3-1b")
-    for bad in (cfg.replace(family="moe"), cfg.replace(pattern=("mamba",)),
+    for bad in (cfg.replace(family="moe"), cfg.replace(pattern=("moe",)),
                 cfg.replace(prefix=("mla",)), cfg.replace(attn_logit_softcap=50.0),
                 cfg.replace(dtype="bfloat16"), cfg.replace(rope_type="mrope"),
                 cfg.replace(is_encoder_decoder=True), cfg.replace(family="vlm")):
