@@ -99,11 +99,27 @@ bitwise (the JAX engine's reference fault R7 not carried over), the
 logits at 1 x 64 against the CPU; zamba2-2.7b's flow stage profiled; both
 smoke configs served on the card == the CPU.
 
+Then the encoder-decoder family: ``flash_attn`` over whisper-medium's
+1500 frames (the encoder's 1500 x 1500, the cross attention's 256 x 1500,
+the draft decode's 1 x 1500; the smoke config's shapes) and ``ws_step`` at
+V = 51865 against their plain versions and timed; whisper-medium at its
+published widths and depth (float32, seed 0, 8 rows of 1500 frames made
+from a seed) served 8 x 256, 13 NFE, through ``WarmStartServer`` on a
+``Conditioned`` model (the frames bound to ``dfm_apply``), drafted by
+``ar_generate`` on the same config (seed 1) with the frames at seq_len 257
+(the JAX engine's reference fault R8: 256 tokens): two serves with exact
+launch counts (72 ``flash_attn`` and 1 ``ws_step`` a NFE; the draft 48 at
+its prefill and 24 a decode step), one capture, the second serve's replay
+== its eager launches bitwise, the logits at 1 x 64 against the CPU, an
+NFE's encoder and cross k/v shares and the flow stage profiled; the smoke
+config served on the card == the CPU.
+
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
-``{"distilled": ...}``, ``{"zoo": ...}`` and ``{"recurrent": ...}`` lines, a
-``{"kernels": [...]}`` line (the zoo's shapes under ``zoo``, the recurrent
-family's under ``recurrent``) and, last,
+``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}`` and
+``{"encdec": ...}`` lines, a ``{"kernels": [...]}`` line (the zoo's shapes
+under ``zoo``, the recurrent family's under ``recurrent``, whisper's under
+``encdec``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -568,16 +584,17 @@ def check_flash(b, s, h, kh, d, causal, window, seed, t=None):
     return err
 
 
-def measure_flash(b, s, h, d, kh=None, window=None):
-    """Bidirectional attention at (b, s, h, d) with kh KV heads (default h)
-    and an optional window. The library call is SDPA on the same inputs
-    with the KV heads repeated to h (and the window as a boolean mask);
-    the bound counts the (query, key) pairs the window keeps."""
+def measure_flash(b, s, h, d, kh=None, window=None, t=None):
+    """Bidirectional attention at (b, s, h, d) with kh KV heads (default h),
+    an optional window and t keys (default s). The library call is SDPA on
+    the same inputs with the KV heads repeated to h (and the window as a
+    boolean mask); the bound counts the (query, key) pairs the window
+    keeps."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref, ops
     from repro_torch.kernels.flash_attn.ref import attention_mask
 
-    kh = kh or h
-    q, k, v = flash_inputs(b, s, h, kh, d, 0)
+    kh, t = kh or h, t or s
+    q, k, v = flash_inputs(b, s, h, kh, d, 0, t)
     out = torch.empty_like(q)
     scale = 1.0 / math.sqrt(d)
     ms = graph_ms(lambda: ops._launch(q, k, v, out, causal=False, window=window, scale=scale))
@@ -586,11 +603,11 @@ def measure_flash(b, s, h, d, kh=None, window=None):
     qt, kt, vt = (z.transpose(1, 2).repeat_interleave(h // z.shape[2], dim=1).contiguous()
                   for z in (q, k, v))
     mask = (None if window is None
-            else attention_mask(s, s, causal=False, window=window, device="cuda"))
+            else attention_mask(s, t, causal=False, window=window, device="cuda"))
     library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
-    pairs = float(s * s if mask is None else mask.sum())
-    nbytes = 2 * b * s * (h + kh) * d * 4
+    pairs = float(s * t if mask is None else mask.sum())
+    nbytes = 2 * b * (s * h + t * kh) * d * 4     # q read and out written; k and v read
     nops = 4.0 * b * h * pairs * d
     # the function's bound: its products at the fastest rate that float32
     # inputs reach (TF32 on the tensor cores). For reference only, printed:
@@ -599,7 +616,7 @@ def measure_flash(b, s, h, d, kh=None, window=None):
     bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S)
     split_ms, split_by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
     f32_ms, f32_by = bound_ms(nbytes, nops)
-    print(f"flash_attn at ({b}, {s}, {h}, kv {kh}, {d}, window {window}): "
+    print(f"flash_attn at ({b}, {s}, {h}, kv {kh}, {d}, window {window}, T {t}): "
           f"{ms * 1e3:.1f} us device, "
           f"{nops / ms * 1e-9:.1f} TFLOP/s of the products ({3 * nops / ms * 1e-9:.1f} TF32 "
           f"TFLOP/s of 3xTF32); bound {bms * 1e3:.1f} us ({by}); computed floors for "
@@ -608,7 +625,7 @@ def measure_flash(b, s, h, d, kh=None, window=None):
           f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us")
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
-            "shape": {"B": b, "S": s, "H": h, "KH": kh, "D": d, "window": window}}
+            "shape": {"B": b, "S": s, "T": t, "H": h, "KH": kh, "D": d, "window": window}}
 
 
 def ptxas_usage(build_log: str) -> dict:
@@ -3716,6 +3733,320 @@ def recurrent_path():
     return res, counts
 
 
+# -- the encoder-decoder family ------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-medium"       # at its published widths and depth
+ENCDEC_ROWS = 8
+ENCDEC_FRAMES_SEED = 7               # the frames: 0.1 N(0, 1) from numpy, copied to the card
+ENCDEC_SMOKE_SEQ = 24                # the smoke config served 2 x 24 on the card and the CPU
+ENCDEC_PROFILE_STEPS = 32            # decode steps of the profiled draft
+
+
+def encdec_launches(cfg, nfe, seq=SEQ):
+    """Kernel launches of one whisper serve: (the refine's, the draft's). A
+    NFE runs flash_attn in every encoder layer, every decoder self
+    attention and every cross attention, and one ws_step; the draft of
+    ``seq`` tokens (``ar_generate`` at seq_len ``seq + 1``, reference fault
+    R8) runs the encoder and the cross attention at its prefill, then the
+    cross attention of each of its ``seq`` decode steps (the self attention
+    over the cache is plain torch)."""
+    per_nfe = cfg.num_encoder_layers + 2 * cfg.num_layers
+    refine = {"flash_attn": nfe * per_nfe, "ws_step": nfe}
+    draft = {"flash_attn": cfg.num_encoder_layers + cfg.num_layers * (1 + seq)}
+    return refine, draft
+
+
+def encdec_frames(cfg, rows, device="cuda"):
+    import numpy as np
+
+    rng = np.random.default_rng(ENCDEC_FRAMES_SEED)
+    frames = 0.1 * rng.standard_normal((rows, cfg.num_audio_frames, cfg.d_model))
+    return torch.from_numpy(frames.astype(np.float32)).to(device)
+
+
+def encdec_kernel_gates():
+    """The kernels at whisper-medium's shapes against their plain versions:
+    flash_attn over its 1500 frames (23 full 64-key tiles and a 28-key
+    tail), bidirectional 1500 x 1500 (the encoder), 256 queries x 1500 keys
+    (the refine's cross attention) and 1 x 1500 (the draft's decode: one
+    live query row in a tile), and at the smoke config's (2, 24, 4, 32) and
+    (2, 24, T = 32, 4, 32); ws_step at the serve's (2048, 51 865)."""
+    rows, frames = ENCDEC_ROWS, 1500
+    flash = [check_flash(rows, frames, 16, 16, 64, False, None, 90),
+             check_flash(rows, SEQ, 16, 16, 64, False, None, 91, t=frames),
+             check_flash(rows, 1, 16, 16, 64, False, None, 92, t=frames),
+             check_flash(2, ENCDEC_SMOKE_SEQ, 4, 4, 32, False, None, 93),
+             check_flash(2, ENCDEC_SMOKE_SEQ, 4, 4, 32, False, None, 94, t=32)]
+    ws = [check_ws_step(rows * SEQ, 51865, 1.0, 95)]
+    return {"flash_attn": max(flash), "ws_step": max(c["max_abs_err"] for c in ws),
+            "ws_checks": ws}
+
+
+def encdec_measure():
+    """Device times at whisper-medium's serve shapes beside the plain
+    versions, SDPA and the bounds: flash_attn at the encoder's (8, 1500, 16,
+    64), the cross attention's (8, 256, T = 1500) and the decode's (8, 1,
+    T = 1500); ws_step at (2048, 51 865)."""
+    rows, frames = ENCDEC_ROWS, 1500
+    return {"flash_attn_encoder": measure_flash(rows, frames, 16, 64),
+            "flash_attn_cross": measure_flash(rows, SEQ, 16, 64, t=frames),
+            "flash_attn_decode": measure_flash(rows, 1, 16, 64, t=frames),
+            "ws_step_v51865": measure_ws_step(rows * SEQ, 51865, plain_n=2)}
+
+
+def encdec_nfe_shares(model, frames, x, t):
+    """One eager NFE (``dfm_apply`` at the serve's shape), its encoder and its
+    cross k/v apart: device ms and shares under the profiler, and the same
+    three timed by CUDA events. A profile is complete when it holds every
+    flash_attn launch (72 an NFE, 24 the encoder) and both cross GEMMs of
+    each decoder layer; the profiler has been seen to drop a window's first
+    kernels, so the shares by events stand beside them."""
+    cfg = model.cfg
+    fns = {"nfe": lambda: model.dfm_apply(x, t, extras={"frames": frames}),
+           "encoder": lambda: model.encode(frames)}
+    want = {"nfe": ("flash_attn", cfg.num_encoder_layers + 2 * cfg.num_layers),
+            "encoder": ("flash_attn", cfg.num_encoder_layers),
+            "cross_kv": ("matmul", 2 * cfg.num_layers)}
+    with torch.inference_mode():
+        enc = model.encode(frames)
+        fns["cross_kv"] = lambda: model._layer_kvs(enc)
+        parts = {k: _profile(lambda fn=fn: (fn(), torch.cuda.synchronize()),
+                             f"whisper-medium {k} (eager)") for k, fn in fns.items()}
+        events = {k: time_ms(fn, reps=3, inner=2) for k, fn in fns.items()}
+    ms = {k: p.get("device_ms") for k, p in parts.items()}
+    complete = {k: parts[k].get("by_kind_launches", {}).get(kind) == n
+                for k, (kind, n) in want.items()}
+    res = {"device_ms": ms, "profile_complete": complete, "event_ms": events,
+           "encoder_share_events": events["encoder"] / events["nfe"],
+           "cross_kv_share_events": events["cross_kv"] / events["nfe"]}
+    if all(v is not None for v in ms.values()):
+        res["encoder_share"] = ms["encoder"] / ms["nfe"]
+        res["cross_kv_share"] = ms["cross_kv"] / ms["nfe"]
+    print(f"whisper-medium NFE, profiler device ms {ms} (complete: {complete}): encoder share "
+          f"{res.get('encoder_share')}, cross k/v share {res.get('cross_kv_share')}; by CUDA "
+          f"events ms {events}: encoder share {res['encoder_share_events']:.4f}, cross k/v "
+          f"share {res['cross_kv_share_events']:.4f}")
+    return res
+
+
+def check_encdec_logits(model, frames, tokens, t):
+    """whisper-medium's dfm_apply at 1 x len(tokens) with all 1500 frames
+    through the kernels on the card against the plain CPU path on the same
+    weights (a copy of the model moved to the host), within 1e-3 x max(1,
+    max |logit|)."""
+    import copy
+
+    ref_model = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode():
+        got = model.dfm_apply(tokens, t, extras={"frames": frames}).cpu()
+        want = ref_model.dfm_apply(tokens.cpu(), t.cpu(), extras={"frames": frames.cpu()})
+    del ref_model
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"full-width dfm_apply ({model.cfg.name}), {tokens.shape[0]} x {tokens.shape[1]} "
+          f"tokens, {frames.shape[1]} frames, card kernels vs CPU plain: max abs err {err:.3e} "
+          f"(logits up to {scale:.2f}; limit 1e-3 relative)")
+    if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
+        fail(f"full-width logits of {model.cfg.name} disagree with the plain path: {err}")
+    return {"config": model.cfg.name, "tokens": list(tokens.shape),
+            "frames": frames.shape[1], "max_abs_err": err, "max_abs_logit": scale}
+
+
+def check_encdec_smoke_against_cpu():
+    """whisper-medium's smoke config served 2 x ENCDEC_SMOKE_SEQ (t0 = 0.8,
+    cold_nfe = 16) on the card and on the CPU, same seeded weights, frames
+    and key, drafted by ``ar_generate`` (seq_len + 1: R8) on a second smoke
+    model: the tokens must be equal."""
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Conditioned, EncDecModel
+    from repro_torch.serving import WarmStartServer, ar_generate
+
+    cfg = get_smoke_config(ENCDEC_ARCH)
+    frames = encdec_frames(cfg, 2, device="cpu")
+    out = {}
+    for device in ("cuda", "cpu"):
+        path = WarmStartPath(t0=T0)
+        flow = EncDecModel(cfg, device="cpu", seed=3).to(device)
+        drafter = EncDecModel(cfg, device="cpu", seed=4).to(device)
+        fr = frames.to(device)
+        server = WarmStartServer(
+            flow_model=Conditioned(flow, {"frames": fr}), flow_cfg=cfg, path=path,
+            cold_nfe=16, step_fn=make_ws_step_fn(path, device=device), device=device,
+            draft_generate=lambda rng, num, drafter=drafter, fr=fr: ar_generate(
+                drafter, cfg, rng, batch_size=num, seq_len=ENCDEC_SMOKE_SEQ + 1,
+                extras={"frames": fr}))
+        out[device] = server.serve(prng.key(5), 2)[0].cpu()
+    diff = int((out["cuda"] != out["cpu"]).sum())
+    print(f"{cfg.name} served on the card vs the CPU (2 x {ENCDEC_SMOKE_SEQ} tokens, "
+          f"{cfg.num_audio_frames} frames, 4 steps): {diff} tokens differ")
+    if diff or out["cuda"].shape != (2, ENCDEC_SMOKE_SEQ):
+        fail(f"{cfg.name}'s serve on the card disagrees with the CPU: {diff} tokens, "
+             f"shape {tuple(out['cuda'].shape)}")
+    return {"differ": diff, "shape": list(out["cuda"].shape)}
+
+
+class LastDraft:
+    """A draft_generate that keeps its last tokens (the yardstick's input)."""
+
+    def __init__(self, fn):
+        self.fn, self.last = fn, None
+
+    def __call__(self, rng, num):
+        self.last = self.fn(rng, num)
+        return self.last
+
+
+def encdec_serve():
+    """whisper-medium at its published widths and depth (float32, seed 0)
+    served through ``WarmStartServer`` on ``Conditioned(model, {"frames":
+    frames})``, ENCDEC_ROWS x SEQ tokens over 1500 frames each, t0 = 0.8,
+    cold_nfe = 64 (13 NFE), drafted by ``ar_generate`` on the same config
+    (seed 1) with the same frames at seq_len SEQ + 1 (R8). Two serves. Gates:
+    the NFE guarantee, exact launches a serve (the refine 72 flash_attn and 1
+    ws_step a NFE, the first serve twice that; the draft 24 + 24 at its
+    prefill and 24 in each of its SEQ decode steps), one capture, the second serve's replay ==
+    its eager launches on its draft bitwise, the draft's length, the logits
+    at 1 x 64 against the host. Reports draft, flow and per-NFE time,
+    samples/s, the draft cost ratio, peak memory, the busy shares of the
+    flow stage (a serve with its draft given, profiled) and of a short
+    draft (its prefill and 32 decode steps, profiled), and an NFE's encoder
+    and cross k/v shares."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.core.sampler import refine_loop_inputs
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Conditioned, EncDecModel
+    from repro_torch.serving import WarmStartServer, ar_generate
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = ENCDEC_ROWS
+    cfg = get_config(ENCDEC_ARCH).replace(dtype="float32")
+    model = EncDecModel(cfg, device="cuda", seed=0)
+    drafter = EncDecModel(cfg, device="cuda", seed=DRAFT_SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = encdec_frames(cfg, rows)
+    path = WarmStartPath(t0=T0)
+    draft = LastDraft(lambda rng, num: ar_generate(
+        drafter, cfg, rng, batch_size=num, seq_len=SEQ + 1, extras={"frames": frames}))
+    server = WarmStartServer(
+        flow_model=Conditioned(model, {"frames": frames}), flow_cfg=cfg, draft_generate=draft,
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    refine, per_draft = encdec_launches(cfg, nfe)
+
+    launches.clear()
+    reports = []
+    for i in range(2):
+        before = dict(launches)
+        rng = prng.key(500 + i)
+        served, rep = server.serve(rng, rows)
+        grew = grown(before)
+        want = {k: (2 if i == 0 else 1) * n + per_draft.get(k, 0)    # the capture's warm-up
+                for k, n in refine.items()}
+        if grew != want:
+            fail(f"{cfg.name} serve {i}: launches {grew}, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{cfg.name} serve {i}: nfe {rep['nfe']} backbone_evals {rep['backbone_evals']}")
+        if draft.last.shape != (rows, SEQ) or served.shape != (rows, SEQ) \
+                or int(served.min()) < 0 or int(served.max()) >= cfg.vocab_size:
+            fail(f"{cfg.name} serve {i}: draft {tuple(draft.last.shape)} (R8: seq_len {SEQ + 1} "
+                 f"gives {SEQ}), tokens {tuple(served.shape)} in [0, {cfg.vocab_size})")
+        reports.append(rep)
+    counts = dict(launches)
+    if server.graphs.captures != 1:
+        fail(f"{cfg.name}: two serves must capture the refine once: {server.graphs.captures}")
+    print(f"encdec path: {cfg.name} ({n_params / 1e9:.3f}B params, float32) x 2 serves of "
+          f"{rows} x {SEQ} over {cfg.num_audio_frames} frames, drafted by ar_generate on "
+          f"{cfg.name} (seed {DRAFT_SEED}, seq_len {SEQ + 1}: R8), t0={T0}, cold_nfe={COLD_NFE}: "
+          f"nfe {nfe} per serve, guarantee gate passed, launches {counts} (the refine {refine}, "
+          f"the first serve twice that; the draft {per_draft}); refine capture ms (warm-up and "
+          f"capture) {server.graphs.stats()['capture_ms']}")
+
+    # the second serve's replay against its eager launches on the same draft and keys
+    k_flow = prng.split(rng, 2)[1]
+    keys, ts, hs = refine_loop_inputs(k_flow, T0, 1.0 / COLD_NFE, nfe)
+    t_eager = time.perf_counter()
+    with torch.inference_mode():
+        want = server._refine_loop_eager(keys, draft.last, ts, hs)
+    torch.cuda.synchronize()
+    vs_eager = {"differ": int((served != want).sum()),
+                "eager_flow_ms": (time.perf_counter() - t_eager) * 1e3,
+                "captures": server.graphs.captures}
+    print(f"{cfg.name} second serve's refine (graph) vs its eager launches (bitwise): {vs_eager}")
+    if vs_eager["differ"] or server.graphs.captures != 1:
+        fail(f"{cfg.name}: the refine's graph disagrees with its eager launches: {vs_eager}")
+
+    t_one = torch.full((1,), T0, device="cuda")
+    logits = check_encdec_logits(model, frames[:1], served[:1, :ZOO_LOGIT_TOKENS], t_one)
+    shares = encdec_nfe_shares(model, frames, served, torch.full((rows,), T0, device="cuda"))
+    given = draft.last
+    server.draft_generate = lambda rng, num: given
+    holder = {}
+
+    def run():
+        holder["rep"] = server.serve(prng.key(521), rows)[1]
+
+    prof = _profile(run, f"{cfg.name} serve with its draft given (the flow stage)")
+    prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+    # the draft: its prefill and ENCDEC_PROFILE_STEPS decode steps (a trace of the
+    # whole draft's 256 steps of eager launches is not worth reading)
+    draft_prof = _profile(lambda: (ar_generate(
+        drafter, cfg, prng.key(522), batch_size=rows, seq_len=ENCDEC_PROFILE_STEPS + 1,
+        extras={"frames": frames}), torch.cuda.synchronize()),
+        f"{cfg.name} draft, prefill and {ENCDEC_PROFILE_STEPS} decode steps")
+    steady = reports[1]
+    res = {
+        "config": cfg.name, "dtype": cfg.dtype, "params": n_params, "rows": rows,
+        "seq_len": SEQ, "frames": cfg.num_audio_frames, "t0": T0, "cold_nfe": COLD_NFE,
+        "nfe": nfe,
+        "draft": {"config": cfg.name + " (ar_generate)", "seed": DRAFT_SEED,
+                  "seq_len_asked": SEQ + 1, "tokens": SEQ, "decode_steps": SEQ},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms": steady["draft_time_s"] * 1e3,
+        "flow_ms": steady["flow_time_s"] * 1e3,
+        "per_nfe_ms": steady["per_nfe_s"] * 1e3,
+        "samples_per_s": rows / (steady["draft_time_s"] + steady["flow_time_s"]),
+        "draft_cost_ratio": steady["speedup_report"].draft_cost_ratio,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flow_busy_share": prof.get("busy_share"), "flow_profile": prof,
+        "draft_busy_share": draft_prof.get("busy_share"), "draft_profile": draft_prof,
+        "nfe_shares": shares, "launches_per_refine": refine, "launches_per_draft": per_draft,
+        "vs_eager": vs_eager, "logits_vs_cpu": logits,
+        "capture_ms": server.graphs.stats()["capture_ms"],
+    }
+    del model, drafter, server, draft, frames
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{cfg.name} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+          f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.1f} ms an NFE), "
+          f"{res['samples_per_s']:.3f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.3f}, peak memory {res['peak_memory_gb']:.1f} GiB; "
+          f"{res['seconds']:.1f} s")
+    return res, counts
+
+
+def encdec_path():
+    """The encoder-decoder family's phase: the kernels at whisper-medium's
+    shapes, its serve at full width and depth, the smoke config card == CPU.
+    Returns (the {"encdec": ...} record, the serves' launches)."""
+    t0 = time.perf_counter()
+    res = {"kernel_errors": encdec_kernel_gates(), "kernels": encdec_measure()}
+    res[ENCDEC_ARCH], counts = encdec_serve()
+    res["smoke_vs_cpu"] = check_encdec_smoke_against_cpu()
+    res["phase_seconds"] = time.perf_counter() - t0
+    print(f"encdec phases (kernel gates, measurements, {ENCDEC_ARCH} serve, smoke config): "
+          f"{res['phase_seconds']:.1f} s")
+    return res, counts
+
+
 def _category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
@@ -3785,9 +4116,10 @@ def _profile(run, what):
         print(f"profile of the {what}: the trace holds no device time (not measured)")
         return {"device_ms": None}
     device_ms = sum(ms for _, ms, _ in rows)
-    by_cat = {}
-    for name, ms, _ in rows:
+    by_cat, n_by_cat = {}, {}
+    for name, ms, count in rows:
         by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + ms
+        n_by_cat[_category(name)] = n_by_cat.get(_category(name), 0) + count
     top = sorted(rows, key=lambda r: -r[1])[:8]
     n_launch = sum(c for _, _, c in rows)
     print(f"profile of the {what}: device busy {device_ms:.1f} ms of {wall_ms:.1f} ms wall "
@@ -3796,7 +4128,7 @@ def _profile(run, what):
     for name, ms, count in top:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
     return {"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
-            "kernel_launches": n_launch, "by_kind_ms": by_cat,
+            "kernel_launches": n_launch, "by_kind_ms": by_cat, "by_kind_launches": n_by_cat,
             "top": [[n[:100], ms, c] for n, ms, c in top]}
 
 
@@ -3924,6 +4256,7 @@ def main() -> int:
     print(f"zoo phases (kernel gates, measurements, {ZOO_ARCH} serve, gemma3-1b logits, "
           f"smoke configs): {zoo['phase_seconds']:.1f} s")
     recurrent, rec_counts = recurrent_path()
+    encdec, encdec_counts = encdec_path()
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -4033,6 +4366,15 @@ def main() -> int:
                            "max_abs_err": rec_errs["ws_step"],
                            "v32000": rec_num["ws_step_v32000"],
                            "v50304": rec_num["ws_step_v50304"]}
+    enc_num, enc_errs = encdec["kernels"], encdec["kernel_errors"]
+    rec_flash["max_abs_err"] = max(rec_flash["max_abs_err"], enc_errs["flash_attn"])
+    rec_flash["encdec"] = {
+        "config": ENCDEC_ARCH, "launches": encdec_counts.get("flash_attn", 0),
+        "max_abs_err": enc_errs["flash_attn"], "encoder": enc_num["flash_attn_encoder"],
+        "cross": enc_num["flash_attn_cross"], "decode": enc_num["flash_attn_decode"]}
+    rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], enc_errs["ws_step"])
+    rec_ws["encdec"] = {"config": ENCDEC_ARCH, "launches": encdec_counts.get("ws_step", 0),
+                        "max_abs_err": enc_errs["ws_step"], "v51865": enc_num["ws_step_v51865"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -4050,6 +4392,7 @@ def main() -> int:
     print(json.dumps({"distilled": distilled}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"recurrent": recurrent}))
+    print(json.dumps({"encdec": encdec}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,12 @@ Every other leaf maps by name: biases (``...|wq|b``), the gated MLP's
 ``post_attn``/``post_ffn`` have torch parameters of the same path. A tied-embedding config has no
 ``head`` leaf and no torch ``head``: both read the embedding table.
 
+The encoder-decoder (``EncDecModel``) stacks its two block lists along
+the layer axis: ``enc_blocks|attn|wq|w`` is ``(L_enc, d, H*hd)``, slice
+``i`` the torch ``enc_blocks.{i}.attn.wq.w``, and ``dec_blocks|...`` the
+same for ``dec_blocks.{i}``; ``enc_norm``, ``dec_norm``, ``time`` and
+``embed`` map by name.
+
 The LSTM draft (``models/lstm.py``) is functional in both packages: its
 flat leaves ``embed|table``, ``layers|{i}|wx|w``, ``layers|{i}|wh|w`` and
 ``head|w`` become the same tree of torch tensors.
@@ -45,6 +51,8 @@ _LSTM_LAYER = re.compile(r"^layers\|(\d+)\|(wx|wh)\|w$")
 _REM = re.compile(r"^stack\|rem\|r(\d+)\|(.+)$")
 _PRE = re.compile(r"^stack\|pre\|x(\d+)\|(.+)$")
 _TORCH_BLOCK = re.compile(r"^blocks\.(\d+)\.(.+)$")
+_ENCDEC = re.compile(r"^(enc_blocks|dec_blocks)\|(.+)$")       # JAX, stacked by layer
+_TORCH_ENCDEC = re.compile(r"^(enc_blocks|dec_blocks)\.(\d+)\.(.+)$")
 _SHARED = "stack|zshared|"        # JAX's shared-block leaves; the torch ``zshared.``
 
 
@@ -64,7 +72,12 @@ def jax_params_to_torch(flat: Mapping[str, np.ndarray]) -> Dict[str, torch.Tenso
     for name, arr in flat.items():
         arr = np.asarray(arr)
         m, rem, pre = _BLOCK.match(name), _REM.match(name), _PRE.match(name)
-        if m is not None:
+        encdec = _ENCDEC.match(name)
+        if encdec is not None:
+            group, rest = encdec.group(1), encdec.group(2).replace("|", ".")
+            for i in range(arr.shape[0]):
+                out[f"{group}.{i}.{rest}"] = torch.from_numpy(arr[i].copy())
+        elif m is not None:
             pos, rest = int(m.group(1)), m.group(2).replace("|", ".")
             for r in range(arr.shape[0]):
                 out[f"blocks.{n_pre + r * n_pattern + pos}.{rest}"] = torch.from_numpy(
@@ -91,8 +104,12 @@ def jax_leaf_name(torch_name: str, reps: int, n_pattern: int,
     ``n_pre`` prefix layers, then, with ``l = i - n_pre``,
     (``stack|blocks|p{l % P}|rest``, slice ``l // P``) for the ``reps * P``
     stacked layers and (``stack|rem|r{j}|rest``, None) for remainder layer
-    ``j``; ``zshared.rest`` -> (``stack|zshared|rest``, None); any other
-    name -> (its ``|`` path, None)."""
+    ``j``; ``zshared.rest`` -> (``stack|zshared|rest``, None);
+    ``enc_blocks.{i}.rest`` -> (``enc_blocks|rest``, slice ``i``), and so
+    for ``dec_blocks``; any other name -> (its ``|`` path, None)."""
+    encdec = _TORCH_ENCDEC.match(torch_name)
+    if encdec is not None:
+        return f"{encdec.group(1)}|{encdec.group(3).replace('.', '|')}", int(encdec.group(2))
     if torch_name.startswith("zshared."):
         return _SHARED + torch_name[len("zshared."):].replace(".", "|"), None
     m = _TORCH_BLOCK.match(torch_name)
@@ -117,12 +134,9 @@ def jax_leaves(model) -> Dict[str, List[torch.nn.Parameter]]:
     for name, param in model.named_parameters():
         leaf, idx = jax_leaf_name(name, reps, n_pattern, len(cfg.prefix))
         slots.setdefault(leaf, {})[idx] = param
-    out = {}
-    for leaf in sorted(slots, key=lambda k: k.split("|")):
-        by_idx = slots[leaf]
-        out[leaf] = ([by_idx[i] for i in range(reps)] if None not in by_idx
-                     else [by_idx[None]])
-    return out
+    # a leaf's slots are {None} (unstacked) or its slices 0..n-1
+    return {leaf: [slots[leaf][i] for i in sorted(slots[leaf])]
+            for leaf in sorted(slots, key=lambda k: k.split("|"))}
 
 
 def torch_params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.ndarray]:
@@ -133,16 +147,16 @@ def torch_params_to_jax(state: Mapping[str, torch.Tensor], cfg) -> Dict[str, np.
     ``stack|blocks|p{p}|...`` after the X prefix layers. Arrays are numpy, on the host."""
     reps, n_pattern = cfg.scan_split()[0], len(cfg.pattern)
     out: Dict[str, np.ndarray] = {}
-    stacked: Dict[str, list] = {}
+    stacked: Dict[str, dict] = {}
     for name, tensor in state.items():
         arr = tensor.detach().cpu().numpy()
         leaf, idx = jax_leaf_name(name, reps, n_pattern, len(cfg.prefix))
         if idx is None:
             out[leaf] = arr
         else:
-            stacked.setdefault(leaf, [None] * reps)[idx] = arr
+            stacked.setdefault(leaf, {})[idx] = arr
     for leaf, arrs in stacked.items():
-        out[leaf] = np.stack(arrs)
+        out[leaf] = np.stack([arrs[i] for i in sorted(arrs)])
     return out
 
 

@@ -1,5 +1,7 @@
 """GQA self-attention of the torch backbone (port of the JAX package's
-``models/attention.py::gqa_attention`` and ``init_gqa_cache``).
+``models/attention.py::gqa_attention`` and ``init_gqa_cache``) and the
+encoder-decoder's cross attention (``init_cross_attn``,
+``cross_attention``, ``encode_cross_kv``).
 
 Masking: ``mode="bidir"`` (the DFM denoiser) sees every position,
 ``mode="causal"`` only earlier ones; a ``window`` (a ``local`` layer's
@@ -17,6 +19,11 @@ k/v are written into the cache buffers at the cache's cursor and the
 queries attend over the whole buffer under the causal and cache-validity
 masks, in plain torch as JAX's ``_sdpa`` does there (no Pallas kernel).
 The AR draft engine's fast path is ``kernels/draft_decode`` instead.
+
+Cross attention (:class:`CrossAttention`) reads keys and values made from
+the encoder's output, unmasked: JAX computes it in einsum and softmax;
+here it runs through the ``flash_attn`` kernel with ``causal=False`` and
+S queries against T != S keys, cached or not.
 """
 
 from __future__ import annotations
@@ -111,3 +118,35 @@ class GQAAttention(nn.Module):
         out = torch.einsum("bkgst,btkd->bskgd", probs, vf).reshape(b, s, self.h * self.hd)
         new_cache = {"k": kbuf, "v": vbuf, "pos": cache["pos"] + s}
         return self.wo(out), new_cache
+
+
+class CrossAttention(nn.Module):
+    """Whisper's decoder cross attention: q from the decoder, k and v from
+    the encoder's output (JAX ``init_cross_attn``: wq/wk/wv/wo with
+    ``cfg.use_bias`` biases, wo at stddev 0.02 / sqrt(2 L))."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        d, h, hd, bias = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.use_bias
+        self.h, self.hd = h, hd
+        self.wq = Dense(d, h * hd, gen, device, bias=bias)
+        self.wk = Dense(d, h * hd, gen, device, bias=bias)
+        self.wv = Dense(d, h * hd, gen, device, bias=bias)
+        self.wo = Dense(h * hd, d, gen, device, bias=bias,
+                        stddev=0.02 / math.sqrt(2 * cfg.num_layers))
+
+    def encode_kv(self, enc_out: torch.Tensor) -> dict:
+        """enc_out (B, T, D) -> ``{"k", "v": (B, T, H, hd)}`` (JAX
+        ``encode_cross_kv``)."""
+        b, t, _ = enc_out.shape
+        return {"k": self.wk(enc_out).reshape(b, t, self.h, self.hd),
+                "v": self.wv(enc_out).reshape(b, t, self.h, self.hd)}
+
+    def forward(self, x: torch.Tensor, kv: dict) -> torch.Tensor:
+        """x (B, S, D) attends over every key of ``kv`` (JAX
+        ``cross_attention``), cast to x's dtype as JAX casts them."""
+        b, s, _ = x.shape
+        q = self.wq(x).reshape(b, s, self.h, self.hd)
+        k, v = kv["k"].to(x.dtype), kv["v"].to(x.dtype)
+        out = flash_attention(q, k, v, causal=False, scale=1.0 / math.sqrt(self.hd))
+        return self.wo(out.reshape(b, s, self.h * self.hd))

@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_gqa_cache
 from repro_torch.models.common import Dense, Embedding, TimeEmbed, make_norm
+from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.rope import rope_context
 from repro_torch.models.ssm import init_mamba2_cache
 from repro_torch.models.transformer import ATTN_KINDS, KINDS, Block, SharedBlock
@@ -67,7 +68,7 @@ def check_supported(cfg: ModelConfig) -> None:
     and ``zshared`` layers, layernorm or rmsnorm, standard, dual or no
     RoPE, qk-norm, post-norms and scaled embeddings allowed, float32. MoE,
     MLA, encoder-decoder and VLM configs, the logit softcap and other
-    dtypes raise."""
+    dtypes raise (an encoder-decoder config is ``EncDecModel``'s)."""
     unsupported = []
     if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid"):
         unsupported.append(f"family={cfg.family}")
@@ -132,9 +133,13 @@ class Model(nn.Module):
                       shared=self.zshared)
         return self._head(x)
 
-    def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor, *,
+                  extras: Optional[dict] = None) -> torch.Tensor:
         """(tokens (B, N), t (B,)) -> logits: the v_theta signature the
-        sampler expects."""
+        sampler expects. A decoder-only config takes no batch extras."""
+        if extras:
+            raise NotImplementedError(f"{self.cfg.name}: batch extras {sorted(extras)} are "
+                                      f"not ported for decoder-only configs")
         return self.forward(tokens, t)
 
     # -- AR serving with a KV cache ------------------------------------------
@@ -229,5 +234,8 @@ def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:
     return tuple(cfg.prefix) + tuple(cfg.pattern) * reps + tuple(rem)
 
 
-def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0) -> Model:
+def build_model(cfg: ModelConfig, *, device="cuda", seed: int = 0):
+    """``EncDecModel`` for an encoder-decoder config, else ``Model``."""
+    if cfg.is_encoder_decoder:
+        return EncDecModel(cfg, device=device, seed=seed)
     return Model(cfg, device=device, seed=seed)

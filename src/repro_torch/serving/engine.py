@@ -183,14 +183,26 @@ def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, 
                 bos: int = 0, temperature: float = 1.0, extras: Optional[dict] = None,
                 dtype=torch.float32) -> torch.Tensor:
     """Full AR generation (the AR baseline): from a BOS column, ``seq_len``
-    tokens by ``make_serve_step``, the key split once per step. (B, seq_len)."""
-    if cfg.is_encoder_decoder or extras:
-        raise NotImplementedError("ar_generate: encoder-decoder and extra inputs are not ported")
+    tokens by ``make_serve_step``, the key split once per step. (B, seq_len).
+
+    An encoder-decoder config (``extras={"frames": ...}``) first prefills
+    the BOS column with the frames, which encodes them once and fills the
+    cross cache, and discards its logits; then it decodes BOS again at
+    position 1 and steps over positions 1..seq_len-1, so it returns
+    ``seq_len - 1`` tokens, as JAX's does (reference fault R8): ask for
+    ``N + 1`` to get N."""
+    if extras and not cfg.is_encoder_decoder:
+        raise NotImplementedError("ar_generate: extra inputs of a decoder-only config are "
+                                  "not ported")
     cache = model.init_cache(batch_size, seq_len + 1, dtype)
     serve_step = make_serve_step(model, cfg, temperature=temperature)
     tok = torch.full((batch_size, 1), bos, dtype=torch.int32, device=model.device)
+    start = 0
+    if cfg.is_encoder_decoder:
+        _, cache = model.prefill({"tokens": tok, **(extras or {})}, cache)
+        start = 1
     out = []
-    for i in range(seq_len):
+    for i in range(start, seq_len):
         rng, sub = prng.split(rng, 2)
         tok, _, cache = serve_step(sub, tok, cache, i)
         out.append(tok[:, 0])
@@ -202,13 +214,15 @@ def make_refine_step_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
                         extras: Optional[dict] = None) -> Callable:
     """One DFM Euler refine step over the full sequence, the flow stage's
     unit: ``refine_step(rng, x_t (B,N), t (B,), h) -> x_next``. ``model``
-    holds its weights, so the step takes no ``params``."""
-    if cfg.is_encoder_decoder or extras:
-        raise NotImplementedError("make_refine_step_fn: extra inputs are not ported")
+    holds its weights, so the step takes no ``params``; ``extras`` (an
+    encoder-decoder's ``{"frames": ...}``) go to every ``dfm_apply``."""
+    if extras and not cfg.is_encoder_decoder:
+        raise NotImplementedError("make_refine_step_fn: extra inputs of a decoder-only "
+                                  "config are not ported")
     one_step = make_euler_one_step(path, temperature=temperature, step_fn=step_fn)
 
     def refine_step(rng, x_t, t, h):
-        logits = model.dfm_apply(x_t, t)
+        logits = model.dfm_apply(x_t, t, extras=extras)
         return one_step(rng, logits, x_t, t, h)
 
     return refine_step
@@ -227,7 +241,8 @@ class WarmStartServer:
 
     The NFE guarantee is enforced with
     :class:`~repro_torch.core.guarantees.GuaranteeViolation`. The backbone
-    ``flow_model`` (a ``Model``) holds its own weights and must live on
+    ``flow_model`` (a ``Model``, or an ``EncDecModel`` with its frames bound
+    by ``models.Conditioned``) holds its own weights and must live on
     ``device``. ``graphs`` holds the refine loop's CUDA graphs (one per
     ``(num, seq_len, n_steps, fused_block)``) and their capture and replay
     counts.

@@ -44,6 +44,8 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
         raise _not_ported("remat (activation rematerialisation)", "a later training item")
     if cfg.moe.num_experts:
         raise _not_ported("the MoE router auxiliary loss", "the zoo's MoE family")
+    if cfg.is_encoder_decoder:
+        raise _not_ported("training the encoder-decoder family", "a later training item")
     recurrent = sorted(set(cfg.prefix + cfg.pattern) & set(RECURRENT_KINDS))
     if recurrent:
         raise _not_ported(f"training {recurrent} layers",

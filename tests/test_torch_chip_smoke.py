@@ -149,3 +149,19 @@ def test_expected_launches_count_a_distilled_micro_batch_as_k_steps(smoke):
     want = smoke.expected_launches(report, 0, 12, refine_captured={(128, 8, 2, "distilled")},
                                    drafts=[])
     assert (want["ws_step_rows"], want["flash_attn"]) == (2 * 2 + 2 + 13, 13 * 12)
+
+
+def test_encdec_launches_count_every_attention_and_the_draft_after_r8(smoke):
+    """whisper-medium's serve: 72 flash_attn a NFE (24 encoder, 24 self, 24
+    cross) and one ws_step; its draft of 256 tokens (``ar_generate`` at
+    seq_len 257, R8) the encoder and the cross attention at the prefill, then
+    the cross attention of each of 256 decode steps. The smoke config: 2 + 2
+    layers."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    refine, draft = smoke.encdec_launches(get_config("whisper-medium"), 13)
+    assert refine == {"flash_attn": 13 * 72, "ws_step": 13}
+    assert draft == {"flash_attn": 48 + 24 * 256}
+    refine, draft = smoke.encdec_launches(get_smoke_config("whisper-medium"), 4, seq=24)
+    assert refine == {"flash_attn": 4 * 6, "ws_step": 4}
+    assert draft == {"flash_attn": 4 + 2 * 24}

@@ -50,7 +50,8 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("r,v,temperature", [(8192, 27, 1.0), (64, 50257, 0.7), (5, 262144, 1.0)])
+@pytest.mark.parametrize("r,v,temperature", [(8192, 27, 1.0), (64, 50257, 0.7), (5, 262144, 1.0),
+                                           (2048, 51865, 1.0)])   # whisper-medium's refine
 def test_ws_step_kernel_matches_plain(card, r, v, temperature):
     rng = np.random.default_rng(r + v)
     logits = torch.from_numpy((3 * rng.standard_normal((r, v))).astype(np.float32)).to(card)
@@ -124,6 +125,9 @@ def test_ws_step_group_sizes_agree_bitwise(card, r, v, temperature):
     (2, 256, 256, 32, 32, 80, True, None),  # D = 80, causal
     (2, 77, 77, 4, 2, 80, True, 20),        # D = 80, GQA, a causal window, a tail
     (2, 100, 300, 4, 4, 80, False, 37),     # D = 80, S != T, a bidirectional band
+    (8, 256, 1500, 16, 16, 64, False, None),   # whisper-medium's cross attention
+    (8, 1, 1500, 16, 16, 64, False, None),     # its decode: one query row, 1500 keys
+    (8, 1500, 1500, 16, 16, 64, False, None),  # its encoder: a 28-key tail after 23 tiles
 ])
 def test_flash_attention_kernel_matches_plain(card, b, s, t, h, kh, d, causal, window):
     g = torch.Generator(device=card).manual_seed(s)
@@ -1128,3 +1132,55 @@ def test_recurrent_decode_graph_equals_eager_and_a_fresh_engine(card, arch):
     assert eng.graphs.captures == 1
     assert eng.stats.prefill_reuses >= 3
 
+
+
+def test_encdec_serve_graph_reads_the_frames_in_place(card):
+    """whisper-medium's smoke config served through ``Conditioned`` on the
+    card: one capture of the refine, whose replay equals the eager loop
+    bitwise (per NFE 3 x 2 flash_attn launches: encoder, self, cross); the
+    frames changed in place are what the next replay reads (== the eager
+    loop on the new frames, != the old tokens, the cross attention's output
+    projection scaled up so the frames move them); and the card's tokens equal
+    the CPU's, the ar_generate draft included (R8: seq_len 17 for 16)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import Conditioned, EncDecModel
+    from repro_torch.serving import ar_generate
+
+    cfg = get_smoke_config("whisper-medium")
+    g = torch.Generator().manual_seed(0)
+    frames = torch.randn((4, cfg.num_audio_frames, cfg.d_model), generator=g)
+    path = WarmStartPath(t0=0.75)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = EncDecModel(cfg, device="cpu", seed=3).to(dev)
+        fr = frames.to(dev)
+        server = WarmStartServer(
+            flow_model=Conditioned(model, {"frames": fr}), flow_cfg=cfg, path=path,
+            cold_nfe=16, step_fn=make_ws_step_fn(path, device=dev), device=dev,
+            draft_generate=lambda rng, num, model=model, fr=fr: ar_generate(
+                model, cfg, rng, batch_size=num, seq_len=17, extras={"frames": fr}))
+        out[dev] = server.serve(prng.key(1), 4)[0].cpu()
+    assert out["cuda"].shape == (4, 16) and torch.equal(out["cuda"], out["cpu"])
+    model = EncDecModel(cfg, device="cpu", seed=3).to(card)
+    with torch.no_grad():   # wo starts at 0.02 / sqrt(2 L): scaled, the frames move tokens
+        for block in model.dec_blocks:
+            block.cross.wo.w.mul_(100.0)
+    fr = frames.to(card)
+    server = WarmStartServer(flow_model=Conditioned(model, {"frames": fr}), flow_cfg=cfg,
+                             path=path, cold_nfe=16, step_fn=make_ws_step_fn(path),
+                             device=card, draft_generate=None)
+    x0 = torch.randint(0, cfg.vocab_size, (4, 32), generator=g, dtype=torch.int32).to(card)
+    keys, ts, hs = refine_loop_inputs(prng.key(5), 0.75, 1 / 16, 4)
+    with torch.inference_mode():
+        first = server._refine_loop(keys, x0, ts, hs)
+        got, n_got = _grew(lambda: server._refine_loop(keys, x0, ts, hs))
+        want, n_want = _grew(lambda: server._refine_loop_eager(keys, x0, ts, hs))
+        assert torch.equal(got, want) and torch.equal(got, first) and n_got == n_want
+        assert n_got == {"flash_attn": 4 * (cfg.num_encoder_layers + 2 * cfg.num_layers),
+                         "ws_step": 4}
+    fr.copy_(torch.flip(fr, dims=[0]))
+    with torch.inference_mode():
+        moved = server._refine_loop(keys, x0, ts, hs)
+        assert torch.equal(moved, server._refine_loop_eager(keys, x0, ts, hs))
+    assert not torch.equal(moved, first)
+    assert server.graphs.captures == 1

@@ -17,13 +17,14 @@ from repro.models import build_model as jax_build_model
 from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.convert import jax_leaves, jax_params_to_torch, torch_params_to_jax
 from repro_torch.kernels.draft_decode import draft_decode_supported
-from repro_torch.models import Model
+from repro_torch.models import EncDecModel, Model, build_model
+from repro_torch.models.encdec import check_encdec_supported
 from repro_torch.models.model import check_supported, layer_kinds
 
 ZOO = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "gemma3-1b")
-NOT_PORTED = {"arctic-480b": "MoE", "deepseek-v3-671b": "MLA", "whisper-medium": "encoder",
-              "qwen2-vl-72b": "VLM"}
+NOT_PORTED = {"arctic-480b": "MoE", "deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
 RECURRENT = ("zamba2-2.7b", "xlstm-1.3b")   # ported since the recurrent family
+ENCDEC = ("whisper-medium",)                # ported since the encoder-decoder family
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
@@ -37,7 +38,7 @@ def test_config_fields_equal_jax(arch, which):
 
 
 def test_registry_lists_the_port_and_names_what_is_missing():
-    assert list_archs() == sorted(ZOO + RECURRENT + ("dfm-dit",))
+    assert list_archs() == sorted(ZOO + RECURRENT + ENCDEC + ("dfm-dit",))
     for arch, family in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=family):
             get_config(arch)
@@ -45,6 +46,29 @@ def test_registry_lists_the_port_and_names_what_is_missing():
             get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_config("gpt-2")
+
+
+@pytest.mark.parametrize("which", ["full", "smoke"])
+@pytest.mark.parametrize("arch", ENCDEC)
+def test_encdec_config_builds_from_the_registry(arch, which):
+    """whisper-medium's full and smoke configs from the registry equal JAX's
+    field for field, build an ``EncDecModel`` (the full one in float32; its
+    bfloat16 default is refused) and are refused by the decoder-only model
+    and the draft kernels, as JAX's ``draft_decode_supported`` refuses them."""
+    jax_fn, fn = ((jax_get_config, get_config) if which == "full"
+                  else (jax_get_smoke_config, get_smoke_config))
+    want, got = jax_fn(arch), fn(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.is_encoder_decoder and got.num_audio_frames == (1500 if which == "full" else 32)
+    check_encdec_supported(got.replace(dtype="float32"))
+    if which == "full":
+        with pytest.raises(NotImplementedError, match="dtype"):
+            check_encdec_supported(got)
+    else:
+        assert isinstance(build_model(got, device="cpu"), EncDecModel)
+    with pytest.raises(NotImplementedError, match="family"):
+        check_supported(got)
+    assert not draft_decode_supported(got) and not jax_draft_decode_supported(got)
 
 
 @pytest.mark.parametrize("arch", ZOO)
