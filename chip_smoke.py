@@ -88,9 +88,9 @@ CPU.
 
 Then the recurrent family: ``flash_attn`` at head_dim 80 (Zamba2's shared
 attention, both masks, no spill) and ``ws_step`` at V = 32000 and 50304
-against their plain versions and timed; zamba2-2.7b (8 rows) and
-xlstm-1.3b (4 rows) at their published widths (float32, seed 0) served at
-256 tokens, 13 NFE, each drafted by its own config as a causal decoder
+against their plain versions and timed; zamba2-2.7b (8 rows, 18 of its 54
+layers) and xlstm-1.3b (4 rows) at their published widths (float32, seed 0)
+served at 256 tokens, 13 NFE, each drafted by its own config as a causal decoder
 (seed 1; the plain decode path, prompt prefilled by scan, the decode one
 graph replay): two serves with exact launch counts and one capture per
 key, the second against its eager launches drafted by a fresh engine and
@@ -114,12 +114,32 @@ its prefill and 24 a decode step), one capture, the second serve's replay
 NFE's encoder and cross k/v shares and the flow stage profiled; the smoke
 config served on the card == the CPU.
 
+Then it trains those three families at their published widths and depth
+(float32, seed 0; whisper over frames made as its serve's): at 2 x 256
+tokens the WS-DFM loss's gradient through the ``flash_attn`` kernel
+(``FlashAttentionFn``) against autograd through the plain attention, every
+parameter within 1e-3 of its max |g| and none all zero but the leaves JAX
+leaves zero (zamba2-2.7b's ``zshared`` positions' ``ln1``), two backwards
+without remat against each other and remat against no remat (bitwise where
+the two agree), with exact ``flash_attn`` launches (9, 0 and 72 a forward,
+twice that with remat); then 1 + 3 steps at 8 x 256 with remat and AdamW,
+zamba2-2.7b and xlstm-1.3b through ``Trainer.fit``, whisper-medium through
+``make_train_step`` with its frames (the reference's R9: ``fit`` builds no
+frames), with finite losses and grad norms, moved weights and exact
+launches a step, and one more step profiled for the device's busy share;
+each smoke config trained 3 steps on the card == the CPU; and ``python -m
+repro_torch.launch.train --smoke --steps 3`` for zamba2-2.7b and xlstm-1.3b
+(exit 0). Last it runs the README's torch quickstart snippet and the four
+``examples/*_torch.py`` on the card as subprocesses (each exit 0, its NFEs
+equal to ``warm_nfe``, its headline numbers read from its report).
+
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
-``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}`` and
-``{"encdec": ...}`` lines, a ``{"kernels": [...]}`` line (the zoo's shapes
-under ``zoo``, the recurrent family's under ``recurrent``, whisper's under
-``encdec``) and, last,
+``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}``,
+``{"encdec": ...}``, ``{"train_zoo": ...}`` and ``{"examples": ...}``
+lines, a ``{"kernels": [...]}`` line (the zoo's shapes under ``zoo``, the
+recurrent family's under ``recurrent``, whisper's under ``encdec``, the
+families' training launches under ``flash_attn``'s ``train_zoo``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
 prints no result.
@@ -1257,12 +1277,19 @@ def busy_share(fn, what="a scheduler run"):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start]
+    return _busy_of(spans, wall_ms, what)
+
+
+def _busy_of(spans, wall_ms, what):
+    """The union of the kernels' device intervals (microseconds) over the
+    wall time, and their summed time."""
+    spans = sorted(spans)
     if not spans:
         print(f"profile of {what}: the trace holds no device time (not measured)")
-        return {"busy_share": None}
-    busy, cur_s, cur_e, total = 0.0, *spans[0], 0.0
+        return {"busy_share": None, "wall_ms": wall_ms}
+    busy, (cur_s, cur_e), total = 0.0, spans[0], 0.0
     for s_, e_ in spans:
         total += e_ - s_
         if s_ > cur_e:
@@ -1277,6 +1304,29 @@ def busy_share(fn, what="a scheduler run"):
           f"{wall_ms:.1f} ms wall ({res['busy_share']:.1%}; kernels' summed time "
           f"{res['device_sum_ms']:.1f} ms, {len(spans)} kernels)")
     return res
+
+
+def trace_busy_share(fn, what):
+    """:func:`busy_share`'s numbers from the profiler's Chrome trace, which the
+    profiler writes itself, device activity only: ``prof.events()`` builds a
+    Python object an event, which takes minutes at xlstm-1.3b's ~200k kernels
+    a train step. Kernels are the trace's ``"cat": "kernel"`` events."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        path = pathlib.Path(tmp) / "trace.json"
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    return _busy_of([(e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") == "kernel" and e.get("dur", 0) > 0], wall_ms, what)
 
 
 def check_scheduler_refine_graph(model):
@@ -3540,6 +3590,13 @@ REC_SMOKE_ARCHS = (REC_ARCH, XLSTM_ARCH)
 # rows a serve: xlstm-1.3b's draft at 8 rows moves 5.6 GB of mLSTM state a decode
 # step (9.3 s a draft) and its eager yardstick took 31 s a serve, so it serves 4
 REC_ROWS = {REC_ARCH: 8, XLSTM_ARCH: 4}
+# layers a serve: zamba2-2.7b at a third of its published depth (3 of its 9 groups),
+# at the published widths: at full depth its serves took 107.6 s of the phase's 235.4
+# s and of a 1099.1 s run (NVIDIA H100 80GB HBM3, 700 W), at 18 layers 31.7 s. At 16
+# layers xlstm-1.3b's logits left the 1e-3 gate against the CPU (5.7e-3 of 4.29: its
+# out projections' init scales with 1/sqrt(layers), and its normaliser amplifies the
+# rounding), so it keeps its 48. The training phase runs both at full depth
+REC_LAYERS = {REC_ARCH: 18, XLSTM_ARCH: 48}
 REC_HEAD_DIM = 80                              # zamba2-2.7b's shared attention: 32 heads of 80
 
 
@@ -3595,8 +3652,8 @@ def check_recurrent_vs_eager(server, engine, prompt, rng, served, warm_draft, wa
 
 
 def recurrent_serve(arch, profile=True):
-    """``arch`` at its published widths (float32, seed 0) served through
-    ``WarmStartServer`` at REC_ROWS x SEQ, t0 = 0.8, cold_nfe = 64 (13 NFE),
+    """``arch`` at its published widths and REC_LAYERS layers (float32, seed
+    0) served through ``WarmStartServer`` at REC_ROWS x SEQ, t0 = 0.8, cold_nfe = 64 (13 NFE),
     drafted by the same config as a causal decoder (seed 1; the plain decode
     path, prompt prefilled by scan, the decode one graph replay). Two
     serves: the first captures the decode and the refine, the second
@@ -3625,7 +3682,7 @@ def recurrent_serve(arch, profile=True):
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     rows = REC_ROWS[arch]
-    cfg = get_config(arch).replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32", num_layers=REC_LAYERS[arch])
     model = Model(cfg, device="cuda", seed=0)
     adapter = TransformerDraftAdapter(model=Model(cfg, device="cuda", seed=DRAFT_SEED))
     engine = ARDraftEngine(adapter, max_len=MAX_LEN)
@@ -4047,6 +4104,571 @@ def encdec_path():
     return res, counts
 
 
+# -- training the families the port serves ------------------------------------------
+
+TRAIN_ZOO_ARCHS = (REC_ARCH, XLSTM_ARCH, ENCDEC_ARCH)   # at published widths and depth
+TRAIN_ZOO_T0 = 0.8
+TRAIN_ZOO_GATE_ROWS = 2            # the gradient gates: 2 x 256 (whisper over 2 x 1500 frames)
+TRAIN_ZOO_ROWS = 8                 # the training steps: 8 x 256, remat on
+TRAIN_ZOO_STEPS = 3                # timed steps, after one warm-up step
+# the key projection's bias moves every score of a row by one constant, which the
+# softmax cancels: its gradient is zero in exact arithmetic, and each path gives
+# rounding noise there (~1e-9 of the model's largest |g| on the CPU); held under
+# this share of the largest |g| instead of GRAD_TOL of its own
+ZERO_GRAD_NOISE = 1e-6
+ZERO_GRAD_LEAVES = (".attn.wk.b", ".self_attn.wk.b", ".cross.wk.b")
+# remat against no remat, where two identical no-remat backwards already differ (an
+# operation whose float32 sums run in a varying order): within this share of the
+# parameter's max |g|; everywhere else bitwise
+REMAT_NONDET_TOL = 1e-5
+# the smoke configs' 3 steps on the card against the CPU. Step 1 (the same weights):
+# loss and grad norm within SMOKE_STEP1_RTOL. AdamW's first step follows the sign of
+# each gradient, also of one at float32's rounding, so after it an element may differ
+# by 2 lr between the devices, and steps 2-3 run on other weights: their losses within
+# SMOKE_LOSS_RTOL and grad norms within SMOKE_GNORM_RTOL (xlstm-1.3b's smoke config
+# measured 1.07e-3, the other two under 1.2e-6: NVIDIA H100 80GB HBM3, 700 W). Every
+# parameter element within 2 x the summed learning rates, and SMOKE_TRAIN_SHARE of all
+# elements within 1e-4 of their leaf's max |p| (per leaf the share says little: in
+# zamba2's smoke a_log of 4 elements one such element is a quarter)
+SMOKE_STEP1_RTOL = 1e-5
+SMOKE_LOSS_RTOL = 1e-4
+SMOKE_GNORM_RTOL = 1e-2
+SMOKE_TRAIN_SHARE = 0.999
+
+
+def train_zoo_launches(cfg, remat: bool) -> dict:
+    """flash_attn launches of one forward and backward: every attention once
+    a forward (the backward launches none), twice under remat (the
+    checkpointed forward runs again in the backward)."""
+    from repro_torch.models.model import layer_kinds
+    from repro_torch.models.transformer import ATTN_KINDS
+
+    if cfg.is_encoder_decoder:
+        per_fwd = cfg.num_encoder_layers + 2 * cfg.num_layers
+    else:
+        per_fwd = sum(1 for kind in layer_kinds(cfg) if kind in ATTN_KINDS)
+    return {"flash_attn": per_fwd * (2 if remat else 1)} if per_fwd else {}
+
+
+def train_zoo_batch(cfg, rows, seed, device="cuda"):
+    """x_src, x_tgt (rows, SEQ) from numpy ``seed``; whisper's frames as its
+    serve phase makes them (``encdec_frames``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, SEQ)).astype(np.int32))
+             .to(device) for k in ("x_src", "x_tgt")}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = encdec_frames(cfg, rows, device=device)
+    return batch
+
+
+def zero_grad_leaves(cfg):
+    """The parameters JAX's gradient leaves exactly zero: each ``zshared``
+    position's own ``ln1``, which the shared block never reads."""
+    from repro_torch.models.model import layer_kinds
+
+    if cfg.is_encoder_decoder:
+        return set()
+    return {f"blocks.{i}.ln1.{leaf}" for i, kind in enumerate(layer_kinds(cfg))
+            if kind == "zshared" for leaf in ("scale", "bias")}
+
+
+def _grads(model, batch, key, remat):
+    """(loss, {name: grad}, flash_attn launches, peak bytes) of one forward
+    and backward of the WS-DFM loss; the peak counts from what was allocated
+    when it started (the weights, and gradients a caller still holds), so it
+    is the forward's saved activations and the new gradients."""
+    from repro_torch.convert import jax_leaves
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels import launches
+    from repro_torch.training.train_step import loss_and_grads, make_loss_fn
+
+    leaves = jax_leaves(model)
+    names = {id(p): n for n, p in model.named_parameters()}
+    loss_fn = make_loss_fn(model, model.cfg, WarmStartPath(TRAIN_ZOO_T0), remat=remat)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launches.clear()
+    loss, _, grads = loss_and_grads(loss_fn, model, leaves, batch, key)
+    torch.cuda.synchronize()
+    flat = {names[id(p)]: g for leaf, ps in leaves.items() for p, g in zip(ps, grads[leaf])}
+    return float(loss.detach()), flat, dict(launches), torch.cuda.max_memory_allocated() - base
+
+
+def check_train_zoo_gradients(model, batch, key):
+    """The family's gradient gates at TRAIN_ZOO_GATE_ROWS rows: the kernel
+    path against autograd through ``flash_attention_ref`` (every parameter
+    within GRAD_TOL of its max |g|; the key biases under ZERO_GRAD_NOISE of
+    the largest |g|; no gradient all zero but the leaves JAX leaves zero),
+    two no-remat backwards against each other (which parameters vary from run
+    to run), remat against no remat (bitwise where no remat is bitwise, else
+    within REMAT_NONDET_TOL), and exact flash_attn launches of each."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels.flash_attn import flash_attention_ref
+
+    cfg = model.cfg
+    loss, g, counts, peak = _grads(model, batch, key, False)
+    if counts != train_zoo_launches(cfg, False):
+        fail(f"{cfg.name} gradient gate: launches {counts}, expected "
+             f"{train_zoo_launches(cfg, False)}")
+    top = max(float(x.abs().max()) for x in g.values())
+    zero_want = zero_grad_leaves(cfg) & set(g)
+    zero = {n for n, x in g.items() if not bool(x.any())}
+    if zero != zero_want or not all(bool(torch.isfinite(x).all()) for x in g.values()):
+        fail(f"{cfg.name} gradient gate: all-zero gradients {sorted(zero)}, expected "
+             f"{sorted(zero_want)}, or a non-finite one")
+
+    worst, worst_name, noise, loss_plain = 0.0, None, 0.0, None
+    if counts:      # without attention (xlstm) the plain path is the same code
+        kernel_path = attention.flash_attention
+        attention.flash_attention = flash_attention_ref
+        try:
+            loss_plain, g_plain, counts_plain, _ = _grads(model, batch, key, False)
+        finally:
+            attention.flash_attention = kernel_path
+        if counts_plain:
+            fail(f"{cfg.name} gradient gate: the plain path launched {counts_plain}")
+    for n, x in (g.items() if counts else ()):
+        r = g_plain[n]
+        if n.endswith(ZERO_GRAD_LEAVES):
+            noise = max(noise, float(x.abs().max()) / top, float(r.abs().max()) / top)
+            continue
+        if n in zero_want:
+            if bool(r.any()):
+                fail(f"{cfg.name} gradient gate: {n} is zero on the kernel path only")
+            continue
+        err = float((x - r).abs().max()) / float(r.abs().max())
+        if err > worst:
+            worst, worst_name = err, n
+    g_plain = None
+    if worst > GRAD_TOL or noise > ZERO_GRAD_NOISE:
+        fail(f"{cfg.name} gradient gate: {worst_name} off by {worst:.3e} of its max |g| "
+             f"(tolerance {GRAD_TOL:g}); key-bias noise {noise:.3e} of the largest |g|")
+
+    loss_2, g_2, _, _ = _grads(model, batch, key, False)
+    nondet = {n: float((x - g_2[n]).abs().max()) / max(float(x.abs().max()), 1e-30)
+              for n, x in g.items() if not torch.equal(x, g_2[n])}
+    del g_2
+    loss_r, g_r, counts_r, peak_r = _grads(model, batch, key, True)
+    if counts_r != train_zoo_launches(cfg, True):
+        fail(f"{cfg.name} remat gate: launches {counts_r}, expected "
+             f"{train_zoo_launches(cfg, True)}")
+    remat_bitwise = sum(1 for n, x in g.items() if torch.equal(x, g_r[n]))
+    remat_worst, remat_name = 0.0, None
+    for n, x in g.items():
+        err = float((x - g_r[n]).abs().max()) / max(float(x.abs().max()), 1e-30)
+        if n not in nondet and err > 0.0 or err > REMAT_NONDET_TOL:
+            fail(f"{cfg.name} remat gate: {n} off by {err:.3e} of its max |g| "
+                 f"({'varies' if n in nondet else 'bitwise'} from run to run without remat)")
+        if err > remat_worst:
+            remat_worst, remat_name = err, n
+    del g_r, g
+    res = {"rows": TRAIN_ZOO_GATE_ROWS, "params": sum(1 for _ in model.parameters()),
+           "loss": loss, "loss_plain": loss_plain,
+           "loss_second": loss_2, "loss_remat": loss_r,
+           "max_rel_err": worst, "worst_param": worst_name, "tolerance": GRAD_TOL,
+           "key_bias_noise": noise, "zero_grad_params": sorted(zero),
+           "nondeterministic_params": nondet, "remat_bitwise_params": remat_bitwise,
+           "remat_max_rel_err": remat_worst, "remat_worst_param": remat_name,
+           "launches": counts, "launches_remat": counts_r,
+           "peak_above_start_no_remat_bytes": peak, "peak_above_start_remat_bytes": peak_r}
+    print(f"{cfg.name} gradient gates ({TRAIN_ZOO_GATE_ROWS} x {SEQ}): loss {loss:.6f} (plain "
+          f"{loss_plain}, remat {loss_r:.6f}); worst {worst:.3e} ({worst_name}) of "
+          f"{GRAD_TOL:g}; key-bias noise {noise:.2e}; zero {len(zero)}; varying without "
+          f"remat {len(nondet)} {sorted(nondet.items(), key=lambda kv: -kv[1])[:3]}; remat "
+          f"bitwise {remat_bitwise}/{res['params']}, worst {remat_worst:.3e} ({remat_name}); "
+          f"launches {counts} / remat {counts_r}; a backward's peak above its start "
+          f"{peak / 2**30:.2f} GiB, remat {peak_r / 2**30:.2f} GiB")
+    return res
+
+
+def _snapshot(model):
+    """A few parameters' copies: the embedding, the first and last block's
+    weights (cloning all of a 2B model would take 8 GB)."""
+    named = dict(model.named_parameters())
+    keep = [n for n in named if n.startswith("embed.")][:1]
+    blocks = [n for n in named if ".w" in n]
+    keep += blocks[:1] + blocks[-1:]
+    return {n: named[n].detach().clone() for n in keep}
+
+
+def train_zoo_steps(model, cfg, key_seed=1):
+    """1 warm-up + TRAIN_ZOO_STEPS timed steps at TRAIN_ZOO_ROWS x SEQ,
+    ``RunConfig(remat="block")``, AdamW: the decoder-only archs through
+    ``Trainer.fit``, whisper through ``make_train_step`` with its frames (R9:
+    ``fit`` has none). Gates finite losses and grad norms, moved weights and
+    exact flash_attn launches a step."""
+    from repro_torch import prng
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.kernels import launches
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training import Trainer, TrainState, make_train_step
+
+    steps = TRAIN_ZOO_STEPS + 1
+    run = _zoo_run(cfg, total_steps=steps, log_every=steps, seed=key_seed)
+    before = _snapshot(model)
+    gc_collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    launches.clear()
+    t = time.perf_counter()
+    if cfg.is_encoder_decoder:
+        opt = build_optimizer(run)
+        step = make_train_step(model, cfg, run, opt, WarmStartPath(TRAIN_ZOO_T0))
+        state = TrainState.create(model, opt)
+        events, losses, gnorms = [], [], []
+        rng = prng.key(key_seed)
+        batches = [train_zoo_batch(cfg, TRAIN_ZOO_ROWS, 100 + i) for i in range(steps)]
+        torch.cuda.synchronize()
+        for batch in batches:
+            rng, sub = prng.split(rng, 2)
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            state, m = step(state, batch, sub)
+            losses.append(m["loss"])
+            gnorms.append(m["grad_norm"])
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        events[-1].synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        how = "make_train_step"
+    else:
+        trainer = Trainer(model, cfg, run, path=WarmStartPath(TRAIN_ZOO_T0))
+        batches = ((b["x_src"].numpy(), b["x_tgt"].numpy())
+                   for b in (train_zoo_batch(cfg, TRAIN_ZOO_ROWS, 100 + i, device="cpu")
+                             for i in range(steps)))
+        state = trainer.fit(trainer.init_state(), batches, steps=steps)
+        step_ms = trainer.step_ms()
+        losses, gnorms = trainer.step_losses, trainer.step_grad_norms
+        how = "Trainer.fit"
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    counts = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu()
+    gnorms = torch.stack(gnorms).cpu()
+    per_step = train_zoo_launches(cfg, True)
+    want = {k: v * steps for k, v in per_step.items()}
+    if counts != want:
+        fail(f"{cfg.name} training: launches {counts}, expected {want}")
+    if int(state.step) != steps or not bool(torch.isfinite(losses).all()) \
+            or not bool(torch.isfinite(gnorms).all()):
+        fail(f"{cfg.name} training: step {int(state.step)}, losses {losses.tolist()}, grad "
+             f"norms {gnorms.tolist()}")
+    after = dict(model.named_parameters())
+    still = [n for n, p in before.items() if torch.equal(p, after[n])]
+    if still:
+        fail(f"{cfg.name} training: {still} did not move")
+    return {"how": how, "steps": steps, "step_ms": step_ms, "wall_s": wall_s,
+            "losses": losses.tolist(), "grad_norms": gnorms.tolist(), "launches": counts,
+            "launches_per_step": per_step, "peak_bytes": peak, "allocated_before_bytes": base,
+            "state": state}
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_zoo_family(arch):
+    """One family at its published widths and depth (float32, seed 0): the
+    gradient gates at 2 rows, the training steps at 8, a step's busy share."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training.train_step import make_train_step
+
+    t_family = time.perf_counter()
+    cfg = get_config(arch).replace(dtype="float32")     # the configs compute in bfloat16
+    model = build_model(cfg, device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    res = {"config": cfg.name, "params": n_params, "seq_len": SEQ, "t0": TRAIN_ZOO_T0,
+           "optimizer": "adamw, amsgrad, float32 moments, weight decay 0.1",
+           "remat": "block (a scanned group; an encoder or decoder block)"}
+    res["grad_gate"] = check_train_zoo_gradients(
+        model, train_zoo_batch(cfg, TRAIN_ZOO_GATE_ROWS, 0), prng.key(0))
+    gc_collect()
+    tr = train_zoo_steps(model, cfg)
+    state = tr.pop("state")
+    timed = tr["step_ms"][1:]
+    median_ms = statistics.median(timed)
+    tokens = TRAIN_ZOO_ROWS * SEQ
+    model_flops = 6 * n_params * tokens
+    res.update(tr)
+    res.update({"rows": TRAIN_ZOO_ROWS, "first_step_ms": tr["step_ms"][0],
+                "median_step_ms": median_ms, "tokens_per_s": tokens / median_ms * 1e3,
+                "model_flops_per_step": model_flops,
+                "model_flop_share": model_flops / (median_ms / 1e3) / F32_OPS_PER_S})
+    if cfg.is_encoder_decoder:
+        enc = sum(p.numel() for n, p in model.named_parameters() if n.startswith("enc_blocks."))
+        frames = TRAIN_ZOO_ROWS * cfg.num_audio_frames
+        with_frames = 6 * (enc * frames + (n_params - enc) * tokens)
+        res.update({"encoder_params": enc, "frames": frames,
+                    "model_flops_with_frames": with_frames,
+                    "model_flop_share_with_frames":
+                        with_frames / (median_ms / 1e3) / F32_OPS_PER_S})
+    # one more step under the profiler: the device's busy share and its kernels
+    step = make_train_step(model, cfg, _zoo_run(cfg), build_optimizer(_zoo_run(cfg)))
+    batch = train_zoo_batch(cfg, TRAIN_ZOO_ROWS, 200)
+    held = {"state": state}
+
+    def one_step():
+        held["state"], _ = step(held["state"], batch, prng.key(7))
+
+    t = time.perf_counter()
+    res["busy"] = trace_busy_share(one_step, f"{cfg.name}'s train step")
+    res["busy"]["profile_s"] = time.perf_counter() - t
+    del held, state, step, batch, model
+    gc_collect()
+    res["seconds"] = time.perf_counter() - t_family
+    print(f"{cfg.name} training ({n_params / 1e9:.3f}B params, {TRAIN_ZOO_ROWS} x {SEQ}, remat, "
+          f"{res['how']}): first step {res['first_step_ms']:.1f} ms, median {median_ms:.1f} ms "
+          f"({res['tokens_per_s']:.0f} tokens/s, model-FLOP share {res['model_flop_share']:.1%} "
+          f"of 67 TFLOP/s), peak {res['peak_bytes'] / 2**30:.2f} GiB; losses "
+          f"{[round(x, 4) for x in res['losses']]}; launches {res['launches']}; "
+          f"{res['seconds']:.1f} s")
+    return res
+
+
+def _zoo_run(cfg, **kw):
+    """The families' RunConfig: RunConfig's AdamW (AMSGrad, weight decay 0.1,
+    warmup_cosine(3e-4, 100, ...)), clipping at 1, remat on."""
+    from repro_torch.configs.base import RunConfig
+
+    return RunConfig(arch=cfg.name, t0=TRAIN_ZOO_T0, batch_size=TRAIN_ZOO_ROWS, remat="block",
+                     **kw)
+
+
+def check_train_zoo_smoke_against_cpu():
+    """Each family's smoke config (seed 0, remat, AdamW, lr 1e-3 after one
+    warm-up step) trained 3 steps at 2 x 24 on the card and on the CPU from
+    the same weights, batches (and frames) and keys: losses, grad norms and
+    parameters within the SMOKE_* tolerances."""
+    import copy
+
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training import TrainState, make_train_step
+
+    res = {}
+    for arch in TRAIN_ZOO_ARCHS:
+        cfg = get_smoke_config(arch)
+        run = RunConfig(arch=arch, t0=TRAIN_ZOO_T0, learning_rate=1e-3, warmup_steps=1,
+                        total_steps=3, remat="block")
+        host = build_model(cfg, device="cpu", seed=0)
+        card = copy.deepcopy(host).to("cuda")
+        rng = np.random.default_rng(3)
+        batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
+                                        .astype(np.int32)) for k in ("x_src", "x_tgt")}
+                   for _ in range(3)]
+        if cfg.is_encoder_decoder:
+            for b in batches:
+                b["frames"] = encdec_frames(cfg, 2, device="cpu")
+        out = {}
+        for dev, model in (("cuda", card), ("cpu", host)):
+            opt = build_optimizer(run)
+            step = make_train_step(model, cfg, run, opt)
+            state = TrainState.create(model, opt)
+            metrics = []
+            for i, b in enumerate(batches):
+                state, m = step(state, {k: v.to(dev) for k, v in b.items()}, prng.key(i))
+                metrics.append((float(m["loss"]), float(m["grad_norm"])))
+            out[dev] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
+        sched = build_optimizer(run).learning_rate
+        bound = 2 * sum(sched(i) for i in (1, 2, 3))
+        # per step: (loss, grad norm) relative errors
+        errs = [tuple(abs(a - b) / abs(b) for a, b in zip(ma, mb))
+                for ma, mb in zip(out["cuda"][0], out["cpu"][0])]
+        worst_share, worst_diff, within, total = 1.0, 0.0, 0, 0
+        for n, p in out["cpu"][1].items():
+            diff = (out["cuda"][1][n] - p).abs()
+            worst_diff = max(worst_diff, float(diff.max()))
+            close = int((diff <= 1e-4 * float(p.abs().max())).sum())
+            within, total = within + close, total + p.numel()
+            worst_share = min(worst_share, close / p.numel())
+        share = within / total
+        res[arch] = {"rel_errs_loss_grad_norm": errs, "param_max_abs_diff": worst_diff,
+                     "param_bound": bound, "param_share_within_1e-4": share,
+                     "param_worst_leaf_share_within_1e-4": worst_share,
+                     "losses_card": [m[0] for m in out["cuda"][0]],
+                     "losses_cpu": [m[0] for m in out["cpu"][0]]}
+        steps_txt = [tuple(f"{e:.2e}" for e in st) for st in errs]
+        print(f"{cfg.name} trained 3 steps on the card vs the CPU: (loss, grad norm) relative "
+              f"errors a step {steps_txt}; parameters max |diff| {worst_diff:.2e} (bound "
+              f"{bound:.2e}), {share:.6f} of the elements within 1e-4 of their leaf's max "
+              f"(worst leaf {worst_share:.4f})")
+        if max(errs[0]) > SMOKE_STEP1_RTOL or any(
+                le > SMOKE_LOSS_RTOL or ge > SMOKE_GNORM_RTOL for le, ge in errs[1:]) \
+                or worst_diff > bound or share < SMOKE_TRAIN_SHARE:
+            fail(f"{cfg.name}: 3 steps on the card disagree with the CPU: {res[arch]}")
+    return res
+
+
+def check_launch_train_smoke():
+    """``python -m repro_torch.launch.train --arch A --smoke --steps 3`` for
+    the two decoder-only families, both processes at once: each exits 0."""
+    import os
+    import tempfile
+
+    procs, res = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t = time.perf_counter()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        for arch in (REC_ARCH, XLSTM_ARCH):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--smoke",
+                   "--steps", "3", "--checkpoint-dir", str(pathlib.Path(tmp) / arch)]
+            procs[arch] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True)
+        for arch, p in procs.items():
+            out, _ = p.communicate(timeout=300)
+            res[arch] = {"rc": p.returncode, "tail": out.strip().splitlines()[-2:]}
+        res["seconds"] = time.perf_counter() - t
+    print(f"launch.train --smoke --steps 3: {res}")
+    if any(res[a]["rc"] != 0 for a in procs):
+        fail(f"launch.train on a recurrent smoke config failed: {res}")
+    return res
+
+
+def train_zoo_path():
+    """Train every family the port serves at its published widths and depth
+    (zamba2-2.7b, xlstm-1.3b, whisper-medium, float32): the gradient gates,
+    the training steps, a step's busy share; the smoke configs card == CPU;
+    the launcher on the decoder-only families. Returns ({"train_zoo": ...}
+    record, its flash_attn launches)."""
+    t0 = time.perf_counter()
+    gc_collect()
+    res = {"held_at_start_bytes": torch.cuda.memory_allocated()}
+    print(f"train_zoo: {res['held_at_start_bytes'] / 2**30:.2f} GiB held by earlier phases")
+    for arch in TRAIN_ZOO_ARCHS:
+        res[arch] = train_zoo_family(arch)
+    res["smoke_vs_cpu"] = check_train_zoo_smoke_against_cpu()
+    res["launch_train"] = check_launch_train_smoke()
+    res["phase_seconds"] = time.perf_counter() - t0
+    counts = {"flash_attn": sum(res[a]["launches"].get("flash_attn", 0)
+                                + res[a]["grad_gate"]["launches"].get("flash_attn", 0) * 2
+                                + res[a]["grad_gate"]["launches_remat"].get("flash_attn", 0)
+                                for a in TRAIN_ZOO_ARCHS)}
+    print(f"train_zoo phase: {res['phase_seconds']:.1f} s")
+    return res, counts
+
+
+# -- the README's torch quickstart and the torch examples ----------------------------
+
+EXAMPLES = ("quickstart_torch", "serve_pipeline_torch", "text_generation_torch",
+            "image_refinement_torch")
+# the three that train most at half their twins' --steps: at 300 quickstart and
+# text_generation took 33.4 s and 73.8 s of the 186.1 s the five took, and at 150 the
+# five still took 150.9 s (NVIDIA H100 80GB HBM3, 700 W); the training phase runs the
+# moons study at its full 300 steps
+EXAMPLE_ARGS = {"quickstart_torch": ["--steps", "150"],
+                "text_generation_torch": ["--steps", "150"],
+                "image_refinement_torch": ["--steps", "150"]}
+# a headline's name -> (regex, its group's type); ``examples_path`` fails where a
+# line is missing, and gates the NFEs against warm_nfe
+EXAMPLE_HEADLINES = {
+    "readme_quickstart_torch": {
+        "micro_batches": (r"batch: 6 requests in (\d+) micro-batches", int),
+        "nfe": (r"NFE (\d+)/16 per request", int),
+        "stream_wall_s": (r"of ([\d.]+)s total", float),
+        "slo_attainment_pct": (r"SLO attainment (\d+)%", int)},
+    "quickstart_torch": {
+        "skl_cold": (r"cold DFM: SKL=([-\d.]+)", float),
+        "nfe_cold": (r"cold DFM: .* warm_nfe=(\d+)", int),
+        "skl_warm": (r"WS-DFM:  SKL=([-\d.]+)", float),
+        "nfe_warm": (r"WS-DFM: .* warm_nfe=(\d+)", int)},
+    "serve_pipeline_torch": {
+        "server_nfe": (r"request batch 2 \(n=16\): nfe=(\d+)/40", int),
+        "server_draft_ms_n16": (r"request batch 2 \(n=16\): .* draft=(\d+)ms", int),
+        "server_flow_ms_n16": (r"request batch 2 \(n=16\): .* flow=(\d+)ms", int),
+        "scheduler_requests_per_s": (r"12 requests -> \d+ micro-batches, ([\d.]+) req/s", float),
+        "adaptive_mean_nfe": (r"mean NFE ([\d.]+)", float)},
+    "text_generation_torch": {
+        "nll_lstm": (r"LSTM draft  NLL=([-\d.]+)", float),
+        "nll_cold": (r"cold DFM    NLL=([-\d.]+)", float),
+        "nfe_cold": (r"cold DFM .* NFE=(\d+)", int),
+        "nll_warm": (r"WS-DFM      NLL=([-\d.]+)", float),
+        "nfe_warm": (r"WS-DFM .* NFE=(\d+)", int)},
+    "image_refinement_torch": {
+        "fid_draft": (r"draft FID-proxy: ([-\d.]+)", float),
+        "fid_cold": (r"cold  FID-proxy: ([-\d.]+)", float),
+        "nfe_cold": (r"cold  FID-proxy: [-\d.]+  NFE=(\d+)", int),
+        "fid_warm": (r"warm  FID-proxy: ([-\d.]+)", float),
+        "nfe_warm": (r"warm  FID-proxy: [-\d.]+  NFE=(\d+)", int)},
+}
+EXAMPLE_NFES = {"readme_quickstart_torch": {"nfe": (16, 0.8)},
+                "quickstart_torch": {"nfe_cold": (20, 0.0), "nfe_warm": (20, 0.8)},
+                "serve_pipeline_torch": {"server_nfe": (40, 0.8)},
+                "text_generation_torch": {"nfe_cold": (64, 0.0), "nfe_warm": (64, 0.8)},
+                "image_refinement_torch": {"nfe_cold": (48, 0.0), "nfe_warm": (48, 0.5)}}
+
+
+def readme_torch_snippet() -> str:
+    """The README's executable torch quickstart, as the driver of the docs
+    extracts the JAX one."""
+    import re
+
+    text = (ROOT / "README.md").read_text(encoding="utf-8")
+    region = text.split("<!-- quickstart-torch:begin -->", 1)[1]
+    region = region.split("<!-- quickstart-torch:end -->", 1)[0]
+    return re.search(r"```python\n(.*?)```", region, re.DOTALL).group(1)
+
+
+def examples_path():
+    """The README's torch quickstart and the four ``examples/*_torch.py`` on
+    the card (``--device cuda``, their defaults but EXAMPLE_ARGS), one
+    subprocess each, one after the other: each must exit 0, print its
+    headline lines and the NFEs ``warm_nfe`` guarantees. Returns the
+    {"examples": ...} record."""
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.core.guarantees import warm_nfe
+
+    res = {}
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        snippet = pathlib.Path(tmp) / "readme_quickstart_torch.py"
+        snippet.write_text(readme_torch_snippet(), encoding="utf-8")
+        runs = [("readme_quickstart_torch", snippet)] + [
+            (name, ROOT / "examples" / f"{name}.py") for name in EXAMPLES]
+        for name, path in runs:
+            t = time.perf_counter()
+            p = subprocess.run([sys.executable, str(path), *EXAMPLE_ARGS.get(name, [])],
+                               cwd=ROOT, env=env, text=True,
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600)
+            seconds = time.perf_counter() - t
+            if p.returncode != 0:
+                fail(f"{name} exited {p.returncode}:\n{p.stdout[-3000:]}")
+            heads = {}
+            for key, (pattern, kind) in EXAMPLE_HEADLINES[name].items():
+                m = re.search(pattern, p.stdout)
+                if m is None:
+                    fail(f"{name}: no line matches {pattern!r}:\n{p.stdout[-3000:]}")
+                heads[key] = kind(m.group(1))
+            for key, (cold_nfe, t0) in EXAMPLE_NFES[name].items():
+                if heads[key] != warm_nfe(cold_nfe, t0):
+                    fail(f"{name}: {key} {heads[key]}, guaranteed {warm_nfe(cold_nfe, t0)}")
+            if name == "serve_pipeline_torch":
+                heads["server_samples_per_s_n16"] = 16 / (
+                    (heads["server_draft_ms_n16"] + heads["server_flow_ms_n16"]) / 1e3)
+            res[name] = {"seconds": seconds, **heads}
+            print(f"{name}: exit 0 in {seconds:.1f} s; {heads}")
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"examples phase: {res['phase_seconds']:.1f} s")
+    return res
+
+
 def _category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
@@ -4257,6 +4879,8 @@ def main() -> int:
           f"smoke configs): {zoo['phase_seconds']:.1f} s")
     recurrent, rec_counts = recurrent_path()
     encdec, encdec_counts = encdec_path()
+    train_zoo, train_zoo_counts = train_zoo_path()
+    examples = examples_path()
 
     breakdown = {
         "flash_attn_ms_per_nfe": per_serve["flash_attn"] / per_serve["ws_step"] * flash_num["ms"],
@@ -4372,6 +4996,13 @@ def main() -> int:
         "config": ENCDEC_ARCH, "launches": encdec_counts.get("flash_attn", 0),
         "max_abs_err": enc_errs["flash_attn"], "encoder": enc_num["flash_attn_encoder"],
         "cross": enc_num["flash_attn_cross"], "decode": enc_num["flash_attn_decode"]}
+    rec_flash["train_zoo"] = {
+        "launches": train_zoo_counts["flash_attn"],
+        "launches_per_train_step": {a: train_zoo[a]["launches_per_step"].get("flash_attn", 0)
+                                    for a in TRAIN_ZOO_ARCHS},
+        "launches_per_step_no_remat": {
+            a: train_zoo[a]["grad_gate"]["launches"].get("flash_attn", 0)
+            for a in TRAIN_ZOO_ARCHS}}
     rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], enc_errs["ws_step"])
     rec_ws["encdec"] = {"config": ENCDEC_ARCH, "launches": encdec_counts.get("ws_step", 0),
                         "max_abs_err": enc_errs["ws_step"], "v51865": enc_num["ws_step_v51865"]}
@@ -4393,6 +5024,8 @@ def main() -> int:
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"encdec": encdec}))
+    print(json.dumps({"train_zoo": train_zoo}))
+    print(json.dumps({"examples": examples}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

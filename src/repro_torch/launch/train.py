@@ -27,6 +27,7 @@ from repro_torch.core.paths import WarmStartPath
 from repro_torch.data import SyntheticCorpus
 from repro_torch.models import build_model
 from repro_torch.training import Trainer
+from repro_torch.training.trainer import check_fit_batches
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -68,6 +69,7 @@ def main(argv: Optional[Sequence[str]] = None):
     """Train and checkpoint; returns (trainer, final state, checkpoint path)."""
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_fit_batches(cfg)      # before the model is built
     cfg = cfg.replace(max_seq_len=max(cfg.max_seq_len, args.seq_len))
     model = build_model(cfg, device=args.device, seed=args.seed)
     run = RunConfig(

@@ -34,6 +34,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -148,11 +149,12 @@ class EncDecModel(nn.Module):
 
     # -- encoder -------------------------------------------------------------
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames (B, F, d_model) stub embeddings -> encoder states."""
+    def encode(self, frames: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
+        """frames (B, F, d_model) stub embeddings -> encoder states. With
+        ``remat`` each block is checkpointed (JAX checkpoints its scan body)."""
         x = frames.float() + _sinusoids(frames.shape[1], self.cfg.d_model, frames.device)[None]
         for block in self.enc_blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.enc_norm(x)
 
     def _layer_kvs(self, enc_out: torch.Tensor) -> List[dict]:
@@ -176,14 +178,20 @@ class EncDecModel(nn.Module):
             x = x + self.time(t)[:, None, :]
         return x
 
-    def _decode_stack(self, x, kvs, q_pos, mode, self_cache=None):
+    def _decode_stack(self, x, kvs, q_pos, mode, self_cache=None, remat: bool = False):
         """The decoder blocks over ``x``; ``kvs`` one cross k/v per layer.
         With ``self_cache`` (the cache's ``"self"`` leaves) the self
-        attention writes and reads it; returns (normed x, new self leaves)."""
+        attention writes and reads it; returns (normed x, new self leaves).
+        With ``remat`` (no cache) each block is checkpointed, as JAX's scan
+        body is; the cross k/v are computed outside it."""
         new = []
         for i, block in enumerate(self.dec_blocks):
             lc = None if self_cache is None else {k: v[i] for k, v in self_cache.items()}
-            x, lc = block(x, kvs[i], mode=mode, q_pos=q_pos, cache=lc)
+            if remat and lc is None:
+                x, lc = checkpoint(block, x, kvs[i], mode=mode, q_pos=q_pos,
+                                   use_reentrant=False)
+            else:
+                x, lc = block(x, kvs[i], mode=mode, q_pos=q_pos, cache=lc)
             new.append(lc)
         new_self = None
         if self_cache is not None:
@@ -193,17 +201,19 @@ class EncDecModel(nn.Module):
         return self.dec_norm(x), new_self
 
     def forward(self, tokens: torch.Tensor, t: Optional[torch.Tensor] = None, *,
-                frames: torch.Tensor, mode: Optional[str] = None) -> torch.Tensor:
+                frames: torch.Tensor, mode: Optional[str] = None,
+                remat: bool = False) -> torch.Tensor:
         """tokens (B, S), frames (B, F, D) -> logits (B, S, V). With ``t``
         (B,) the decoder is the DFM denoiser (bidirectional,
-        time-conditioned); without, a causal LM."""
-        kvs = self._layer_kvs(self.encode(frames))
+        time-conditioned); without, a causal LM. ``remat`` checkpoints each
+        encoder and decoder block (JAX ``forward(..., remat)``)."""
+        kvs = self._layer_kvs(self.encode(frames, remat=remat))
         b, s = tokens.shape
         x = self._embed_tokens(tokens, 0, t)
         q_pos = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
         if mode is None:
             mode = "bidir" if t is not None else "causal"
-        x, _ = self._decode_stack(x, kvs, q_pos, mode)
+        x, _ = self._decode_stack(x, kvs, q_pos, mode, remat=remat)
         return self._head(x)
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor, *,

@@ -33,6 +33,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -116,21 +117,41 @@ class Model(nn.Module):
             return torch.matmul(x, self.embed.table.T)
         return self.head(x)
 
+    def _layers(self, lo: int, hi: int, x: torch.Tensor, x0: torch.Tensor, rope: dict,
+                mode: str, global_window: Optional[int]) -> torch.Tensor:
+        for block in self.blocks[lo:hi]:
+            x = block(x, rope=rope, mode=mode, global_window=global_window, x0=x0,
+                      shared=self.zshared)
+        return x
+
     def forward(self, tokens: torch.Tensor, t: Optional[torch.Tensor] = None, *,
-                global_window: Optional[int] = None) -> torch.Tensor:
+                global_window: Optional[int] = None, remat: bool = False) -> torch.Tensor:
         """tokens (B, S) -> logits (B, S, V). With ``t`` (B,) the model is
         the DFM denoiser (bidirectional attention, time-conditioned;
-        recurrent layers stay causal); without, a causal LM."""
+        recurrent layers stay causal); without, a causal LM.
+
+        ``remat`` checkpoints what JAX's scan checkpoints: each group of
+        ``len(cfg.pattern)`` layers (``cfg.scan_split``), its activations
+        recomputed in the backward; the prefix and remainder layers are
+        not checkpointed. ``x0`` and the shared block's weights enter
+        every group, so their gradients sum over all of them."""
         x = self.embed(tokens)
         if t is not None:
             x = x + self.time(t)[:, None, :]
         mode = "bidir" if t is not None else "causal"
         pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
         rope = rope_context(self.cfg, pos)
+        ctx = (rope, mode, global_window)
         x0 = x
-        for block in self.blocks:
-            x = block(x, rope=rope, mode=mode, global_window=global_window, x0=x0,
-                      shared=self.zshared)
+        npre, p = len(self.cfg.prefix), len(self.cfg.pattern)
+        end = npre + self.cfg.scan_split()[0] * p
+        x = self._layers(0, npre, x, x0, *ctx)
+        for lo in range(npre, end, p):
+            if remat:
+                x = checkpoint(self._layers, lo, lo + p, x, x0, *ctx, use_reentrant=False)
+            else:
+                x = self._layers(lo, lo + p, x, x0, *ctx)
+        x = self._layers(end, len(self.blocks), x, x0, *ctx)
         return self._head(x)
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor, *,

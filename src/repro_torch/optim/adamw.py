@@ -28,9 +28,14 @@ Leaves = Dict[str, List[torch.Tensor]]
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+# the JAX leaves that stack layers: a pattern position's repeats, and the
+# encoder-decoder's blocks (``convert.jax_leaf_name``)
+STACKED_PREFIXES = ("stack|blocks|", "enc_blocks|", "dec_blocks|")
+
+
 def is_stacked(name: str) -> bool:
-    """Whether JAX leaf ``name`` stacks the layers of one pattern position."""
-    return name.startswith("stack|blocks|")
+    """Whether JAX leaf ``name`` stacks layers along its leading axis."""
+    return name.startswith(STACKED_PREFIXES)
 
 
 def leaf_shape(name: str, tensors: List[torch.Tensor]) -> tuple:

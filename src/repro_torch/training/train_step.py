@@ -1,9 +1,11 @@
 """The WS-DFM training step (paper Fig. 2 right) over the port's DiT
-backbone: torch port of the JAX package's ``training/train_step.py``.
+backbone and every family the port serves (dense, recurrent,
+encoder-decoder): torch port of the JAX package's ``training/train_step.py``.
 
 batch dict:
   x_src:  (B, N) int32: draft samples x_{t0} (or noise for cold start)
   x_tgt:  (B, N) int32: refined/data samples x_1
+  + ``frames`` (B, F, d_model) for the encoder-decoder family.
 
 The same step with ``path.t0 = 0`` is the cold-start DFM baseline (paper
 Fig. 2 left). The step runs eagerly: gradients by ``torch.autograd.grad``
@@ -27,40 +29,33 @@ from repro_torch.optim.schedule import clip_by_global_norm
 from repro_torch.training.state import TrainState
 
 EXTRA_KEYS = ("frames", "patches", "positions")
-RECURRENT_KINDS = ("mamba", "mlstm", "slstm", "zshared")   # served, not trained, by the port
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet ({where}); the port trains dense "
-        f"attention configs")
+    return NotImplementedError(f"{what} is not ported to repro_torch yet ({where})")
 
 
 def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
                  z_loss: float = 1e-4, mtp_weight: float = 0.1, remat: bool = False):
     """Returns loss_fn(model, batch, rng) -> (loss, metrics); ``rng`` is a
-    host key (``prng.key``)."""
-    if remat:
-        raise _not_ported("remat (activation rematerialisation)", "a later training item")
+    host key (``prng.key``). Each of ``EXTRA_KEYS`` present in the batch
+    reaches the model as a keyword (``EncDecModel`` takes ``frames``; a
+    decoder-only ``Model`` refuses extras), and ``remat`` too (JAX
+    ``fwd_batch`` and ``model.forward(..., remat=remat)``)."""
     if cfg.moe.num_experts:
         raise _not_ported("the MoE router auxiliary loss", "the zoo's MoE family")
-    if cfg.is_encoder_decoder:
-        raise _not_ported("training the encoder-decoder family", "a later training item")
-    recurrent = sorted(set(cfg.prefix + cfg.pattern) & set(RECURRENT_KINDS))
-    if recurrent:
-        raise _not_ported(f"training {recurrent} layers",
-                          "the recurrent family's training, a later item")
 
     def loss_fn(model, batch, rng):
-        extras = [k for k in EXTRA_KEYS if k in batch]
-        if extras:
-            raise _not_ported(f"batch extras {extras}", "the zoo's VLM and encoder-decoder "
-                                                             "families")
+        extras = {k: batch[k] for k in EXTRA_KEYS if k in batch}
+        if extras and not (cfg.is_encoder_decoder and set(extras) == {"frames"}):
+            raise _not_ported(f"batch extras {sorted(extras)} for {cfg.name}",
+                              "only the encoder-decoder family's frames are; patches and "
+                              "positions are the zoo's VLM family's")
         x_src, x_tgt = batch["x_src"], batch["x_tgt"]
         rng_t, rng_xt = prng.split(rng, 2)
         t = path.sample_t(rng_t, (x_src.shape[0],), device=x_src.device)
         x_t = path.interpolate(rng_xt, x_src, x_tgt, t)
-        logits = model(x_t, t)
+        logits = model(x_t, t, remat=remat, **extras)
 
         loss = dfm_cross_entropy(logits, x_tgt, z_loss=z_loss)
         metrics = {"ce": loss, "t_mean": torch.mean(t)}

@@ -1,6 +1,8 @@
 """Host-side training loop: data iterator -> train step -> metrics, periodic
 checkpointing (torch port of the JAX package's ``training/trainer.py``).
-Used by ``launch/train.py``.
+Used by ``launch/train.py``. It trains every decoder-only config; an
+encoder-decoder one trains through ``make_train_step`` with its frames in
+the batch (``check_fit_batches``).
 
 The JAX trainer jits its step; here the step runs as eager launches on the
 model's device. Every step's loss and grad norm stay on the device
@@ -26,6 +28,19 @@ from repro_torch.core.paths import WarmStartPath
 from repro_torch.optim import build_optimizer
 from repro_torch.training.state import TrainState
 from repro_torch.training.train_step import make_train_step
+
+
+def check_fit_batches(cfg: ModelConfig) -> None:
+    """Raise for a config whose batches need more than ``x_src``/``x_tgt``.
+    ``fit`` builds only those, as the JAX trainer does, which therefore
+    fails on an encoder-decoder config at its first step (``KeyError:
+    'frames'``, reference fault R9 in ROADMAP); here the error comes
+    before the first step and names the way that works."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name}: Trainer.fit builds batches of x_src and x_tgt only, and this "
+            f"encoder-decoder config needs 'frames' (B, F, d_model) in each batch: train it "
+            f"through make_train_step with batch['frames']")
 
 
 def _sync(device: torch.device) -> None:
@@ -58,6 +73,7 @@ class Trainer:
     def fit(self, state: TrainState, batches: Iterator, *, steps: Optional[int] = None,
             log_fn: Callable[[int, dict], None] = None,
             checkpoint_every: int = 0) -> TrainState:
+        check_fit_batches(self.cfg)
         steps = steps or self.run.total_steps
         device = self.model.device
         rng = prng.key(self.run.seed + 1)

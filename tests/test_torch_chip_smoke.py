@@ -165,3 +165,43 @@ def test_encdec_launches_count_every_attention_and_the_draft_after_r8(smoke):
     refine, draft = smoke.encdec_launches(get_smoke_config("whisper-medium"), 4, seq=24)
     assert refine == {"flash_attn": 4 * 6, "ws_step": 4}
     assert draft == {"flash_attn": 4 + 2 * 24}
+
+
+@pytest.mark.parametrize("arch,per_forward", [("zamba2-2.7b", 9), ("xlstm-1.3b", 0),
+                                              ("whisper-medium", 72)])
+def test_train_zoo_launches_count_every_attention_once_a_forward(smoke, arch, per_forward):
+    """A training step launches flash_attn once an attention a forward (the
+    backward launches none) and twice under remat (the checkpointed forward
+    runs again): zamba2-2.7b's 9 shared-attention positions, whisper's 24
+    encoder, 24 self and 24 cross attentions, none in xlstm-1.3b."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    want = {"flash_attn": per_forward} if per_forward else {}
+    assert smoke.train_zoo_launches(cfg, False) == want
+    assert smoke.train_zoo_launches(cfg, True) == {k: 2 * v for k, v in want.items()}
+
+
+def test_zero_grad_leaves_are_the_zshared_positions_ln1(smoke):
+    """The gradients JAX leaves exactly zero: the ``ln1`` of each of
+    zamba2-2.7b's 9 ``zshared`` positions (every sixth layer), none of
+    whisper's or xlstm's."""
+    from repro_torch.configs import get_config
+
+    leaves = smoke.zero_grad_leaves(get_config("zamba2-2.7b"))
+    assert {n for n in leaves if n.endswith(".scale")} == {
+        f"blocks.{6 * g + 5}.ln1.scale" for g in range(9)}
+    assert not smoke.zero_grad_leaves(get_config("whisper-medium"))
+    assert not any(n.endswith(".scale") for n in smoke.zero_grad_leaves(
+        get_config("xlstm-1.3b")))
+
+
+def test_examples_phase_runs_the_readme_torch_snippet_and_every_torch_example(smoke):
+    """The snippet ``examples_path`` runs is the README's torch one, on the
+    card; it runs all four ``examples/*_torch.py`` and gates NFEs on each."""
+    code = smoke.readme_torch_snippet()
+    assert 'DEVICE = "cuda"\n' in code and "repro_torch" in code and "jax" not in code
+    assert sorted(smoke.EXAMPLES) == sorted(
+        p.stem for p in (ROOT / "examples").glob("*_torch.py"))
+    assert set(smoke.EXAMPLE_HEADLINES) == set(smoke.EXAMPLE_NFES) == {
+        "readme_quickstart_torch", *smoke.EXAMPLES}

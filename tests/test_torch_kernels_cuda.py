@@ -1065,6 +1065,27 @@ def test_flash_attention_fn_grads_match_plain_autograd(card, b, s, h, kh, d, cau
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+def test_flash_attention_fn_grads_at_s_ne_t_match_plain_autograd(card):
+    """The gradient through ``FlashAttentionFn`` at whisper-medium's cross
+    attention shape, 256 queries against 1500 keys (16 heads of 64,
+    bidirectional), against autograd through the plain version: each
+    gradient within 1e-4 of its max |g|, as at S = T."""
+    b, s, t, h, d = 2, 256, 1500, 16, 64
+    g = torch.Generator(device=card).manual_seed(t)
+    q, k, v = (torch.randn(shape, generator=g, device=card)
+               for shape in ((b, s, h, d), (b, t, h, d), (b, t, h, d)))
+    w = torch.randn((b, s, h, d), generator=g, device=card)
+    tq, tk, tv = (x.clone().requires_grad_() for x in (q, k, v))
+    before = launches["flash_attn"]
+    torch.sum(flash_attention(tq, tk, tv, causal=False) * w).backward()
+    assert launches["flash_attn"] == before + 1
+    rq, rk, rv = (x.clone().requires_grad_() for x in (q, k, v))
+    torch.sum(flash_attention_ref(rq, rk, rv, causal=False) * w).backward()
+    for got, want in ((tq.grad, rq.grad), (tk.grad, rk.grad), (tv.grad, rv.grad)):
+        assert got.shape == want.shape
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 def test_flash_attn_launch_refuses_inputs_that_require_grad(card):
     """Only ``FlashAttentionFn`` launches the kernel for inputs that require
     grad: a launch that would cut the graph raises; under no_grad the

@@ -7,7 +7,7 @@ prefilled by scan, as JAX's ``auto`` picks) equal to JAX's off near-ties;
 repeated calls with one prompt equal to a fresh engine's and to the
 cache-free oracle, where JAX's differ (reference fault R7, pinned here);
 ``WarmStartServer.serve`` tokens and NFE equal to JAX's; the training step
-refuses the family."""
+takes a finite step on the family."""
 
 import functools
 
@@ -34,6 +34,8 @@ from repro_torch.drafting import (
 )
 from repro_torch.models import Model
 from repro_torch.serving import WarmStartServer
+from repro_torch.optim import build_optimizer
+from repro_torch.training import TrainState
 from repro_torch.training.train_step import make_loss_fn, make_train_step
 
 ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
@@ -215,8 +217,21 @@ def test_serve_matches_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_the_family_is_refused(arch):
-    model = _pair(arch)[2]
-    with pytest.raises(NotImplementedError, match="recurrent family"):
-        make_loss_fn(model, model.cfg, WarmStartPath(t0=0.8))
-    with pytest.raises(NotImplementedError, match="recurrent family"):
-        make_train_step(model, model.cfg, RunConfig(), optimizer=None)
+    """The refusal this test pinned is lifted: ``make_loss_fn`` and
+    ``make_train_step`` build for the recurrent family and take one finite
+    AdamW step that moves the weights (the gradients against JAX's are
+    ``test_torch_train_families``'s)."""
+    model = Model(get_smoke_config(arch), device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {k: torch.from_numpy(rng.integers(0, V, (2, 16)).astype(np.int32))
+             for k in ("x_src", "x_tgt")}
+    loss, _ = make_loss_fn(model, model.cfg, WarmStartPath(t0=0.8))(model, batch, prng.key(0))
+    assert bool(torch.isfinite(loss))
+    run = RunConfig(learning_rate=1e-3, warmup_steps=1, total_steps=1)
+    opt = build_optimizer(run)
+    before = [p.detach().clone() for p in model.parameters()]
+    state, metrics = make_train_step(model, model.cfg, run, opt)(
+        TrainState.create(model, opt), batch, prng.key(1))
+    assert int(state.step) == 1
+    assert np.isfinite(float(metrics["loss"])) and np.isfinite(float(metrics["grad_norm"]))
+    assert any(not torch.equal(b, p) for b, p in zip(before, model.parameters()))

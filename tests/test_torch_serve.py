@@ -280,9 +280,14 @@ def _imported_modules(path: pathlib.Path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == [
+        "image_refinement_torch.py", "quickstart_torch.py", "serve_pipeline_torch.py",
+        "text_generation_torch.py"]
+    package = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files = package + examples + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    walked = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files[:-1]}
+    walked = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in package}
     assert {"data/__init__.py", "data/moons.py", "data/images.py", "data/text.py",
             "models/lstm.py", "core/draft.py", "core/pipeline.py",
             "drafting/quality.py", "core/losses.py", "core/coupling.py",

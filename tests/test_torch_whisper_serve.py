@@ -6,7 +6,7 @@ sides), ``make_refine_step_fn(extras=...)`` on one step, and
 ``WarmStartServer`` through the conditioning object (``Conditioned``) with
 a given draft and with the ``ar_generate`` draft asked for ``N + 1``:
 tokens, NFE and the report's counts equal to JAX's server on the same
-object; ``make_loss_fn`` refuses the family."""
+object; ``make_loss_fn`` trains the family with its frames."""
 
 import functools
 
@@ -159,6 +159,19 @@ def test_serve_through_the_conditioning_object_matches_jax(draft):
 
 
 def test_training_the_family_is_refused():
+    """The refusal this test pinned is lifted: ``make_loss_fn`` builds for
+    the encoder-decoder family and, with the frames in the batch, gives a
+    finite loss whose backward reaches every encoder and decoder block (its
+    gradients against JAX's are ``test_torch_train_families``'s)."""
     model = _pair()[2]
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        make_loss_fn(model, model.cfg, WarmStartPath(t0=0.8))
+    rng = np.random.default_rng(2)
+    batch = {k: torch.from_numpy(rng.integers(0, 512, (2, 8)).astype(np.int32))
+             for k in ("x_src", "x_tgt")}
+    batch["frames"] = torch.from_numpy(
+        (0.1 * rng.standard_normal((2, model.cfg.num_audio_frames, model.cfg.d_model)))
+        .astype(np.float32))
+    loss, _ = make_loss_fn(model, model.cfg, WarmStartPath(t0=0.8))(model, batch, prng.key(0))
+    assert bool(torch.isfinite(loss))
+    grads = torch.autograd.grad(loss, [model.enc_blocks[0].attn.wq.w,
+                                       model.dec_blocks[-1].mlp.up.w])
+    assert all(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads)
