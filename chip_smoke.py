@@ -114,6 +114,20 @@ its prefill and 24 a decode step), one capture, the second serve's replay
 NFE's encoder and cross k/v shares and the flow stage profiled; the smoke
 config served on the card == the CPU.
 
+Then the MoE family: ``flash_attn`` at arctic-480b's refine (8 x 256, 56
+heads of 128, kv 8) and ``ws_step`` at V = 32000 (the device-key launch
+against the host key's too) against their plain versions and timed;
+arctic-480b at its published widths with one of its 35 layers (128
+experts, top-2, float32, seed 0: 56.3 GB of weights) served 8 x 256, 13
+NFE, three times, drafted by the same model as a causal decoder (the plain
+decode path: the dropless MoE path in the decode graph, the capacity path
+in the refine's): exact launches (13 ``flash_attn`` and 13 ``ws_step`` a
+serve, no draft kernel), one capture each, the first serve's graphs == their
+eager launches, the layer's MoE FFN at 1 x 64 against float64 on both
+dispatches, the flow stage profiled, an eager NFE and an eager decode step
+by kind of op (the dropless gather, the expert GEMMs, the other GEMMs); the
+smoke config served and trained 3 steps on the card == the CPU.
+
 Then it trains those three families at their published widths and depth
 (float32, seed 0; whisper over frames made as its serve's): at 2 x 256
 tokens the WS-DFM loss's gradient through the ``flash_attn`` kernel
@@ -136,9 +150,10 @@ equal to ``warm_nfe``, its headline numbers read from its report).
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
 ``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}``,
-``{"encdec": ...}``, ``{"train_zoo": ...}`` and ``{"examples": ...}``
-lines, a ``{"kernels": [...]}`` line (the zoo's shapes under ``zoo``, the
-recurrent family's under ``recurrent``, whisper's under ``encdec``, the
+``{"encdec": ...}``, ``{"moe": ...}``, ``{"train_zoo": ...}`` and
+``{"examples": ...}`` lines, a ``{"kernels": [...]}`` line (the zoo's shapes
+under ``zoo``, the recurrent family's under ``recurrent``, whisper's under
+``encdec``, arctic-480b's under ``moe``, the
 families' training launches under ``flash_attn``'s ``train_zoo``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
@@ -3646,8 +3661,8 @@ def check_recurrent_vs_eager(server, engine, prompt, rng, served, warm_draft, wa
           f"and the draft replayed with the prefix reused vs the warm-up's eager decode after "
           f"a fresh prefill (bitwise): {res}")
     if res["serve_differ"] or res["draft_differ"] or any(res["new_captures"]):
-        fail(f"the recurrent serve's graphs or its reused prefix differ from the eager "
-             f"launches after a fresh prefill: {res}")
+        fail(f"{engine.adapter.model.cfg.name}: the serve's graphs or its reused prefix "
+             f"differ from the eager launches after a fresh prefill: {res}")
     return res
 
 
@@ -4104,6 +4119,262 @@ def encdec_path():
     return res, counts
 
 
+# -- the MoE family ------------------------------------------------------------------
+
+MOE_ARCH = "arctic-480b"
+MOE_ROWS = 8
+# one of its 35 layers at the published widths: a layer's 128 experts are 53.6 GB in
+# float32, with its attention, dense residual, embedding and head 56.3 GB of the card's
+# 80; two layers would take 110 GB. The draft is the same model as a causal decoder
+MOE_LAYERS = 1
+MOE_HEADS, MOE_KV_HEADS, MOE_HEAD_DIM = 56, 8, 128
+MOE_SERVES = 3
+MOE_FFN_TOKENS = 64          # the full-width FFN against float64, 1 x 64 hidden states
+MOE_FFN_TOL = 1e-4           # x max |float64 reference|
+# the device time an eager NFE and an eager decode step spend in each kind of op (the
+# op's kernels, by the profiler): the dropless path's weight gathers, the experts'
+# batched GEMMs, every other GEMM (attention projections, router, residual, head)
+MOE_OP_KINDS = {"aten::index_select": "dropless_gather", "aten::bmm": "expert_gemms",
+                "aten::mm": "dense_gemms", "aten::addmm": "dense_gemms"}
+
+
+def moe_kernel_gates():
+    """The kernels at arctic-480b's serve shapes against their plain versions:
+    flash_attn<128> at (8, 256, 56 heads, kv 8, 128) bidirectional (the
+    refine) and ws_step at (2048, 32000), the device-key launch against the
+    host key's too."""
+    rows = MOE_ROWS
+    flash = check_flash(rows, SEQ, MOE_HEADS, MOE_KV_HEADS, MOE_HEAD_DIM, False, None, 90)
+    ws = check_ws_step(rows * SEQ, 32000, 1.0, 91)
+    keys = check_device_keys(rows * SEQ, 32000, 92)
+    return {"flash_attn": flash, "ws_step": ws["max_abs_err"], "ws_check": ws,
+            "device_keys": keys}
+
+
+def _profile_ops(run, what):
+    """``run`` of eager launches under ``torch.profiler``: device ms by
+    MOE_OP_KINDS (a host op's kernels) and of the flash_attn and ws_step
+    kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    res = {kind: 0.0 for kind in sorted(set(MOE_OP_KINDS.values()))}
+    res.update(flash_attn=0.0, ws_step=0.0, all_kernels=0.0)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU and e.key in MOE_OP_KINDS:
+            res[MOE_OP_KINDS[e.key]] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CUDA:
+            res["all_kernels"] += e.self_device_time_total / 1e3
+            if _category(e.key) in ("flash_attn", "ws_step"):
+                res[_category(e.key)] += e.self_device_time_total / 1e3
+    if not res["all_kernels"]:
+        print(f"profile of {what}: the trace holds no device time (not measured)")
+        return {"device_ms": None}
+    print(f"profile of {what}: device ms by kind "
+          + json.dumps({k: round(v, 3) for k, v in res.items()}))
+    return res
+
+
+def check_moe_ffn_float64(moe, seed=93):
+    """The layer's MoE FFN at full width on 1 x MOE_FFN_TOKENS hidden states
+    (N(0, 1), a seed), both dispatches, against float64: the routing (the
+    port's, float32) given, each routed expert's three products and the dense
+    residual in float64, expert by expert over the routed experts only (no
+    float64 copy of the 53.6 GB). Within MOE_FFN_TOL of max |reference|."""
+    from repro_torch.models.common import activation
+    from repro_torch.models.moe import capacity, dispatch_slots, route
+
+    cfg = moe.cfg
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, MOE_FFN_TOKENS, cfg.d_model), generator=g, device="cuda")
+    with torch.no_grad():
+        got = {"capacity": moe.capacity_ffn(x)[0][0], "dropless": moe.dropless(x)[0][0]}
+        xt = x[0]
+        _, gate_w, gate_i = route(xt, moe.router, cfg.moe.num_experts_per_tok)
+        _, keep = dispatch_slots(gate_i, cfg.moe.num_experts, capacity(MOE_FFN_TOKENS, cfg))
+        x64 = xt.double()
+        res = moe.residual
+        dense = torch.matmul(activation(cfg.act, x64 @ res.gate.w.double())
+                             * (x64 @ res.up.w.double()), res.down.w.double())
+        experts = torch.zeros((MOE_FFN_TOKENS, gate_i.shape[1], cfg.d_model),
+                              dtype=torch.float64, device="cuda")
+        for e in sorted(set(gate_i.flatten().tolist())):
+            t, j = (gate_i == e).nonzero(as_tuple=True)
+            xe = x64[t]
+            h = (activation(cfg.act, xe @ moe.gate[e].double()) * (xe @ moe.up[e].double()))
+            experts[t, j] = h @ moe.down[e].double()
+        w = gate_w.double()[..., None]
+        want = {"dropless": dense + (experts * w).sum(1),
+                "capacity": dense + (experts * w * keep[..., None]).sum(1)}
+    res = {"tokens": MOE_FFN_TOKENS, "experts_routed": len(set(gate_i.flatten().tolist())),
+           "dropped_slots": int((~keep).sum()), "tolerance": f"{MOE_FFN_TOL} x max|ref|"}
+    for name in ("capacity", "dropless"):
+        scale = float(want[name].abs().max())
+        err = float((got[name].double() - want[name]).abs().max())
+        res[name] = {"max_abs_err": err, "max_abs_ref": scale, "rel": err / scale}
+    print(f"{cfg.name} MoE FFN at full width (1 x {MOE_FFN_TOKENS}) against float64: {res}")
+    if any(not math.isfinite(res[n]["rel"]) or res[n]["rel"] > MOE_FFN_TOL
+           for n in ("capacity", "dropless")):
+        fail(f"the full-width MoE FFN disagrees with its float64 reference: {res}")
+    return res
+
+
+def moe_serve():
+    """arctic-480b at its published widths, MOE_LAYERS of its 35 layers
+    (float32, seed 0), served through ``WarmStartServer`` at MOE_ROWS x SEQ,
+    t0 = 0.8, cold_nfe = 64 (13 NFE; the capacity path in every NFE's graph),
+    drafted by the same model as a causal decoder (the plain decode path:
+    the draft kernels refuse MoE; the prompt prefilled by scan, the decode one
+    graph replay on the dropless path). MOE_SERVES serves: the first captures
+    the decode and the refine. Gates: NFE == warm_nfe, exact launches a serve
+    (``flash_attn`` 13, ``ws_step`` 13, no draft kernel; the first serve twice
+    that), one capture each, the first serve's graphs == their eager
+    warm-ups, the FFN against float64 (:func:`check_moe_ffn_float64`).
+    Reports draft, flow and per-NFE ms, samples/s, the draft cost ratio,
+    peak memory, the flow stage's busy share (profiled with its draft given)
+    and the device ms by kind of an eager NFE and an eager decode step."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Model
+    from repro_torch.serving import WarmStartServer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = MOE_ROWS
+    cfg = get_config(MOE_ARCH).replace(dtype="float32", num_layers=MOE_LAYERS)
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    weights_gb = torch.cuda.memory_allocated() / 2 ** 30
+    adapter = TransformerDraftAdapter(model=model, decode_impl="xla")
+    engine = ARDraftEngine(adapter, max_len=MAX_LEN)
+    if adapter.exact_batched_prefill or engine.prefill_mode != "scan":
+        fail(f"{MOE_ARCH}: the draft must take the plain path with a scanned prefill")
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = draft_prompt(rows, cfg.vocab_size)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=cfg,
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    per_serve = {"ws_step": nfe, "flash_attn": nfe * MOE_LAYERS}
+
+    launches.clear()
+    reports, outs = [], []
+    for i in range(MOE_SERVES):
+        before = dict(launches)
+        served, rep = server.serve(prng.key(500 + i), rows)
+        if i == 0:     # the eager warm-ups of the two captures, on this serve's inputs
+            warm_draft, warm_x = engine.graphs.last_warmup, server.graphs.last_warmup
+        grew = grown(before)
+        want = {k: 2 * n if i == 0 else n for k, n in per_serve.items()}   # capture warm-ups
+        if grew != want:
+            fail(f"{MOE_ARCH} serve {i}: launches {grew}, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{MOE_ARCH} serve {i}: nfe {rep['nfe']} backbone_evals "
+                 f"{rep['backbone_evals']}, guaranteed {nfe}")
+        if served.shape != (rows, SEQ) or int(served.min()) < 0 \
+                or int(served.max()) >= cfg.vocab_size:
+            fail(f"{MOE_ARCH} serve {i}: tokens {tuple(served.shape)} outside "
+                 f"[0, {cfg.vocab_size})")
+        reports.append(rep)
+        outs.append(served)
+    counts = dict(launches)
+    caps = (engine.graphs.captures, server.graphs.captures)
+    if caps != (1, 1) or engine.stats.prefill_reuses != MOE_SERVES - 1:
+        fail(f"{MOE_ARCH}: {MOE_SERVES} serves must capture the decode and the refine once "
+             f"each and reuse the prefix: captures {caps}, {engine.stats.as_dict()}")
+    print(f"moe path: {MOE_ARCH} ({n_params / 1e9:.3f}B params, float32, {MOE_LAYERS} of 35 "
+          f"layers, {weights_gb:.2f} GiB of weights, init {init_s:.1f} s) x {MOE_SERVES} "
+          f"serves of {rows} x {SEQ}, drafted by the same model as a causal decoder, "
+          f"t0={T0}, cold_nfe={COLD_NFE}: nfe {nfe} per serve, guarantee gate passed, "
+          f"launches {counts} (per serve {per_serve}, the first twice that); capture ms "
+          f"(warm-up and capture): decode {engine.graphs.stats()['capture_ms']}, refine "
+          f"{server.graphs.stats()['capture_ms']}")
+
+    vs_eager = check_recurrent_vs_eager(server, engine, prompt, prng.key(500), outs[0],
+                                        warm_draft, warm_x)
+    ffn = check_moe_ffn_float64(model.blocks[0].moe)
+
+    holder = {}
+    server.draft_generate = lambda rng, num: warm_draft
+
+    def run():
+        holder["rep"] = server.serve(prng.key(521), rows)[1]
+
+    flow_prof = _profile(run, f"{MOE_ARCH} serve with its draft given (the flow stage)")
+    flow_prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+    x, t = outs[-1], torch.full((rows,), T0 + 0.05, device="cuda")
+    cache = adapter.init_cache(rows, MAX_LEN)
+    with torch.no_grad():
+        nfe_ops = _profile_ops(lambda: model.dfm_apply(x, t), "an eager NFE (8 x 256)")
+        step_ops = _profile_ops(lambda: model.decode_step(x[:, :1], cache, PROMPT),
+                                "an eager decode step (8 rows, dropless)")
+    del cache
+    steady = reports[-1]
+    res = {
+        "config": MOE_ARCH, "dtype": cfg.dtype, "params": n_params, "layers": MOE_LAYERS,
+        "experts": cfg.moe.num_experts, "top_k": cfg.moe.num_experts_per_tok,
+        "rows": rows, "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe,
+        "serves": MOE_SERVES, "weights_gib": weights_gb, "init_s": init_s,
+        "draft": {"config": MOE_ARCH + " (the flow model as a causal decoder)",
+                  "prompt": PROMPT, "max_len": MAX_LEN, "decode_steps": SEQ - 1,
+                  "prefill": engine.prefill_mode, "decode_impl": adapter.decode_impl,
+                  "stats": engine.stats.as_dict()},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms_per_serve": [r["draft_time_s"] * 1e3 for r in reports[1:]],
+        "flow_ms_per_serve": [r["flow_time_s"] * 1e3 for r in reports[1:]],
+        "draft_ms": steady["draft_time_s"] * 1e3,
+        "flow_ms": steady["flow_time_s"] * 1e3,
+        "per_nfe_ms": steady["per_nfe_s"] * 1e3,
+        "samples_per_s": rows / (steady["draft_time_s"] + steady["flow_time_s"]),
+        "draft_cost_ratio": steady["speedup_report"].draft_cost_ratio,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flow_busy_share": flow_prof.get("busy_share"), "flow_profile": flow_prof,
+        "nfe_device_ms_by_kind": nfe_ops, "decode_step_device_ms_by_kind": step_ops,
+        "launches_per_serve": per_serve, "vs_eager": vs_eager, "ffn_vs_float64": ffn,
+        "capture_ms": {"decode": engine.graphs.stats()["capture_ms"],
+                       "refine": server.graphs.stats()["capture_ms"]},
+    }
+    del model, adapter, engine, server, holder, warm_draft, warm_x, outs, x
+    gc_collect()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{MOE_ARCH} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+          f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.2f} ms an NFE), "
+          f"{res['samples_per_s']:.3f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.2f}, peak memory {res['peak_memory_gb']:.2f} GiB, flow "
+          f"busy {res['flow_busy_share']}; {res['seconds']:.1f} s")
+    return res, counts
+
+
+def moe_path():
+    """The MoE family's phase: the kernels at arctic-480b's shapes, its serve
+    at published widths (one layer), the smoke config served and trained 3
+    steps card == CPU. Returns (the {"moe": ...} record, the serves' launches)."""
+    t0 = time.perf_counter()
+    gc_collect()
+    res = {"kernel_errors": moe_kernel_gates(),
+           "kernels": {"flash_attn": measure_flash(MOE_ROWS, SEQ, MOE_HEADS, MOE_HEAD_DIM,
+                                                   kh=MOE_KV_HEADS)}}
+    res[MOE_ARCH], counts = moe_serve()
+    res["smoke_vs_cpu"] = check_zoo_smoke_against_cpu((MOE_ARCH,))
+    res["smoke_train_vs_cpu"] = check_train_zoo_smoke_against_cpu((MOE_ARCH,))
+    res["phase_seconds"] = time.perf_counter() - t0
+    print(f"moe phases (kernel gates, measurements, {MOE_ARCH} serves, smoke config served "
+          f"and trained): {res['phase_seconds']:.1f} s")
+    return res, counts
+
+
 # -- training the families the port serves ------------------------------------------
 
 TRAIN_ZOO_ARCHS = (REC_ARCH, XLSTM_ARCH, ENCDEC_ARCH)   # at published widths and depth
@@ -4444,11 +4715,12 @@ def _zoo_run(cfg, **kw):
                      **kw)
 
 
-def check_train_zoo_smoke_against_cpu():
+def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
     """Each family's smoke config (seed 0, remat, AdamW, lr 1e-3 after one
     warm-up step) trained 3 steps at 2 x 24 on the card and on the CPU from
     the same weights, batches (and frames) and keys: losses, grad norms and
-    parameters within the SMOKE_* tolerances."""
+    parameters within the SMOKE_* tolerances (an MoE config's loss with its
+    router's auxiliary term)."""
     import copy
 
     import numpy as np
@@ -4460,7 +4732,7 @@ def check_train_zoo_smoke_against_cpu():
     from repro_torch.training import TrainState, make_train_step
 
     res = {}
-    for arch in TRAIN_ZOO_ARCHS:
+    for arch in archs:
         cfg = get_smoke_config(arch)
         run = RunConfig(arch=arch, t0=TRAIN_ZOO_T0, learning_rate=1e-3, warmup_steps=1,
                         total_steps=3, remat="block")
@@ -4879,6 +5151,7 @@ def main() -> int:
           f"smoke configs): {zoo['phase_seconds']:.1f} s")
     recurrent, rec_counts = recurrent_path()
     encdec, encdec_counts = encdec_path()
+    moe, moe_counts = moe_path()
     train_zoo, train_zoo_counts = train_zoo_path()
     examples = examples_path()
 
@@ -5006,6 +5279,14 @@ def main() -> int:
     rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], enc_errs["ws_step"])
     rec_ws["encdec"] = {"config": ENCDEC_ARCH, "launches": encdec_counts.get("ws_step", 0),
                         "max_abs_err": enc_errs["ws_step"], "v51865": enc_num["ws_step_v51865"]}
+    moe_errs = moe["kernel_errors"]
+    rec_flash["max_abs_err"] = max(rec_flash["max_abs_err"], moe_errs["flash_attn"])
+    rec_flash["moe"] = {"config": MOE_ARCH, "launches": moe_counts.get("flash_attn", 0),
+                        "max_abs_err": moe_errs["flash_attn"], **moe["kernels"]["flash_attn"]}
+    rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], moe_errs["ws_step"])
+    rec_ws["moe"] = {"config": MOE_ARCH, "launches": moe_counts.get("ws_step", 0),
+                     "max_abs_err": moe_errs["ws_step"], "shape": [MOE_ROWS * SEQ, 32000],
+                     "device_key_differ": moe_errs["device_keys"]["differ"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -5024,6 +5305,7 @@ def main() -> int:
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"encdec": encdec}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"train_zoo": train_zoo}))
     print(json.dumps({"examples": examples}))
     print(card)

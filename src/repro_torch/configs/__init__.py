@@ -5,14 +5,15 @@ reduced config as the JAX registry does, for the architectures the port
 runs: the DiT (``dfm-dit``), the dense zoo (``starcoder2-3b``,
 ``minitron-4b``, ``command-r-plus-104b``, ``gemma3-1b``) and the recurrent
 family (``zamba2-2.7b``: Mamba2 with Zamba2's shared attention;
-``xlstm-1.3b``: mLSTM/sLSTM) and the encoder-decoder family
-(``whisper-medium``). The rest of the zoo (MoE, MLA and VLM families)
-raises.
+``xlstm-1.3b``: mLSTM/sLSTM), the encoder-decoder family
+(``whisper-medium``) and the MoE family (``arctic-480b``: top-2 of 128
+experts beside a dense residual FFN). The rest of the zoo (the MLA and
+VLM families) raises.
 """
 
 from repro_torch.configs import (
-    command_r_plus_104b, dfm_dit, gemma3_1b, minitron_4b, starcoder2_3b, whisper_medium,
-    xlstm_1_3b, zamba2_2_7b,
+    arctic_480b, command_r_plus_104b, dfm_dit, gemma3_1b, minitron_4b, starcoder2_3b,
+    whisper_medium, xlstm_1_3b, zamba2_2_7b,
 )
 from repro_torch.configs.base import ModelConfig, RunConfig
 
@@ -25,17 +26,18 @@ _MODULES = {
     "zamba2-2.7b": zamba2_2_7b,
     "xlstm-1.3b": xlstm_1_3b,
     "whisper-medium": whisper_medium,
+    "arctic-480b": arctic_480b,
 }
 
 # the JAX registry's other ids, by the family the port still lacks
-_NOT_PORTED = {"arctic-480b": "MoE", "deepseek-v3-671b": "MLA and MoE", "qwen2-vl-72b": "VLM"}
+_NOT_PORTED = {"deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet: its {_NOT_PORTED[arch]} "
-            f"layers are missing (MoE, MLA and VLM families); "
+            f"layers are missing (the MLA and VLM families); "
             f"available: {list_archs()}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")

@@ -20,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 
 
 def normal_init(gen: torch.Generator, shape, stddev: float, device) -> torch.Tensor:
-    return stddev * torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+    # scaled in place: no second tensor of the shape (arctic's experts are 17.9 GB each)
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).mul_(stddev)
 
 
 class Dense(nn.Module):
@@ -129,11 +130,13 @@ class TimeEmbed(nn.Module):
 
 class MLP(nn.Module):
     """``up -> act -> down`` MLP; with ``cfg.mlp_gated`` the hidden layer is
-    ``act(gate(x)) * up(x)``. Biases with ``cfg.use_bias``."""
+    ``act(gate(x)) * up(x)``. Biases with ``cfg.use_bias``. The hidden width
+    is ``d_ff`` (default ``cfg.d_ff``; an MoE's shared experts give theirs)."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device,
+                 d_ff: int | None = None):
         super().__init__()
-        d, f, bias = cfg.d_model, cfg.d_ff, cfg.use_bias
+        d, f, bias = cfg.d_model, d_ff or cfg.d_ff, cfg.use_bias
         self.act = cfg.act
         self.up = Dense(d, f, gen, device, bias=bias)
         self.down = Dense(f, d, gen, device, bias=bias,

@@ -1,8 +1,9 @@
 """The torch backbone: embeddings + time conditioning + the block stack +
 head (port of the JAX package's ``models/model.py`` for the dense attention
 configs, the DiT and the dense zoo with Gemma3's local/global layers, dual
-RoPE, qk-norm, post-norms and scaled embeddings, and for the recurrent
-family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM), in
+RoPE, qk-norm, post-norms and scaled embeddings, for the recurrent
+family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM, and for the
+MoE family: the ``moe``/``moe_res`` layers of ``models/moe.py``), in
 DFM-denoiser and causal modes, with the AR serving entry points
 ``init_cache``, ``prefill`` and ``decode_step``.
 
@@ -40,9 +41,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.attention import init_gqa_cache
 from repro_torch.models.common import Dense, Embedding, TimeEmbed, make_norm
 from repro_torch.models.encdec import EncDecModel
+from repro_torch.models.moe import check_dispatch
 from repro_torch.models.rope import rope_context
 from repro_torch.models.ssm import init_mamba2_cache
-from repro_torch.models.transformer import ATTN_KINDS, KINDS, Block, SharedBlock
+from repro_torch.models.transformer import ATTN_KINDS, KINDS, MOE_KINDS, Block, SharedBlock
 from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 
 # the cache leaves written in place (the KV buffers); the others are replaced
@@ -64,17 +66,27 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtyp
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a config this port runs: the dense, ssm or
-    hybrid family with ``attn``, ``local``, ``mamba``, ``mlstm``, ``slstm``
-    and ``zshared`` layers, layernorm or rmsnorm, standard, dual or no
-    RoPE, qk-norm, post-norms and scaled embeddings allowed, float32. MoE,
-    MLA, encoder-decoder and VLM configs, the logit softcap and other
-    dtypes raise (an encoder-decoder config is ``EncDecModel``'s)."""
+    """Raise unless ``cfg`` is a config this port runs: the dense, ssm,
+    hybrid or MoE family with ``attn``, ``local``, ``moe``, ``moe_res``,
+    ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` layers, layernorm or
+    rmsnorm, standard, dual or no RoPE, qk-norm, post-norms and scaled
+    embeddings allowed, float32. The MoE family and its kinds need
+    ``cfg.moe.num_experts > 0`` (and no post-norms, for which JAX's MoE
+    blocks hold no weights); its ``shardmap`` dispatch raises. MLA,
+    encoder-decoder and VLM configs, the logit softcap and other dtypes
+    raise (an encoder-decoder config is ``EncDecModel``'s)."""
     unsupported = []
-    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid"):
+    kinds = set(cfg.prefix + cfg.pattern)
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid", "moe"):
         unsupported.append(f"family={cfg.family}")
-    if not set(cfg.prefix + cfg.pattern) <= set(KINDS):
+    if not kinds <= set(KINDS):
         unsupported.append(f"layers={cfg.prefix + cfg.pattern}")
+    if (cfg.family == "moe" or kinds & set(MOE_KINDS)) and cfg.moe.num_experts <= 0:
+        unsupported.append(f"moe.num_experts={cfg.moe.num_experts}")
+    elif kinds & set(MOE_KINDS):
+        if cfg.post_norms:
+            unsupported.append("post_norms with MoE layers")
+        check_dispatch(cfg)
     if cfg.norm not in ("layernorm", "rmsnorm"):
         unsupported.append(f"norm={cfg.norm}")
     if cfg.rope_type not in ("default", "none", "dual"):
@@ -118,23 +130,32 @@ class Model(nn.Module):
         return self.head(x)
 
     def _layers(self, lo: int, hi: int, x: torch.Tensor, x0: torch.Tensor, rope: dict,
-                mode: str, global_window: Optional[int]) -> torch.Tensor:
+                mode: str, global_window: Optional[int]
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x, the layers' summed auxiliary loss, None without MoE layers)."""
+        aux = None
         for block in self.blocks[lo:hi]:
-            x = block(x, rope=rope, mode=mode, global_window=global_window, x0=x0,
-                      shared=self.zshared)
-        return x
+            x, a = block(x, rope=rope, mode=mode, global_window=global_window, x0=x0,
+                         shared=self.zshared)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
     def forward(self, tokens: torch.Tensor, t: Optional[torch.Tensor] = None, *,
-                global_window: Optional[int] = None, remat: bool = False) -> torch.Tensor:
-        """tokens (B, S) -> logits (B, S, V). With ``t`` (B,) the model is
-        the DFM denoiser (bidirectional attention, time-conditioned;
-        recurrent layers stay causal); without, a causal LM.
+                global_window: Optional[int] = None, remat: bool = False,
+                return_aux: bool = False):
+        """tokens (B, S) -> logits (B, S, V), or with ``return_aux`` (logits,
+        aux), aux the MoE layers' auxiliary losses summed in layer order (a
+        float32 zero without MoE layers), as JAX's ``forward`` returns. With
+        ``t`` (B,) the model is the DFM denoiser (bidirectional attention,
+        time-conditioned; recurrent layers stay causal); without, a causal LM.
 
         ``remat`` checkpoints what JAX's scan checkpoints: each group of
         ``len(cfg.pattern)`` layers (``cfg.scan_split``), its activations
-        recomputed in the backward; the prefix and remainder layers are
-        not checkpointed. ``x0`` and the shared block's weights enter
-        every group, so their gradients sum over all of them."""
+        recomputed in the backward, the group's auxiliary loss with it; the
+        prefix and remainder layers are not checkpointed. ``x0`` and the
+        shared block's weights enter every group, so their gradients sum
+        over all of them."""
         x = self.embed(tokens)
         if t is not None:
             x = x + self.time(t)[:, None, :]
@@ -145,14 +166,23 @@ class Model(nn.Module):
         x0 = x
         npre, p = len(self.cfg.prefix), len(self.cfg.pattern)
         end = npre + self.cfg.scan_split()[0] * p
-        x = self._layers(0, npre, x, x0, *ctx)
+        x, aux = self._layers(0, npre, x, x0, *ctx)
+        auxes = [aux]
         for lo in range(npre, end, p):
             if remat:
-                x = checkpoint(self._layers, lo, lo + p, x, x0, *ctx, use_reentrant=False)
+                x, aux = checkpoint(self._layers, lo, lo + p, x, x0, *ctx, use_reentrant=False)
             else:
-                x = self._layers(lo, lo + p, x, x0, *ctx)
-        x = self._layers(end, len(self.blocks), x, x0, *ctx)
-        return self._head(x)
+                x, aux = self._layers(lo, lo + p, x, x0, *ctx)
+            auxes.append(aux)
+        x, aux = self._layers(end, len(self.blocks), x, x0, *ctx)
+        logits = self._head(x)
+        if not return_aux:
+            return logits
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for aux in auxes + [aux]:
+            if aux is not None:
+                total = total + aux
+        return logits, total
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor, *,
                   extras: Optional[dict] = None) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Blocks of the torch backbone (port of the JAX package's
 ``models/transformer.py::apply_block`` for the ``attn``, ``local``,
-``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds):
+``moe``, ``moe_res``, ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds):
 
     attn/local:  x = x + post_attn(attn(ln1(x)));  x = x + post_ffn(mlp(ln2(x)))
+    moe/moe_res:  x = x + attn(ln1(x));  x = x + moe(ln2(x))
     mamba/mlstm/slstm:  x = x + mixer(ln1(x))
     zshared:  h = fuse([x, x0]);  x = x + attn(ln1'(h));  x = x + mlp(ln2'(x))
 
@@ -16,7 +17,14 @@ shared block: each such layer owns only its ``fuse`` projection of
 the model's one :class:`SharedBlock` (``ln1'``, attention, ``ln2'``,
 MLP), with the global attention arguments. Like JAX's ``init_block``,
 every layer has an ``ln1``, which a ``zshared`` layer never reads; it is
-kept so the weights convert both ways.
+kept so the weights convert both ways. A ``moe``/``moe_res`` block's FFN
+is ``models/moe.py``'s :class:`MoE` (the two kinds differ only by the
+config: ``moe_res`` is Arctic's, with ``dense_residual``); without a
+cache it takes the capacity path, with one JAX's ``_moe_dispatch`` rule.
+
+A block returns ``(x, aux)``: ``aux`` its MoE's auxiliary loss (None for
+the other kinds), which the model sums over the layers as JAX's
+``apply_stack`` does.
 
 The JAX package stacks the layers' weights and scans over them; here the
 stack is a list of per-layer modules (see ``Model``). Its caches keep the
@@ -33,11 +41,14 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import GQAAttention
 from repro_torch.models.common import MLP, Dense, make_norm
+from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 from repro_torch.models.xlstm import MLSTM, SLSTM
 
-KINDS = ("attn", "local", "mamba", "mlstm", "slstm", "zshared")   # the kinds a Block runs
-ATTN_KINDS = ("attn", "local", "zshared")
+# the kinds a Block runs
+KINDS = ("attn", "local", "moe", "moe_res", "mamba", "mlstm", "slstm", "zshared")
+MOE_KINDS = ("moe", "moe_res")
+ATTN_KINDS = ("attn", "local", "zshared") + MOE_KINDS
 RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
 
 
@@ -67,6 +78,10 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, gen, device)
             self.post_attn = make_norm(cfg, device) if cfg.post_norms else None
             self.post_ffn = make_norm(cfg, device) if cfg.post_norms else None
+        elif kind in MOE_KINDS:
+            self.attn = GQAAttention(cfg, gen, device)
+            self.ln2 = make_norm(cfg, device)
+            self.moe = MoE(cfg, gen, device)
         elif kind == "zshared":
             self.fuse = Dense(2 * cfg.d_model, cfg.d_model, gen, device)
         else:
@@ -78,34 +93,42 @@ class Block(nn.Module):
             return (*rope["local"], self.window)
         return (*rope["global"], global_window)
 
-    def _finish(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def _finish(self, x: torch.Tensor, h: torch.Tensor, cached: bool
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if self.kind in MOE_KINDS:
+            x = x + h
+            h, aux = self.moe(self.ln2(x), cached=cached)
+            return x + h, aux
         if self.post_attn is not None:
             h = self.post_attn(h)
         x = x + h
         h = self.mlp(self.ln2(x))
         if self.post_ffn is not None:
             h = self.post_ffn(h)
-        return x + h
+        return x + h, None
 
     def forward(self, x: torch.Tensor, *, rope: dict, mode: str,
                 global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,
-                shared: Optional[SharedBlock] = None) -> torch.Tensor:
+                shared: Optional[SharedBlock] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(x, aux) of the block over the whole sequence, without a cache."""
         if self.kind in RECURRENT:
-            return x + getattr(self, self.kind)(self.ln1(x))[0]
+            return x + getattr(self, self.kind)(self.ln1(x))[0], None
         sin, cos, window = self._attn_args(rope, global_window)
         if self.kind == "zshared":
             h = self.fuse(torch.cat([x, x0], dim=-1))
             x = x + shared.attn(shared.ln1(h), sin=sin, cos=cos, mode=mode, window=window)
-            return x + shared.mlp(shared.ln2(x))
+            return x + shared.mlp(shared.ln2(x)), None
         return self._finish(x, self.attn(self.ln1(x), sin=sin, cos=cos, mode=mode,
-                                         window=window))
+                                         window=window), cached=False)
 
     def forward_cached(self, x: torch.Tensor, cache: dict, *, rope: dict, q_pos: torch.Tensor,
                        global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,
                        shared: Optional[SharedBlock] = None) -> Tuple[torch.Tensor, dict]:
         """The block over a chunk at positions ``q_pos`` with its cache: KV
         buffers are written in place, a recurrent state comes back as new
-        tensors (the one given is not written)."""
+        tensors (the one given is not written). JAX's serving entry points
+        drop the auxiliary loss; so does this."""
         if self.kind in RECURRENT:
             h, cache = getattr(self, self.kind)(self.ln1(x), cache)
             return x + h, cache
@@ -118,4 +141,4 @@ class Block(nn.Module):
             return x + shared.mlp(shared.ln2(x)), cache
         h, cache = self.attn.forward_cached(self.ln1(x), cache, sin=sin, cos=cos,
                                             q_pos=q_pos, window=window)
-        return self._finish(x, h), cache
+        return self._finish(x, h, cached=True)[0], cache

@@ -1,6 +1,6 @@
 """The WS-DFM training step (paper Fig. 2 right) over the port's DiT
 backbone and every family the port serves (dense, recurrent,
-encoder-decoder): torch port of the JAX package's ``training/train_step.py``.
+encoder-decoder, MoE): torch port of the JAX package's ``training/train_step.py``.
 
 batch dict:
   x_src:  (B, N) int32: draft samples x_{t0} (or noise for cold start)
@@ -41,9 +41,10 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
     host key (``prng.key``). Each of ``EXTRA_KEYS`` present in the batch
     reaches the model as a keyword (``EncDecModel`` takes ``frames``; a
     decoder-only ``Model`` refuses extras), and ``remat`` too (JAX
-    ``fwd_batch`` and ``model.forward(..., remat=remat)``)."""
-    if cfg.moe.num_experts:
-        raise _not_ported("the MoE router auxiliary loss", "the zoo's MoE family")
+    ``fwd_batch`` and ``model.forward(..., remat=remat)``). With MoE
+    layers the loss adds ``router_aux_weight`` times their auxiliary loss,
+    reported as ``moe_aux``."""
+    moe = bool(cfg.moe.num_experts)
 
     def loss_fn(model, batch, rng):
         extras = {k: batch[k] for k in EXTRA_KEYS if k in batch}
@@ -55,10 +56,17 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
         rng_t, rng_xt = prng.split(rng, 2)
         t = path.sample_t(rng_t, (x_src.shape[0],), device=x_src.device)
         x_t = path.interpolate(rng_xt, x_src, x_tgt, t)
-        logits = model(x_t, t, remat=remat, **extras)
+        if moe:
+            logits, aux = model(x_t, t, remat=remat, return_aux=True, **extras)
+        else:
+            logits = model(x_t, t, remat=remat, **extras)
 
         loss = dfm_cross_entropy(logits, x_tgt, z_loss=z_loss)
         metrics = {"ce": loss, "t_mean": torch.mean(t)}
+
+        if moe:
+            loss = loss + cfg.moe.router_aux_weight * aux
+            metrics["moe_aux"] = aux
 
         if cfg.mtp_depth:
             # DeepSeek MTP adapted as an auxiliary shifted-target CE on the

@@ -1205,3 +1205,88 @@ def test_encdec_serve_graph_reads_the_frames_in_place(card):
         assert torch.equal(moved, server._refine_loop_eager(keys, x0, ts, hs))
     assert not torch.equal(moved, first)
     assert server.graphs.captures == 1
+
+
+def _moe_smoke(card, **moe):
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("arctic-480b")
+    if moe:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, **moe))
+    return cfg, Model(cfg, device="cpu", seed=3)
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+def test_moe_layer_on_card_equals_cpu(card, cf):
+    """arctic-480b's smoke MoE layer on the card against the same layer on
+    the CPU: the routing (top-2 choices, the kept mask; drops at
+    ``capacity_factor=0.5``) exact, both dispatches' outputs and the
+    auxiliary loss within 1e-5 (float32 GEMMs in another order)."""
+    from repro_torch.models.moe import capacity, dispatch_slots, route
+
+    cfg, model = _moe_smoke(card, capacity_factor=cf)
+    host = model.blocks[0].moe
+    dev = Model(cfg, device="cpu", seed=3).to(card).blocks[0].moe
+    x = torch.randn((2, 40, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    cap = capacity(80, cfg)
+    with torch.no_grad():
+        routes = []
+        for moe, xx in ((host, x), (dev, x.to(card))):
+            _, w, i = route(xx.reshape(80, -1), moe.router, 2)
+            routes.append((w.cpu(), i.cpu(), dispatch_slots(i, 4, cap)[1].cpu()))
+        assert torch.equal(routes[0][1], routes[1][1]) and torch.equal(routes[0][2], routes[1][2])
+        assert bool(routes[0][2].all()) == (cf == 1.25)
+        for name in ("capacity_ffn", "dropless"):
+            want, want_aux = getattr(host, name)(x)
+            got, aux = getattr(dev, name)(x.to(card))
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+            torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-6, rtol=1e-5)
+
+
+def test_moe_graphs_equal_eager_bitwise(card):
+    """The capacity path (in the serve's refine graph: 4 x 32 tokens, a
+    given draft) and the dropless path (in the draft's decode graph, the
+    prompt prefilled by scan) replayed on the card equal their eager
+    launches bit for bit; one capture each; the serve's tokens equal the
+    CPU's."""
+    from repro_torch.models.moe import MoE
+
+    cfg, model = _moe_smoke(card)
+    calls = []
+    real = {n: getattr(MoE, n) for n in ("capacity_ffn", "dropless")}
+    path = WarmStartPath(t0=0.8)
+    draft = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        server = WarmStartServer(
+            flow_model=model.to(dev), flow_cfg=cfg, path=path, cold_nfe=16,
+            draft_generate=lambda rng, num: draft.to(dev),
+            step_fn=make_ws_step_fn(path, device=dev), device=dev)
+        out[dev] = server.serve(prng.key(3), 4)[0].cpu()
+    assert server.graphs.captures == 1 and torch.equal(out["cuda"], out["cpu"])
+    keys, ts, hs = refine_loop_inputs(prng.key(5), 0.8, 1 / 16, 4)
+    x0 = draft.to(card)
+    with torch.inference_mode():
+        got = server._refine_loop(keys, x0, ts, hs)
+        assert torch.equal(got, server._refine_loop_eager(keys, x0, ts, hs))
+    assert server.graphs.captures == 1
+
+    adapter = TransformerDraftAdapter(model=model, decode_impl="xla")
+    eng = ARDraftEngine(adapter, max_len=16)
+    assert eng.prefill_mode == "scan" and not adapter.exact_batched_prefill
+    prompt = torch.tensor([[1, 2, 3]] * 2, dtype=torch.int32)
+    try:
+        for name in real:
+            setattr(MoE, name, lambda self, x, *a, _n=name, **kw:
+                    calls.append(_n) or real[_n](self, x, *a, **kw))
+        for seed in (3, 4):
+            keys = prng.split(prng.key(seed), 2)
+            got = eng.generate_rows(keys, 12, prompt=prompt)
+            assert torch.equal(got, eng._generate_rows_eager(keys, 12, prompt=prompt)), seed
+    finally:
+        for name, fn in real.items():
+            setattr(MoE, name, fn)
+    assert eng.graphs.captures == 1 and set(calls) == {"dropless"}

@@ -5,6 +5,7 @@ here, XLA's ``_sdpa`` in JAX), and the AR serving entry points
 ``init_cache``/``prefill``/``decode_step`` at 1e-5 on the draft configs
 (rmsnorm, bias, gated MLP, tied head, no RoPE, GQA)."""
 
+import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -103,10 +104,13 @@ def test_rope_and_time_embed_match_jax():
 
 def test_unsupported_configs_raise():
     """Since the dense zoo, ``local`` layers, qk-norm, post-norms, dual RoPE
-    and scaled embeddings are supported, and since the recurrent family the
-    ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds; MoE/MLA kinds, the
-    logit softcap and other dtypes still raise."""
+    and scaled embeddings are supported, since the recurrent family the
+    ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds, and since the MoE
+    family the ``moe`` and ``moe_res`` kinds with experts; MoE kinds or the
+    MoE family without experts, MLA kinds, the logit softcap and other
+    dtypes still raise."""
     cfg = dfm_dit.smoke_config()
+    experts = dataclasses.replace(cfg.moe, num_experts=4, d_ff=64)
     for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("moe",)),
                 cfg.replace(attn_logit_softcap=30.0), cfg.replace(dtype="bfloat16"),
                 cfg.replace(prefix=("mla",)), cfg.replace(rope_type="mrope"),
@@ -120,7 +124,9 @@ def test_unsupported_configs_raise():
                  cfg.replace(qk_norm=True, post_norms=True, embed_scale=True),
                  cfg.replace(rope_type="dual"), cfg.replace(pattern=("mamba",)),
                  cfg.replace(family="hybrid", pattern=("mamba", "zshared")),
-                 cfg.replace(family="ssm", pattern=("mlstm", "slstm"))):
+                 cfg.replace(family="ssm", pattern=("mlstm", "slstm")),
+                 cfg.replace(family="moe", pattern=("moe",), moe=experts),
+                 cfg.replace(pattern=("attn", "moe_res"), moe=experts)):
         check_supported(good)
 
 

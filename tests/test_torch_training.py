@@ -454,21 +454,27 @@ def test_trainer_fit_matches_jax_for_10_steps(optimizer):
 
 
 def test_make_train_step_refuses_what_the_port_does_not_run():
-    """The MoE router loss and the VLM's ``patches`` stay refused, by name;
-    ``RunConfig(remat="block")`` builds (remat is ported)."""
+    """The VLM's ``patches`` stay refused, by name, and so do the MLA and VLM
+    archs; ``RunConfig(remat="block")`` builds (remat is ported), and since
+    the MoE family the router's auxiliary loss is ported: arctic-480b builds
+    and its loss adds ``router_aux_weight · moe_aux`` (against JAX's in
+    ``test_torch_moe``)."""
     model = build_model(get_smoke_config(ARCH), device="cpu")
     cfg = model.cfg
     assert callable(make_train_step(model, cfg, RunConfig(remat="block"), AdamW()))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_loss_fn(model, cfg.replace(moe=cfg.moe.__class__(num_experts=4)),
-                     WarmStartPath(0.8))
     loss_fn = make_loss_fn(model, cfg, WarmStartPath(0.8))
     xs, xt = _batch(0)
     with pytest.raises(NotImplementedError, match="patches"):
         loss_fn(model, {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt),
                         "patches": torch.zeros(1)}, prng.key(0))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        get_config("arctic-480b")
+    moe = build_model(get_smoke_config("arctic-480b"), device="cpu")
+    batch = {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt)}
+    with torch.no_grad():
+        loss, metrics = make_loss_fn(moe, moe.cfg, WarmStartPath(0.8))(moe, batch, prng.key(0))
+    assert float(metrics["moe_aux"]) > 0
+    assert float(loss) == float(metrics["ce"] + moe.cfg.moe.router_aux_weight
+                                * metrics["moe_aux"])
+    assert get_config("arctic-480b").moe.num_experts == 128
     for arch in ("deepseek-v3-671b", "qwen2-vl-72b"):
         with pytest.raises(NotImplementedError):
             get_config(arch)

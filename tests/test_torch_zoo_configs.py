@@ -22,9 +22,10 @@ from repro_torch.models.encdec import check_encdec_supported
 from repro_torch.models.model import check_supported, layer_kinds
 
 ZOO = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "gemma3-1b")
-NOT_PORTED = {"arctic-480b": "MoE", "deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
+NOT_PORTED = {"deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
 RECURRENT = ("zamba2-2.7b", "xlstm-1.3b")   # ported since the recurrent family
 ENCDEC = ("whisper-medium",)                # ported since the encoder-decoder family
+MOE = ("arctic-480b",)                      # ported since the MoE family
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
@@ -38,7 +39,11 @@ def test_config_fields_equal_jax(arch, which):
 
 
 def test_registry_lists_the_port_and_names_what_is_missing():
-    assert list_archs() == sorted(ZOO + RECURRENT + ENCDEC + ("dfm-dit",))
+    """arctic-480b is listed and builds since the MoE family; deepseek-v3
+    (MLA) and qwen2-vl (VLM) stay refused by family."""
+    assert list_archs() == sorted(ZOO + RECURRENT + ENCDEC + MOE + ("dfm-dit",))
+    for arch in MOE:
+        assert get_config(arch).family == get_smoke_config(arch).family == "moe"
     for arch, family in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=family):
             get_config(arch)
@@ -89,13 +94,19 @@ def test_model_and_draft_kernels_take_what_jax_takes(arch):
 
 
 def test_check_supported_refuses_the_rest_of_the_zoo():
+    """What stays refused: the MoE family or an MoE kind without experts,
+    the ``shardmap`` dispatch, MLA, the VLM, the softcap, bfloat16, mrope and
+    an encoder-decoder config."""
     cfg = get_smoke_config("gemma3-1b")
+    moe = get_smoke_config("arctic-480b")
     for bad in (cfg.replace(family="moe"), cfg.replace(pattern=("moe",)),
+                moe.replace(moe=dataclasses.replace(moe.moe, dispatch_impl="shardmap")),
                 cfg.replace(prefix=("mla",)), cfg.replace(attn_logit_softcap=50.0),
                 cfg.replace(dtype="bfloat16"), cfg.replace(rope_type="mrope"),
                 cfg.replace(is_encoder_decoder=True), cfg.replace(family="vlm")):
         with pytest.raises(NotImplementedError):
             check_supported(bad)
+    check_supported(moe)
 
 
 @pytest.mark.parametrize("arch", ZOO + ("prefix",))
