@@ -128,6 +128,26 @@ dispatches, the flow stage profiled, an eager NFE and an eager decode step
 by kind of op (the dropless gather, the expert GEMMs, the other GEMMs); the
 smoke config served and trained 3 steps on the card == the CPU.
 
+Then the MLA family: ``flash_attn<192, 128>`` (queries and keys 192 wide,
+values 128) at deepseek-v3-671b's refine (8 x 256, 128 heads) and causal
+at a small shape, ``flash_attn<48, 32>`` at its smoke config's serve, and
+``ws_step`` at V = 129 280 (the device-key launch against the host key's
+too) against their plain versions and timed; deepseek-v3-671b at its
+published widths with its 3 dense ``mla`` layers and one ``mla_moe`` layer
+(256 experts top-8 beside a shared one; float32, seed 0: 60.4 GB of
+weights) served 8 x 256, 13 NFE, twice, drafted by the same model as a
+causal decoder (the plain decode path: the naive latent expansion and the
+dropless MoE path in the decode graph, the capacity path in the refine's):
+exact launches (52 ``flash_attn`` and 13 ``ws_step`` a serve, no draft
+kernel), one capture each, the first serve's graphs == their eager
+launches, a prefix layer's MLA at 1 x 64 against float64 (the kernel path,
+the naive and the absorbed cached paths), the MoE FFN at 1 x 64 against
+float64 on both dispatches (routed and shared experts), the absorbed
+decode's first step within 1e-4 of the naive one's logits and its draft
+timed, the flow stage profiled, an eager NFE and an eager decode step
+(naive and absorbed) by kind of op; the smoke config served and trained 3
+steps on the card == the CPU; the phase within 120 s.
+
 Then it trains those three families at their published widths and depth
 (float32, seed 0; whisper over frames made as its serve's): at 2 x 256
 tokens the WS-DFM loss's gradient through the ``flash_attn`` kernel
@@ -150,10 +170,11 @@ equal to ``warm_nfe``, its headline numbers read from its report).
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
 ``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}``,
-``{"encdec": ...}``, ``{"moe": ...}``, ``{"train_zoo": ...}`` and
-``{"examples": ...}`` lines, a ``{"kernels": [...]}`` line (the zoo's shapes
-under ``zoo``, the recurrent family's under ``recurrent``, whisper's under
-``encdec``, arctic-480b's under ``moe``, the
+``{"encdec": ...}``, ``{"moe": ...}``, ``{"mla": ...}``, ``{"train_zoo":
+...}`` and ``{"examples": ...}`` lines, a ``{"kernels": [...]}`` line (the
+zoo's shapes under ``zoo``, the recurrent family's under ``recurrent``,
+whisper's under ``encdec``, arctic-480b's under ``moe``, deepseek-v3's
+under ``mla``, the
 families' training launches under ``flash_attn``'s ``train_zoo``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
@@ -597,40 +618,41 @@ def measure_ws_step_gumbel(r, v):
 
 # -- flash_attn ------------------------------------------------------------------
 
-def flash_inputs(b, s, h, kh, d, seed, t=None):
+def flash_inputs(b, s, h, kh, d, seed, t=None, dv=None):
+    """q (b, s, h, d), k (b, t, kh, d), v (b, t, kh, dv); dv defaults to d."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, s, h, d), generator=g, device="cuda")
     k = torch.randn((b, t or s, kh, d), generator=g, device="cuda")
-    v = torch.randn((b, t or s, kh, d), generator=g, device="cuda")
+    v = torch.randn((b, t or s, kh, dv or d), generator=g, device="cuda")
     return q, k, v
 
 
-def check_flash(b, s, h, kh, d, causal, window, seed, t=None):
+def check_flash(b, s, h, kh, d, causal, window, seed, t=None, dv=None):
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 
-    q, k, v = flash_inputs(b, s, h, kh, d, seed, t)
+    q, k, v = flash_inputs(b, s, h, kh, d, seed, t, dv)
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     err = float((got - want).abs().max())
-    print(f"flash_attn B={b} S={s} T={t or s} H={h} KH={kh} D={d} causal={causal} "
-          f"window={window}: max abs err {err:.3e} (limit {FLASH_TOL})")
+    print(f"flash_attn B={b} S={s} T={t or s} H={h} KH={kh} D={d} DV={dv or d} "
+          f"causal={causal} window={window}: max abs err {err:.3e} (limit {FLASH_TOL})")
     if not math.isfinite(err) or err > FLASH_TOL:
         fail(f"flash_attn kernel disagrees with its plain version: {err}")
     return err
 
 
-def measure_flash(b, s, h, d, kh=None, window=None, t=None):
+def measure_flash(b, s, h, d, kh=None, window=None, t=None, dv=None):
     """Bidirectional attention at (b, s, h, d) with kh KV heads (default h),
-    an optional window and t keys (default s). The library call is SDPA on
-    the same inputs with the KV heads repeated to h (and the window as a
-    boolean mask); the bound counts the (query, key) pairs the window
-    keeps."""
+    an optional window, t keys (default s) and values dv wide (default d).
+    The library call is SDPA on the same inputs with the KV heads repeated
+    to h (and the window as a boolean mask); the bound counts the (query,
+    key) pairs the window keeps."""
     from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref, ops
     from repro_torch.kernels.flash_attn.ref import attention_mask
 
-    kh, t = kh or h, t or s
-    q, k, v = flash_inputs(b, s, h, kh, d, 0, t)
-    out = torch.empty_like(q)
+    kh, t, dv = kh or h, t or s, dv or d
+    q, k, v = flash_inputs(b, s, h, kh, d, 0, t, dv)
+    out = q.new_empty((b, s, h, dv))
     scale = 1.0 / math.sqrt(d)
     ms = graph_ms(lambda: ops._launch(q, k, v, out, causal=False, window=window, scale=scale))
     call_ms = time_ms(lambda: flash_attention(q, k, v, causal=False, window=window))
@@ -642,8 +664,9 @@ def measure_flash(b, s, h, d, kh=None, window=None, t=None):
     library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     pairs = float(s * t if mask is None else mask.sum())
-    nbytes = 2 * b * (s * h + t * kh) * d * 4     # q read and out written; k and v read
-    nops = 4.0 * b * h * pairs * d
+    # q and k read (d wide), v read and out written (dv wide)
+    nbytes = b * (s * h + t * kh) * (d + dv) * 4
+    nops = 2.0 * b * h * pairs * (d + dv)
     # the function's bound: its products at the fastest rate that float32
     # inputs reach (TF32 on the tensor cores). For reference only, printed:
     # the floor of this kernel's 3xTF32 split (three TF32 products each) and
@@ -651,7 +674,7 @@ def measure_flash(b, s, h, d, kh=None, window=None, t=None):
     bms, by = bound_ms(nbytes, nops, TF32_OPS_PER_S)
     split_ms, split_by = bound_ms(nbytes, 3 * nops, TF32_OPS_PER_S)
     f32_ms, f32_by = bound_ms(nbytes, nops)
-    print(f"flash_attn at ({b}, {s}, {h}, kv {kh}, {d}, window {window}, T {t}): "
+    print(f"flash_attn at ({b}, {s}, {h}, kv {kh}, {d}, dv {dv}, window {window}, T {t}): "
           f"{ms * 1e3:.1f} us device, "
           f"{nops / ms * 1e-9:.1f} TFLOP/s of the products ({3 * nops / ms * 1e-9:.1f} TF32 "
           f"TFLOP/s of 3xTF32); bound {bms * 1e3:.1f} us ({by}); computed floors for "
@@ -660,7 +683,8 @@ def measure_flash(b, s, h, d, kh=None, window=None, t=None):
           f"{plain_ms * 1e3:.1f} us, SDPA {library_ms * 1e3:.1f} us")
     return {"ms": ms, "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
-            "shape": {"B": b, "S": s, "T": t, "H": h, "KH": kh, "D": d, "window": window}}
+            "shape": {"B": b, "S": s, "T": t, "H": h, "KH": kh, "D": d, "DV": dv,
+                      "window": window}}
 
 
 def ptxas_usage(build_log: str) -> dict:
@@ -4151,10 +4175,22 @@ def moe_kernel_gates():
             "device_keys": keys}
 
 
+def _under(event, name):
+    """True when a host op of the profile runs inside a host op ``name``."""
+    parent = getattr(event, "cpu_parent", None)
+    while parent is not None:
+        if parent.name == name:
+            return True
+        parent = getattr(parent, "cpu_parent", None)
+    return False
+
+
 def _profile_ops(run, what):
     """``run`` of eager launches under ``torch.profiler``: device ms by
-    MOE_OP_KINDS (a host op's kernels) and of the flash_attn and ws_step
-    kernels."""
+    MOE_OP_KINDS (a host op's kernels), of the cached attention's einsums
+    (their GEMMs counted there, not among the experts' or the dense ones)
+    and of the flash_attn
+    and ws_step kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4162,10 +4198,16 @@ def _profile_ops(run, what):
         run()
         torch.cuda.synchronize()
     res = {kind: 0.0 for kind in sorted(set(MOE_OP_KINDS.values()))}
-    res.update(flash_attn=0.0, ws_step=0.0, all_kernels=0.0)
+    res.update(attention_einsums=0.0, flash_attn=0.0, ws_step=0.0, all_kernels=0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in MOE_OP_KINDS \
+                and _under(e, "aten::einsum"):
+            res[MOE_OP_KINDS[e.name]] -= e.device_time_total / 1e3
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU and e.key in MOE_OP_KINDS:
             res[MOE_OP_KINDS[e.key]] += e.device_time_total / 1e3
+        elif e.device_type == DeviceType.CPU and e.key == "aten::einsum":
+            res["attention_einsums"] += e.device_time_total / 1e3
         elif e.device_type == DeviceType.CUDA:
             res["all_kernels"] += e.self_device_time_total / 1e3
             if _category(e.key) in ("flash_attn", "ws_step"):
@@ -4183,7 +4225,9 @@ def check_moe_ffn_float64(moe, seed=93):
     (N(0, 1), a seed), both dispatches, against float64: the routing (the
     port's, float32) given, each routed expert's three products and the dense
     residual in float64, expert by expert over the routed experts only (no
-    float64 copy of the 53.6 GB). Within MOE_FFN_TOL of max |reference|."""
+    float64 copy of the 53.6 GB), beside the layer's dense branches: the
+    shared expert (DeepSeek) and the dense residual (Arctic), whichever it
+    has. Within MOE_FFN_TOL of max |reference|."""
     from repro_torch.models.common import activation
     from repro_torch.models.moe import capacity, dispatch_slots, route
 
@@ -4196,9 +4240,11 @@ def check_moe_ffn_float64(moe, seed=93):
         _, gate_w, gate_i = route(xt, moe.router, cfg.moe.num_experts_per_tok)
         _, keep = dispatch_slots(gate_i, cfg.moe.num_experts, capacity(MOE_FFN_TOKENS, cfg))
         x64 = xt.double()
-        res = moe.residual
-        dense = torch.matmul(activation(cfg.act, x64 @ res.gate.w.double())
-                             * (x64 @ res.up.w.double()), res.down.w.double())
+        dense = torch.zeros_like(x64)
+        for mlp in (moe.shared, moe.residual):
+            if mlp is not None:
+                dense = dense + torch.matmul(activation(cfg.act, x64 @ mlp.gate.w.double())
+                                             * (x64 @ mlp.up.w.double()), mlp.down.w.double())
         experts = torch.zeros((MOE_FFN_TOKENS, gate_i.shape[1], cfg.d_model),
                               dtype=torch.float64, device="cuda")
         for e in sorted(set(gate_i.flatten().tolist())):
@@ -4210,6 +4256,7 @@ def check_moe_ffn_float64(moe, seed=93):
         want = {"dropless": dense + (experts * w).sum(1),
                 "capacity": dense + (experts * w * keep[..., None]).sum(1)}
     res = {"tokens": MOE_FFN_TOKENS, "experts_routed": len(set(gate_i.flatten().tolist())),
+           "dense_branches": [n for n in ("shared", "residual") if getattr(moe, n) is not None],
            "dropped_slots": int((~keep).sum()), "tolerance": f"{MOE_FFN_TOL} x max|ref|"}
     for name in ("capacity", "dropless"):
         scale = float(want[name].abs().max())
@@ -4372,6 +4419,351 @@ def moe_path():
     res["phase_seconds"] = time.perf_counter() - t0
     print(f"moe phases (kernel gates, measurements, {MOE_ARCH} serves, smoke config served "
           f"and trained): {res['phase_seconds']:.1f} s")
+    return res, counts
+
+
+# -- the MLA family ----------------------------------------------------------------
+
+MLA_ARCH = "deepseek-v3-671b"
+MLA_ROWS = 8
+# its published prefix of 3 dense mla layers and 1 mla_moe layer of its 61, at the
+# published widths: 60.4 GB of float32 weights of the card's 80 (the mla_moe layer's 256
+# routed experts are 45.1 GB); a second mla_moe layer would take 106 GB. The draft is
+# the same model as a causal decoder
+MLA_LAYERS = 4
+MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 128, 192, 128     # qk_nope 128 + qk_rope 64; v 128
+MLA_SMOKE_DIMS = (48, 32)                            # the smoke config's qk 32 + 16; v 32
+MLA_SERVES = 2
+MLA_TOKENS = 64               # a prefix layer's MLA and the MoE FFN against float64, 1 x 64
+MLA_F64_TOL = 1e-4            # x max |float64 reference|
+MLA_ABSORB_TOL = 1e-4         # the absorbed step's logits against the naive's, x max |logit|
+MLA_PHASE_S = 120             # the phase's time limit
+
+
+def mla_kernel_gates():
+    """The kernels at deepseek-v3-671b's serve shapes against their plain
+    versions: flash_attn<192, 128> at (8, 256, 128 heads, kv 128)
+    bidirectional (the refine) and causal at a small shape with a ragged
+    tail, S != T too; flash_attn<48, 32> at the smoke config's serve (4 x
+    32) both ways; ws_step at (2048, 129 280), the device-key launch against
+    the host key's too."""
+    rows = MLA_ROWS
+    qk, v = MLA_QK_DIM, MLA_V_DIM
+    flash = [check_flash(rows, SEQ, MLA_HEADS, MLA_HEADS, qk, False, None, 100, dv=v),
+             check_flash(2, 77, 4, 4, qk, True, None, 101, dv=v),
+             check_flash(2, 50, 4, 4, qk, False, 20, 102, t=130, dv=v),
+             check_flash(4, 32, 4, 4, MLA_SMOKE_DIMS[0], False, None, 103,
+                         dv=MLA_SMOKE_DIMS[1]),
+             check_flash(4, 32, 4, 4, MLA_SMOKE_DIMS[0], True, None, 104,
+                         dv=MLA_SMOKE_DIMS[1])]
+    ws = check_ws_step(rows * SEQ, 129280, 1.0, 105)
+    keys = check_device_keys(rows * SEQ, 129280, 106)
+    return {"flash_attn": max(flash), "flash_checks": flash, "ws_step": ws["max_abs_err"],
+            "ws_check": ws, "device_keys": keys}
+
+
+def mla_measure():
+    """Device times at deepseek-v3-671b's serve shapes beside the plain
+    versions, SDPA and the bounds: flash_attn<192, 128> at the refine's (8,
+    256, 128 heads, kv 128), flash_attn<48, 32> at the smoke config's serve
+    (4 x 32, 4 heads), both bidirectional, and ws_step at (2048, 129 280)."""
+    return {"flash_attn": measure_flash(MLA_ROWS, SEQ, MLA_HEADS, MLA_QK_DIM, dv=MLA_V_DIM),
+            "flash_attn_smoke": measure_flash(4, 32, 4, MLA_SMOKE_DIMS[0],
+                                              dv=MLA_SMOKE_DIMS[1]),
+            "ws_step": measure_ws_step(MLA_ROWS * SEQ, 129280, plain_n=2)}
+
+
+def mla_float64(mla, x, sin, cos, causal):
+    """A layer's MLA on ``x`` (B, S, d) in float64 from its weights: the
+    naive expansion of the latent, the softmax over every key (``causal``:
+    the earlier ones)."""
+    from repro_torch.models.rope import apply_rope
+
+    def dense(lin, z):
+        return z @ lin.w.double()
+
+    def rms(norm, z):
+        z = z * torch.rsqrt(z.square().mean(-1, keepdim=True) + norm.eps)
+        return z * (1.0 + norm.scale.double())
+
+    x = x.double()
+    b, s, _ = x.shape
+    h, nd, rd, vd, r = mla.h, mla.nd, mla.rd, mla.vd, mla.r
+    sin, cos = sin.double(), cos.double()
+    q = dense(mla.wq_b, rms(mla.q_norm, dense(mla.wq_a, x))).reshape(b, s, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], apply_rope(q[..., nd:], sin, cos)
+    kv_a = dense(mla.wkv_a, x)
+    c_kv = rms(mla.kv_norm, kv_a[..., :r])
+    k_pe = apply_rope(kv_a[..., r:][:, :, None, :], sin, cos)[:, :, 0]
+    kv = dense(mla.wkv_b, c_kv).reshape(b, s, h, nd + vd)
+    scores = (torch.einsum("bshd,bthd->bhst", q_nope, kv[..., :nd])
+              + torch.einsum("bshd,btd->bhst", q_rope, k_pe)) / math.sqrt(nd + rd)
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=x.device).tril()
+        scores = scores.masked_fill(~mask, float("-inf"))
+    out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, -1), kv[..., nd:])
+    return dense(mla.wo, out.reshape(b, s, h * vd))
+
+
+def check_mla_float64(model, seed=107):
+    """The first prefix layer's MLA at full width on 1 x MLA_TOKENS hidden
+    states (N(0, 1), a seed) against float64: without a cache (the refine's
+    path: flash_attn<192, 128>, bidirectional), and as a 64-token prefill
+    into a fresh latent cache, naive and absorbed (causal). Within MLA_F64_TOL
+    of max |reference|; the cache's latent against the float64 one too."""
+    from repro_torch.kernels import launches
+    from repro_torch.models.attention import init_mla_cache
+    from repro_torch.models.rope import rope_angles
+
+    cfg, mla = model.cfg, model.blocks[0].attn
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, MLA_TOKENS, cfg.d_model), generator=g, device="cuda")
+    pos = torch.arange(MLA_TOKENS, dtype=torch.int32, device="cuda")
+    sin, cos = rope_angles(pos, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    res = {"tokens": MLA_TOKENS, "tolerance": f"{MLA_F64_TOL} x max|ref|"}
+    with torch.no_grad():
+        before = launches["flash_attn"]
+        got = {"kernel": mla(x, sin=sin, cos=cos, mode="bidir")}
+        res["flash_attn_launches"] = launches["flash_attn"] - before
+        for name, absorb in (("cached_naive", False), ("cached_absorbed", True)):
+            cache = init_mla_cache(cfg, 1, MLA_TOKENS, torch.float32, "cuda")
+            got[name], _ = mla.forward_cached(x, cache, sin=sin, cos=cos, q_pos=pos[None],
+                                              absorb=absorb)
+        want = {"kernel": mla_float64(mla, x, sin, cos, causal=False)}
+        want["cached_naive"] = want["cached_absorbed"] = mla_float64(mla, x, sin, cos,
+                                                                     causal=True)
+    for name in got:
+        scale = float(want[name].abs().max())
+        err = float((got[name].double() - want[name]).abs().max())
+        res[name] = {"max_abs_err": err, "max_abs_ref": scale, "rel": err / scale}
+    print(f"{cfg.name} MLA layer at full width (1 x {MLA_TOKENS}) against float64: {res}")
+    if res["flash_attn_launches"] != 1 or any(
+            not math.isfinite(res[n]["rel"]) or res[n]["rel"] > MLA_F64_TOL for n in got):
+        fail(f"the full-width MLA layer disagrees with its float64 reference: {res}")
+    return res
+
+
+def check_absorbed_first_step(model, absorbed, prompt):
+    """The prompt prefilled, then the first decode step on the naive
+    prefill's most likely tokens, through the naive and the absorbed model
+    (the same weights): the prefill's and the step's logits within
+    MLA_ABSORB_TOL of max |naive logit|."""
+    res, outs, tok = {}, [], None
+    prompt = prompt.to(model.device)
+    with torch.no_grad():
+        for m in (model, absorbed):
+            cache = m.init_cache(prompt.shape[0], MAX_LEN, torch.float32)
+            last, cache = m.prefill({"tokens": prompt}, cache)
+            if tok is None:
+                tok = last[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            outs.append((last, m.decode_step(tok, cache, prompt.shape[1])[0]))
+            del cache
+    for i, name in enumerate(("prefill", "first_step")):
+        naive, absd = outs[0][i], outs[1][i]
+        scale = float(naive.abs().max())
+        err = float((absd - naive).abs().max())
+        res[name] = {"max_abs_err": err, "max_abs_logit": scale, "rel": err / scale}
+    res["tolerance"] = f"{MLA_ABSORB_TOL} x max|logit|"
+    print(f"{model.cfg.name}: the absorbed decode against the naive one (prompt "
+          f"{tuple(prompt.shape)} prefilled, then a step): {res}")
+    if any(not math.isfinite(res[n]["rel"]) or res[n]["rel"] > MLA_ABSORB_TOL
+           for n in ("prefill", "first_step")):
+        fail(f"the absorbed decode disagrees with the naive one: {res}")
+    return res
+
+
+def mla_serve():
+    """deepseek-v3-671b at its published widths, its 3 dense mla layers and 1
+    mla_moe layer (256 experts top-8 beside a shared one; float32, seed 0),
+    served through ``WarmStartServer`` at MLA_ROWS x SEQ, t0 = 0.8,
+    cold_nfe = 64 (13 NFE; flash_attn<192, 128> in every layer and the
+    capacity path in every NFE's graph), drafted by the same model as a
+    causal decoder (the plain decode path: the draft kernels refuse MLA; the
+    prompt prefilled by scan, the decode one graph replay: the naive latent
+    expansion, the dropless path). MLA_SERVES serves: the first captures the
+    decode and the refine. Gates: NFE == warm_nfe, exact launches a serve
+    (``flash_attn`` 4 x 13, ``ws_step`` 13, no draft kernel; the first serve
+    twice that), one capture each, the first serve's graphs == their eager
+    warm-ups, a prefix layer's MLA and the MoE FFN against float64, the
+    absorbed decode's first step against the naive one. Reports draft, flow
+    and per-NFE ms, samples/s, the draft cost ratio, peak memory, the flow's
+    busy share, an eager NFE and decode step by op kind (naive and
+    absorbed), the absorbed draft's ms."""
+    import copy
+
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Model
+    from repro_torch.serving import WarmStartServer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = MLA_ROWS
+    cfg = get_config(MLA_ARCH).replace(dtype="float32", num_layers=MLA_LAYERS)
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    weights_gb = torch.cuda.memory_allocated() / 2 ** 30
+    adapter = TransformerDraftAdapter(model=model, decode_impl="xla")
+    engine = ARDraftEngine(adapter, max_len=MAX_LEN)
+    if adapter.exact_batched_prefill or engine.prefill_mode != "scan":
+        fail(f"{MLA_ARCH}: the draft must take the plain path with a scanned prefill")
+    n_params = sum(p.numel() for p in model.parameters())
+    prompt = draft_prompt(rows, cfg.vocab_size)
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=model, flow_cfg=cfg,
+        draft_generate=lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt),
+        path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    per_serve = {"ws_step": nfe, "flash_attn": nfe * MLA_LAYERS}
+
+    launches.clear()
+    reports, outs = [], []
+    for i in range(MLA_SERVES):
+        before = dict(launches)
+        served, rep = server.serve(prng.key(600 + i), rows)
+        if i == 0:     # the eager warm-ups of the two captures, on this serve's inputs
+            warm_draft, warm_x = engine.graphs.last_warmup, server.graphs.last_warmup
+        grew = grown(before)
+        want = {k: 2 * n if i == 0 else n for k, n in per_serve.items()}   # capture warm-ups
+        if grew != want:
+            fail(f"{MLA_ARCH} serve {i}: launches {grew}, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{MLA_ARCH} serve {i}: nfe {rep['nfe']} backbone_evals "
+                 f"{rep['backbone_evals']}, guaranteed {nfe}")
+        if served.shape != (rows, SEQ) or int(served.min()) < 0 \
+                or int(served.max()) >= cfg.vocab_size:
+            fail(f"{MLA_ARCH} serve {i}: tokens {tuple(served.shape)} outside "
+                 f"[0, {cfg.vocab_size})")
+        reports.append(rep)
+        outs.append(served)
+    counts = dict(launches)
+    caps = (engine.graphs.captures, server.graphs.captures)
+    if caps != (1, 1) or engine.stats.prefill_reuses != MLA_SERVES - 1:
+        fail(f"{MLA_ARCH}: {MLA_SERVES} serves must capture the decode and the refine once "
+             f"each and reuse the prefix: captures {caps}, {engine.stats.as_dict()}")
+    print(f"mla path: {MLA_ARCH} ({n_params / 1e9:.3f}B params, float32, {MLA_LAYERS} of 61 "
+          f"layers, {weights_gb:.2f} GiB of weights, init {init_s:.1f} s) x {MLA_SERVES} "
+          f"serves of {rows} x {SEQ}, drafted by the same model as a causal decoder, "
+          f"t0={T0}, cold_nfe={COLD_NFE}: nfe {nfe} per serve, guarantee gate passed, "
+          f"launches {counts} (per serve {per_serve}, the first twice that); capture ms "
+          f"(warm-up and capture): decode {engine.graphs.stats()['capture_ms']}, refine "
+          f"{server.graphs.stats()['capture_ms']}")
+
+    vs_eager = check_recurrent_vs_eager(server, engine, prompt, prng.key(600), outs[0],
+                                        warm_draft, warm_x)
+    # what follows runs eagerly but the flow's profile: the decode graph's pool (the
+    # draft's noise, a chunk of gathered experts) is given back first
+    engine.reset()
+    gc_collect()
+    mla_f64 = check_mla_float64(model)
+    ffn = check_moe_ffn_float64(model.blocks[MLA_LAYERS - 1].moe)
+
+    # the absorbed decode: the same weights under cfg.mla_absorb
+    absorbed = copy.copy(model)
+    absorbed.cfg = cfg.replace(mla_absorb=True)
+    first_step = check_absorbed_first_step(model, absorbed, prompt)
+    absorbed_engine = ARDraftEngine(TransformerDraftAdapter(model=absorbed, decode_impl="xla"),
+                                    max_len=MAX_LEN)
+    keys = prng.split(prng.split(prng.key(600), 2)[0], rows)      # the first serve's draft keys
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    absorbed_draft = absorbed_engine._generate_rows_eager(keys, SEQ, prompt)
+    torch.cuda.synchronize()
+    absorbed_ms = (time.perf_counter() - t) * 1e3
+    absorbed_res = {"draft_ms_eager": absorbed_ms, "first_step": first_step,
+                    # the first serve's naive draft drew from the same keys: equal off
+                    # near ties (a token past the first tie follows another prefix)
+                    "tokens_differ_from_the_naive_draft": int((absorbed_draft
+                                                               != warm_draft).sum())}
+    del absorbed_engine, absorbed_draft
+
+    holder = {}
+    server.draft_generate = lambda rng, num: warm_draft
+
+    def run():
+        holder["rep"] = server.serve(prng.key(621), rows)[1]
+
+    flow_prof = _profile(run, f"{MLA_ARCH} serve with its draft given (the flow stage)")
+    flow_prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+    server.graphs.clear()          # the refine graph's pool too, before the eager profiles
+    gc_collect()
+    x, tt = outs[-1], torch.full((rows,), T0 + 0.05, device="cuda")
+    cache = adapter.init_cache(rows, MAX_LEN)
+    last = PROMPT + SEQ - 2                # the draft's last decode step: the longest cache
+    with torch.no_grad():
+        nfe_ops = _profile_ops(lambda: model.dfm_apply(x, tt), "an eager NFE (8 x 256)")
+        step_ops = {name: _profile_ops(lambda m=m: m.decode_step(x[:, :1], cache, last),
+                                       f"an eager decode step (8 rows, {name}, dropless)")
+                    for name, m in (("naive", model), ("absorbed", absorbed))}
+        step_ms = {name: time_ms(lambda m=m: m.decode_step(x[:, :1], cache, last), reps=3,
+                                 inner=5)
+                   for name, m in (("naive", model), ("absorbed", absorbed))}
+    absorbed_res["decode_step_ms"] = step_ms
+    print(f"{MLA_ARCH} decode step at position {last} (8 rows, eager, CUDA events): {step_ms}; "
+          f"the absorbed draft, eager: {absorbed_ms:.1f} ms")
+    del cache
+    steady = reports[-1]
+    res = {
+        "config": MLA_ARCH, "dtype": cfg.dtype, "params": n_params, "layers": MLA_LAYERS,
+        "prefix": list(cfg.prefix), "pattern": list(cfg.pattern),
+        "experts": cfg.moe.num_experts, "top_k": cfg.moe.num_experts_per_tok,
+        "shared_experts": cfg.moe.num_shared_experts,
+        "rows": rows, "seq_len": SEQ, "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe,
+        "serves": MLA_SERVES, "weights_gib": weights_gb, "init_s": init_s,
+        "draft": {"config": MLA_ARCH + " (the flow model as a causal decoder)",
+                  "prompt": PROMPT, "max_len": MAX_LEN, "decode_steps": SEQ - 1,
+                  "prefill": engine.prefill_mode, "decode_impl": adapter.decode_impl,
+                  "mla": "naive expansion", "stats": engine.stats.as_dict()},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms": steady["draft_time_s"] * 1e3,
+        "flow_ms": steady["flow_time_s"] * 1e3,
+        "per_nfe_ms": steady["per_nfe_s"] * 1e3,
+        "samples_per_s": rows / (steady["draft_time_s"] + steady["flow_time_s"]),
+        "draft_cost_ratio": steady["speedup_report"].draft_cost_ratio,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flow_busy_share": flow_prof.get("busy_share"), "flow_profile": flow_prof,
+        "nfe_device_ms_by_kind": nfe_ops, "decode_step_device_ms_by_kind": step_ops,
+        "absorbed": absorbed_res,
+        "launches_per_serve": per_serve, "vs_eager": vs_eager, "mla_vs_float64": mla_f64,
+        "ffn_vs_float64": ffn,
+        "capture_ms": {"decode": engine.graphs.stats()["capture_ms"],
+                       "refine": server.graphs.stats()["capture_ms"]},
+    }
+    del model, absorbed, adapter, engine, server, holder, warm_draft, warm_x, outs, x
+    gc_collect()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{MLA_ARCH} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+          f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.2f} ms an NFE), "
+          f"{res['samples_per_s']:.3f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.2f}, peak memory {res['peak_memory_gb']:.2f} GiB, flow "
+          f"busy {res['flow_busy_share']}; {res['seconds']:.1f} s")
+    return res, counts
+
+
+def mla_path():
+    """The MLA family's phase: the kernels at deepseek-v3-671b's shapes, its
+    serve at published widths (the 3 dense layers and one MoE layer), the
+    smoke config served and trained 3 steps card == CPU, all within
+    MLA_PHASE_S. Returns (the {"mla": ...} record, the serves' launches)."""
+    t0 = time.perf_counter()
+    gc_collect()
+    res = {"kernel_errors": mla_kernel_gates(), "kernels": mla_measure()}
+    res[MLA_ARCH], counts = mla_serve()
+    res["smoke_vs_cpu"] = check_zoo_smoke_against_cpu((MLA_ARCH,))
+    res["smoke_train_vs_cpu"] = check_train_zoo_smoke_against_cpu((MLA_ARCH,))
+    res["phase_seconds"] = time.perf_counter() - t0
+    print(f"mla phases (kernel gates, measurements, {MLA_ARCH} serves, smoke config served "
+          f"and trained): {res['phase_seconds']:.1f} s (limit {MLA_PHASE_S})")
+    if res["phase_seconds"] > MLA_PHASE_S:
+        fail(f"the MLA phase took {res['phase_seconds']:.1f} s, over its {MLA_PHASE_S} s")
     return res, counts
 
 
@@ -5047,13 +5439,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
-    # flash_attn at head dims 16, 32, 64, 80, 128, 256; qkv_rope and attn_cached at 16, 32,
+    # flash_attn at head dims 16, 32, 64, 80, 128, 256 and (q/k, v) (192, 128) and (48, 32);
+    # qkv_rope and attn_cached at 16, 32,
     # 64, 128; post_attn's wo, down, up and gated up, each whole and staged; the head at
     # 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
     # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
     # the noise given and keyed; ws_fused at each with lg in registers and re-read; the
     # device-key ws_step and keyed ws_step_gumbel (the refine graphs' steps) at each G
-    for kernel, count in (("flash_attn_kernel", 6), ("post_attn_proj_kernel", 8),
+    for kernel, count in (("flash_attn_kernel", 8), ("post_attn_proj_kernel", 8),
                           ("qkv_rope_kernel", 4), ("attn_cached_kernel", 4),
                           ("head_proj_kernel", 8),
                           ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
@@ -5152,6 +5545,7 @@ def main() -> int:
     recurrent, rec_counts = recurrent_path()
     encdec, encdec_counts = encdec_path()
     moe, moe_counts = moe_path()
+    mla, mla_counts = mla_path()
     train_zoo, train_zoo_counts = train_zoo_path()
     examples = examples_path()
 
@@ -5287,6 +5681,20 @@ def main() -> int:
     rec_ws["moe"] = {"config": MOE_ARCH, "launches": moe_counts.get("ws_step", 0),
                      "max_abs_err": moe_errs["ws_step"], "shape": [MOE_ROWS * SEQ, 32000],
                      "device_key_differ": moe_errs["device_keys"]["differ"]}
+    mla_errs, mla_num = mla["kernel_errors"], mla["kernels"]
+    rec_flash["max_abs_err"] = max(rec_flash["max_abs_err"], mla_errs["flash_attn"])
+    rec_flash["mla"] = {"config": MLA_ARCH, "instance": f"<{MLA_QK_DIM}, {MLA_V_DIM}>",
+                        "launches": mla_counts.get("flash_attn", 0),
+                        "launches_per_serve": mla[MLA_ARCH]["launches_per_serve"]["flash_attn"],
+                        "max_abs_err": mla_errs["flash_attn"],
+                        "smoke_instance": f"<{MLA_SMOKE_DIMS[0]}, {MLA_SMOKE_DIMS[1]}>",
+                        "smoke": mla_num["flash_attn_smoke"], **mla_num["flash_attn"]}
+    rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], mla_errs["ws_step"])
+    rec_ws["mla"] = {"config": MLA_ARCH, "launches": mla_counts.get("ws_step", 0),
+                     "launches_per_serve": mla[MLA_ARCH]["launches_per_serve"]["ws_step"],
+                     "max_abs_err": mla_errs["ws_step"], "shape": [MLA_ROWS * SEQ, 129280],
+                     "device_key_differ": mla_errs["device_keys"]["differ"],
+                     **mla_num["ws_step"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -5306,6 +5714,7 @@ def main() -> int:
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"mla": mla}))
     print(json.dumps({"train_zoo": train_zoo}))
     print(json.dumps({"examples": examples}))
     print(card)

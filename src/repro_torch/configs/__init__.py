@@ -6,14 +6,16 @@ runs: the DiT (``dfm-dit``), the dense zoo (``starcoder2-3b``,
 ``minitron-4b``, ``command-r-plus-104b``, ``gemma3-1b``) and the recurrent
 family (``zamba2-2.7b``: Mamba2 with Zamba2's shared attention;
 ``xlstm-1.3b``: mLSTM/sLSTM), the encoder-decoder family
-(``whisper-medium``) and the MoE family (``arctic-480b``: top-2 of 128
-experts beside a dense residual FFN). The rest of the zoo (the MLA and
-VLM families) raises.
+(``whisper-medium``), the MoE family (``arctic-480b``: top-2 of 128
+experts beside a dense residual FFN) and the MLA family
+(``deepseek-v3-671b``: multi-head latent attention, three dense prefix
+layers, then top-8 of 256 experts beside a shared one, MTP depth 1). The
+rest of the zoo (the VLM family) raises.
 """
 
 from repro_torch.configs import (
-    arctic_480b, command_r_plus_104b, dfm_dit, gemma3_1b, minitron_4b, starcoder2_3b,
-    whisper_medium, xlstm_1_3b, zamba2_2_7b,
+    arctic_480b, command_r_plus_104b, deepseek_v3_671b, dfm_dit, gemma3_1b, minitron_4b,
+    starcoder2_3b, whisper_medium, xlstm_1_3b, zamba2_2_7b,
 )
 from repro_torch.configs.base import ModelConfig, RunConfig
 
@@ -27,17 +29,18 @@ _MODULES = {
     "xlstm-1.3b": xlstm_1_3b,
     "whisper-medium": whisper_medium,
     "arctic-480b": arctic_480b,
+    "deepseek-v3-671b": deepseek_v3_671b,
 }
 
 # the JAX registry's other ids, by the family the port still lacks
-_NOT_PORTED = {"deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
+_NOT_PORTED = {"qwen2-vl-72b": "VLM"}
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet: its {_NOT_PORTED[arch]} "
-            f"layers are missing (the MLA and VLM families); "
+            f"layers are missing (the VLM family); "
             f"available: {list_archs()}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")

@@ -12,7 +12,9 @@ scanned group, pattern position ``p`` (Gemma3's six positions are
 ``stack|zshared|...`` (one copy, unstacked) is the model's ``zshared``
 module; its per-layer ``fuse`` and unused ``ln1`` are ordinary layer leaves.
 The recurrent kinds' leaves (``mamba|a_log``, ``mlstm|wq``,
-``slstm|r_gates``, ...) map by name like the rest.
+``slstm|r_gates``, ...) map by name like the rest, and so do MLA's
+(``attn|wq_a|w``, ``attn|q_norm|scale``, ``attn|wkv_b|w``, ...) and an MoE
+layer's shared expert (``moe|shared|up|w``, ...).
 
 Every other leaf maps by name: biases (``...|wq|b``), the gated MLP's
 ``mlp|gate|w``, norms without a bias (rmsnorm: ``scale`` only), qk-norm's

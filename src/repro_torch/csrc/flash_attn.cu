@@ -6,11 +6,13 @@
 // that the mask removes entirely. The masks, NEG_INF = -2.3819763e38 and
 // the 1e-30 floor on the normaliser are the TPU kernel's.
 //
-// Layout. q (B, S, H, D), k and v (B, T, KH, D), o (B, S, H, D), all
-// contiguous float32: the JAX wrapper's layout, read in place, so no
-// transpose or GQA copy runs around the kernel. Query head h reads KV
-// head h / (H / KH). D = 16, 32, 64, 80 (Zamba2's shared attention), 128
-// or 256 (gemma3-1b).
+// Layout. q (B, S, H, DK), k (B, T, KH, DK), v (B, T, KH, DV), o (B, S,
+// H, DV), all contiguous float32: the JAX wrapper's layout, read in place,
+// so no transpose or GQA copy runs around the kernel. Query head h reads KV
+// head h / (H / KH). DK = DV = 16, 32, 64, 80 (Zamba2's shared attention),
+// 128 or 256 (gemma3-1b); DK = 192 with DV = 128 (DeepSeek-V3's MLA: qk_nope
+// 128 + qk_rope 64 against v 128) and DK = 48 with DV = 32 (its smoke
+// config). Q.K^T runs over DK; P.V, the accumulator and the output over DV.
 //
 // Bounds on an H100 SXM at the DiT's shape (B = 32, H = 12, S = T = 256,
 // D = 64). Bytes: 4 * 25.2 MB of q, k, v, o is 30 us at 3.35 TB/s. The two
@@ -60,6 +62,16 @@
 //   keys, one block: 0.535 / 0.363 / 0.682, 224 bytes of spill. The spill
 //   gate refuses both one-block tiles.
 //
+// - DK != DV (MLA, flash_attn_kernel<DK, DV>): the same body, with K rows
+//   padded to DK + 4 and V rows to DV + 4 floats, V strided by KH * DV and O
+//   by H * DV. At (192, 128) the accumulator is 64 floats a thread, as at
+//   D = 128, and Q (DK > 64) is re-split from shared memory at every k-step.
+//   The tiles take (64 x 196 + 2 x 32 x 196 + 2 x 32 x 132) floats = 131 KB
+//   of shared memory: one block an SM under the 227 KB limit, so the second
+//   block that __launch_bounds__ allows for cannot be had there. At (48, 32)
+//   Q stays in registers (DK <= 64) and the tiles take 31 KB. Each
+//   DK == DV instance is the template at DK = DV, unchanged.
+//
 // What holds it at about a quarter of the TF32 rate (chip_smoke.py, H100
 // SXM at 700 W: 0.142 ms at the DiT's shape) is the CUDA-core work around
 // each mma: every warp splits every K and V element it reads (3 integer
@@ -86,18 +98,19 @@ constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -2.3819763e38f;
 
-template <int D>
+template <int DK, int DV>
 struct Tiles {
-  static_assert(D % 8 == 0 && D <= 256, "head_dim must be a multiple of 8, at most 256");
-  static constexpr int kBlockK = D <= 128 ? 32 : 32;  // keys per tile
-  // blocks that share a query tile, each computing the scores over all of D and
-  // P.V for its D / kSplit columns of V and of the output (at D = 256 the whole
+  static_assert(DK % 8 == 0 && DK <= 256, "the q/k head_dim must be a multiple of 8, at most 256");
+  static_assert(DV % 8 == 0 && DV <= 256, "the v head_dim must be a multiple of 8, at most 256");
+  static constexpr int kBlockK = DV <= 128 ? 32 : 32;  // keys per tile
+  // blocks that share a query tile, each computing the scores over all of DK and
+  // P.V for its DV / kSplit columns of V and of the output (at DV = 256 the whole
   // output accumulator, 128 floats a thread, leaves ptxas spilling)
-  static constexpr int kSplit = D <= 128 ? 1 : 2;
-  static constexpr int kDv = D / kSplit;              // V and output columns of a block
-  static constexpr bool kQInRegs = D <= 64;           // else the registers spill
-  static constexpr int kLd = D + 4;                   // padded row, in floats
-  static constexpr int kLdv = kDv + 4;
+  static constexpr int kSplit = DV <= 128 ? 1 : 2;
+  static constexpr int kDv = DV / kSplit;             // V and output columns of a block
+  static constexpr bool kQInRegs = DK <= 64;          // else the registers spill
+  static constexpr int kLd = DK + 4;                  // padded K row, in floats
+  static constexpr int kLdv = kDv + 4;                // padded V row
   static constexpr int kQFloats = kBlockQ * kLd;
   static constexpr int kKFloats = kBlockK * kLd;
   static constexpr int kVFloats = kBlockK * kLdv;
@@ -169,15 +182,15 @@ __device__ __forceinline__ void q_fragment(const float* qw, int ks, uint32_t (&h
   split(p[8 * LD + 4], hi[3], lo[3]);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S, int T, int H,
                   int KH, float scale, int causal, int window) {
-  using Cfg = Tiles<D>;
-  constexpr int BK = Cfg::kBlockK, LD = Cfg::kLd, DV = Cfg::kDv, LDV = Cfg::kLdv;
-  constexpr int kDSteps = D / 8;   // k-steps of Q.K^T
-  constexpr int kVSteps = DV / 8;  // n-blocks of P.V
+  using Cfg = Tiles<DK, DV>;
+  constexpr int BK = Cfg::kBlockK, LD = Cfg::kLd, DVB = Cfg::kDv, LDV = Cfg::kLdv;
+  constexpr int kDSteps = DK / 8;   // k-steps of Q.K^T
+  constexpr int kVSteps = DVB / 8;  // n-blocks of P.V
   constexpr int kKSteps = BK / 8;  // n-blocks of Q.K^T, k-steps of P.V
   constexpr int kQRegs = Cfg::kQInRegs ? kDSteps : 1;
   extern __shared__ float4 smem4[];
@@ -192,10 +205,11 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;  // the fragment's group and thread in group
   const int row = q_start + 16 * warp + g;  // this thread's rows: row, row + 8
 
-  const size_t kv_stride = static_cast<size_t>(KH) * D;
-  const float* kbase = k + (static_cast<size_t>(b) * T * KH + kvh) * D;
-  const int dv0 = static_cast<int>(blockIdx.z) * DV;   // this block's V and output columns
-  const float* vbase = v + (static_cast<size_t>(b) * T * KH + kvh) * D + dv0;
+  const size_t k_stride = static_cast<size_t>(KH) * DK;
+  const size_t v_stride = static_cast<size_t>(KH) * DV;
+  const float* kbase = k + (static_cast<size_t>(b) * T * KH + kvh) * DK;
+  const int dv0 = static_cast<int>(blockIdx.z) * DVB;  // this block's V and output columns
+  const float* vbase = v + (static_cast<size_t>(b) * T * KH + kvh) * DV + dv0;
 
   // the key blocks that run form one interval
   const int num_k_blocks = (T + BK - 1) / BK;
@@ -215,11 +229,11 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   if (kb_begin < kb_end) {  // uniform in the block; with no tile the output is 0
-    load_tile<D, kBlockQ>(qs, q + (static_cast<size_t>(b) * S * H + h) * D,
-                          static_cast<size_t>(H) * D, q_start, S, tid);
+    load_tile<DK, kBlockQ>(qs, q + (static_cast<size_t>(b) * S * H + h) * DK,
+                           static_cast<size_t>(H) * DK, q_start, S, tid);
     cp_async_commit();
-    load_tile<D, BK>(ks, kbase, kv_stride, kb_begin * BK, T, tid);
-    load_tile<DV, BK>(vs, vbase, kv_stride, kb_begin * BK, T, tid);
+    load_tile<DK, BK>(ks, kbase, k_stride, kb_begin * BK, T, tid);
+    load_tile<DVB, BK>(vs, vbase, v_stride, kb_begin * BK, T, tid);
     cp_async_commit();
     if constexpr (Cfg::kQInRegs) {
       cp_async_wait<1>();  // Q has landed; the first K/V tile may still be in flight
@@ -232,8 +246,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kb = kb_begin; kb < kb_end; ++kb) {
     const int buf = (kb - kb_begin) & 1;
     if (kb + 1 < kb_end) {
-      load_tile<D, BK>(ks + (buf ^ 1) * Cfg::kKFloats, kbase, kv_stride, (kb + 1) * BK, T, tid);
-      load_tile<DV, BK>(vs + (buf ^ 1) * Cfg::kVFloats, vbase, kv_stride, (kb + 1) * BK, T, tid);
+      load_tile<DK, BK>(ks + (buf ^ 1) * Cfg::kKFloats, kbase, k_stride, (kb + 1) * BK, T, tid);
+      load_tile<DVB, BK>(vs + (buf ^ 1) * Cfg::kVFloats, vbase, v_stride, (kb + 1) * BK, T,
+                         tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -340,7 +355,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = row + 8 * r;
     if (qi < S) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * D + dv0 + 2 * t;
+      float* orow = o + ((static_cast<size_t>(b) * S + qi) * H + h) * DV + dv0 + 2 * t;
 #pragma unroll
       for (int nd = 0; nd < kVSteps; ++nd) {
         *reinterpret_cast<float2*>(orow + 8 * nd) =
@@ -350,27 +365,28 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const float* q, const float* k, const float* v, float* o, int B, int S, int T,
            int H, int KH, float scale, int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = Tiles<D>::kSmemBytes;
+  constexpr size_t smem = Tiles<DK, DV>::kSmemBytes;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ, Tiles<D>::kSplit);
-  flash_attn_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, S, T, H, KH, scale,
-                                                          causal, window);
+  const dim3 grid(B * H, (S + kBlockQ - 1) / kBlockQ, Tiles<DK, DV>::kSplit);
+  flash_attn_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(q, k, v, o, S, T, H, KH, scale,
+                                                               causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// DK: q and k's head_dim; DV: v and o's.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                 int S, int T, int H, int KH, int D, float scale, int causal,
-                                 int window, void* stream) {
+                                 int S, int T, int H, int KH, int DK, int DV, float scale,
+                                 int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || KH <= 0 || H % KH != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -379,13 +395,18 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   const auto* vf = static_cast<const float*>(v);
   auto* of = static_cast<float*>(o);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    case 32: return launch<32>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    case 64: return launch<64>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    case 80: return launch<80>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    case 128: return launch<128>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    case 256: return launch<256>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+#define FLASH_CASE(dk, dv)                                                                \
+  if (DK == (dk) && DV == (dv)) {                                                         \
+    return launch<dk, dv>(qf, kf, vf, of, B, S, T, H, KH, scale, causal, window, st);     \
   }
+  FLASH_CASE(16, 16)
+  FLASH_CASE(32, 32)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(80, 80)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(192, 128)
+  FLASH_CASE(48, 32)
+#undef FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

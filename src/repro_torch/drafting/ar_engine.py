@@ -75,11 +75,28 @@ from repro_torch.kernels.draft_decode import DraftDecoder, draft_decode_supporte
 from repro_torch.models.model import IN_PLACE_LEAVES
 
 
+# the draft noise hashed at once, at most, in elements: the threefry hash's int64
+# intermediates take ~50 bytes an element, so deepseek-v3-671b's 8 rows x 255 steps
+# x 129 280 vocabulary at once would hold 12.8 GB for a moment (inside the decode's
+# graph pool for good); larger noise is hashed in blocks of steps, ~0.8 GB each
+ROW_GUMBEL_CHUNK = 1 << 24
+
+
 def row_gumbel(keys: torch.Tensor, n: int, vocab: int, device) -> torch.Tensor:
     """The sampling noise of ``n`` tokens: ``(B, n, V)`` float32 with
-    ``[b, i] = jax.random.gumbel(fold_in(keys[b], i), (V,))``."""
+    ``[b, i] = jax.random.gumbel(fold_in(keys[b], i), (V,))``, hashed in
+    blocks of steps of at most ``ROW_GUMBEL_CHUNK`` elements (the same bits:
+    each element's hash is its own)."""
     steps = torch.arange(n, dtype=torch.int64, device=keys.device)
-    return prng.gumbel(prng.fold_in(keys[:, None, :], steps), (vocab,), device=device)
+    step_keys = prng.fold_in(keys[:, None, :], steps)                  # (B, n, 2)
+    chunk = max(1, ROW_GUMBEL_CHUNK // (keys.shape[0] * vocab))
+    if chunk >= n:
+        return prng.gumbel(step_keys, (vocab,), device=device)
+    out = torch.empty((keys.shape[0], n, vocab), dtype=torch.float32, device=device)
+    for lo in range(0, n, chunk):
+        out[:, lo:lo + chunk] = prng.gumbel(step_keys[:, lo:lo + chunk], (vocab,),
+                                            device=device)
+    return out
 
 
 def sample_tokens(noise: torch.Tensor, logits: torch.Tensor, temperature: float) -> torch.Tensor:

@@ -63,8 +63,9 @@ _SIGNATURES = {
     # logits, x, a (K, R / a_group), seeds (K, R / key_group, 2) int64, out, rows, vocab,
     # steps, key_group, a_group, temperature, lanes a row (0: the choice from vocab), stream
     "ws_fused_launch": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
-    # q, k, v, o, B, S, T, H, KH, D, scale, causal, window (<= 0: none), stream
-    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, o, B, S, T, H, KH, DK (q and k's head_dim), DV (v and o's), scale, causal,
+    # window (<= 0: none), stream
+    "flash_attn_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # x, ln scale, ln bias, wq, wk, wv, bq, bk, bv, q, k cache, v cache, cursor,
     # R, S, T, D, H, KH, hd, pos0, norm, eps, use_rope, theta, stream
     "draft_qkv_rope_launch": [_P] * 13 + [_I] * 9 + [_F, _I, _F, _P],

@@ -2,7 +2,9 @@
 
 Same signature and layout as the JAX package's ``flash_attn/ops.py``:
 q (B, S, H, D), k and v (B, T, KH, D) with KH dividing H (GQA), causal /
-bidirectional / sliding-window masks, output (B, S, H, D). A CUDA tensor
+bidirectional / sliding-window masks, output (B, S, H, D). V may be
+narrower than q and k: v (B, T, KH, DV) gives an output (B, S, H, DV)
+(MLA's values, 128 wide against its 192-wide queries and keys). A CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version.
 With grad enabled and an input that requires grad, the call goes through
 ``FlashAttentionFn`` (the same forward, and the attention gradient), so a
@@ -18,12 +20,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ref import NEG_INF, attention_mask, flash_attention_ref
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# the (q/k head_dim, v head_dim) pairs the kernel is built for: one width for all
+# three, or MLA's (192, 128) and its smoke config's (48, 32)
+SUPPORTED_HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (80, 80), (128, 128), (256, 256),
+                       (192, 128), (48, 32))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
-        raise ValueError(f"expected q (B,S,H,D) and k, v (B,T,KH,D); got "
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"expected q (B,S,H,D), k (B,T,KH,D) and v (B,T,KH,DV); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, _, h, d = q.shape
     if k.shape[0] != b or k.shape[3] != d or h % k.shape[2] != 0:
@@ -44,7 +49,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
              window: Optional[int], scale: float) -> torch.Tensor:
     """The kernel on a CUDA tensor (counted), the plain version on a CPU one."""
-    d = q.shape[3]
+    dims = (q.shape[3], v.shape[3])
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
@@ -54,11 +59,12 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
             raise ValueError(f"{name} must be a contiguous float32 tensor on {q.device}")
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the kernel: {SUPPORTED_HEAD_DIMS}")
+    if dims not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head_dim (q/k, v) {dims} not supported by the kernel: "
+                         f"{SUPPORTED_HEAD_DIMS}")
     if window is not None and window <= 0:
         raise ValueError(f"window must be positive, got {window}")
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:3] + (dims[1],))
     _launch(q, k, v, out, causal=causal, window=window, scale=scale)
     _build.count("flash_attn")
     return out
@@ -91,7 +97,8 @@ class FlashAttentionFn(torch.autograd.Function):
 def attention_backward(q, k, v, d_out, *, causal: bool, window: Optional[int],
                        scale: float):
     """Gradients of ``out = softmax(scale q k^T, masked) v`` for q (B,S,H,D),
-    k and v (B,T,KH,D) and ``d_out`` (B,S,H,D):
+    k (B,T,KH,D), v (B,T,KH,DV) and ``d_out`` (B,S,H,DV) (DV may differ from
+    D: MLA's values are narrower than its queries and keys):
 
         S = scale q k^T (masked as ``attention_mask``), P = softmax(S)
         dV = P^T dO;  dP = dO V^T;  dS = P * (dP - rowsum(P * dP))
@@ -112,8 +119,8 @@ def attention_backward(q, k, v, d_out, *, causal: bool, window: Optional[int],
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
 
-    def heads(x):     # (B, S, H, D) -> (B, KH, G, S, D)
-        return x.reshape(b, s, kh, g, d).permute(0, 2, 3, 1, 4)
+    def heads(x):     # (B, S, H, D or DV) -> (B, KH, G, S, D or DV)
+        return x.reshape(b, s, kh, g, x.shape[3]).permute(0, 2, 3, 1, 4)
 
     qh, doh = heads(q), heads(d_out)
     kt = k.permute(0, 2, 1, 3)[:, :, None]        # (B, KH, 1, T, D)
@@ -121,7 +128,7 @@ def attention_backward(q, k, v, d_out, *, causal: bool, window: Optional[int],
     mask = attention_mask(s, t, causal=causal, window=window, device=q.device)
     scores = torch.matmul(qh, kt.transpose(-1, -2)) * scale
     p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
-    dv = torch.matmul(p.transpose(-1, -2), doh).sum(2)           # (B, KH, T, D)
+    dv = torch.matmul(p.transpose(-1, -2), doh).sum(2)           # (B, KH, T, DV)
     dp = torch.matmul(doh, vt.transpose(-1, -2))                  # (B, KH, G, S, T)
     ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
     dq = torch.matmul(ds, kt) * scale                              # (B, KH, G, S, D)
@@ -139,10 +146,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor
         raise RuntimeError("flash_attn launched outside FlashAttentionFn with inputs that "
                            "require grad: its output would be cut from the autograd graph")
     b, s, h, d = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    t, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _build.library().flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kh, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, h, kh, d, dv,
             float(scale), int(causal), int(window or 0), stream)
     _build.check(rc, "flash_attn")

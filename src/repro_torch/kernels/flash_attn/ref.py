@@ -30,8 +30,9 @@ def attention_mask(s: int, t: int, *, causal: bool, window: Optional[int],
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,S,H,D), k/v (B,T,KH,D) -> (B,S,H,D); query head h reads KV
-    head h // (H // KH)."""
+    """q (B,S,H,D), k (B,T,KH,D), v (B,T,KH,DV) -> (B,S,H,DV); query head h
+    reads KV head h // (H // KH). DV may differ from D (MLA: 192-wide queries
+    and keys, 128-wide values), as in the kernel."""
     h, kh, d = q.shape[2], k.shape[2], q.shape[3]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     if kh != h:

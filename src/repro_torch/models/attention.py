@@ -1,7 +1,8 @@
 """GQA self-attention of the torch backbone (port of the JAX package's
-``models/attention.py::gqa_attention`` and ``init_gqa_cache``) and the
-encoder-decoder's cross attention (``init_cross_attn``,
-``cross_attention``, ``encode_cross_kv``).
+``models/attention.py::gqa_attention`` and ``init_gqa_cache``), DeepSeek's
+multi-head latent attention (``init_mla``, ``mla_attention``,
+``_mla_chunked``, ``init_mla_cache``) and the encoder-decoder's cross
+attention (``init_cross_attn``, ``cross_attention``, ``encode_cross_kv``).
 
 Masking: ``mode="bidir"`` (the DFM denoiser) sees every position,
 ``mode="causal"`` only earlier ones; a ``window`` (a ``local`` layer's
@@ -19,6 +20,23 @@ k/v are written into the cache buffers at the cache's cursor and the
 queries attend over the whole buffer under the causal and cache-validity
 masks, in plain torch as JAX's ``_sdpa`` does there (no Pallas kernel).
 The AR draft engine's fast path is ``kernels/draft_decode`` instead.
+
+MLA (:class:`MLAttention`) projects the query through a rank
+``q_lora_rank`` bottleneck and the keys and values through a latent
+``c_kv`` of ``kv_lora_rank`` floats a token, beside one rotary key ``k_pe``
+of ``qk_rope_head_dim`` floats that every head shares; its rope angles
+come from the query positions at ``qk_rope_head_dim`` (JAX derives them in
+the layer). A query and a key are ``qk_nope_head_dim + qk_rope_head_dim``
+wide, a value ``v_head_dim``. Without a cache (the refine, the causal
+forward, training) the latent is expanded to per-head keys and values and
+the layer runs through the ``flash_attn`` kernel with V narrower than Q and
+K, at scale 1/sqrt(qk width): the same function as JAX's naive path and as
+its ``_mla_chunked`` (``attn_impl="chunked"``), which differ only in how
+XLA tiles it. With a cache, ``c_kv`` and ``k_pe`` are written at the
+cursor in place and the layer runs in plain torch, as JAX's einsums do
+(no Pallas kernel there): the naive expansion of the whole cache, or with
+``cfg.mla_absorb`` the absorbed decode (W_uk folded into the query, W_uv
+into the output; the latent read once, never expanded).
 
 Cross attention (:class:`CrossAttention`) reads keys and values made from
 the encoder's output, unmasked: JAX computes it in einsum and softmax;
@@ -39,6 +57,30 @@ from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.flash_attn.ref import NEG_INF
 from repro_torch.models.common import Dense, RMSNorm
 from repro_torch.models.rope import apply_rope
+
+
+def _cache_mask(q_pos: torch.Tensor, start: torch.Tensor, s: int, t: int,
+                window: Optional[int]) -> torch.Tensor:
+    """(B, S, T) boolean: key ``k`` of the buffer is seen by the query at
+    ``q_pos`` when ``k <= q_pos``, ``k < start + s`` (written) and, with a
+    ``window``, ``k > q_pos - window`` (JAX ``attn_mask`` with ``k_valid``)."""
+    k_pos = torch.arange(t, device=q_pos.device)
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos < start + s)
+    if window is not None:
+        mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+    return mask
+
+
+def _write_at_cursor(start: torch.Tensor, *pairs) -> None:
+    """Each ``(buf (B, T, ...), x (B, S, ...))`` of ``pairs``: ``x`` into
+    ``buf`` at rows ``start..start+S-1``, in place. The cursor stays a tensor
+    (no read by the host, so a CUDA graph can hold the step) and is clamped
+    to fit, as ``dynamic_update_slice``."""
+    buf0, x0 = pairs[0]
+    t, s = buf0.shape[1], x0.shape[1]
+    rows = torch.clamp(start, 0, t - s).long() + torch.arange(s, device=buf0.device)
+    for buf, x in pairs:
+        buf.index_copy_(1, rows, x.to(buf.dtype))
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
@@ -98,17 +140,9 @@ class GQAAttention(nn.Module):
         b, s, _ = x.shape
         q, k, v = self._qkv(x, sin, cos)
         kbuf, vbuf = cache["k"], cache["v"]
-        t = kbuf.shape[1]
-        # the cursor stays a tensor (no read by the host, so a CUDA graph can
-        # hold this step); dynamic_update_slice clamps the write to fit
         start = cache["pos"]
-        rows = torch.clamp(start, 0, t - s).long() + torch.arange(s, device=kbuf.device)
-        kbuf.index_copy_(1, rows, k.to(kbuf.dtype))
-        vbuf.index_copy_(1, rows, v.to(vbuf.dtype))
-        k_pos = torch.arange(t, device=x.device)
-        mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (k_pos < start + s)
-        if window is not None:
-            mask = mask & (k_pos[None, None, :] > q_pos[:, :, None] - window)
+        _write_at_cursor(start, (kbuf, k), (vbuf, v))
+        mask = _cache_mask(q_pos, start, s, kbuf.shape[1], window)
         g = self.h // self.kh
         qh = q.reshape(b, s, self.kh, g, self.hd)
         kf, vf = kbuf.to(x.dtype), vbuf.to(x.dtype)
@@ -118,6 +152,107 @@ class GQAAttention(nn.Module):
         out = torch.einsum("bkgst,btkd->bskgd", probs, vf).reshape(b, s, self.h * self.hd)
         new_cache = {"k": kbuf, "v": vbuf, "pos": cache["pos"] + s}
         return self.wo(out), new_cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> dict:
+    """``{"c_kv": (B, T, kv_lora_rank), "k_pe": (B, T, qk_rope_head_dim)
+    zeros, "pos": () int32 0}`` (JAX ``init_mla_cache``): the latent and the
+    shared rotary key a token, not per-head keys and values."""
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_pe": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+class MLAttention(nn.Module):
+    """DeepSeek's multi-head latent attention (JAX ``init_mla``: ``wq_a``,
+    ``q_norm``, ``wq_b``, ``wkv_a``, ``kv_norm``, ``wkv_b``, ``wo`` at
+    stddev 0.02 / sqrt(2 L); no biases). ``sin``/``cos`` are the angles at
+    ``qk_rope_head_dim`` of the query positions."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.num_heads
+        self.h, self.r = h, m.kv_lora_rank
+        self.nd, self.rd, self.vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        qk = self.nd + self.rd
+        self.scale = 1.0 / math.sqrt(qk)
+        self.wq_a = Dense(d, m.q_lora_rank, gen, device)
+        self.q_norm = RMSNorm(m.q_lora_rank, cfg.norm_eps, device)
+        self.wq_b = Dense(m.q_lora_rank, h * qk, gen, device)
+        self.wkv_a = Dense(d, m.kv_lora_rank + self.rd, gen, device)
+        self.kv_norm = RMSNorm(m.kv_lora_rank, cfg.norm_eps, device)
+        self.wkv_b = Dense(m.kv_lora_rank, h * (self.nd + self.vd), gen, device)
+        self.wo = Dense(h * self.vd, d, gen, device, stddev=0.02 / math.sqrt(2 * cfg.num_layers))
+
+    def _project(self, x, sin, cos):
+        """(q_nope (B,S,H,nd), q_rope (B,S,H,rd) rotated, c_kv (B,S,r), k_pe
+        (B,S,rd) rotated)."""
+        b, s, _ = x.shape
+        q = self.wq_b(self.q_norm(self.wq_a(x))).reshape(b, s, self.h, self.nd + self.rd)
+        q_nope, q_rope = q[..., :self.nd], apply_rope(q[..., self.nd:], sin, cos)
+        kv_a = self.wkv_a(x)
+        c_kv = self.kv_norm(kv_a[..., :self.r])
+        k_pe = apply_rope(kv_a[..., self.r:][:, :, None, :], sin, cos)[:, :, 0]
+        return q_nope, q_rope, c_kv, k_pe
+
+    def _expand(self, c_kv):
+        """The latent (B, T, r) -> per-head (k_nope (B,T,H,nd), v (B,T,H,vd))."""
+        b, t, _ = c_kv.shape
+        kv = self.wkv_b(c_kv).reshape(b, t, self.h, self.nd + self.vd)
+        return kv[..., :self.nd], kv[..., self.nd:]
+
+    def forward(self, x: torch.Tensor, *, sin: torch.Tensor, cos: torch.Tensor, mode: str,
+                window: Optional[int] = None) -> torch.Tensor:
+        """The layer over the whole sequence: q = [q_nope, q_rope] and k =
+        [k_nope, k_pe on every head] (B, S, H, nd + rd), v (B, S, H, vd)
+        through ``flash_attn``."""
+        b, s, _ = x.shape
+        q_nope, q_rope, c_kv, k_pe = self._project(x, sin, cos)
+        k_nope, v = self._expand(c_kv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(b, s, self.h, self.rd)], dim=-1)
+        out = flash_attention(q, k, v.contiguous(), causal=mode == "causal", window=window,
+                              scale=self.scale)
+        return self.wo(out.reshape(b, s, self.h * self.vd))
+
+    def forward_cached(self, x: torch.Tensor, cache: dict, *, sin: torch.Tensor,
+                       cos: torch.Tensor, q_pos: torch.Tensor, window: Optional[int] = None,
+                       absorb: bool = False) -> Tuple[torch.Tensor, dict]:
+        """x (B, S, D) at positions ``q_pos`` (B, S) -> (out, new cache):
+        ``c_kv``/``k_pe`` written at the cursor in place, the queries over
+        the whole buffer under the causal and validity masks; the naive
+        expansion, or with ``absorb`` (``cfg.mla_absorb``) the latent read
+        as it is."""
+        b, s, _ = x.shape
+        q_nope, q_rope, c_kv, k_pe = self._project(x, sin, cos)
+        cbuf, pbuf = cache["c_kv"], cache["k_pe"]
+        start = cache["pos"]
+        _write_at_cursor(start, (cbuf, c_kv), (pbuf, k_pe))
+        mask = _cache_mask(q_pos, start, s, cbuf.shape[1], window)
+        c_all, pe_all = cbuf.to(x.dtype), pbuf.to(x.dtype)
+        if absorb:
+            w = self.wkv_b.w.to(x.dtype).reshape(self.r, self.h, self.nd + self.vd)
+            w_uk, w_uv = w[..., :self.nd], w[..., self.nd:]
+            q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)             # (B,S,H,r)
+            scores = torch.einsum("bshr,btr->bhst", q_lat, c_all)
+        else:
+            k_nope, v = self._expand(c_all)
+            scores = torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+        scores = scores + torch.einsum("bshd,btd->bhst", q_rope, pe_all)
+        scores = scores.float() * self.scale
+        probs = torch.softmax(scores.masked_fill(~mask[:, None], NEG_INF), dim=-1)
+        probs = probs.to(x.dtype)
+        if absorb:
+            out_lat = torch.einsum("bhst,btr->bshr", probs, c_all)            # (B,S,H,r)
+            out = torch.einsum("bshr,rhd->bshd", out_lat, w_uv)
+        else:
+            out = torch.einsum("bhst,bthd->bshd", probs, v)
+        new_cache = {"c_kv": cbuf, "k_pe": pbuf, "pos": cache["pos"] + s}
+        return self.wo(out.reshape(b, s, self.h * self.vd)), new_cache
 
 
 class CrossAttention(nn.Module):

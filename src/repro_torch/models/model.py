@@ -2,8 +2,10 @@
 head (port of the JAX package's ``models/model.py`` for the dense attention
 configs, the DiT and the dense zoo with Gemma3's local/global layers, dual
 RoPE, qk-norm, post-norms and scaled embeddings, for the recurrent
-family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM, and for the
-MoE family: the ``moe``/``moe_res`` layers of ``models/moe.py``), in
+family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM, for the
+MoE family: the ``moe``/``moe_res`` layers of ``models/moe.py``, and for
+DeepSeek-V3's MLA: the ``mla``/``mla_moe`` layers, dense prefix layers
+ahead of the MoE pattern, the shared expert), in
 DFM-denoiser and causal modes, with the AR serving entry points
 ``init_cache``, ``prefill`` and ``decode_step``.
 
@@ -21,11 +23,14 @@ The layers run in JAX's stack order (``transformer.apply_stack``): the
 ``pre/x{j}``, layer ``npre + r * P + p`` is slice ``r`` of ``blocks/p{p}``
 (every leaf with a leading ``(reps,)``), remainder layer ``j`` is
 ``rem/r{j}`` (unstacked, ``pos`` a scalar). A layer's leaves are its
-kind's: ``{"k", "v", "pos"}`` for the attention kinds (``zshared``
-included), ``{"conv", "ssm", "pos"}`` for ``mamba``, ``{"conv", "c", "n",
-"m", "pos"}`` for ``mlstm``, ``{"c", "n", "m", "hid", "pos"}`` for
-``slstm``. KV buffers are written in place; every other leaf of the cache
-a step returns is a new tensor.
+kind's: ``{"k", "v", "pos"}`` for the GQA kinds (``zshared``
+included), ``{"c_kv", "k_pe", "pos"}`` for ``mla``/``mla_moe`` (the latent
+and the shared rotary key a token), ``{"conv", "ssm", "pos"}`` for
+``mamba``, ``{"conv", "c", "n", "m", "pos"}`` for ``mlstm``, ``{"c", "n",
+"m", "hid", "pos"}`` for ``slstm``. KV and latent buffers are written in
+place; every other leaf of the cache a step returns is a new tensor.
+``cfg.mla_absorb`` takes MLA's absorbed decode in ``prefill`` and
+``decode_step``.
 """
 
 from __future__ import annotations
@@ -38,23 +43,27 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import init_gqa_cache
+from repro_torch.models.attention import init_gqa_cache, init_mla_cache
 from repro_torch.models.common import Dense, Embedding, TimeEmbed, make_norm
 from repro_torch.models.encdec import EncDecModel
 from repro_torch.models.moe import check_dispatch
 from repro_torch.models.rope import rope_context
 from repro_torch.models.ssm import init_mamba2_cache
-from repro_torch.models.transformer import ATTN_KINDS, KINDS, MOE_KINDS, Block, SharedBlock
+from repro_torch.models.transformer import (
+    GQA_KINDS, KINDS, MLA_KINDS, MOE_KINDS, Block, SharedBlock,
+)
 from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 
-# the cache leaves written in place (the KV buffers); the others are replaced
-IN_PLACE_LEAVES = ("k", "v")
+# the cache leaves written in place (the KV and latent buffers); the others are replaced
+IN_PLACE_LEAVES = ("k", "v", "c_kv", "k_pe")
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
                      device) -> dict:
     """One layer's zeroed cache (JAX ``init_block_cache``)."""
-    if kind in ATTN_KINDS:
+    if kind in MLA_KINDS:
+        return init_mla_cache(cfg, batch, max_len, dtype, device)
+    if kind in GQA_KINDS:
         return init_gqa_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return init_mamba2_cache(cfg, batch, dtype, device)
@@ -68,11 +77,12 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtyp
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a config this port runs: the dense, ssm,
     hybrid or MoE family with ``attn``, ``local``, ``moe``, ``moe_res``,
-    ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` layers, layernorm or
-    rmsnorm, standard, dual or no RoPE, qk-norm, post-norms and scaled
-    embeddings allowed, float32. The MoE family and its kinds need
-    ``cfg.moe.num_experts > 0`` (and no post-norms, for which JAX's MoE
-    blocks hold no weights); its ``shardmap`` dispatch raises. MLA,
+    ``mla``, ``mla_moe``, ``mamba``, ``mlstm``, ``slstm`` and ``zshared``
+    layers, layernorm or rmsnorm, standard, dual or no RoPE, qk-norm,
+    post-norms and scaled embeddings allowed, float32. The MoE family and
+    its kinds (``mla_moe`` included) need ``cfg.moe.num_experts > 0``; the
+    MLA kinds need ``cfg.mla``; neither takes post-norms, for which JAX's
+    MoE and MLA blocks hold no weights. The MoE ``shardmap`` dispatch,
     encoder-decoder and VLM configs, the logit softcap and other dtypes
     raise (an encoder-decoder config is ``EncDecModel``'s)."""
     unsupported = []
@@ -87,6 +97,11 @@ def check_supported(cfg: ModelConfig) -> None:
         if cfg.post_norms:
             unsupported.append("post_norms with MoE layers")
         check_dispatch(cfg)
+    if kinds & set(MLA_KINDS):
+        if cfg.mla is None:
+            unsupported.append(f"MLA layers {sorted(kinds & set(MLA_KINDS))} without cfg.mla")
+        elif cfg.post_norms:
+            unsupported.append("post_norms with MLA layers")
     if cfg.norm not in ("layernorm", "rmsnorm"):
         unsupported.append(f"norm={cfg.norm}")
     if cfg.rope_type not in ("default", "none", "dual"):
@@ -236,6 +251,7 @@ class Model(nn.Module):
         return leaves if idx is None else {k: v[idx] for k, v in leaves.items()}
 
     def _forward_cached(self, tokens, cache, offset, global_window):
+        absorb = self.cfg.mla_absorb
         b, s = tokens.shape
         x = self.embed(tokens)
         # offset added as it comes (an int: no copy to the card)
@@ -248,14 +264,14 @@ class Model(nn.Module):
         for block, slot in zip(self.blocks, self.layer_slots()):
             x, lc = block.forward_cached(x, self.layer_cache(cache, slot), rope=rope,
                                          q_pos=q_pos, global_window=global_window, x0=x0,
-                                         shared=self.zshared)
+                                         shared=self.zshared, mla_absorb=absorb)
             group, name, idx = slot
             if idx is None:
                 new[group][name] = lc
             else:
                 stacked.setdefault(name, []).append(lc)
         for name, lcs in stacked.items():
-            # KV buffers were written through their slices; the rest restacks
+            # KV and latent buffers were written through their slices; the rest restacks
             leaves = cache["blocks"][name]
             new["blocks"][name] = {
                 k: leaves[k] if k in IN_PLACE_LEAVES else torch.stack([lc[k] for lc in lcs])

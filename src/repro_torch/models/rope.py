@@ -1,7 +1,8 @@
 """Rotary position embeddings (port of the JAX package's ``models/rope.py``:
-standard RoPE, which the DiT applies in bidirectional mode too, and
+standard RoPE, which the DiT applies in bidirectional mode too,
 Gemma3's dual RoPE, ``rope_type="dual"``: local layers rotate at
-``local_rope_theta``, global ones at ``rope_theta``)."""
+``local_rope_theta``, global ones at ``rope_theta``, and MLA's decoupled
+rotary dims at ``qk_rope_head_dim``)."""
 
 from __future__ import annotations
 
@@ -35,11 +36,17 @@ def rope_context(cfg, positions: torch.Tensor) -> dict:
     """The angles a stack needs at ``positions`` (JAX ``Model._rope_ctx``):
     ``{"global": (sin, cos), "local": (sin, cos)}``, each pair ``(None,
     None)`` for ``rope_type="none"``; the local pair is the global one
-    unless ``rope_type="dual"``."""
+    unless ``rope_type="dual"``. A config with ``cfg.mla`` adds ``"mla"``:
+    the angles at ``qk_rope_head_dim`` that its MLA layers rotate by, from
+    the same query positions (JAX ``mla_attention`` derives them in each
+    layer, whatever ``rope_type`` says)."""
     none: Tuple[Optional[torch.Tensor], Optional[torch.Tensor]] = (None, None)
+    ctx = {}
+    if cfg.mla is not None:
+        ctx["mla"] = rope_angles(positions, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
     if cfg.rope_type == "none":
-        return {"global": none, "local": none}
+        return {"global": none, "local": none, **ctx}
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     local = (rope_angles(positions, cfg.head_dim, cfg.local_rope_theta)
              if cfg.rope_type == "dual" else angles)
-    return {"global": angles, "local": local}
+    return {"global": angles, "local": local, **ctx}

@@ -1,9 +1,12 @@
 """Blocks of the torch backbone (port of the JAX package's
 ``models/transformer.py::apply_block`` for the ``attn``, ``local``,
-``moe``, ``moe_res``, ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds):
+``moe``, ``moe_res``, ``mla``, ``mla_moe``, ``mamba``, ``mlstm``, ``slstm``
+and ``zshared`` kinds):
 
     attn/local:  x = x + post_attn(attn(ln1(x)));  x = x + post_ffn(mlp(ln2(x)))
     moe/moe_res:  x = x + attn(ln1(x));  x = x + moe(ln2(x))
+    mla:  x = x + mla(ln1(x));  x = x + mlp(ln2(x))
+    mla_moe:  x = x + mla(ln1(x));  x = x + moe(ln2(x))
     mamba/mlstm/slstm:  x = x + mixer(ln1(x))
     zshared:  h = fuse([x, x0]);  x = x + attn(ln1'(h));  x = x + mlp(ln2'(x))
 
@@ -21,9 +24,14 @@ kept so the weights convert both ways. A ``moe``/``moe_res`` block's FFN
 is ``models/moe.py``'s :class:`MoE` (the two kinds differ only by the
 config: ``moe_res`` is Arctic's, with ``dense_residual``); without a
 cache it takes the capacity path, with one JAX's ``_moe_dispatch`` rule.
+``mla``/``mla_moe`` (DeepSeek-V3's dense prefix layers and its MoE layers,
+with the shared expert) run ``models/attention.py``'s :class:`MLAttention`
+on the ``"mla"`` angles of the rope context (``qk_rope_head_dim``, from
+the query positions) within ``global_window``; ``mla_moe``'s FFN is the
+same :class:`MoE` under the same dispatch rule.
 
 A block returns ``(x, aux)``: ``aux`` its MoE's auxiliary loss (None for
-the other kinds), which the model sums over the layers as JAX's
+the kinds without an MoE), which the model sums over the layers as JAX's
 ``apply_stack`` does.
 
 The JAX package stacks the layers' weights and scans over them; here the
@@ -39,16 +47,21 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import GQAAttention
+from repro_torch.models.attention import GQAAttention, MLAttention
 from repro_torch.models.common import MLP, Dense, make_norm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2
 from repro_torch.models.xlstm import MLSTM, SLSTM
 
 # the kinds a Block runs
-KINDS = ("attn", "local", "moe", "moe_res", "mamba", "mlstm", "slstm", "zshared")
-MOE_KINDS = ("moe", "moe_res")
-ATTN_KINDS = ("attn", "local", "zshared") + MOE_KINDS
+KINDS = ("attn", "local", "moe", "moe_res", "mla", "mla_moe", "mamba", "mlstm", "slstm",
+         "zshared")
+MLA_KINDS = ("mla", "mla_moe")
+MOE_KINDS = ("moe", "moe_res", "mla_moe")
+# the kinds whose attention runs flash_attn once a forward without a cache: GQA
+# (a k/v cache) or MLA (a latent cache)
+GQA_KINDS = ("attn", "local", "zshared", "moe", "moe_res")
+ATTN_KINDS = GQA_KINDS + MLA_KINDS
 RECURRENT = {"mamba": Mamba2, "mlstm": MLSTM, "slstm": SLSTM}
 
 
@@ -72,7 +85,15 @@ class Block(nn.Module):
         self.kind = kind
         self.window = cfg.sliding_window if kind == "local" else None
         self.ln1 = make_norm(cfg, device)
-        if kind in ("attn", "local"):
+        if kind in MLA_KINDS:
+            self.attn = MLAttention(cfg, gen, device)
+            self.ln2 = make_norm(cfg, device)
+            if kind == "mla":
+                self.mlp = MLP(cfg, gen, device)
+                self.post_attn = self.post_ffn = None
+            else:
+                self.moe = MoE(cfg, gen, device)
+        elif kind in ("attn", "local"):
             self.attn = GQAAttention(cfg, gen, device)
             self.ln2 = make_norm(cfg, device)
             self.mlp = MLP(cfg, gen, device)
@@ -88,9 +109,12 @@ class Block(nn.Module):
             setattr(self, kind, RECURRENT[kind](cfg, gen, device))
 
     def _attn_args(self, rope: dict, global_window: Optional[int]):
-        """(sin, cos, window) of this block (JAX ``apply_block``'s ``attn_args``)."""
+        """(sin, cos, window) of this block (JAX ``apply_block``'s ``attn_args``;
+        MLA rotates at its own width)."""
         if self.kind == "local":
             return (*rope["local"], self.window)
+        if self.kind in MLA_KINDS:
+            return (*rope["mla"], global_window)
         return (*rope["global"], global_window)
 
     def _finish(self, x: torch.Tensor, h: torch.Tensor, cached: bool
@@ -124,11 +148,13 @@ class Block(nn.Module):
 
     def forward_cached(self, x: torch.Tensor, cache: dict, *, rope: dict, q_pos: torch.Tensor,
                        global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,
-                       shared: Optional[SharedBlock] = None) -> Tuple[torch.Tensor, dict]:
+                       shared: Optional[SharedBlock] = None, mla_absorb: bool = False
+                       ) -> Tuple[torch.Tensor, dict]:
         """The block over a chunk at positions ``q_pos`` with its cache: KV
-        buffers are written in place, a recurrent state comes back as new
-        tensors (the one given is not written). JAX's serving entry points
-        drop the auxiliary loss; so does this."""
+        and latent buffers are written in place, a recurrent state comes
+        back as new tensors (the one given is not written). ``mla_absorb``
+        (``cfg.mla_absorb``) takes MLA's absorbed decode. JAX's serving
+        entry points drop the auxiliary loss; so does this."""
         if self.kind in RECURRENT:
             h, cache = getattr(self, self.kind)(self.ln1(x), cache)
             return x + h, cache
@@ -139,6 +165,7 @@ class Block(nn.Module):
                                                   q_pos=q_pos, window=window)
             x = x + h
             return x + shared.mlp(shared.ln2(x)), cache
+        kw = {"absorb": mla_absorb} if self.kind in MLA_KINDS else {}
         h, cache = self.attn.forward_cached(self.ln1(x), cache, sin=sin, cos=cos,
-                                            q_pos=q_pos, window=window)
+                                            q_pos=q_pos, window=window, **kw)
         return self._finish(x, h, cached=True)[0], cache

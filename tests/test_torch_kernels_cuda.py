@@ -1290,3 +1290,114 @@ def test_moe_graphs_equal_eager_bitwise(card):
         for name, fn in real.items():
             setattr(MoE, name, fn)
     assert eng.graphs.captures == 1 and set(calls) == {"dropless"}
+
+
+# -- MLA (deepseek-v3-671b) ----------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,t,h,kh,dk,dv,causal,window", [
+    (2, 256, 256, 8, 8, 192, 128, False, None),   # MLA's published head widths
+    (2, 77, 77, 8, 8, 192, 128, True, None),      # causal, a tail
+    (2, 100, 300, 4, 4, 192, 128, False, 37),     # S != T, a bidirectional band
+    (1, 130, 130, 4, 2, 192, 128, True, 50),      # GQA, a causal window
+    (3, 1, 40, 4, 4, 192, 128, False, None),      # one query row
+    (4, 32, 32, 4, 4, 48, 32, False, None),       # the smoke config's widths
+    (4, 32, 32, 4, 4, 48, 32, True, None),
+    (2, 50, 90, 4, 2, 48, 32, True, 20),          # smoke widths, S != T, GQA, a window
+])
+def test_flash_attention_kernel_with_narrow_values_matches_plain(card, b, s, t, h, kh, dk, dv,
+                                                                  causal, window):
+    """flash_attn_kernel<DK, DV>: queries and keys DK wide, values and the
+    output DV wide, against the plain version within 1e-4; one launch."""
+    g = torch.Generator(device=card).manual_seed(s + dk)
+    q = torch.randn((b, s, h, dk), generator=g, device=card)
+    k = torch.randn((b, t, kh, dk), generator=g, device=card)
+    v = torch.randn((b, t, kh, dv), generator=g, device=card)
+    before = launches["flash_attn"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert launches["flash_attn"] == before + 1 and got.shape == (b, s, h, dv)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def _mla_smoke():
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config("deepseek-v3-671b")
+    return cfg, Model(cfg, device="cpu", seed=3)
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_layer_on_card_equals_cpu(card, absorb):
+    """deepseek-v3-671b's smoke MLA layer on the card against the same layer
+    on the CPU: without a cache (through flash_attn<48, 32>, bidirectional
+    and causal) and a cached prefill then a decode step, naive or absorbed;
+    within 1e-5, the latent cache too."""
+    from repro_torch.models.attention import init_mla_cache
+    from repro_torch.models.rope import rope_angles
+
+    cfg, model = _mla_smoke()
+    host = model.blocks[0].attn
+    dev = Model(cfg, device="cpu", seed=3).to(card).blocks[0].attn
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(24, dtype=torch.int32)
+    sin, cos = rope_angles(pos, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    dsin, dcos = sin.to(card), cos.to(card)
+    with torch.no_grad():
+        for mode in ("bidir", "causal"):
+            before = launches["flash_attn"]
+            got = dev(x.to(card), sin=dsin, cos=dcos, mode=mode)
+            assert launches["flash_attn"] == before + 1
+            want = host(x, sin=sin, cos=cos, mode=mode)
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+        caches = {d: init_mla_cache(cfg, 2, 24, torch.float32, d) for d in ("cpu", card)}
+        for lo, hi in ((0, 23), (23, 24)):
+            q_pos = pos[None, lo:hi].expand(2, hi - lo)
+            outs = {}
+            for d, attn in (("cpu", host), (card, dev)):
+                outs[d], caches[d] = attn.forward_cached(
+                    x[:, lo:hi].to(d), caches[d], sin=sin[lo:hi][None].expand(2, -1, -1).to(d),
+                    cos=cos[lo:hi][None].expand(2, -1, -1).to(d), q_pos=q_pos.to(d),
+                    absorb=absorb)
+            torch.testing.assert_close(outs[card].cpu(), outs["cpu"], atol=1e-5, rtol=1e-5)
+            for leaf in ("c_kv", "k_pe"):
+                torch.testing.assert_close(caches[card][leaf].cpu(), caches["cpu"][leaf],
+                                           atol=1e-5, rtol=1e-5)
+            assert int(caches[card]["pos"]) == int(caches["cpu"]["pos"]) == hi
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_graphs_equal_eager_bitwise(card, absorb):
+    """deepseek-v3-671b's smoke model: the refine (the serve's graph, 4 x 32
+    tokens, a given draft; flash_attn<48, 32> and the capacity path in every
+    NFE) and the draft's decode (naive or absorbed latent cache, the
+    dropless path) replayed on the card equal their eager launches bit for
+    bit, one capture each; the serve's tokens equal the CPU's."""
+    cfg, model = _mla_smoke()
+    cfg = cfg.replace(mla_absorb=absorb)
+    model.cfg = cfg
+    path = WarmStartPath(t0=0.8)
+    draft = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(2),
+                          dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        server = WarmStartServer(
+            flow_model=model.to(dev), flow_cfg=cfg, path=path, cold_nfe=16,
+            draft_generate=lambda rng, num: draft.to(dev),
+            step_fn=make_ws_step_fn(path, device=dev), device=dev)
+        out[dev] = server.serve(prng.key(3), 4)[0].cpu()
+    assert server.graphs.captures == 1 and torch.equal(out["cuda"], out["cpu"])
+    keys, ts, hs = refine_loop_inputs(prng.key(5), 0.8, 1 / 16, 4)
+    x0 = draft.to(card)
+    with torch.inference_mode():
+        got = server._refine_loop(keys, x0, ts, hs)
+        assert torch.equal(got, server._refine_loop_eager(keys, x0, ts, hs))
+    assert server.graphs.captures == 1
+
+    eng = ARDraftEngine(TransformerDraftAdapter(model=model, decode_impl="xla"), max_len=16)
+    assert eng.prefill_mode == "scan" and not eng.adapter.exact_batched_prefill
+    prompt = torch.tensor([[1, 2, 3]] * 2, dtype=torch.int32)
+    for seed in (3, 4):
+        keys = prng.split(prng.key(seed), 2)
+        got = eng.generate_rows(keys, 12, prompt=prompt)
+        assert torch.equal(got, eng._generate_rows_eager(keys, 12, prompt=prompt)), seed
+    assert eng.graphs.captures == 1

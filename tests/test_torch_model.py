@@ -107,8 +107,9 @@ def test_unsupported_configs_raise():
     and scaled embeddings are supported, since the recurrent family the
     ``mamba``, ``mlstm``, ``slstm`` and ``zshared`` kinds, and since the MoE
     family the ``moe`` and ``moe_res`` kinds with experts; MoE kinds or the
-    MoE family without experts, MLA kinds, the logit softcap and other
-    dtypes still raise."""
+    MoE family without experts, MLA kinds without ``cfg.mla`` (supported
+    with it since the MLA family), the logit softcap and other dtypes still
+    raise."""
     cfg = dfm_dit.smoke_config()
     experts = dataclasses.replace(cfg.moe, num_experts=4, d_ff=64)
     for bad in (cfg.replace(norm="scalenorm"), cfg.replace(pattern=("moe",)),

@@ -454,11 +454,13 @@ def test_trainer_fit_matches_jax_for_10_steps(optimizer):
 
 
 def test_make_train_step_refuses_what_the_port_does_not_run():
-    """The VLM's ``patches`` stay refused, by name, and so do the MLA and VLM
-    archs; ``RunConfig(remat="block")`` builds (remat is ported), and since
-    the MoE family the router's auxiliary loss is ported: arctic-480b builds
-    and its loss adds ``router_aux_weight · moe_aux`` (against JAX's in
-    ``test_torch_moe``)."""
+    """The VLM's ``patches`` stay refused, by name, and so does the VLM arch;
+    ``RunConfig(remat="block")`` builds (remat is ported), since the MoE
+    family the router's auxiliary loss is ported: arctic-480b builds and its
+    loss adds ``router_aux_weight · moe_aux`` (against JAX's in
+    ``test_torch_moe``), and since the MLA family deepseek-v3's smoke config
+    builds and its loss adds the MTP term too (against JAX's in
+    ``test_torch_mla``)."""
     model = build_model(get_smoke_config(ARCH), device="cpu")
     cfg = model.cfg
     assert callable(make_train_step(model, cfg, RunConfig(remat="block"), AdamW()))
@@ -475,9 +477,14 @@ def test_make_train_step_refuses_what_the_port_does_not_run():
     assert float(loss) == float(metrics["ce"] + moe.cfg.moe.router_aux_weight
                                 * metrics["moe_aux"])
     assert get_config("arctic-480b").moe.num_experts == 128
-    for arch in ("deepseek-v3-671b", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError):
-            get_config(arch)
+    with pytest.raises(NotImplementedError, match="VLM"):
+        get_config("qwen2-vl-72b")
+    mla = build_model(get_smoke_config("deepseek-v3-671b"), device="cpu")
+    with torch.no_grad():
+        loss, metrics = make_loss_fn(mla, mla.cfg, WarmStartPath(0.8))(mla, batch, prng.key(0))
+    assert float(metrics["moe_aux"]) > 0 and float(metrics["mtp"]) > 0
+    assert float(loss) == float(metrics["ce"] + mla.cfg.moe.router_aux_weight
+                                * metrics["moe_aux"] + 0.1 * metrics["mtp"])
     assert get_config(ARCH).num_layers == 12 and get_smoke_config(ARCH).num_layers == 2
 
 

@@ -22,10 +22,11 @@ from repro_torch.models.encdec import check_encdec_supported
 from repro_torch.models.model import check_supported, layer_kinds
 
 ZOO = ("starcoder2-3b", "minitron-4b", "command-r-plus-104b", "gemma3-1b")
-NOT_PORTED = {"deepseek-v3-671b": "MLA", "qwen2-vl-72b": "VLM"}
+NOT_PORTED = {"qwen2-vl-72b": "VLM"}
 RECURRENT = ("zamba2-2.7b", "xlstm-1.3b")   # ported since the recurrent family
 ENCDEC = ("whisper-medium",)                # ported since the encoder-decoder family
 MOE = ("arctic-480b",)                      # ported since the MoE family
+MLA = ("deepseek-v3-671b",)                 # ported since the MLA family
 
 
 @pytest.mark.parametrize("which", ["full", "smoke"])
@@ -39,11 +40,14 @@ def test_config_fields_equal_jax(arch, which):
 
 
 def test_registry_lists_the_port_and_names_what_is_missing():
-    """arctic-480b is listed and builds since the MoE family; deepseek-v3
-    (MLA) and qwen2-vl (VLM) stay refused by family."""
-    assert list_archs() == sorted(ZOO + RECURRENT + ENCDEC + MOE + ("dfm-dit",))
-    for arch in MOE:
+    """arctic-480b is listed and builds since the MoE family, deepseek-v3
+    since the MLA family; qwen2-vl (VLM) stays refused by family."""
+    assert list_archs() == sorted(ZOO + RECURRENT + ENCDEC + MOE + MLA + ("dfm-dit",))
+    for arch in MOE + MLA:
         assert get_config(arch).family == get_smoke_config(arch).family == "moe"
+    for arch in MLA:
+        assert get_config(arch).mla is not None and get_smoke_config(arch).mla is not None
+        check_supported(get_smoke_config(arch))
     for arch, family in NOT_PORTED.items():
         with pytest.raises(NotImplementedError, match=family):
             get_config(arch)
@@ -95,8 +99,8 @@ def test_model_and_draft_kernels_take_what_jax_takes(arch):
 
 def test_check_supported_refuses_the_rest_of_the_zoo():
     """What stays refused: the MoE family or an MoE kind without experts,
-    the ``shardmap`` dispatch, MLA, the VLM, the softcap, bfloat16, mrope and
-    an encoder-decoder config."""
+    the ``shardmap`` dispatch, an MLA kind without ``cfg.mla``, the VLM, the
+    softcap, bfloat16, mrope and an encoder-decoder config."""
     cfg = get_smoke_config("gemma3-1b")
     moe = get_smoke_config("arctic-480b")
     for bad in (cfg.replace(family="moe"), cfg.replace(pattern=("moe",)),

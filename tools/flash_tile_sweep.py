@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""The tile of flash_attn_kernel<256> (head_dim 256, gemma3-1b), measured.
+"""The tile of flash_attn_kernel<256, 256> (head_dim 256, gemma3-1b), measured.
 
 Run from the root of a checkout, on a machine with one NVIDIA H100:
 
     python3 tools/flash_tile_sweep.py
 
 Each variant is a copy of ``src/repro_torch`` under ``build/flash_tile_sweep/``
-whose ``csrc/flash_attn.cu`` sets ``Tiles<256>::kBlockK`` (keys a tile; the
-query tile stays 64 rows over 4 warps) and ``Tiles<256>::kSplit`` (blocks that
+whose ``csrc/flash_attn.cu`` sets ``Tiles<256, 256>::kBlockK`` (keys a tile; the
+query tile stays 64 rows over 4 warps) and ``Tiles<256, 256>::kSplit`` (blocks that
 share a query tile, each with D / kSplit columns of V and of the output) by a
 text patch. It is built with
 ``nvcc -Xptxas -v`` and run in a process of its own: the kernel against its
@@ -28,8 +28,8 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-ANCHORS = ("static constexpr int kBlockK = D <= 128 ? 32 : {};",
-           "static constexpr int kSplit = D <= 128 ? 1 : {};")
+ANCHORS = ("static constexpr int kBlockK = DV <= 128 ? 32 : {};",
+           "static constexpr int kSplit = DV <= 128 ? 1 : {};")
 
 # name -> (keys a tile, blocks a query tile) at head_dim 256
 VARIANTS = {"bk32_split2": (32, 2), "bk16_split2": (16, 2), "bk16_split1": (16, 1),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Device times of the head, ws_step, ws_fused and ws_step_gumbel kernels of a
-checkout, for comparing two trees on one card.
+"""Device times of the head, ws_step, ws_fused, ws_step_gumbel and flash_attn
+kernels of a checkout, for comparing two trees on one card.
 
 Run on a machine with one NVIDIA H100, from the root of the checkout that holds
 this script:
@@ -19,7 +19,14 @@ that every tree since the head and ws_step kernels were ported shares:
   * ``ws_step_gumbel`` with its noise given at (8192, 27), and the default Euler
     step ``core.sampler.gumbel_step`` as a whole at (32, 256, 27) (a graph of
     steps: the noise, the weights and the launch);
-  * the launch floor: a graph of one-element in-place adds.
+  * the launch floor: a graph of one-element in-place adds;
+  * ``flash_attn``, bidirectional, at the shapes of PERF.md's rows 2 (the
+    DiT: 32 x 256, 12 heads of 64), 2z (starcoder2-3b: 8 x 256, 24 heads of
+    128, kv 2), 2r (zamba2-2.7b: 8 x 256, 32 heads of 80), 2m (arctic-480b:
+    8 x 256, 56 heads of 128, kv 8), 2g (gemma3-1b: 4 x 1024, 4 heads of 256,
+    kv 1, window 512) and, where the tree has the instance with values
+    narrower than queries and keys, 2d (deepseek-v3-671b: 8 x 256, 128 heads,
+    q/k 192, v 128).
 Prints the card (``nvidia-smi``) and one JSON line.
 """
 
@@ -119,6 +126,23 @@ def main() -> int:
     res["gumbel_step_ms"] = smoke.graph_ms(
         lambda: gumbel_step(prng.key(0), lg3, x2, t, h, warm), n=20)
     res["launch_floor_ms"] = smoke.launch_floor_ms()
+
+    from repro_torch.kernels.flash_attn import ops as aops
+
+    # row of PERF.md §6: (B, S, H, KH, q/k head_dim, v head_dim, window)
+    flash = {"2": (32, 256, 12, 12, 64, 64, None), "2z": (8, 256, 24, 2, 128, 128, None),
+             "2r": (8, 256, 32, 32, 80, 80, None), "2m": (8, 256, 56, 8, 128, 128, None),
+             "2g": (4, 1024, 4, 1, 256, 256, 512), "2d": (8, 256, 128, 128, 192, 128, None)}
+    narrow = (192, 128) in getattr(aops, "SUPPORTED_HEAD_DIMS", ())
+    for row, (b, s, h, kh, dk, dv, window) in flash.items():
+        if dk != dv and not narrow:
+            continue
+        q, k, vv = smoke.flash_inputs(b, s, h, kh, dk, 0, dv=dv)
+        o = q.new_empty((b, s, h, dv))
+        res[f"flash_attn_{row}_ms"] = smoke.graph_ms(
+            lambda: aops._launch(q, k, vv, o, causal=False, window=window, scale=dk ** -0.5),
+            n=20)
+        del q, k, vv, o
     print(res["card"])
     print(json.dumps({"kernel_times": res}))
     return 0
