@@ -26,7 +26,14 @@ draft cost ratio. Besides each kernel against its plain version, the
 ``ws_step_gumbel`` keyed launch must equal the given-noise launch on
 ``prng.gumbel``'s noise and ``ws_fused`` must equal K composed launches, bit
 for bit, at every lanes a row; ``ptxas`` must report no spills for any
-instance of the ws, flash_attn and draft kernels.
+instance of the ws, flash_attn and draft kernels. ``attn_cached`` is also
+held against its plain version at ``ATTN_CASES`` (a cursor in mid-buffer, T
+not a multiple of its slice, T below the cluster, T = 57 812, G = 1 to 32,
+every head dim, one pair alone in its one block and past that block's limit; NaN in
+every key past the chunk's end) and must give a query
+token's output bit for bit alike launched alone (R = 1 or 32 rows), inside a
+16-token chunk or in chunks 3 + 1 + 4 + 8; it is timed at a mid-decode cursor
+too.
 
 The AR draft's decode and the refine loops run as CUDA graphs, one
 replay a call, captured once per compile key: it gates one capture per
@@ -213,6 +220,8 @@ PROMPT, DRAFT_SEED = 16, 1
 MAX_LEN = PROMPT + SEQ - 1
 PROJ_TOL = 1e-4      # x max(1, max |plain|), for qkv_rope, post_attn and head
 ATTN_TOL = 1e-5      # absolute, for attn_cached
+ATTN_MID_END = 144   # a mid-decode cursor's end, of MAX_LEN = 271 keys
+L2_BYTES = 50e6      # an H100's L2 cache
 DRAFT_KERNELS = ("qkv_rope", "attn_cached", "post_attn", "head")
 
 
@@ -795,6 +804,102 @@ def check_draft_kernels(case, seed):
     return errs
 
 
+# attn_cached alone against its plain version (name, B, S, T, H, KH, hd, cursor): the cases
+# the cluster split meets that the draft layers' do not. Keys at or past the chunk's end
+# hold NaN for the kernel and zeros for the plain version (the same function: they are
+# masked), so a kernel that reads one fails
+ATTN_CASES = [
+    ("mid cursor, S = 5, G = 1", 3, 5, MAX_LEN, 12, 12, 64, 100),
+    ("prefill at cursor 0, S = 16", 4, PROMPT, MAX_LEN, 12, 12, 64, 0),
+    ("starcoder2-3b mid decode (end 144), G = 12", 8, 1, MAX_LEN, 24, 2, 128, 143),
+    ("T = 37, not a multiple of W = 10, G = 2", 4, 3, 37, 8, 4, 32, 20),
+    ("T = 5 at hd 16 (C = 4, W = 2): rank 3 holds nothing, G = 4", 2, 2, 5, 8, 2, 16, 1),
+    ("T = 3 < C = 8, S = 1: ranks 3 .. 7 hold nothing", 3, 1, 3, 4, 4, 128, 2),
+    ("S = T = 40, G = 4, 10 row tiles", 2, 40, 40, 8, 2, 64, 0),
+    ("G = 32, two clusters a KV head", 2, 3, 64, 32, 1, 32, 30),
+    ("T = 57 812, the old wrapper's limit, G = 12", 1, 2, 57812, 24, 2, 128, 57000),
+    ("T = 57 812, G = 1, S = 1: one pair past the one-block limit", 1, 1, 57812, 2, 2, 128,
+     30000),
+    ("the DiT's decode at end 144, G = 1, S = 1: one block a pair", NUM, 1, MAX_LEN, 12, 12,
+     64, 143),
+    ("G = 1, S = 1 at hd 32 and T = 37", 2, 1, 37, 4, 4, 32, 20),
+    ("G = 1, S = 1 at hd 16, T = 5 < C W", 2, 1, 5, 2, 2, 16, 1),
+]
+
+
+def check_attn_cases():
+    """attn_cached against its plain version at ATTN_CASES, ATTN_TOL absolute."""
+    from repro_torch.kernels.draft_decode import attn_cached, attn_cached_ref
+
+    errs = {}
+    for i, (name, b, s, t, h, kh, hd, cur) in enumerate(ATTN_CASES):
+        g = torch.Generator(device="cuda").manual_seed(100 + i)
+        q = torch.randn((b * s, h * hd), generator=g, device="cuda")
+        kbuf = torch.randn((b, t, kh * hd), generator=g, device="cuda")
+        vbuf = torch.randn((b, t, kh * hd), generator=g, device="cuda")
+        kref, vref = kbuf.clone(), vbuf.clone()
+        kbuf[:, cur + s:], vbuf[:, cur + s:] = math.nan, math.nan
+        kref[:, cur + s:], vref[:, cur + s:] = 0.0, 0.0
+        start = torch.tensor(cur, dtype=torch.int32, device="cuda")
+        kw = dict(pos0=cur, seq=s, heads=h, kv_heads=kh, head_dim=hd)
+        err = float((attn_cached(q, kbuf, vbuf, start, **kw)
+                     - attn_cached_ref(q, kref, vref, start, **kw)).abs().max())
+        errs[name] = err
+        print(f"attn_cached {name} (B={b} S={s} T={t} H={h} KH={kh} hd={hd} cursor={cur}): "
+              f"max abs err {err:.3e} (limit {ATTN_TOL:.0e})")
+        if not math.isfinite(err) or err > ATTN_TOL:
+            fail(f"attn_cached disagrees with its plain version at {name}: {err}")
+    return errs
+
+
+# (H, KH, hd): the DiT's layer, starcoder2-3b's, and GQA at hd 16 and 32
+ATTN_INVARIANCE = [(12, 12, 64), (24, 2, 128), (8, 2, 16), (8, 4, 32), (4, 4, 128),
+                   (8, 8, 16)]
+
+
+def check_attn_batch_invariance(h, kh, hd, seed, rows=NUM, t=MAX_LEN, c0=100):
+    """Kernel level: the outputs of the 16 query tokens at positions c0 ..
+    c0 + 15 of each of ``rows`` batch rows, launched as one S = 16 chunk,
+    as chunks 3 + 1 + 4 + 8, as 16 one-token launches of all rows (R =
+    ``rows``) and, for the last row, alone (R = 1), agree bit for bit. Keys
+    at or past c0 + 16 hold NaN: no launch may read them."""
+    from repro_torch.kernels.draft_decode import attn_cached
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kd, s, last = kh * hd, PROMPT, rows - 1
+    kbuf = torch.randn((rows, t, kd), generator=g, device="cuda")
+    vbuf = torch.randn((rows, t, kd), generator=g, device="cuda")
+    kbuf[:, c0 + s:], vbuf[:, c0 + s:] = math.nan, math.nan
+    q = torch.randn((rows, s, h * hd), generator=g, device="cuda")
+    kw = dict(heads=h, kv_heads=kh, head_dim=hd)
+
+    def launch(rows_q, kb, vb, i0, width):
+        start = torch.tensor(c0 + i0, dtype=torch.int32, device="cuda")
+        x = rows_q[:, i0:i0 + width].reshape(-1, h * hd).contiguous()
+        return attn_cached(x, kb, vb, start, pos0=c0 + i0, seq=width, **kw).view(
+            rows_q.shape[0], width, h * hd)
+
+    whole = launch(q, kbuf, vbuf, 0, s)
+    runs, i0 = {}, 0
+    parts = []
+    for width in (3, 1, 4, 8):
+        parts.append(launch(q, kbuf, vbuf, i0, width))
+        i0 += width
+    runs["chunks 3+1+4+8"] = torch.cat(parts, 1)
+    runs[f"S = 1, R = {rows}"] = torch.cat([launch(q, kbuf, vbuf, i, 1) for i in range(s)], 1)
+    alone = torch.cat([launch(q[last:], kbuf[last:], vbuf[last:], i, 1) for i in range(s)], 1)
+    torch.cuda.synchronize()
+    diffs = {k: int((v != whole).sum()) for k, v in runs.items()}
+    diffs["S = 1, R = 1 (last row)"] = int((alone != whole[last:]).sum())
+    finite = bool(torch.isfinite(whole).all())
+    print(f"attn_cached batch invariance (H={h} KH={kh} hd={hd}, {rows} rows x 16 tokens "
+          f"at cursor {c0}, NaN past the chunk): elements differing from the S = 16 launch "
+          f"{diffs}; finite {finite}")
+    if any(diffs.values()) or not finite:
+        fail(f"attn_cached is not batch invariant at H={h} KH={kh} hd={hd}: {diffs}")
+    return diffs
+
+
 def cycle(items):
     """A function returning items[0], items[1], ... round and round."""
     it = itertools.cycle(items)
@@ -840,7 +945,6 @@ def measure_draft_kernels(case=None, vocab=VOCAB, n_sets=10, tied=False, cold_he
     logits = torch.empty((r, vocab), device="cuda")
     ops._launch_qkv_rope(x, ln1, attn_p, q, kbuf, vbuf, start, **qkw)
     layer = cycle(sets)
-    caches = cycle([(z[5], z[6]) for z in sets[:2]])
     res = {}
 
     def entry(name, launch, call, plain, nbytes, nops, library=None):
@@ -865,22 +969,46 @@ def measure_draft_kernels(case=None, vocab=VOCAB, n_sets=10, tied=False, cold_he
 
     col = torch.arange(t, device="cuda")
     mask = ((col <= t - 1) & (col < int(start_host) + s)).view(1, 1, 1, t)
+    # attn_cached cycles through enough caches (two at the DiT's 53 MB) that every launch
+    # reads its K and V cold, as a decode step finds them after the other layers
+    cache_bytes = 2 * 4 * b * t * kd
+    kv_sets = [(z[5], z[6]) for z in sets[:2]]
+    kv_sets += [tuple(torch.randn_like(c) for c in kv_sets[0])
+                for _ in range(max(0, math.ceil(2 * L2_BYTES / cache_bytes) - len(kv_sets)))]
+    caches = cycle(kv_sets)
     # SDPA's K/V: the caches' views, with GQA's KV heads repeated to H beforehand
     sdpa_kv = cycle([tuple(c.view(b, t, kh, hd).transpose(1, 2) if kh == h else
                            c.view(b, t, kh, hd).transpose(1, 2).repeat_interleave(h // kh, 1)
-                           for c in (z[5], z[6])) for z in sets[:2]])
+                           for c in z) for z in kv_sets[:2]])
 
-    def sdpa():
+    def sdpa(m=mask):
         kv = sdpa_kv()
         return torch.nn.functional.scaled_dot_product_attention(
-            q.view(b, s, h, hd).transpose(1, 2), kv[0], kv[1], attn_mask=mask)
+            q.view(b, s, h, hd).transpose(1, 2), kv[0], kv[1], attn_mask=m)
+
+    def attn_bound(keys):
+        return (4 * (2 * b * keys * kd + 2 * r * qd),
+                4.0 * r * h * keys * hd + 3.0 * r * h * keys)
 
     entry("attn_cached",
           lambda: ops._launch_attn_cached(q, *caches(), start, a, **akw),
           lambda: attn_cached(q, *caches(), start, **akw),
           lambda: attn_cached_ref(q, kbuf, vbuf, start_host, **akw),
-          4 * (2 * b * t * kd + 2 * r * qd), 4.0 * r * h * t * hd + 3.0 * r * h * t,
-          library=lambda: graph_ms(sdpa))
+          *attn_bound(t), library=lambda: graph_ms(sdpa))
+    # a mid-decode cursor: end = ATTN_MID_END of T, about a 16-token-prompt serve's mean
+    # (the bound counts the valid keys' bytes only)
+    start_mid = torch.tensor(ATTN_MID_END - 1, dtype=torch.int32, device="cuda")
+    mid_host = start_mid.cpu()
+    mkw = dict(akw, pos0=ATTN_MID_END - 1)
+    mask_mid = (col < ATTN_MID_END).view(1, 1, 1, t)
+    bms, by = bound_ms(*attn_bound(ATTN_MID_END))
+    res["attn_cached"]["mid"] = {
+        "end": ATTN_MID_END,
+        "ms": graph_ms(lambda: ops._launch_attn_cached(q, *caches(), start_mid, a, **mkw), n=50),
+        "plain_ms": graph_ms(lambda: attn_cached_ref(q, kbuf, vbuf, mid_host, **mkw),
+                             n=3, reps=5),
+        "bound_ms": bms, "bound_by": by, "library_ms": graph_ms(lambda: sdpa(mask_mid))}
+    res["attn_cached"]["kv_sets"] = len(kv_sets)
 
     def post(fn, *outs):
         z = layer()
@@ -905,6 +1033,10 @@ def measure_draft_kernels(case=None, vocab=VOCAB, n_sets=10, tied=False, cold_he
             n=HEAD_COLD_SETS, reps=5)
         print(f"head at decode shape, cold ({HEAD_COLD_SETS} weight sets): "
               f"{res['head']['cold_ms'] * 1e3:.2f} us device")
+    mid = res["attn_cached"]["mid"]
+    print(f"attn_cached at decode shape, end {mid['end']} of {t}: {mid['ms'] * 1e3:.2f} us "
+          f"device (bound {mid['bound_ms'] * 1e3:.2f} us, {mid['bound_by']}), plain "
+          f"{mid['plain_ms'] * 1e3:.1f} us, library {mid['library_ms'] * 1e3:.1f} us")
     for name, m in res.items():
         print(f"{name} at decode shape {m['shape']}: {m['ms'] * 1e3:.1f} us device (bound "
               f"{m['bound_ms'] * 1e3:.2f} us, {m['bound_by']}), call {m['call_ms'] * 1e3:.1f} us, "
@@ -5229,13 +5361,14 @@ def train_zoo_path():
 
 EXAMPLES = ("quickstart_torch", "serve_pipeline_torch", "text_generation_torch",
             "image_refinement_torch")
-# the three that train most at half their twins' --steps: at 300 quickstart and
-# text_generation took 33.4 s and 73.8 s of the 186.1 s the five took, and at 150 the
-# five still took 150.9 s (NVIDIA H100 80GB HBM3, 700 W); the training phase runs the
-# moons study at its full 300 steps
-EXAMPLE_ARGS = {"quickstart_torch": ["--steps", "150"],
-                "text_generation_torch": ["--steps", "150"],
-                "image_refinement_torch": ["--steps", "150"]}
+# the four that train at a third of their twins' --steps (serve_pipeline at 150 of 250):
+# at 300 quickstart and text_generation took 33.4 s and 73.8 s of the 186.1 s the five
+# took, and at 150 (serve_pipeline at 250) the five still took 144.9-150.9 s (NVIDIA H100
+# 80GB HBM3, 700 W); the training phase runs the moons study at its full 300 steps
+EXAMPLE_ARGS = {"quickstart_torch": ["--steps", "100"],
+                "serve_pipeline_torch": ["--steps", "150"],
+                "text_generation_torch": ["--steps", "100"],
+                "image_refinement_torch": ["--steps", "100"]}
 # a headline's name -> (regex, its group's type); ``examples_path`` fails where a
 # line is missing, and gates the NFEs against warm_nfe
 EXAMPLE_HEADLINES = {
@@ -5346,7 +5479,7 @@ def _category(name: str) -> str:
         return "ws_fused"
     if "qkv_rope_kernel" in name:
         return "qkv_rope"
-    if "attn_cached_kernel" in name:
+    if "attn_cached_kernel" in name or "attn_cached_solo_kernel" in name:
         return "attn_cached"
     if "post_attn_proj_kernel" in name:     # post_attn's three projections
         return "post_attn"
@@ -5440,14 +5573,17 @@ def main() -> int:
             print("  ptxas " + line.split("ptxas info    :")[-1].strip())
     usage = ptxas_usage(_build.build_log)
     # flash_attn at head dims 16, 32, 64, 80, 128, 256 and (q/k, v) (192, 128) and (48, 32);
-    # qkv_rope and attn_cached at 16, 32,
-    # 64, 128; post_attn's wo, down, up and gated up, each whole and staged; the head at
+    # qkv_rope at 16, 32, 64, 128; attn_cached at
+    # each of those x up to 4 and 16 pairs a cluster, and one pair a block (solo);
+    # post_attn's wo, down, up and gated up,
+    # each whole and staged; the head at
     # 1, 2, 4, 8 rows a block, row-major and tied; ws_step and
     # ws_step_rows at 2, 4, 8, 16, 32 lanes a row; ws_step_gumbel at each of those with
     # the noise given and keyed; ws_fused at each with lg in registers and re-read; the
     # device-key ws_step and keyed ws_step_gumbel (the refine graphs' steps) at each G
     for kernel, count in (("flash_attn_kernel", 8), ("post_attn_proj_kernel", 8),
-                          ("qkv_rope_kernel", 4), ("attn_cached_kernel", 4),
+                          ("qkv_rope_kernel", 4), ("attn_cached_kernel", 8),
+                          ("attn_cached_solo_kernel", 4),
                           ("head_proj_kernel", 8),
                           ("ws_step_kernel", 5), ("ws_step_rows_kernel", 5),
                           ("ws_step_gumbel_kernel", 10), ("ws_fused_kernel", 10),
@@ -5472,6 +5608,9 @@ def main() -> int:
                   check_flash(2, SEQ, 4, 4, 64, False, 5, 7),      # band narrower than a tile
                   check_flash(3, 1, 2, 1, 32, False, None, 8)]     # S = 1
     draft_errs = [check_draft_kernels(case, i) for i, case in enumerate(DRAFT_CASES)]
+    attn_errs = check_attn_cases()
+    attn_invariance = {f"H={h} KH={kh} hd={hd}": check_attn_batch_invariance(h, kh, hd, 200 + i)
+                       for i, (h, kh, hd) in enumerate(ATTN_INVARIANCE)}
     rows_checks = [check_ws_step_rows(NUM, SEQ, VOCAB, 0), check_ws_step_rows(4, 16, 50257, 1)]
     fused_checks = [check_ws_fused(layout, k, v, 10 * k + i)
                     for layout in ("single", "rows") for k in FUSED_KS
@@ -5596,6 +5735,10 @@ def main() -> int:
             "tolerance": ("1e-5 abs" if name == "attn_cached"
                           else "1e-4 x max(1, max|plain|)"),
             **draft_num[name], "bound_us": draft_num[name]["bound_ms"] * 1e3})
+    attn = next(k for k in kernels if k["name"] == "attn_cached")
+    attn["max_abs_err"] = max(attn["max_abs_err"], *attn_errs.values())
+    attn["cases"] = attn_errs
+    attn["batch_invariance_differing"] = attn_invariance
     kernels += [
         {"name": "ws_step_rows", "route": "cuda", "source": "src/repro_torch/csrc/ws_step.cu",
          "replaces": "src/repro/kernels/ws_step/kernel.py:213",

@@ -140,17 +140,63 @@
 // pipeline that throttles the copy so it overlaps the FMAs, the tensor cores (3xTF32,
 // as qkv_rope), and programmatic dependent launch between the three projections.
 //
-// attn_cached. A block of 256 threads owns one (token row, query head). Warp w
-// computes the scores of keys w, w + 8, ...: each lane takes hd/32 dims of q and k,
-// then an xor-butterfly sums the lanes (hd = 16: 16 lanes a key, one dim each, two
-// keys a warp at once, 2w and 2w + 1, then 2w + 16, ...). Every key's score is thus
-// computed the same way whichever warp takes it. The max (exact in any order), then p = exp(s - m) in
-// shared memory; then thread (slice, d) sums p[t] * v[t, d] and p[t] over the
-// slice-th contiguous quarter (hd = 64) of the T keys in order, and the slice sums
-// are added in slice order. All T = max_len keys are read whatever the position:
-// masked keys contribute exp(NEG_INF - m) = 0, so S = 1 and S = P sum the same
-// lanes in the same order.
-//
+// attn_cached (attn_cached_kernel<hd, pb>). Its bound at the DiT's decode shape is the
+// 53 MB of K and V it must read, 15.9 us at 3.35 TB/s; at starcoder2-3b's (R = 8, 24 heads
+// of 128, 2 KV heads) 4.4 MB, 1.38 us; at a mid-decode cursor the valid keys' bytes only.
+// It replaced one block of 256 threads for each (token row, query head), grid (H, R):
+// under GQA every query head of a group read its KV head again (12 times at
+// starcoder2-3b), every block read all T = max_len keys whatever the cursor, and p @ v
+// walked its keys one dependent load at a time. Now:
+//   * a cluster of C blocks owns one batch row b, one KV head and up to 16 (query row,
+//     query head) pairs of it: the query heads of the group that share the KV head (up
+//     to 16) x as many of b's S query rows as keep the pairs at 16. So each K and V row
+//     is read from memory once for its whole group. Grid: C x B x KH x ceil(G / 16) x
+//     ceil(S / rows) blocks along x, cluster dims (C, 1, 1) set at launch. An instance
+//     for up to 4 and up to 16 pairs (pb; 128 and 256 threads), so a few pairs do not hold
+//     the registers of sixteen. Where a cluster would own one pair (G = 1 and one query
+//     row: the DiT's decode) there is nothing to share, and C blocks' copies and barriers
+//     cost more than they save: attn_cached_solo_kernel<hd> then takes the pair in one
+//     block of 256 threads, grid B x H, its C slices walked by C sets of threads with the
+//     same arithmetic, key for key (below), so the same bits. It holds T scores in shared
+//     memory; past some 40 000 keys (48 000 at hd 32, 52 000 at 16) the cluster instance
+//     takes the one pair;
+//   * rank s takes the s-th contiguous slice of T, keys [s W, min(T, (s + 1) W)), with
+//     (C, W) = ops.attn_slices(T, hd): C = 8 at hd 128, 4 below, W = ceil(T / C), passed
+//     by the wrapper; never a function of R, S, B, the cursor or G. A rank whose slice
+//     starts at or past T holds nothing. It copies q of its pairs and its slice's K into
+//     shared memory with cp.async (16-byte copies when the pointers allow, else 4-byte),
+//     then V as a second commit group (warps 1 .. only), which lands under the scores. A
+//     slice longer than a stage (64 keys at hd 128, 128 at 64, 256 at 16 and 32) streams
+//     through one stage buffer twice: the scores and their max first, then K and V again,
+//     the same scores recomputed;
+//   * keys at or past end = *cache_pos + S are neither loaded nor summed. That is exact:
+//     every row's key 0 counts (pos >= 0, end >= 1), so its max m is a real score; a key
+//     masked for a row adds exp(NEG_INF - m) = +0 to l and fma(+0, v, acc) = acc to its
+//     p @ v (no partial sum is ever -0), so the keys below end that a row does not see
+//     change none of its bits, and neither would those at or past end. A rank whose whole
+//     slice lies past end contributes +0. When some row could have no key (pos0 < 0 or
+//     end < 1) every key of T is read, and masked keys are summed as the reference sums
+//     them;
+//   * the two-pass arithmetic of attn_cached_pallas, every sum in one order: a score is
+//     q . k in four chains (the float4's lanes, d increasing) added (0 + 1) + (2 + 3),
+//     times the scale (__fmul_rn: a recomputed score has the stored one's bits), masked to
+//     NEG_INF; the row max over the ranks' local maxima through DSMEM after a cluster
+//     barrier (exact in any order); p = exp(s - m); each rank's partial p @ v (the thread
+//     on dim d of the pair) and l, each one chain in increasing key order; after a second
+//     barrier each pair's l, the C ranks' partials added in rank order 0 .. C - 1, and
+//     rank s finalises its share of the pairs' outputs, the partials added in rank order,
+//     the division by l last; a third barrier keeps every block's shared memory alive
+//     until the last remote read. No online rescaling, no atomics. Barriers 1 and 2 are a
+//     release by one thread (after __syncthreads, a cluster-scope fence) and a relaxed
+//     arrive by the others: thread 0 copies no V, so its fence waits on no copy.
+// So a query token's output depends on T, hd and its own row's keys alone: a batched
+// S-token prefill, S one-token steps, any chunking of them, any number of rows and either
+// body give the same bits (chip_smoke.py's kernel-level and engine-level gates hold it).
+// What holds it above its bound (tools/attn_cached_ablation.py): at starcoder2-3b a
+// block's chain of copy, scores, three cluster barriers, p @ v and combine, one block an
+// SM; at the DiT's decode the one-pair block's score pass (a thread a key) and its p @ v
+// chains, one after the other (PERF.md).
+
 // Cache. qkv_rope writes k and v straight into the layer's cache buffers
 // (B, T, KH*hd) at the cursor read from the device (*cache_pos, clamped as
 // dynamic_update_slice clamps), so the host never reads the cursor and no copy
@@ -159,11 +205,11 @@
 // Bounds on an H100 SXM at the main path's decode shape (R = 32 rows, T = 271,
 // dfm_dit CONFIG as the draft: D = 768, 12 heads of 64, F = 3072, V = 27):
 //   qkv_rope 7.1 MB of weights, 113 MFLOP: 2.1 us at 3.35 TB/s (bytes);
-//   attn_cached 53 MB of K/V, 27 MFLOP: 15.9 us (bytes);
+//   attn_cached 53 MB of K/V at the cursor on the last row, 27 MFLOP: 15.9 us (bytes);
+//     the keys below end only, so 8.5 us at end = 144;
 //   post_attn 21.2 MB of weights, 340 MFLOP: 6.43 us (bytes);
 //   head 191 KB (83 KB of weights), ~1.3 MFLOP: 0.057 us (bytes), launch-bound.
-// attn_cached reads the whole KV buffer; nothing here does anything yet about the
-// launch count (a CUDA graph of the decode step) or skipping masked keys. Build without
+// The launch count is the CUDA graph's business (graphs.py). Build without
 // --use_fast_math: expf, tanhf, powf, sinf and cosf are the accurate ones.
 
 #include <cooperative_groups.h>
@@ -1134,111 +1180,528 @@ int launch_qkv(const QkvArgs& a, cudaStream_t stream) {
 
 // -- attn_cached -------------------------------------------------------------------
 
-constexpr int kAttnThreads = 256;
+constexpr int kAttnPairs = 16;        // (query row, query head) pairs a cluster owns at most
+constexpr int kAttnMaxCluster = 8;    // the portable cluster size
 
-template <int HD>
-__global__ void __launch_bounds__(kAttnThreads)
-attn_cached_kernel(const float* __restrict__ q, const float* __restrict__ kc,
-                   const float* __restrict__ vc, const int* __restrict__ cache_pos,
-                   float* __restrict__ out, int S, int T, int H, int KH, int pos0,
-                   float scale) {
-  constexpr int kPer = HD >= 32 ? HD / 32 : 1;  // dims of q and k per lane
-  constexpr int kLanes = HD / kPer;             // lanes on a key's score: 32, or 16 at HD = 16
-  constexpr int kKeys = 32 / kLanes;            // keys a warp scores at once
-  constexpr int kPvSlices = kAttnThreads / HD;  // contiguous key slices of p @ v
+// A cluster block's layout for head dim HD and at most PB pairs (4 or 16: an instance for
+// each, so a few pairs do not hold the registers and threads of sixteen).
+template <int HD, int PB>
+struct AttnTile {
+  // threads of a block: 8 warps for 16 pairs, else 4
+  static constexpr int kThreads = PB >= 16 ? 256 : 128;
+  // keys of a stage: its K and V take 64-90 KB of shared memory
+  static constexpr int kChunk = HD >= 128 ? 64 : (HD == 64 ? 128 : 256);
+  // a K row in shared memory: the float4 reads of 8 consecutive rows hit distinct banks
+  static constexpr int kKld = HD + 4;
+  // p @ v: thread t on dim t % HD of pairs t / HD + kSets j, j < kAcc, whose
+  // probabilities lie in slots (t / HD) kAcc + j of a key's row of kSlots
+  static constexpr int kSets = kThreads / HD;
+  static constexpr int kAcc = PB / kSets > 0 ? PB / kSets : 1;
+  static constexpr int kSlots = kSets * kAcc;
+  // pairs a score task takes against one key row
+  static constexpr int kGroup = PB >= 16 ? 2 : 4;
+  static_assert(kThreads % HD == 0 && PB % kGroup == 0 && PB <= kAttnPairs,
+                "head_dim 16 .. 128, 4 or 16 pairs");
+  // shared floats for stages of ch keys and pt pairs: K (ch, kKld), V (ch, HD), the
+  // probabilities (ch, kSlots), q (pt, HD), the scores (pt, ch + 1), partial p @ v
+  // (pt, HD), partial l, local max, row max then l (3 x pt)
+  static __host__ __device__ constexpr int smem_floats(int ch, int pt) {
+    return ch * (kKld + HD) + prob_floats(ch) + pt * (2 * HD + ch + 4);
+  }
+  // the probabilities' floats, rounded up to 16 bytes for q's copy after them
+  static __host__ __device__ constexpr int prob_floats(int ch) {
+    return (ch * kSlots + 3) & ~3;
+  }
+};
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+// Arrive at the cluster barrier, the fencing thread first making every write ordered
+// before it (its own, and the block's through a preceding __syncthreads) visible to the
+// cluster.
+__device__ __forceinline__ void cluster_release_arrive(bool fencing) {
+  if (fencing) asm volatile("fence.acq_rel.cluster;" ::: "memory");
+  cluster_arrive_relaxed();
+}
+
+struct AttnArgs {
+  const float* q;          // (R, H*HD), R = B * S
+  const float* k;          // the layer's cache buffers (B, T, KH*HD)
+  const float* v;
+  const int* cache_pos;
+  float* out;              // (R, H*HD)
+  int S, T, H, KH, pos0;
+  int C, W;                // the cluster and its slices of T (ops.attn_slices)
+  int hg, qr;              // a cluster's heads of the group and query rows
+  int htiles, rtiles;      // clusters along the group's heads and along S
+  int vec;
+  float scale;
+};
+
+// The scores of pairs p0 .. p0 + NG - 1 (q rows past P - 1 read as P - 1) against one key
+// row: each q . k in four chains (the float4's lanes, d increasing), (0 + 1) + (2 + 3),
+// scaled; the same bits wherever, beside whichever pairs and however often computed.
+template <int HD, int NG>
+__device__ __forceinline__ void attn_scores(const float* qs, int P, int p0, const float* krow,
+                                            float scale, float (&out)[NG]) {
+  const float* qrow[NG];
+#pragma unroll
+  for (int u = 0; u < NG; ++u) qrow[u] = qs + min(p0 + u, P - 1) * HD;
+  float c[NG][4];
+#pragma unroll
+  for (int u = 0; u < NG; ++u) c[u][0] = c[u][1] = c[u][2] = c[u][3] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    const float4 y = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      const float4 x = *reinterpret_cast<const float4*>(qrow[u] + d);
+      c[u][0] = fmaf(x.x, y.x, c[u][0]);
+      c[u][1] = fmaf(x.y, y.y, c[u][1]);
+      c[u][2] = fmaf(x.z, y.z, c[u][2]);
+      c[u][3] = fmaf(x.w, y.w, c[u][3]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < NG; ++u)
+    out[u] = __fmul_rn(__fadd_rn(__fadd_rn(c[u][0], c[u][1]), __fadd_rn(c[u][2], c[u][3])),
+                       scale);
+}
+
+// The scores of a stage of n keys (rows of ks, key tk + row) into sc (P, sld): task e of
+// ceil(P / NG) n takes key e % n against pairs NG (e / n) .. + NG - 1, walking e in steps
+// of the block. Keys past the pair's own position (pos + p / nh) or at or past end score
+// NEG_INF.
+template <int HD, int NG, int NT>
+__device__ __forceinline__ void attn_stage_scores(const float* qs, const float* ks, float* sc,
+                                                  int sld, int P, int n, int tk, int pos,
+                                                  int nh, int end, float scale) {
+  const int groups = (P + NG - 1) / NG;
+  const int step_g = NT / n, step_t = NT % n;
+  int g = threadIdx.x / n, tl = threadIdx.x % n;
+  for (; g < groups; g += step_g, tl += step_t) {
+    if (tl >= n) {
+      tl -= n;
+      ++g;
+      if (g >= groups) break;
+    }
+    const int t = tk + tl;
+    float sv[NG];
+    attn_scores<HD, NG>(qs, P, NG * g, ks + tl * (HD + 4), scale, sv);
+#pragma unroll
+    for (int u = 0; u < NG; ++u) {
+      const int p = NG * g + u;
+      if (p < P) sc[p * sld + tl] = t > pos + p / nh || t >= end ? kNegInf : sv[u];
+    }
+  }
+}
+
+// This thread's chains of p @ v (dim d) and l over a stage of n keys, for the NB slots
+// pr[0 .. NB - 1] of each key's row of probabilities (SL slots a row), each chain in
+// increasing key order; NB covers the block's pairs, so the slots past it hold nothing.
+template <int HD, int NB, int SL, int ACC>
+__device__ __forceinline__ void attn_pv(const float* pr, const float* vs, int n, int d,
+                                        float (&acc)[ACC], float (&ls)[ACC]) {
+  for (int tl = 0; tl < n; ++tl) {
+    const float x = vs[tl * HD + d];
+    const float* row = pr + tl * SL;
+#pragma unroll
+    for (int j = 0; j < NB; j += (NB % 4 == 0 ? 4 : NB)) {
+      float pj[NB % 4 == 0 ? 4 : NB];
+      if constexpr (NB % 4 == 0) {
+        const float4 y = *reinterpret_cast<const float4*>(row + j);
+        pj[0] = y.x;
+        pj[1] = y.y;
+        pj[2] = y.z;
+        pj[3] = y.w;
+      } else if constexpr (NB == 2) {
+        const float2 y = *reinterpret_cast<const float2*>(row);
+        pj[0] = y.x;
+        pj[1] = y.y;
+      } else {
+        pj[0] = row[0];
+      }
+#pragma unroll
+      for (int u = 0; u < (NB % 4 == 0 ? 4 : NB); ++u) {
+        acc[j + u] = fmaf(pj[u], x, acc[j + u]);
+        ls[j + u] = __fadd_rn(ls[j + u], pj[u]);
+      }
+    }
+  }
+}
+
+// One query token against its batch row's keys below end, for a cluster's pairs, rank s
+// summing the s-th slice of T (see the note on top).
+template <int HD, int PB>
+__device__ __forceinline__ void attn_cached_body(const AttnArgs& a) {
+  using Tile = AttnTile<HD, PB>;
+  constexpr int NT = Tile::kThreads;
+  constexpr int KLD = Tile::kKld, ACC = Tile::kAcc, SETS = Tile::kSets, SL = Tile::kSlots;
+  constexpr int NG = Tile::kGroup;
+  constexpr int kLogSets = SETS == 16 ? 4 : (SETS == 8 ? 3 : (SETS == 4 ? 2 : (SETS == 2)));
+  constexpr int kWarps = NT / 32, kWarpPairs = (PB + kWarps - 1) / kWarps;
   extern __shared__ float4 smem4[];
-  float* sc = reinterpret_cast<float*>(smem4);  // T scores, then probabilities
-  float* part = sc + ((T + 3) & ~3);          // (kPvSlices, HD) partial sums
-  float* lpart = part + kPvSlices * HD;       // (kPvSlices) partial sums of p
-  float* wmax = lpart + kPvSlices;            // one max per warp
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ch = min(a.W, Tile::kChunk), sld = ch + 1, pt = a.hg * a.qr;
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + ch * KLD;
+  float* ps = vs + ch * HD;
+  float* qs = ps + Tile::prob_floats(ch);
+  float* sc = qs + pt * HD;
+  float* part = sc + pt * sld;
+  float* lpart = part + pt * HD;
+  float* lmax = lpart + pt;
+  float* gmax = lmax + pt;
 
-  const int h = blockIdx.x, r = blockIdx.y;
-  const int b = r / S, pos = pos0 + r % S;
-  const int end = *cache_pos + S;
-  const int kvh = h / (H / KH);
-  const int ld = KH * HD;
+  // the cluster's batch row, KV head, heads g0 .. g0 + nh - 1 of the group and query rows
+  // i0 .. i0 + nr - 1; pair p is row i0 + p / nh, query head kvh G + g0 + p % nh
+  int c = static_cast<int>(blockIdx.x) / a.C;
+  const int rt = c % a.rtiles;
+  c /= a.rtiles;
+  const int ht = c % a.htiles;
+  c /= a.htiles;
+  const int kvh = c % a.KH, b = c / a.KH;
+  const int G = a.H / a.KH;
+  const int i0 = rt * a.qr, nr = min(a.qr, a.S - i0);
+  const int g0 = ht * a.hg, nh = min(a.hg, G - g0);
+  const int P = nr * nh;
+  const int ld = a.KH * HD, qld = a.H * HD;
   const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const bool vec = a.vec != 0;
+  const int pos0 = a.pos0;
+  const float scale = a.scale;
 
-  // lane l takes dims (l % kLanes) kPer .. of key kKeys i + l / kLanes; the lanes of a key
-  // meet in an xor butterfly over kLanes, so every key's score has one order
-  const int kl = lane % kLanes;
-  float qv[kPer];
-  const float* qrow = q + static_cast<size_t>(r) * H * HD + h * HD + kl * kPer;
-#pragma unroll
-  for (int e = 0; e < kPer; ++e) qv[e] = qrow[e];
-  const float* kbase = kc + static_cast<size_t>(b) * T * ld + kvh * HD + kl * kPer;
-  if constexpr (kKeys == 1) {
-#pragma unroll 8
-    for (int t = w; t < T; t += kAttnThreads / 32) {
-      const float* krow = kbase + static_cast<size_t>(t) * ld;
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
-      d = warp_sum(d);
-      if (lane == 0) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+  // no row sees a key at or past end; when some row could see no key at all, read them all
+  const int end = *a.cache_pos + a.S;
+  const int lim = end >= 1 && pos0 >= 0 ? min(end, a.T) : a.T;
+  const int t0 = rank * a.W;
+  const int len = max(0, min(min(t0 + a.W, a.T), lim) - t0);
+  const int nch = (len + ch - 1) / ch;
+  const size_t kv0 = (static_cast<size_t>(b) * a.T + t0) * ld + kvh * HD;
+  const float* kb = a.k + kv0;
+  const float* vb = a.v + kv0;
+
+  copy_tile<NT>(qs, nh * HD,
+                a.q + static_cast<size_t>(b * a.S + i0) * qld + (kvh * G + g0) * HD,
+                qld, nr, nh * HD, nr, nh * HD, a.q, vec);
+  if (nch > 0) {
+    const int n = min(ch, len);
+    copy_tile<NT>(ks, KLD, kb, ld, n, HD, n, HD, a.k, vec);
+  }
+  cp_async_commit();
+  if (nch == 1 && tid >= 32) {   // warps 1 .. : warp 0 keeps nothing in flight (see (1))
+    const int step = vec ? 4 : 1, cols = HD / step;
+    for (int i = tid - 32; i < len * cols; i += NT - 32) {
+      const int r = i / cols, cc = step * (i % cols);
+      if (vec) {
+        cp_async16(vs + r * HD + cc, vb + static_cast<size_t>(r) * ld + cc, true);
+      } else {
+        cp_async4(vs + r * HD + cc, vb + static_cast<size_t>(r) * ld + cc, true);
+      }
     }
-  } else {
-#pragma unroll 8
-    for (int t0 = kKeys * w; t0 < T; t0 += kKeys * (kAttnThreads / 32)) {
-      const int t = t0 + lane / kLanes;
-      const float* krow = kbase + static_cast<size_t>(min(t, T - 1)) * ld;
-      float d = 0.f;
+  }
+  cp_async_commit();   // V lands under the scores
+
+  const int pos = pos0 + i0;
+  // pass 1: the scores of every stage and each pair's max over the slice; warp w keeps
+  // the running max of pairs w, w + kWarps, ...
+  float mx[kWarpPairs];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) d = fmaf(qv[e], krow[e], d);
-#pragma unroll
-      for (int o = kLanes / 2; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      if (kl == 0 && t < T) sc[t] = (t <= pos && t < end) ? d * scale : kNegInf;
+  for (int j = 0; j < kWarpPairs; ++j) mx[j] = kNegInf;
+  for (int st = 0; st < nch; ++st) {
+    const int n = min(ch, len - st * ch);
+    if (st > 0) {
+      copy_tile<NT>(ks, KLD, kb + static_cast<size_t>(st) * ch * ld, ld, n, HD, n,
+                    HD, a.k, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();
     }
+    __syncthreads();
+    attn_stage_scores<HD, NG, NT>(qs, ks, sc, sld, P, n, t0 + st * ch, pos, nh, end, scale);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kWarpPairs; ++j) {
+      const int p = w + kWarps * j;
+      if (p < P) {
+        float m = kNegInf;
+        for (int tl = lane; tl < n; tl += 32) m = fmaxf(m, sc[p * sld + tl]);
+        mx[j] = fmaxf(mx[j], warp_max(m));
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < kWarpPairs; ++j) {
+      if (w + kWarps * j < P) lmax[w + kWarps * j] = mx[j];
+    }
+  }
+  // (1) every rank's local maxima are written. The block barrier orders the block's
+  // writes before thread 0's cluster-scope fence, and the fence orders them before its
+  // arrive: a release at cluster scope for the waiters' acquire. Thread 0 has no copy in
+  // flight, so its fence does not wait for V; every other thread arrives relaxed
+  __syncthreads();
+  cluster_release_arrive(tid == 0);
+  cp_async_wait<0>();   // V of a one-stage slice, while the cluster meets
+  cluster_wait();
+  if (tid < P) {
+    float m = kNegInf;
+    for (int r = 0; r < a.C; ++r) m = fmaxf(m, cluster.map_shared_rank(lmax, r)[tid]);
+    gmax[tid] = m;
+  }
+
+  // pass 2: p = exp(s - m) into ps (ch, SL) by slot: thread set t / HD reads slots
+  // (t / HD) ACC .. + nb - 1, nb the power of two that covers the block's pairs; then
+  // this thread's chains of p @ v and l (one a slot), each in increasing key order,
+  // carried across the stages
+  const int d = tid % HD, set = tid / HD;
+  int nb = 1;
+  while (nb * SETS < P) nb *= 2;
+  const int lnb = __ffs(nb) - 1, lsn = lnb + kLogSets;
+  float acc[ACC], ls[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[j] = ls[j] = 0.f;
+  for (int st = 0; st < nch; ++st) {
+    const int n = min(ch, len - st * ch);
+    if (nch > 1) {
+      __syncthreads();   // every thread is done with the last stage
+      copy_tile<NT>(ks, KLD, kb + static_cast<size_t>(st) * ch * ld, ld, n, HD,
+                    n, HD, a.k, vec);
+      copy_tile<NT>(vs, HD, vb + static_cast<size_t>(st) * ch * ld, ld, n, HD,
+                    n, HD, a.v, vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      attn_stage_scores<HD, NG, NT>(qs, ks, sc, sld, P, n, t0 + st * ch, pos, nh, end,
+                                    scale);
+    }
+    __syncthreads();
+    for (int e = tid; e < (n << lsn); e += NT) {
+      const int tl = e >> lsn, r = e & ((1 << lsn) - 1), sp = r >> lnb, j = r & (nb - 1);
+      const int p = sp + SETS * j;
+      ps[tl * SL + sp * ACC + j] = p < P ? expf(__fsub_rn(sc[p * sld + tl], gmax[p])) : 0.f;
+    }
+    __syncthreads();
+    const float* pr = ps + set * ACC;
+    if (nb == 1) {
+      attn_pv<HD, 1, SL>(pr, vs, n, d, acc, ls);
+    } else if (nb == 2) {
+      if constexpr (ACC >= 2) attn_pv<HD, 2, SL>(pr, vs, n, d, acc, ls);
+    } else if (nb == 4) {
+      if constexpr (ACC >= 4) attn_pv<HD, 4, SL>(pr, vs, n, d, acc, ls);
+    } else if (nb == 8) {
+      if constexpr (ACC >= 8) attn_pv<HD, 8, SL>(pr, vs, n, d, acc, ls);
+    } else {
+      if constexpr (ACC >= 16) attn_pv<HD, 16, SL>(pr, vs, n, d, acc, ls);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) {
+    const int p = set + SETS * j;
+    if (p < P) {
+      part[p * HD + d] = acc[j];
+      if (d == 0) lpart[p] = ls[j];
+    }
+  }
+  __syncthreads();   // (2) every rank's partials are written, released as at (1)
+  cluster_release_arrive(tid == 0);
+  cluster_wait();
+  if (tid < P) {    // each pair's l, the ranks' partials in rank order (gmax is done)
+    float l = cluster.map_shared_rank(lpart, 0)[tid];
+    for (int r = 1; r < a.C; ++r) l = __fadd_rn(l, cluster.map_shared_rank(lpart, r)[tid]);
+    gmax[tid] = l;
   }
   __syncthreads();
 
+  // rank s finalises outputs [s per, (s + 1) per) of the P x HD: the C ranks' partials
+  // added in rank order, then the division by l
+  const int total = P * HD, per = (total + a.C - 1) / a.C;
+  for (int o = rank * per + tid; o < min(total, (rank + 1) * per); o += NT) {
+    float sum = cluster.map_shared_rank(part, 0)[o];
+#pragma unroll
+    for (int r = 1; r < kAttnMaxCluster; ++r) {
+      if (r < a.C) sum = __fadd_rn(sum, cluster.map_shared_rank(part, r)[o]);
+    }
+    const int p = o / HD;
+    a.out[static_cast<size_t>(b * a.S + i0 + p / nh) * qld + (kvh * G + g0 + p % nh) * HD +
+          o % HD] = sum / gmax[p];
+  }
+  // (3) no block leaves while another may still read its partials; every remote value
+  // read above is consumed, so the arrive needs no release
+  cluster_arrive_relaxed();
+  cluster_wait();
+}
+
+template <int HD, int PB>
+__global__ void __launch_bounds__(AttnTile<HD, PB>::kThreads) attn_cached_kernel(AttnArgs a) {
+  attn_cached_body<HD, PB>(a);
+}
+
+// At the registers ptxas picks itself it spills 16 bytes of the <32, 16> instance; with a
+// minimum of one block an SM it takes more and spills none. That minimum on every instance
+// cost starcoder2-3b's decode 6 us of 13 (PERF.md), so this instance alone has it.
+template <int HD, int PB>
+__global__ void __launch_bounds__(AttnTile<HD, PB>::kThreads, 1)
+attn_cached_kernel_min1(AttnArgs a) {
+  attn_cached_body<HD, PB>(a);
+}
+
+constexpr int kSoloThreads = 256;
+
+// Keys of K a one-pair block stages at once: 70 KB at hd 64, three blocks an SM.
+__host__ __device__ constexpr int solo_chunk(int hd) { return hd >= 128 ? 128 : 256; }
+
+// Shared floats of a one-pair block: q, the slices' partial p @ v and l, a max a warp, a
+// stage of K (rows padded by 4) and the scores (then p) of T keys.
+__host__ __device__ constexpr int solo_smem_floats(int hd, int t) {
+  return hd * (1 + kAttnMaxCluster) + kAttnMaxCluster + kSoloThreads / 32 +
+         solo_chunk(hd) * (hd + 4) + ((t + 3) & ~3);
+}
+
+// One pair alone (G = 1 and one query row: the DiT's decode) in one block, no cluster: the
+// C slices of the slice rule are walked by C sets of threads (set j takes slices j, j +
+// 256 / HD, ...), with the arithmetic of attn_cached_kernel key for key: the same scores
+// (attn_scores, a thread a key of a stage of K copied into shared memory), the max over
+// the keys below lim, p = exp(s - m), each slice's p @ v and l one chain in increasing key
+// order from +0, the slices added in order 0 .. C - 1, the division last. So its bits
+// equal a cluster's for the same token, and which of the two computes a pair is free to
+// depend on G and S.
+template <int HD>
+__global__ void __launch_bounds__(kSoloThreads)
+attn_cached_solo_kernel(AttnArgs a) {
+  constexpr int NT = kSoloThreads, SETS = NT / HD, CH = solo_chunk(HD), KLD = HD + 4;
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* part = qs + HD;
+  float* lpart = part + kAttnMaxCluster * HD;
+  float* wmax = lpart + kAttnMaxCluster;
+  float* ks = wmax + NT / 32;
+  float* sc = ks + CH * KLD;
+
+  const int h = static_cast<int>(blockIdx.x) % a.H, b = static_cast<int>(blockIdx.x) / a.H;
+  const int ld = a.KH * HD;   // G = 1: KV head h
+  const int tid = threadIdx.x, w = tid / 32, lane = tid % 32;
+  const int pos = a.pos0, end = *a.cache_pos + 1;
+  const int lim = end >= 1 && pos >= 0 ? min(end, a.T) : a.T;
+  const size_t kv0 = static_cast<size_t>(b) * a.T * ld + h * HD;
+  const float* kb = a.k + kv0;
+  const float* vb = a.v + kv0;
+  for (int i = tid; i < HD; i += NT) qs[i] = a.q[static_cast<size_t>(b) * a.H * HD + h * HD + i];
+
   float m = kNegInf;
-  for (int t = tid; t < T; t += kAttnThreads) m = fmaxf(m, sc[t]);
+  for (int t0 = 0; t0 < lim; t0 += CH) {
+    const int n = min(CH, lim - t0);
+    if (t0 > 0) __syncthreads();   // every thread is done with the last stage
+    copy_tile<NT>(ks, KLD, kb + static_cast<size_t>(t0) * ld, ld, n, HD, n, HD, a.k,
+                  a.vec != 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int tl = tid; tl < n; tl += NT) {
+      const int t = t0 + tl;
+      float sv[1];
+      attn_scores<HD, 1>(qs, 1, 0, ks + tl * KLD, a.scale, sv);
+      const float s = t > pos || t >= end ? kNegInf : sv[0];
+      sc[t] = s;
+      m = fmaxf(m, s);
+    }
+  }
   m = warp_max(m);
   if (lane == 0) wmax[w] = m;
   __syncthreads();
   m = wmax[0];
-  for (int i = 1; i < kAttnThreads / 32; ++i) m = fmaxf(m, wmax[i]);
-  for (int t = tid; t < T; t += kAttnThreads) sc[t] = expf(sc[t] - m);
+#pragma unroll
+  for (int i = 1; i < NT / 32; ++i) m = fmaxf(m, wmax[i]);
+  for (int t = tid; t < lim; t += NT) sc[t] = expf(__fsub_rn(sc[t], m));
   __syncthreads();
 
-  const int sl = tid / HD, d = tid % HD;
-  const int chunk = (T + kPvSlices - 1) / kPvSlices;
-  const int t0 = sl * chunk, t1 = min(T, t0 + chunk);
-  const float* vcol = vc + static_cast<size_t>(b) * T * ld + kvh * HD + d;
-  float acc = 0.f, l = 0.f;
-  for (int t = t0; t < t1; ++t) {
-    const float p = sc[t];
-    l += p;
-    acc = fmaf(p, vcol[static_cast<size_t>(t) * ld], acc);
-  }
-  part[sl * HD + d] = acc;
-  if (d == 0) lpart[sl] = l;
-  __syncthreads();
-  if (tid < HD) {
-    float o = part[tid], lsum = lpart[0];
-    for (int s = 1; s < kPvSlices; ++s) {
-      o += part[s * HD + tid];
-      lsum += lpart[s];
+  const int d = tid % HD;
+  for (int r = tid / HD; r < a.C; r += SETS) {
+    const int t1 = min(r * a.W + a.W, lim);
+    float acc = 0.f, l = 0.f;
+#pragma unroll 8
+    for (int t = r * a.W; t < t1; ++t) {
+      const float p = sc[t];
+      acc = fmaf(p, vb[static_cast<size_t>(t) * ld + d], acc);
+      l = __fadd_rn(l, p);
     }
-    out[static_cast<size_t>(r) * H * HD + h * HD + tid] = o / lsum;
+    part[r * HD + d] = acc;
+    if (d == 0) lpart[r] = l;
+  }
+  __syncthreads();
+  for (int o = tid; o < HD; o += NT) {
+    float l = lpart[0], sum = part[o];
+    for (int r = 1; r < a.C; ++r) {
+      l = __fadd_rn(l, lpart[r]);
+      sum = __fadd_rn(sum, part[r * HD + o]);
+    }
+    a.out[static_cast<size_t>(b) * a.H * HD + h * HD + o] = sum / l;
   }
 }
 
-template <int HD>
-int launch_attn(const float* q, const float* kc, const float* vc, const int* cache_pos,
-                float* out, int R, int S, int T, int H, int KH, int pos0, float scale,
-                cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_cached_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+// The cluster's tiling of (G heads, S rows) into at most kAttnPairs pairs: a function of
+// (G, S), which only says which cluster computes a pair, never how.
+void attn_tiles(AttnArgs& a, int G) {
+  a.hg = std::min(G, kAttnPairs);
+  a.qr = std::max(1, std::min(a.S, kAttnPairs / a.hg));
+  a.htiles = (G + a.hg - 1) / a.hg;
+  a.rtiles = (a.S + a.qr - 1) / a.qr;
+}
+
+// A launch with the cluster dims (C, 1, 1) set at run time, C from the slice rule.
+template <int HD, int PB>
+int launch_attn_pb(const AttnArgs& a, int B, cudaStream_t stream) {
+  void (*kernel)(AttnArgs);
+  if constexpr (HD == 32 && PB == 16) {
+    kernel = attn_cached_kernel_min1<HD, PB>;
+  } else {
+    kernel = attn_cached_kernel<HD, PB>;
+  }
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int ch = std::min(a.W, AttnTile<HD, PB>::kChunk);
   const size_t smem =
-      (((T + 3) & ~3) + (kAttnThreads / HD) * (HD + 1) + kAttnThreads / 32) * sizeof(float);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(H, R);
-  attn_cached_kernel<HD><<<grid, kAttnThreads, smem, stream>>>(q, kc, vc, cache_pos, out, S,
-                                                              T, H, KH, pos0, scale);
+      static_cast<size_t>(AttnTile<HD, PB>::smem_floats(ch, a.hg * a.qr)) * sizeof(float);
+  const long blocks = static_cast<long>(a.C) * B * a.KH * a.htiles * a.rtiles;
+  if (smem > kMaxSmem || blocks > 2147483647L) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = static_cast<unsigned>(a.C);
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(AttnTile<HD, PB>::kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t rc = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One block a pair (G = 1, S = 1) where its T scores fit in shared memory, else the
+// cluster instance for up to 4 or up to 16 pairs: a function of G, S and T that says which
+// code computes a pair, never how (the bits are the same).
+template <int HD>
+int launch_attn(const AttnArgs& a, int B, cudaStream_t stream) {
+  const int pt = a.hg * a.qr;
+  const size_t solo = static_cast<size_t>(solo_smem_floats(HD, a.T)) * sizeof(float);
+  if (pt == 1 && solo <= kMaxSmem) {
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        attn_cached_solo_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    attn_cached_solo_kernel<HD><<<B * a.H, kSoloThreads, solo, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (pt <= 4) return launch_attn_pb<HD, 4>(a, B, stream);
+  return launch_attn_pb<HD, 16>(a, B, stream);
 }
 
 }  // namespace
@@ -1281,24 +1744,31 @@ extern "C" int draft_qkv_rope_launch(const void* x, const void* ln_scale, const 
   }
 }
 
+// attn_cached: (C, W) is the slice rule's split of T, C blocks a cluster (1 .. 8), rank s
+// on keys [s W, (s + 1) W).
 extern "C" int draft_attn_cached_launch(const void* q, const void* kcache, const void* vcache,
                                         const void* cache_pos, void* out, int R, int S, int T,
-                                        int H, int KH, int HD, int pos0, float scale,
-                                        void* stream) {
-  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0) {
+                                        int H, int KH, int HD, int pos0, int C, int W,
+                                        float scale, void* stream) {
+  if (R <= 0 || S <= 0 || R % S != 0 || S > T || KH <= 0 || H % KH != 0 || C < 1 ||
+      C > kAttnMaxCluster || W < 1 || static_cast<long>(C) * W < T) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(kcache);
-  const auto* vf = static_cast<const float*>(vcache);
-  const auto* cp = static_cast<const int*>(cache_pos);
-  auto* of = static_cast<float*>(out);
+  AttnArgs a{};
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(kcache);
+  a.v = static_cast<const float*>(vcache);
+  a.cache_pos = static_cast<const int*>(cache_pos);
+  a.out = static_cast<float*>(out);
+  a.S = S; a.T = T; a.H = H; a.KH = KH; a.pos0 = pos0; a.C = C; a.W = W; a.scale = scale;
+  attn_tiles(a, H / KH);
+  a.vec = aligned16(q) && aligned16(kcache) && aligned16(vcache);
   auto st = static_cast<cudaStream_t>(stream);
   switch (HD) {
-    case 16: return launch_attn<16>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
-    case 32: return launch_attn<32>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
-    case 64: return launch_attn<64>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
-    case 128: return launch_attn<128>(qf, kf, vf, cp, of, R, S, T, H, KH, pos0, scale, st);
+    case 16: return launch_attn<16>(a, R / S, st);
+    case 32: return launch_attn<32>(a, R / S, st);
+    case 64: return launch_attn<64>(a, R / S, st);
+    case 128: return launch_attn<128>(a, R / S, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

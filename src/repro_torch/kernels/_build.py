@@ -69,8 +69,9 @@ _SIGNATURES = {
     # x, ln scale, ln bias, wq, wk, wv, bq, bk, bv, q, k cache, v cache, cursor,
     # R, S, T, D, H, KH, hd, pos0, norm, eps, use_rope, theta, stream
     "draft_qkv_rope_launch": [_P] * 13 + [_I] * 9 + [_F, _I, _F, _P],
-    # q, k cache, v cache, cursor, out, R, S, T, H, KH, hd, pos0, scale, stream
-    "draft_attn_cached_launch": [_P] * 5 + [_I] * 7 + [_F, _P],
+    # q, k cache, v cache, cursor, out, R, S, T, H, KH, hd, pos0, cluster C, slice W,
+    # scale, stream
+    "draft_attn_cached_launch": [_P] * 5 + [_I] * 9 + [_F, _P],
     # a, x, wo, bo, ln scale, ln bias, wup, bup, wgate, bgate, wdown, bdown,
     # x1, u, out, R, D, H*hd, F, norm, eps, act, staged (1: every slice in stages), stream
     "draft_post_attn_launch": [_P] * 15 + [_I] * 5 + [_F, _I, _I, _P],

@@ -51,6 +51,12 @@ MAX_GRID_Y = 65535
 MAX_GRID_X = 2 ** 31 - 1
 # the head dims qkv_rope and attn_cached are built for
 HEAD_DIMS = (16, 32, 64, 128)
+# attn_cached_kernel (csrc/draft_decode.cu AttnTile): a cluster of at most ATTN_CLUSTER
+# blocks (of 256 threads for more than 4 pairs, else 128) owns at most ATTN_PAIRS (query
+# row, query head) pairs of one KV head; a block walks its slice of T in stages of
+# ATTN_STAGE[hd] keys
+ATTN_CLUSTER, ATTN_PAIRS = 8, 16
+ATTN_STAGE = {16: 256, 32: 256, 64: 128, 128: 64}
 
 
 def draft_decode_supported(cfg) -> bool:
@@ -158,6 +164,47 @@ def _post_smem(k: int, width: int) -> int:
     return (2 * (ch * width + CLUSTER_ROWS * (ch + 4)) + tail) * 4
 
 
+def attn_slices(t: int, head_dim: int) -> tuple:
+    """(C, W): attn_cached splits a batch row's T keys over a cluster of C
+    blocks, rank s taking keys ``[s W, min(T, (s + 1) W))`` (none when
+    ``s W >= T``). A function of T and the head dim alone, never of the
+    rows, the chunk length, the cursor or the group, so a query token's sums
+    run in one order whatever shares its launch."""
+    if t < 1 or head_dim not in HEAD_DIMS:
+        raise ValueError(f"attn_cached: no slices for T = {t} at head_dim {head_dim}")
+    c = ATTN_CLUSTER if head_dim >= 128 else ATTN_CLUSTER // 2
+    return c, -(-t // c)
+
+
+def _attn_tiles(heads: int, kv_heads: int, seq: int) -> tuple:
+    """(heads of the group, query rows) a cluster owns (csrc ``attn_tiles``):
+    which cluster computes a pair, never how."""
+    hg = min(heads // kv_heads, ATTN_PAIRS)
+    return hg, max(1, min(seq, ATTN_PAIRS // hg))
+
+
+def _attn_smem(t: int, head_dim: int, pairs: int) -> int:
+    """Bytes of shared memory of an attn_cached block. One pair alone, where
+    it fits (csrc ``solo_smem_floats``): q, the slices' partial p @ v and l,
+    a max a warp, a stage of K (128 keys at hd 128, else 256; rows padded by
+    4) and T scores. Else a cluster block (``AttnTile``): a stage's
+    K (rows padded by 4), V and probabilities (a slot for each pair of the
+    kernel's instance, 4 or 16, rounded up to 16 bytes), and for each pair q,
+    the stage's scores (padded by 1), the partial p @ v, l and the two
+    maxima."""
+    chunk = 128 if head_dim >= 128 else 256
+    solo = 4 * (head_dim * (1 + ATTN_CLUSTER) + ATTN_CLUSTER + 256 // 32
+                + chunk * (head_dim + 4) + -(-t // 4) * 4)
+    if pairs == 1 and solo <= MAX_SMEM:
+        return solo
+    ch = min(attn_slices(t, head_dim)[1], ATTN_STAGE[head_dim])
+    bucket = 4 if pairs <= 4 else ATTN_PAIRS
+    sets = (256 if bucket == ATTN_PAIRS else 128) // head_dim
+    slots = sets * max(1, bucket // sets)
+    return 4 * (ch * (2 * head_dim + 4) + -(-ch * slots // 4) * 4
+                + pairs * (2 * head_dim + ch + 4))
+
+
 def _check_limits(name: str, r: int, rows_per_block: int, k: int, smem: int,
                   max_blocks: int = MAX_GRID_Y) -> None:
     if r <= 0 or -(-r // rows_per_block) > max_blocks:
@@ -236,7 +283,11 @@ def attn_cached(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
                 head_dim: int) -> torch.Tensor:
     """Each query row ``r`` of q (R = B * seq, H*hd) against batch row
     ``r // seq``'s whole buffer kbuf/vbuf (B, T, KH*hd), keys ``col <=
-    pos0 + r % seq`` and ``col < start + seq`` -> (R, H*hd)."""
+    pos0 + r % seq`` and ``col < start + seq`` -> (R, H*hd). On the card one
+    cluster launch: each KV head read once for its group's query heads, T
+    split by ``attn_slices``, no key at or past ``start + seq`` read; one
+    pair alone (one head a group, one token a row) takes one block, with the
+    same bits."""
     kw = dict(pos0=pos0, seq=seq, heads=heads, kv_heads=kv_heads, head_dim=head_dim)
     dev = _device(q, "attn_cached")
     if dev is None:
@@ -249,9 +300,13 @@ def attn_cached(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
                          f"cache {tuple(kbuf.shape)}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"attn_cached: head_dim {head_dim} not in {HEAD_DIMS}")
-    if not 0 < r <= MAX_GRID_Y or (kbuf.shape[1] + 300) * 4 > MAX_SMEM:
-        raise ValueError(f"attn_cached: {r} rows or a {kbuf.shape[1]}-key cache is outside "
-                         f"what one launch takes")
+    t = kbuf.shape[1]
+    c, _ = attn_slices(t, head_dim)
+    hg, qr = _attn_tiles(heads, kv_heads, seq)
+    blocks = c * (r // seq) * kv_heads * -(-(heads // kv_heads) // hg) * -(-seq // qr)
+    _check_limits("attn_cached", r, 1, t, _attn_smem(t, head_dim, hg * qr))
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"attn_cached: {r} rows is outside what one launch takes")
     _check("attn_cached", dev, q, kbuf, vbuf)
     _check_cursor("attn_cached", start, dev)
     out = torch.empty_like(q)
@@ -262,10 +317,12 @@ def attn_cached(q: torch.Tensor, kbuf: torch.Tensor, vbuf: torch.Tensor,
 
 def _launch_attn_cached(q, kbuf, vbuf, start, out, *, pos0, seq, heads, kv_heads,
                         head_dim) -> None:
+    """One launch on checked CUDA tensors (no count)."""
+    c, w = attn_slices(kbuf.shape[1], head_dim)
     with torch.cuda.device(q.device):
         rc = _build.library().draft_attn_cached_launch(
             q.data_ptr(), kbuf.data_ptr(), vbuf.data_ptr(), start.data_ptr(), out.data_ptr(),
-            q.shape[0], seq, kbuf.shape[1], heads, kv_heads, head_dim, int(pos0),
+            q.shape[0], seq, kbuf.shape[1], heads, kv_heads, head_dim, int(pos0), c, w,
             float(1.0 / head_dim ** 0.5), _stream(q.device))
     _build.check(rc, "attn_cached")
 

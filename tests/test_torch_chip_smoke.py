@@ -138,6 +138,19 @@ def test_head_ablation_cuts_every_phase_out_of_the_kernel():
             assert tool.variant_source(text, name) != text
 
 
+def test_attn_cached_ablation_patches_the_kernel_it_times():
+    """tools/attn_cached_ablation.py patches the kernel's source by text: each
+    variant's anchors are still in csrc/draft_decode.cu, and each changes it."""
+    spec = importlib.util.spec_from_file_location("attn_cached_ablation",
+                                                  ROOT / "tools" / "attn_cached_ablation.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    text = (ROOT / "src" / "repro_torch" / "csrc" / "draft_decode.cu").read_text()
+    for name in tool.VARIANTS:
+        patched = tool._runner.variant_source(text, name, tool.VARIANTS)
+        assert (patched == text) == (name == "base")
+
+
 def test_expected_launches_count_a_distilled_micro_batch_as_k_steps(smoke):
     """A distilled micro-batch adds K ws_step_rows launches and no backbone
     (the head is plain PyTorch), twice when its key was captured in the run;

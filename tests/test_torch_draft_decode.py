@@ -336,3 +336,59 @@ def test_head_limits_follow_the_tiling():
     # the other kernels keep their rows along grid y
     with pytest.raises(ValueError, match="rows"):
         ops._check_limits("post_attn", 32 * ops.MAX_GRID_Y + 1, 32, 768, 1024)
+
+
+@pytest.mark.parametrize("head_dim", ops.HEAD_DIMS)
+def test_attn_slices_cover_t_for_every_length(head_dim):
+    """attn_cached's split of T (``ops.attn_slices``): for T = 1 .. 65 536, C in
+    1 .. 8 blocks and W = ceil(T / C), so the slices [s W, min(T, (s + 1) W))
+    are contiguous and cover [0, T) once; a block's stage and its pairs fit in
+    shared memory at every T."""
+    worst = ops.ATTN_PAIRS
+    for t in range(1, 65537):
+        c, w = ops.attn_slices(t, head_dim)
+        assert 1 <= c <= ops.ATTN_CLUSTER and w == -(-t // c)
+    for t in (*range(1, 300), 57812, 65535, 65536):
+        c, w = ops.attn_slices(t, head_dim)
+        bounds = [(min(t, s * w), min(t, (s + 1) * w)) for s in range(c)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == t
+        assert all(a[1] == b[0] and a[0] <= a[1] for a, b in zip(bounds, bounds[1:]))
+    stage = ops.ATTN_STAGE[head_dim]
+    # the shared memory grows with the stage, which stops growing at W = stage
+    assert max(ops._attn_smem(t, head_dim, worst) for t in range(1, ops.ATTN_CLUSTER * stage + 1)) \
+        == ops._attn_smem(65536, head_dim, worst) <= ops.MAX_SMEM
+    with pytest.raises(ValueError, match="slices"):
+        ops.attn_slices(0, head_dim)
+
+
+@pytest.mark.parametrize("heads,kv_heads,seq,tiles", [
+    (12, 12, 1, (1, 1)), (12, 12, 16, (1, 16)), (24, 2, 1, (12, 1)), (24, 2, 16, (12, 1)),
+    (24, 8, 5, (3, 5)), (32, 1, 3, (16, 1)), (8, 2, 40, (4, 4))])
+def test_attn_launch_takes_the_slices_of_t_alone(monkeypatch, heads, kv_heads, seq, tiles):
+    """The wrapper hands the kernel ``attn_slices(T, hd)`` whatever the rows, the
+    chunk length, the cursor or the group; only which cluster owns a (row, head)
+    pair follows them (at most ATTN_PAIRS pairs a cluster)."""
+    import contextlib
+
+    seen = []
+
+    class Lib:
+        def draft_attn_cached_launch(self, *args):
+            seen.append(args)
+            return 0
+
+    monkeypatch.setattr(ops._build, "library", lambda: Lib())
+    monkeypatch.setattr(ops, "_stream", lambda device: 0)
+    monkeypatch.setattr(ops.torch.cuda, "device", lambda device: contextlib.nullcontext())
+    hd, t = 32, 271
+    hg, qr = ops._attn_tiles(heads, kv_heads, seq)
+    assert (hg, qr) == tiles and hg * qr <= ops.ATTN_PAIRS
+    for b, cursor in ((1, 0), (7, 100), (32, t - seq)):
+        q = torch.zeros(b * seq, heads * hd)
+        buf = torch.zeros(b, t, kv_heads * hd)
+        ops._launch_attn_cached(q, buf, buf, torch.tensor(cursor, dtype=torch.int32), q,
+                                pos0=cursor, seq=seq, heads=heads, kv_heads=kv_heads,
+                                head_dim=hd)
+    # (R, S, T, H, KH, hd, pos0, C, W) after the five pointers
+    assert {args[12:14] for args in seen} == {ops.attn_slices(t, hd)}
+    assert [args[5:7] for args in seen] == [(seq, seq), (7 * seq, seq), (32 * seq, seq)]

@@ -228,6 +228,85 @@ def test_draft_kernels_match_plain(card, b, s, t, d, f, h, kh, hd, norm, bias, g
         assert launches[name] == before.get(name, 0) + 1
 
 
+# attn_cached alone (b, s, t, h, kh, hd, cursor): a cursor in mid-buffer with S > 1, a
+# prefill at cursor 0, starcoder2-3b's mid decode (G = 12), T not a multiple of the
+# slice width, T below the cluster (ranks that hold nothing), S = T with G = 4, G = 32
+# (two clusters a KV head), long T (slices of many stages), and one pair a launch's
+# cluster (G = 1, S = 1: one block a pair; past its T limit a cluster), at every head dim
+ATTN_SHAPES = [
+    (3, 5, 271, 12, 12, 64, 100),
+    (4, 16, 271, 12, 12, 64, 0),
+    (8, 1, 271, 24, 2, 128, 143),
+    (4, 3, 37, 8, 4, 32, 20),
+    (2, 2, 5, 8, 2, 16, 1),
+    (3, 1, 3, 4, 4, 128, 2),
+    (2, 40, 40, 8, 2, 64, 0),
+    (2, 3, 64, 32, 1, 32, 30),
+    (1, 2, 57812, 24, 2, 128, 57000),
+    (2, 3, 40000, 8, 8, 16, 20000),
+    (1, 1, 57812, 2, 2, 128, 30000),
+    (1, 1, 50000, 2, 2, 16, 49000),
+    (32, 1, 271, 12, 12, 64, 143),
+    (2, 1, 37, 4, 4, 32, 20),
+    (2, 1, 5, 2, 2, 16, 1),
+]
+
+
+def _attn_inputs(card, b, s, t, h, kh, hd, cursor, seed):
+    """q and K/V with NaN at and past the chunk's end (the kernel must not read them),
+    and the plain version's K/V with zeros there (the same function: they are masked)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((b * s, h * hd), generator=g, device=card)
+    kbuf = torch.randn((b, t, kh * hd), generator=g, device=card)
+    vbuf = torch.randn((b, t, kh * hd), generator=g, device=card)
+    kref, vref = kbuf.clone(), vbuf.clone()
+    kbuf[:, cursor + s:], vbuf[:, cursor + s:] = float("nan"), float("nan")
+    kref[:, cursor + s:], vref[:, cursor + s:] = 0.0, 0.0
+    return q, kbuf, vbuf, kref, vref
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,hd,cursor", ATTN_SHAPES)
+def test_attn_cached_kernel_matches_plain(card, b, s, t, h, kh, hd, cursor):
+    q, kbuf, vbuf, kref, vref = _attn_inputs(card, b, s, t, h, kh, hd, cursor, t + h)
+    start = torch.tensor(cursor, dtype=torch.int32, device=card)
+    kw = dict(pos0=cursor, seq=s, heads=h, kv_heads=kh, head_dim=hd)
+    before = launches["attn_cached"]
+    got = attn_cached(q, kbuf, vbuf, start, **kw)
+    assert launches["attn_cached"] == before + 1
+    want = attn_cached_ref(q, kref, vref, start, **kw)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("h,kh,hd", [(12, 12, 64), (24, 2, 128), (8, 2, 16), (8, 4, 32),
+                                     (4, 4, 128), (8, 8, 16)])
+def test_attn_cached_kernel_is_batch_invariant(card, h, kh, hd):
+    """A query token's output, bit for bit, launched inside a 16-token chunk, in
+    chunks 3 + 1 + 4 + 8, as one token among 32 rows and as one token alone (R = 1);
+    NaN in every key at or past the chunk's end. At G = 1 the one-token launches take
+    one block a pair and the chunks a cluster."""
+    rows, s, t, c0 = 32, 16, 271, 100
+    g = torch.Generator(device=card).manual_seed(hd)
+    kbuf = torch.randn((rows, t, kh * hd), generator=g, device=card)
+    vbuf = torch.randn((rows, t, kh * hd), generator=g, device=card)
+    kbuf[:, c0 + s:], vbuf[:, c0 + s:] = float("nan"), float("nan")
+    q = torch.randn((rows, s, h * hd), generator=g, device=card)
+
+    def launch(qr, kb, vb, i0, width):
+        start = torch.tensor(c0 + i0, dtype=torch.int32, device=card)
+        x = qr[:, i0:i0 + width].reshape(-1, h * hd).contiguous()
+        return attn_cached(x, kb, vb, start, pos0=c0 + i0, seq=width, heads=h, kv_heads=kh,
+                           head_dim=hd).view(qr.shape[0], width, h * hd)
+
+    whole = launch(q, kbuf, vbuf, 0, s)
+    assert bool(torch.isfinite(whole).all())
+    starts = [0, 3, 4, 8]
+    chunks = torch.cat([launch(q, kbuf, vbuf, i0, w) for i0, w in zip(starts, (3, 1, 4, 8))], 1)
+    assert torch.equal(chunks, whole)
+    assert torch.equal(torch.cat([launch(q, kbuf, vbuf, i, 1) for i in range(s)], 1), whole)
+    alone = torch.cat([launch(q[-1:], kbuf[-1:], vbuf[-1:], i, 1) for i in range(s)], 1)
+    assert torch.equal(alone, whole[-1:])
+
+
 # d, f, h, kh, hd, norm, bias, gated, act: the full-width ungated layer; a gated one
 # with bias whose up/gate (F = 200) and down (D = 96) leave partial column tiles; widths
 # that are not multiples of 4 (the kernel's 4-byte copies)

@@ -5,7 +5,7 @@ kernels of a checkout, for comparing two trees on one card.
 Run on a machine with one NVIDIA H100, from the root of the checkout that holds
 this script:
 
-    python3 tools/kernel_times.py [--root DIR] [--label NAME]
+    python3 tools/kernel_times.py [--root DIR] [--label NAME] [--attn-only] [--draft]
 
 It builds the kernels of ``DIR/src/repro_torch`` (default: this checkout) into
 ``DIR/build`` and times, with this checkout's ``chip_smoke.py`` helpers (a CUDA
@@ -26,7 +26,17 @@ that every tree since the head and ws_step kernels were ported shares:
     8 x 256, 56 heads of 128, kv 8), 2g (gemma3-1b: 4 x 1024, 4 heads of 256,
     kv 1, window 512) and, where the tree has the instance with values
     narrower than queries and keys, 2d (deepseek-v3-671b: 8 x 256, 128 heads,
-    q/k 192, v 128).
+    q/k 192, v 128);
+  * ``attn_cached`` through ``ops._launch_attn_cached`` at the shapes of PERF.md's
+    rows 5 (the DiT's decode: 32 rows, T = 271, 12 heads of 64) and 5z
+    (starcoder2-3b's: 8 rows, 24 heads of 128, kv 2), one token a row, with the
+    cursor on the last row (end = 271) and mid-decode (end = 144), each launch
+    on its own K/V buffers of a set that exceeds the L2 twice (cold reads, as a
+    decode step finds them);
+  * with ``--draft``, the DiT's AR draft as the serve runs it (``chip_smoke.py``'s
+    ``draft_engine``: the full-width model through the draft kernels, 32 rows, a
+    16-token prompt, 255 decode steps, one CUDA graph): host wall ms of a replay
+    after a synchronize, median of 5, the capture's call apart.
 Prints the card (``nvidia-smi``) and one JSON line.
 """
 
@@ -47,6 +57,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(HERE), help="checkout whose kernels are timed")
     ap.add_argument("--label", default="", help="a name for the JSON line")
+    ap.add_argument("--attn-only", action="store_true", help="time attn_cached alone")
+    ap.add_argument("--draft", action="store_true", help="time the DiT's AR draft too")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA device", file=sys.stderr)
@@ -69,6 +81,15 @@ def main() -> int:
     if not str(_build.CSRC).startswith(str(pathlib.Path(args.root).resolve())):
         raise RuntimeError(f"imported {_build.CSRC}, not the tree under {args.root}")
     _build.library()
+
+    if args.attn_only:
+        res = {"label": args.label, "root": args.root, "card": smoke.card_line(),
+               **attn_times(smoke, dops)}
+        if args.draft:
+            res["dit_draft_ms"] = draft_ms(smoke, prng)
+        print(res["card"])
+        print(json.dumps({"kernel_times": res}))
+        return 0
 
     d, v, r = 768, smoke.VOCAB, smoke.NUM
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -143,9 +164,53 @@ def main() -> int:
             lambda: aops._launch(q, k, vv, o, causal=False, window=window, scale=dk ** -0.5),
             n=20)
         del q, k, vv, o
+    res.update(attn_times(smoke, dops))
     print(res["card"])
     print(json.dumps({"kernel_times": res}))
     return 0
+
+
+def draft_ms(smoke, prng):
+    """The DiT's AR draft (32 x 256 after a 16-token prompt) a replay: median
+    host wall ms of 5 after the capturing call."""
+    import time
+
+    engine = smoke.draft_engine()
+    prompt = smoke.draft_prompt(smoke.NUM)
+    times = []
+    for i in range(6):
+        keys = prng.split(prng.key(i), smoke.NUM)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        engine.generate_rows(keys, smoke.SEQ, prompt)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    del engine
+    torch.cuda.empty_cache()
+    return sorted(times[1:])[2]
+
+
+def attn_times(smoke, dops):
+    """attn_cached's device time a launch at rows 5 and 5z, end = T and 144."""
+    import math
+
+    res = {}
+    t = smoke.MAX_LEN
+    # row of PERF.md §6: (B, H, KH, head_dim)
+    for row, (b, h, kh, hd) in {"5": (smoke.NUM, 12, 12, 64), "5z": (8, 24, 2, 128)}.items():
+        g = torch.Generator(device="cuda").manual_seed(0)
+        n_sets = max(2, math.ceil(2 * smoke.L2_BYTES / (2 * 4 * b * t * kh * hd)))
+        sets = smoke.cycle([tuple(torch.randn((b, t, kh * hd), generator=g, device="cuda")
+                                  for _ in range(2)) for _ in range(n_sets)])
+        q = torch.randn((b, h * hd), generator=g, device="cuda")
+        out = torch.empty_like(q)
+        for label, end in (("", t), ("_mid", smoke.ATTN_MID_END)):
+            start = torch.tensor(end - 1, dtype=torch.int32, device="cuda")
+            kw = dict(pos0=end - 1, seq=1, heads=h, kv_heads=kh, head_dim=hd)
+            res[f"attn_cached_{row}{label}_ms"] = smoke.graph_ms(
+                lambda: dops._launch_attn_cached(q, *sets(), start, out, **kw), n=50)
+        del sets
+    return res
 
 
 if __name__ == "__main__":
