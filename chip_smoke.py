@@ -95,7 +95,7 @@ CPU.
 
 Then the recurrent family: ``flash_attn`` at head_dim 80 (Zamba2's shared
 attention, both masks, no spill) and ``ws_step`` at V = 32000 and 50304
-against their plain versions and timed; zamba2-2.7b (8 rows, 18 of its 54
+against their plain versions and timed; zamba2-2.7b (8 rows, 12 of its 54
 layers) and xlstm-1.3b (4 rows) at their published widths (float32, seed 0)
 served at 256 tokens, 13 NFE, each drafted by its own config as a causal decoder
 (seed 1; the plain decode path, prompt prefilled by scan, the decode one
@@ -110,13 +110,14 @@ Then the encoder-decoder family: ``flash_attn`` over whisper-medium's
 1500 frames (the encoder's 1500 x 1500, the cross attention's 256 x 1500,
 the draft decode's 1 x 1500; the smoke config's shapes) and ``ws_step`` at
 V = 51865 against their plain versions and timed; whisper-medium at its
-published widths and depth (float32, seed 0, 8 rows of 1500 frames made
+published widths, 4 of its 24 encoder and 4 of its 24 decoder layers
+(float32, seed 0, 8 rows of 1500 frames made
 from a seed) served 8 x 256, 13 NFE, through ``WarmStartServer`` on a
 ``Conditioned`` model (the frames bound to ``dfm_apply``), drafted by
 ``ar_generate`` on the same config (seed 1) with the frames at seq_len 257
 (the JAX engine's reference fault R8: 256 tokens): two serves with exact
-launch counts (72 ``flash_attn`` and 1 ``ws_step`` a NFE; the draft 48 at
-its prefill and 24 a decode step), one capture, the second serve's replay
+launch counts (12 ``flash_attn`` and 1 ``ws_step`` a NFE; the draft 8 at
+its prefill and 4 a decode step), one capture, the second serve's replay
 == its eager launches bitwise, the logits at 1 x 64 against the CPU, an
 NFE's encoder and cross k/v shares and the flow stage profiled; the smoke
 config served on the card == the CPU.
@@ -140,7 +141,7 @@ values 128) at deepseek-v3-671b's refine (8 x 256, 128 heads) and causal
 at a small shape, ``flash_attn<48, 32>`` at its smoke config's serve, and
 ``ws_step`` at V = 129 280 (the device-key launch against the host key's
 too) against their plain versions and timed; deepseek-v3-671b at its
-published widths with its 3 dense ``mla`` layers and one ``mla_moe`` layer
+published widths with one of its 3 dense ``mla`` layers and one ``mla_moe`` layer
 (256 experts top-8 beside a shared one; float32, seed 0: 60.4 GB of
 weights) served 8 x 256, 13 NFE, twice, drafted by the same model as a
 causal decoder (the plain decode path: the naive latent expansion and the
@@ -154,6 +155,23 @@ decode's first step within 1e-4 of the naive one's logits and its draft
 timed, the flow stage profiled, an eager NFE and an eager decode step
 (naive and absorbed) by kind of op; the smoke config served and trained 3
 steps on the card == the CPU; the phase within 120 s.
+
+Then the VLM family: ``flash_attn<128>`` at qwen2-vl-72b's refine (8 x
+(256 patches + 256 text), 64 heads over 8 KV heads, q and k rotated by
+M-RoPE) and ``ws_step`` at V = 152 064 (the device-key launch against the
+host key's too) against their plain versions and timed (SDPA beside);
+qwen2-vl-72b at its published widths with 4 of its 80 layers (float32, seed
+0: 24.1 GB of weights) served 8 x 256 text tokens after 256 patches a row
+(0.1 N(0, 1), numpy seed 7: the ViT's stub, as in JAX) at Qwen2-VL's
+M-RoPE ids of a 16 x 16 grid, 13 NFE, twice, through ``WarmStartServer`` on
+``Conditioned(model, {"patches", "positions"})``, drafted by the same model
+as a causal decoder on the text alone (the plain decode path): exact
+launches (52 ``flash_attn`` and 13 ``ws_step`` a serve, no draft kernel),
+one capture each, the second serve's replay == its eager launches bitwise,
+the patches' rows flipped in place moving the replay's tokens, the logits at
+1 x (256 + 64) against a float64 forward in plain torch, the flow stage
+profiled; the smoke config's forward, serve and 3 train steps on the card
+== the CPU.
 
 Then it trains those three families at their published widths and depth
 (float32, seed 0; whisper over frames made as its serve's): at 2 x 256
@@ -177,11 +195,11 @@ equal to ``warm_nfe``, its headline numbers read from its report).
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
 ``{"pipeline": ...}``, ``{"train": ...}``, ``{"policy": ...}``,
 ``{"distilled": ...}``, ``{"zoo": ...}``, ``{"recurrent": ...}``,
-``{"encdec": ...}``, ``{"moe": ...}``, ``{"mla": ...}``, ``{"train_zoo":
-...}`` and ``{"examples": ...}`` lines, a ``{"kernels": [...]}`` line (the
-zoo's shapes under ``zoo``, the recurrent family's under ``recurrent``,
-whisper's under ``encdec``, arctic-480b's under ``moe``, deepseek-v3's
-under ``mla``, the
+``{"encdec": ...}``, ``{"moe": ...}``, ``{"mla": ...}``, ``{"vlm": ...}``,
+``{"train_zoo": ...}`` and ``{"examples": ...}`` lines, a ``{"kernels":
+[...]}`` line (the zoo's shapes under ``zoo``, the recurrent family's under
+``recurrent``, whisper's under ``encdec``, arctic-480b's under ``moe``,
+deepseek-v3's under ``mla``, qwen2-vl-72b's under ``vlm``, the
 families' training launches under ``flash_attn``'s ``train_zoo``) and, last,
 ``{"ok": true, "device": ...}``. Any
 failure raises and exits non-zero; without a CUDA device it exits 2 and
@@ -3761,13 +3779,15 @@ REC_SMOKE_ARCHS = (REC_ARCH, XLSTM_ARCH)
 # rows a serve: xlstm-1.3b's draft at 8 rows moves 5.6 GB of mLSTM state a decode
 # step (9.3 s a draft) and its eager yardstick took 31 s a serve, so it serves 4
 REC_ROWS = {REC_ARCH: 8, XLSTM_ARCH: 4}
-# layers a serve: zamba2-2.7b at a third of its published depth (3 of its 9 groups),
-# at the published widths: at full depth its serves took 107.6 s of the phase's 235.4
-# s and of a 1099.1 s run (NVIDIA H100 80GB HBM3, 700 W), at 18 layers 31.7 s. At 16
+# layers a serve: zamba2-2.7b at 2 of its 9 groups of 6, at the published widths: at
+# full depth its serves took 107.6 s of the phase's 235.4 s and of a 1099.1 s run
+# (NVIDIA H100 80GB HBM3, 700 W), at 18 layers 31.7 s, and 32.4 / 34.7 s in the runs that
+# first held the VLM phase (941.0 s without it, 1106.9 s with it on a slower host): cut
+# to 12 to keep the whole script within its time. At 16
 # layers xlstm-1.3b's logits left the 1e-3 gate against the CPU (5.7e-3 of 4.29: its
 # out projections' init scales with 1/sqrt(layers), and its normaliser amplifies the
 # rounding), so it keeps its 48. The training phase runs both at full depth
-REC_LAYERS = {REC_ARCH: 18, XLSTM_ARCH: 48}
+REC_LAYERS = {REC_ARCH: 12, XLSTM_ARCH: 48}
 REC_HEAD_DIM = 80                              # zamba2-2.7b's shared attention: 32 heads of 80
 
 
@@ -3963,8 +3983,14 @@ def recurrent_path():
 
 # -- the encoder-decoder family ------------------------------------------------------
 
-ENCDEC_ARCH = "whisper-medium"       # at its published widths and depth
+ENCDEC_ARCH = "whisper-medium"       # at its published widths
 ENCDEC_ROWS = 8
+# its serves at a sixth of its depth: 4 of its 24 encoder and 4 of its 24 decoder
+# layers. At full depth they took 94.5 s of a 941.0 s run (NVIDIA H100 80GB HBM3, 700 W;
+# the eager draft 12 045 ms a serve), at 8 + 8 39.2 s, and 43.3 s in a 1106.9 s run on a
+# slower host: cut to make room for the VLM phase. The training phase runs it at full
+# depth
+ENCDEC_LAYERS = ENCDEC_ENCODER_LAYERS = 4
 ENCDEC_FRAMES_SEED = 7               # the frames: 0.1 N(0, 1) from numpy, copied to the card
 ENCDEC_SMOKE_SEQ = 24                # the smoke config served 2 x 24 on the card and the CPU
 ENCDEC_PROFILE_STEPS = 32            # decode steps of the profiled draft
@@ -4026,9 +4052,10 @@ def encdec_nfe_shares(model, frames, x, t):
     """One eager NFE (``dfm_apply`` at the serve's shape), its encoder and its
     cross k/v apart: device ms and shares under the profiler, and the same
     three timed by CUDA events. A profile is complete when it holds every
-    flash_attn launch (72 an NFE, 24 the encoder) and both cross GEMMs of
-    each decoder layer; the profiler has been seen to drop a window's first
-    kernels, so the shares by events stand beside them."""
+    flash_attn launch (encoder + 2 x decoder layers an NFE, the encoder
+    layers the encoder) and both cross GEMMs of each decoder layer; the
+    profiler has been seen to drop a window's first kernels, so the shares
+    by events stand beside them."""
     cfg = model.cfg
     fns = {"nfe": lambda: model.dfm_apply(x, t, extras={"frames": frames}),
            "encoder": lambda: model.encode(frames)}
@@ -4128,14 +4155,16 @@ class LastDraft:
 
 
 def encdec_serve():
-    """whisper-medium at its published widths and depth (float32, seed 0)
+    """whisper-medium at its published widths, ENCDEC_ENCODER_LAYERS +
+    ENCDEC_LAYERS of its 24 + 24 layers (float32, seed 0)
     served through ``WarmStartServer`` on ``Conditioned(model, {"frames":
     frames})``, ENCDEC_ROWS x SEQ tokens over 1500 frames each, t0 = 0.8,
     cold_nfe = 64 (13 NFE), drafted by ``ar_generate`` on the same config
     (seed 1) with the same frames at seq_len SEQ + 1 (R8). Two serves. Gates:
-    the NFE guarantee, exact launches a serve (the refine 72 flash_attn and 1
-    ws_step a NFE, the first serve twice that; the draft 24 + 24 at its
-    prefill and 24 in each of its SEQ decode steps), one capture, the second serve's replay ==
+    the NFE guarantee, exact launches a serve (the refine encoder + 2 x
+    decoder layers flash_attn and 1 ws_step a NFE, the first serve twice
+    that; the draft encoder + decoder layers at its prefill and decoder
+    layers in each of its SEQ decode steps), one capture, the second serve's replay ==
     its eager launches on its draft bitwise, the draft's length, the logits
     at 1 x 64 against the host. Reports draft, flow and per-NFE time,
     samples/s, the draft cost ratio, peak memory, the busy shares of the
@@ -4155,7 +4184,8 @@ def encdec_serve():
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     rows = ENCDEC_ROWS
-    cfg = get_config(ENCDEC_ARCH).replace(dtype="float32")
+    cfg = get_config(ENCDEC_ARCH).replace(dtype="float32", num_layers=ENCDEC_LAYERS,
+                                          num_encoder_layers=ENCDEC_ENCODER_LAYERS)
     model = EncDecModel(cfg, device="cuda", seed=0)
     drafter = EncDecModel(cfg, device="cuda", seed=DRAFT_SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -4558,11 +4588,14 @@ def moe_path():
 
 MLA_ARCH = "deepseek-v3-671b"
 MLA_ROWS = 8
-# its published prefix of 3 dense mla layers and 1 mla_moe layer of its 61, at the
-# published widths: 60.4 GB of float32 weights of the card's 80 (the mla_moe layer's 256
-# routed experts are 45.1 GB); a second mla_moe layer would take 106 GB. The draft is
-# the same model as a causal decoder
-MLA_LAYERS = 4
+# one of its 3 dense mla prefix layers and 1 mla_moe layer of its 61, at the published
+# widths: 51.0 GB of float32 weights of the card's 80 (the mla_moe layer's 256 routed
+# experts are 45.1 GB); a second mla_moe layer would take 106 GB. With all 3 prefix
+# layers (60.4 GB) its serves took 56.7 s of a 941.0 s run (NVIDIA H100 80GB HBM3, 700
+# W; the draft 6641.5 ms): 2 are cut to make room for the VLM phase. The draft is the
+# same model as a causal decoder
+MLA_PREFIX = 1
+MLA_LAYERS = MLA_PREFIX + 1
 MLA_HEADS, MLA_QK_DIM, MLA_V_DIM = 128, 192, 128     # qk_nope 128 + qk_rope 64; v 128
 MLA_SMOKE_DIMS = (48, 32)                            # the smoke config's qk 32 + 16; v 32
 MLA_SERVES = 2
@@ -4705,7 +4738,7 @@ def check_absorbed_first_step(model, absorbed, prompt):
 
 
 def mla_serve():
-    """deepseek-v3-671b at its published widths, its 3 dense mla layers and 1
+    """deepseek-v3-671b at its published widths, one of its 3 dense mla layers and 1
     mla_moe layer (256 experts top-8 beside a shared one; float32, seed 0),
     served through ``WarmStartServer`` at MLA_ROWS x SEQ, t0 = 0.8,
     cold_nfe = 64 (13 NFE; flash_attn<192, 128> in every layer and the
@@ -4736,7 +4769,8 @@ def mla_serve():
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     rows = MLA_ROWS
-    cfg = get_config(MLA_ARCH).replace(dtype="float32", num_layers=MLA_LAYERS)
+    cfg = get_config(MLA_ARCH).replace(dtype="float32", num_layers=MLA_LAYERS,
+                                       prefix=("mla",) * MLA_PREFIX)
     model = Model(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_start
@@ -4882,7 +4916,7 @@ def mla_serve():
 
 def mla_path():
     """The MLA family's phase: the kernels at deepseek-v3-671b's shapes, its
-    serve at published widths (the 3 dense layers and one MoE layer), the
+    serve at published widths (one dense layer and one MoE layer), the
     smoke config served and trained 3 steps card == CPU, all within
     MLA_PHASE_S. Returns (the {"mla": ...} record, the serves' launches)."""
     t0 = time.perf_counter()
@@ -4896,6 +4930,407 @@ def mla_path():
           f"and trained): {res['phase_seconds']:.1f} s (limit {MLA_PHASE_S})")
     if res["phase_seconds"] > MLA_PHASE_S:
         fail(f"the MLA phase took {res['phase_seconds']:.1f} s, over its {MLA_PHASE_S} s")
+    return res, counts
+
+
+# -- the VLM family ----------------------------------------------------------------
+
+VLM_ARCH = "qwen2-vl-72b"
+VLM_ROWS = 8
+# 4 of its 80 layers at the published widths: 3.51 GB of float32 weights a layer, with the
+# embedding (4.98 GB), the head (4.98) and patch_proj (0.04) 24.1 GB of the card's 80. The
+# draft is the same model as a causal decoder on the text alone (the engine's plain path:
+# the draft kernels refuse the VLM, as JAX's rule does)
+VLM_LAYERS = 4
+VLM_SERVES = 2
+VLM_HEADS, VLM_KV_HEADS, VLM_HEAD_DIM = 64, 8, 128
+VLM_GRID = (16, 16)          # one image's merged grid: its 256 patches, text from id 16
+VLM_SMOKE_GRID = (2, 4)      # the smoke config's 8 patches
+VLM_PATCH_SEED = 7           # the patches: 0.1 N(0, 1) from numpy, as whisper's frames
+VLM_LOGIT_TOKENS = 64        # the logits at 1 x (256 + 64) against a float64 forward
+VLM_F64_TOL = 1e-4           # x max(1, max |float64 logit|)
+VLM_SMOKE_SEQ = 32           # the smoke config's forward and serve, 2 x 32 after 8 patches
+VLM_SMOKE_TOL = 1e-4         # the smoke forward on the card against the CPU, x max(1, max |logit|)
+
+
+def vlm_patches(cfg, rows, device="cuda"):
+    """(rows, num_vision_tokens, 1280) float32: 0.1 N(0, 1), numpy seed
+    VLM_PATCH_SEED (the ViT frontend's stub, as in JAX)."""
+    import numpy as np
+    from repro_torch.models.model import VISION_DIM
+
+    rng = np.random.default_rng(VLM_PATCH_SEED)
+    patches = 0.1 * rng.standard_normal((rows, cfg.num_vision_tokens, VISION_DIM))
+    return torch.from_numpy(patches.astype(np.float32)).to(device)
+
+
+def check_vlm_flash(seed):
+    """flash_attn<128> at qwen2-vl-72b's refine shape (8, 256 patches + 256
+    text, 64 heads over 8 KV heads, 128), bidirectional, q and k rotated by
+    M-RoPE at Qwen2-VL's ids, against its plain version."""
+    from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+    from repro_torch.models.rope import apply_rope, mrope_angles, vlm_positions
+
+    rows, s = VLM_ROWS, VLM_GRID[0] * VLM_GRID[1] + SEQ
+    q, k, v = flash_inputs(rows, s, VLM_HEADS, VLM_KV_HEADS, VLM_HEAD_DIM, seed)
+    pos = vlm_positions(rows, VLM_GRID, SEQ, device="cuda")
+    sin, cos = mrope_angles(pos, VLM_HEAD_DIM, 1e6, (16, 24, 24))
+    q, k = apply_rope(q, sin, cos), apply_rope(k, sin, cos)
+    got = flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q, k, v, causal=False)
+    err = float((got - want).abs().max())
+    print(f"flash_attn at qwen2-vl-72b's refine (B={rows} S={s} H={VLM_HEADS} "
+          f"KH={VLM_KV_HEADS} D={VLM_HEAD_DIM}, M-RoPE rotated, bidirectional): max abs err "
+          f"{err:.3e} (limit {FLASH_TOL})")
+    if not math.isfinite(err) or err > FLASH_TOL:
+        fail(f"flash_attn kernel disagrees with its plain version at the VLM shape: {err}")
+    return err
+
+
+def vlm_kernel_gates():
+    """The kernels at qwen2-vl-72b's serve shapes against their plain
+    versions: flash_attn<128> at (8, 512, 64 heads, kv 8, 128), M-RoPE
+    rotated (:func:`check_vlm_flash`), and ws_step at (2048, 152 064), the
+    device-key launch against the host key's too."""
+    flash = check_vlm_flash(110)
+    ws = check_ws_step(VLM_ROWS * SEQ, 152064, 1.0, 111)
+    keys = check_device_keys(VLM_ROWS * SEQ, 152064, 112)
+    return {"flash_attn": flash, "ws_step": ws["max_abs_err"], "ws_check": ws,
+            "device_keys": keys}
+
+
+def vlm_measure():
+    """Device times at qwen2-vl-72b's serve shapes beside the plain versions,
+    SDPA (KV repeated) and the bounds: flash_attn at (8, 512, 64, kv 8, 128)
+    and ws_step at (2048, 152 064)."""
+    s = VLM_GRID[0] * VLM_GRID[1] + SEQ
+    return {"flash_attn": measure_flash(VLM_ROWS, s, VLM_HEADS, VLM_HEAD_DIM,
+                                        kh=VLM_KV_HEADS),
+            "ws_step": measure_ws_step(VLM_ROWS * SEQ, 152064, plain_n=2)}
+
+
+def vlm_float64_logits(model, tokens, patches, positions, t, device="cuda"):
+    """``dfm_apply(tokens, t, extras={"patches", "positions"})`` of a VLM
+    ``Model`` in float64 on ``device`` from its weights, written out here
+    apart from the model's code: the projected patches before the token
+    rows, the time embedding at every position, each layer's rmsnorm,
+    q/k/v, M-RoPE at ``positions``, softmax attention over every position
+    (GQA), the gated SiLU MLP, the final norm and the head on the text rows.
+    A layer's weights are copied to ``device`` one layer at a time."""
+    import torch.nn.functional as F
+
+    cfg = model.cfg
+    if (cfg.use_bias or cfg.qk_norm or cfg.embed_scale or not cfg.mlp_gated or cfg.act != "silu"
+            or cfg.norm != "rmsnorm" or cfg.tie_embeddings):
+        fail(f"{cfg.name}: the float64 forward covers an untied rmsnorm SwiGLU stack without "
+             f"biases, qk-norm or embedding scale")
+
+    def f64(w):
+        return w.detach().to(device=device, dtype=torch.float64)
+
+    def rms(norm, x):
+        y = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + norm.eps)
+        return y * (1.0 + f64(norm.scale))
+
+    def rope(x, sin, cos):
+        half = x.shape[-1] // 2
+        x1, x2 = x[..., :half], x[..., half:]
+        sin, cos = sin[:, :, None], cos[:, :, None]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+    with torch.no_grad():
+        x = f64(model.embed.table[tokens.long()])
+        x = torch.cat([f64(patches) @ f64(model.patch_proj.w), x], dim=1)
+        half = model.time.dim // 2
+        ar = torch.arange(half, dtype=torch.float64, device=device)
+        ang = f64(t)[:, None] * torch.exp(-math.log(10000.0) * ar / half)[None] * 1000.0
+        feats = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+        x = x + (F.silu(feats @ f64(model.time.w1.w)) @ f64(model.time.w2.w))[:, None]
+        b, s, _ = x.shape
+        h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        # M-RoPE: frequency slot i of the rotary half turns by its section's stream
+        ar = torch.arange(hd // 2, dtype=torch.float64, device=device)
+        sec = torch.cat([torch.full((n,), j, dtype=torch.long)
+                         for j, n in enumerate(cfg.mrope_sections)]).to(device)
+        ang = (positions.to(device)[sec].movedim(0, -1).double()
+               * cfg.rope_theta ** (-ar / (hd // 2)))
+        sin, cos = torch.sin(ang), torch.cos(ang)
+        for block in model.blocks:
+            a = block.attn
+            hin = rms(block.ln1, x)
+            q = rope((hin @ f64(a.wq.w)).reshape(b, s, h, hd), sin, cos)
+            k = rope((hin @ f64(a.wk.w)).reshape(b, s, kh, hd), sin, cos)
+            v = (hin @ f64(a.wv.w)).reshape(b, s, kh, hd)
+            k, v = (z.repeat_interleave(h // kh, dim=2) for z in (k, v))
+            scores = torch.einsum("bshd,bthd->bhst", q, k) / math.sqrt(hd)
+            out = torch.einsum("bhst,bthd->bshd", torch.softmax(scores, dim=-1), v)
+            x = x + out.reshape(b, s, h * hd) @ f64(a.wo.w)
+            hin = rms(block.ln2, x)
+            m = block.mlp
+            x = x + (F.silu(hin @ f64(m.gate.w)) * (hin @ f64(m.up.w))) @ f64(m.down.w)
+        x = rms(model.final_norm, x[:, patches.shape[1]:])
+        return x @ f64(model.head.w)
+
+
+def check_vlm_logits(model, tokens, patches, positions, t):
+    """qwen2-vl-72b's dfm_apply at 1 x (256 patches + len(tokens)) with
+    Qwen2-VL's ids through the kernels on the card against
+    :func:`vlm_float64_logits`, within VLM_F64_TOL x max(1, max |logit|).
+    The float64 forward runs on the card: on the host (8 cores) it took 29.8
+    s of the phase (NVIDIA H100 80GB HBM3 machine, 700 W)."""
+    extras = {"patches": patches, "positions": positions}
+    t_f64 = time.perf_counter()
+    with torch.inference_mode():
+        got = model.dfm_apply(tokens, t, extras=extras).double()
+    want = vlm_float64_logits(model, tokens, patches, positions, t)
+    f64_s = time.perf_counter() - t_f64
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"full-width dfm_apply ({model.cfg.name}), 1 x ({patches.shape[1]} patches + "
+          f"{tokens.shape[1]} tokens), card kernels vs a float64 forward (plain torch): max abs "
+          f"err {err:.3e} (logits up to {scale:.2f}; limit {VLM_F64_TOL} x max(1, max|logit|)); "
+          f"{f64_s:.1f} s")
+    if not math.isfinite(err) or err > VLM_F64_TOL * max(1.0, scale):
+        fail(f"full-width logits of {model.cfg.name} disagree with float64: {err}")
+    return {"config": model.cfg.name, "tokens": list(tokens.shape),
+            "patches": patches.shape[1], "max_abs_err": err, "max_abs_logit": scale,
+            "tolerance": f"{VLM_F64_TOL} x max(1, max|logit|)", "seconds": f64_s}
+
+
+def vlm_serve():
+    """qwen2-vl-72b at its published widths, VLM_LAYERS of its 80 layers
+    (float32, seed 0), served through ``WarmStartServer`` on
+    ``Conditioned(model, {"patches", "positions"})``: VLM_ROWS x SEQ text
+    tokens after 256 patches a row (:func:`vlm_patches`) at Qwen2-VL's ids
+    (``vlm_positions``: the patches at (0, row, col) of a 16 x 16 grid, the
+    text from 16), t0 = 0.8, cold_nfe = 64 (13 NFE), drafted by the same
+    model as a causal decoder on the text alone (the plain decode path, the
+    prompt prefilled by scan, the decode one graph replay). Two serves.
+    Gates: NFE == warm_nfe, exact launches a serve (``flash_attn`` 4 a NFE,
+    ``ws_step`` 1; no draft kernel; the first serve twice that), one capture
+    each, the second serve's replay == its eager launches bitwise, the
+    refine graph reading the patches' storage (rows flipped in place: the
+    tokens move; the eager check runs after they are flipped back), the
+    logits at 1 x (256 + 64) against float64 (:func:`check_vlm_logits`).
+    Reports draft, flow and per-NFE ms, samples/s, the draft cost ratio,
+    peak memory and the flow stage's busy share (the flipped serve,
+    profiled, its draft given)."""
+    from repro_torch import prng
+    from repro_torch.configs import get_config
+    from repro_torch.core.guarantees import warm_nfe
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.core.sampler import refine_loop_inputs
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels import launches
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Conditioned, Model
+    from repro_torch.models.rope import vlm_positions
+    from repro_torch.serving import WarmStartServer
+
+    t_start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rows = VLM_ROWS
+    cfg = get_config(VLM_ARCH).replace(dtype="float32", num_layers=VLM_LAYERS)
+    model = Model(cfg, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    weights_gb = torch.cuda.memory_allocated() / 2 ** 30
+    adapter = TransformerDraftAdapter(model=model, decode_impl="xla")
+    engine = ARDraftEngine(adapter, max_len=MAX_LEN)
+    if adapter.exact_batched_prefill or engine.prefill_mode != "scan":
+        fail(f"{VLM_ARCH}: the draft must take the plain path with a scanned prefill")
+    n_params = sum(p.numel() for p in model.parameters())
+    patches = vlm_patches(cfg, rows)
+    positions = vlm_positions(rows, VLM_GRID, SEQ, device="cuda")
+    prompt = draft_prompt(rows, cfg.vocab_size)
+    draft = LastDraft(lambda rng, num: engine.generate_rows(prng.split(rng, num), SEQ, prompt))
+    path = WarmStartPath(t0=T0)
+    server = WarmStartServer(
+        flow_model=Conditioned(model, {"patches": patches, "positions": positions}),
+        flow_cfg=cfg, draft_generate=draft, path=path, cold_nfe=COLD_NFE,
+        step_fn=make_ws_step_fn(path), device="cuda")
+    nfe = warm_nfe(COLD_NFE, T0)
+    per_serve = {"ws_step": nfe, "flash_attn": nfe * VLM_LAYERS}
+
+    launches.clear()
+    reports, outs = [], []
+    for i in range(VLM_SERVES):
+        before = dict(launches)
+        rng = prng.key(700 + i)
+        served, rep = server.serve(rng, rows)
+        grew = grown(before)
+        want = {k: 2 * n if i == 0 else n for k, n in per_serve.items()}   # capture warm-ups
+        if grew != want:
+            fail(f"{VLM_ARCH} serve {i}: launches {grew}, expected {want}")
+        if not (rep["nfe"] == rep["backbone_evals"] == nfe):
+            fail(f"{VLM_ARCH} serve {i}: nfe {rep['nfe']} backbone_evals "
+                 f"{rep['backbone_evals']}, guaranteed {nfe}")
+        if served.shape != (rows, SEQ) or int(served.min()) < 0 \
+                or int(served.max()) >= cfg.vocab_size:
+            fail(f"{VLM_ARCH} serve {i}: tokens {tuple(served.shape)} outside "
+                 f"[0, {cfg.vocab_size})")
+        reports.append(rep)
+        outs.append(served)
+    counts = dict(launches)
+    caps = (engine.graphs.captures, server.graphs.captures)
+    if caps != (1, 1) or engine.stats.prefill_reuses != VLM_SERVES - 1:
+        fail(f"{VLM_ARCH}: {VLM_SERVES} serves must capture the decode and the refine once "
+             f"each and reuse the prefix: captures {caps}, {engine.stats.as_dict()}")
+    print(f"vlm path: {VLM_ARCH} ({n_params / 1e9:.3f}B params, float32, {VLM_LAYERS} of 80 "
+          f"layers, {weights_gb:.2f} GiB of weights, init {init_s:.1f} s) x {VLM_SERVES} "
+          f"serves of {rows} x ({patches.shape[1]} patches + {SEQ} tokens), drafted by the "
+          f"same model as a causal decoder on the text, t0={T0}, cold_nfe={COLD_NFE}: nfe "
+          f"{nfe} per serve, guarantee gate passed, launches {counts} (per serve {per_serve}, "
+          f"the first twice that); capture ms (warm-up and capture): decode "
+          f"{engine.graphs.stats()['capture_ms']}, refine {server.graphs.stats()['capture_ms']}")
+
+    # the refine graph reads the patches' storage: flip the rows in place and serve the
+    # second serve's draft with its key again (profiled: the flow stage); then flip them back
+    given = draft.last
+    server.draft_generate = lambda rng, num: given
+    holder = {}
+    patches.copy_(torch.flip(patches, dims=[0]))
+
+    def run():
+        holder["x"], holder["rep"] = server.serve(rng, rows)
+
+    flow_prof = _profile(run, f"{VLM_ARCH} serve with its draft given and the patches' rows "
+                              f"flipped in place (the flow stage)")
+    flow_prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
+    patches.copy_(torch.flip(patches, dims=[0]))
+    # the second serve's replay against its eager launches on the same draft and keys
+    k_flow = prng.split(rng, 2)[1]
+    keys, ts, hs = refine_loop_inputs(k_flow, T0, 1.0 / COLD_NFE, nfe)
+    t_eager = time.perf_counter()
+    with torch.inference_mode():
+        eager = server._refine_loop_eager(keys, given, ts, hs)
+    torch.cuda.synchronize()
+    vs_eager = {"differ": int((outs[-1] != eager).sum()),
+                "eager_flow_ms": (time.perf_counter() - t_eager) * 1e3,
+                "flipped_patches_differ": int((holder["x"] != outs[-1]).sum()),
+                "captures": server.graphs.captures}
+    print(f"{VLM_ARCH} second serve's refine (graph) vs its eager launches (bitwise), and the "
+          f"tokens moved by the patches flipped in place: {vs_eager}")
+    if vs_eager["differ"] or server.graphs.captures != 1 \
+            or not vs_eager["flipped_patches_differ"]:
+        fail(f"{VLM_ARCH}: the refine's graph disagrees with its eager launches or does not "
+             f"read the patches in place: {vs_eager}")
+    engine.reset()
+    server.graphs.clear()
+    gc_collect()
+    t_one = torch.full((1,), T0, device="cuda")
+    logits = check_vlm_logits(model, outs[-1][:1, :VLM_LOGIT_TOKENS], patches[:1],
+                              vlm_positions(1, VLM_GRID, VLM_LOGIT_TOKENS, device="cuda"),
+                              t_one)
+    steady = reports[-1]
+    res = {
+        "config": VLM_ARCH, "dtype": cfg.dtype, "params": n_params, "layers": VLM_LAYERS,
+        "rows": rows, "seq_len": SEQ, "patches": patches.shape[1], "grid": list(VLM_GRID),
+        "t0": T0, "cold_nfe": COLD_NFE, "nfe": nfe, "serves": VLM_SERVES,
+        "weights_gib": weights_gb, "init_s": init_s,
+        "draft": {"config": VLM_ARCH + " (the flow model as a causal decoder, text only)",
+                  "prompt": PROMPT, "max_len": MAX_LEN, "decode_steps": SEQ - 1,
+                  "prefill": engine.prefill_mode, "decode_impl": adapter.decode_impl,
+                  "stats": engine.stats.as_dict()},
+        "warmup_draft_ms": reports[0]["draft_time_s"] * 1e3,
+        "warmup_flow_ms": reports[0]["flow_time_s"] * 1e3,
+        "draft_ms": steady["draft_time_s"] * 1e3,
+        "flow_ms": steady["flow_time_s"] * 1e3,
+        "per_nfe_ms": steady["per_nfe_s"] * 1e3,
+        "samples_per_s": rows / (steady["draft_time_s"] + steady["flow_time_s"]),
+        "draft_cost_ratio": steady["speedup_report"].draft_cost_ratio,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "flow_busy_share": flow_prof.get("busy_share"), "flow_profile": flow_prof,
+        "launches_per_serve": per_serve, "vs_eager": vs_eager, "logits_vs_float64": logits,
+        "capture_ms": {"decode": engine.graphs.stats()["capture_ms"],
+                       "refine": server.graphs.stats()["capture_ms"]},
+    }
+    del model, adapter, engine, server, holder, draft, given, outs, patches, positions
+    gc_collect()
+    res["seconds"] = time.perf_counter() - t_start
+    print(f"{VLM_ARCH} serve ({rows} x {SEQ} after {res['patches']} patches, {nfe} NFE): draft "
+          f"{res['draft_ms']:.1f} ms, flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.2f} ms "
+          f"an NFE), {res['samples_per_s']:.3f} samples/s, draft cost ratio "
+          f"{res['draft_cost_ratio']:.2f}, peak memory {res['peak_memory_gb']:.2f} GiB, flow "
+          f"busy {res['flow_busy_share']}; {res['seconds']:.1f} s")
+    return res, counts
+
+
+def check_vlm_smoke_against_cpu():
+    """qwen2-vl-72b's smoke config (seed 3) on the card and on the CPU, same
+    weights, 2 x (8 patches + VLM_SMOKE_SEQ tokens) at Qwen2-VL's ids of a 2
+    x 4 grid: ``dfm_apply`` (the kernel path) and the causal forward (masked
+    by the temporal ids, plain torch) within VLM_SMOKE_TOL x max(1, max
+    |logit|); a serve through ``Conditioned`` (t0 = 0.8, cold_nfe = 16)
+    drafted by a second smoke model (seed 4) on the text: the tokens equal."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.paths import WarmStartPath
+    from repro_torch.drafting import ARDraftEngine, TransformerDraftAdapter
+    from repro_torch.kernels.ws_step import make_ws_step_fn
+    from repro_torch.models import Conditioned, Model
+    from repro_torch.models.rope import vlm_positions
+    from repro_torch.serving import WarmStartServer
+
+    cfg = get_smoke_config(VLM_ARCH)
+    rows, seq = 2, VLM_SMOKE_SEQ
+    patches = vlm_patches(cfg, rows, device="cpu")
+    positions = vlm_positions(rows, VLM_SMOKE_GRID, seq)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (rows, seq))
+                              .astype(np.int32))
+    t = torch.tensor([0.7, 0.9])
+    prompt = draft_prompt(rows, cfg.vocab_size)[:, :4]
+    out = {}
+    for device in ("cuda", "cpu"):
+        flow = Model(cfg, device="cpu", seed=3).to(device)
+        extras = {"patches": patches.to(device), "positions": positions.to(device)}
+        with torch.inference_mode():
+            dfm = flow.dfm_apply(tokens.to(device), t.to(device), extras=extras).cpu()
+            causal = flow(tokens.to(device), **extras).cpu()
+        eng = ARDraftEngine(TransformerDraftAdapter(model=Model(cfg, device="cpu", seed=4)
+                                                    .to(device)), max_len=4 + seq - 1)
+        path = WarmStartPath(t0=T0)
+        server = WarmStartServer(
+            flow_model=Conditioned(flow, extras), flow_cfg=cfg, path=path, cold_nfe=16,
+            draft_generate=lambda rng, num, eng=eng: eng.generate_rows(
+                prng.split(rng, num), seq, prompt),
+            step_fn=make_ws_step_fn(path, device=device), device=device)
+        out[device] = (dfm, causal, server.serve(prng.key(5), rows)[0].cpu())
+    res = {"differ": int((out["cuda"][2] != out["cpu"][2]).sum())}
+    for i, name in enumerate(("dfm_apply", "causal_forward")):
+        res[name] = {"max_abs_err": float((out["cuda"][i] - out["cpu"][i]).abs().max()),
+                     "max_abs_logit": float(out["cpu"][i].abs().max())}
+    print(f"{cfg.name} on the card vs the CPU ({rows} x (8 patches + {seq} tokens)): {res}")
+    if res["differ"] or any(r["max_abs_err"] > VLM_SMOKE_TOL * max(1.0, r["max_abs_logit"])
+                            or not math.isfinite(r["max_abs_err"])
+                            for r in (res["dfm_apply"], res["causal_forward"])):
+        fail(f"{cfg.name} on the card disagrees with the CPU: {res}")
+    return res
+
+
+def vlm_path():
+    """The VLM family's phase: the kernels at qwen2-vl-72b's shapes, its
+    serve at published widths (4 of 80 layers), the smoke config's forward,
+    serve and 3 train steps card == CPU. Returns (the {"vlm": ...} record,
+    the serves' launches)."""
+    t0 = time.perf_counter()
+    gc_collect()
+    res = {"kernel_errors": vlm_kernel_gates(), "kernels": vlm_measure()}
+    res[VLM_ARCH], counts = vlm_serve()
+    res["smoke_vs_cpu"] = check_vlm_smoke_against_cpu()
+    res["smoke_train_vs_cpu"] = check_train_zoo_smoke_against_cpu((VLM_ARCH,))
+    res["phase_seconds"] = time.perf_counter() - t0
+    res["card"] = card_line()
+    fl, ws, serve = res["kernels"]["flash_attn"], res["kernels"]["ws_step"], res[VLM_ARCH]
+    print(f"vlm phases (kernel gates, measurements, {VLM_ARCH} serves, smoke config forward, "
+          f"served and trained): {res['phase_seconds']:.1f} s on {res['card']}; "
+          f"{serve['samples_per_s']:.3f} samples/s, draft {serve['draft_ms']:.1f} ms, flow "
+          f"{serve['flow_ms']:.1f} ms ({serve['per_nfe_ms']:.2f} ms an NFE), busy "
+          f"{serve['flow_busy_share']}, peak {serve['peak_memory_gb']:.2f} GiB; flash_attn "
+          f"{fl['ms']:.4f} ms (bound {fl['bound_ms']:.4f}, {fl['bound_by']}; plain "
+          f"{fl['plain_ms']:.4f}, SDPA {fl['library_ms']:.4f}), ws_step {ws['ms']:.4f} ms "
+          f"(bound {ws['bound_ms']:.4f}, {ws['bound_by']}; plain {ws['plain_ms']:.2f})")
     return res, counts
 
 
@@ -5269,6 +5704,12 @@ def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
         if cfg.is_encoder_decoder:
             for b in batches:
                 b["frames"] = encdec_frames(cfg, 2, device="cpu")
+        if cfg.family == "vlm":
+            from repro_torch.models.rope import vlm_positions
+
+            for b in batches:
+                b["patches"] = vlm_patches(cfg, 2, device="cpu")
+                b["positions"] = vlm_positions(2, VLM_SMOKE_GRID, 24)
         out = {}
         for dev, model in (("cuda", card), ("cpu", host)):
             opt = build_optimizer(run)
@@ -5685,6 +6126,7 @@ def main() -> int:
     encdec, encdec_counts = encdec_path()
     moe, moe_counts = moe_path()
     mla, mla_counts = mla_path()
+    vlm, vlm_counts = vlm_path()
     train_zoo, train_zoo_counts = train_zoo_path()
     examples = examples_path()
 
@@ -5838,6 +6280,17 @@ def main() -> int:
                      "max_abs_err": mla_errs["ws_step"], "shape": [MLA_ROWS * SEQ, 129280],
                      "device_key_differ": mla_errs["device_keys"]["differ"],
                      **mla_num["ws_step"]}
+    vlm_errs, vlm_num = vlm["kernel_errors"], vlm["kernels"]
+    rec_flash["max_abs_err"] = max(rec_flash["max_abs_err"], vlm_errs["flash_attn"])
+    rec_flash["vlm"] = {"config": VLM_ARCH, "launches": vlm_counts.get("flash_attn", 0),
+                        "launches_per_serve": vlm[VLM_ARCH]["launches_per_serve"]["flash_attn"],
+                        "max_abs_err": vlm_errs["flash_attn"], **vlm_num["flash_attn"]}
+    rec_ws["max_abs_err"] = max(rec_ws["max_abs_err"], vlm_errs["ws_step"])
+    rec_ws["vlm"] = {"config": VLM_ARCH, "launches": vlm_counts.get("ws_step", 0),
+                     "launches_per_serve": vlm[VLM_ARCH]["launches_per_serve"]["ws_step"],
+                     "max_abs_err": vlm_errs["ws_step"], "shape": [VLM_ROWS * SEQ, 152064],
+                     "device_key_differ": vlm_errs["device_keys"]["differ"],
+                     **vlm_num["ws_step"]}
     in_serve = serve["profile"].get("by_kind_ms") or {}
     for k in kernels:
         # device ms a launch took inside the profiled (steady) serve
@@ -5858,6 +6311,7 @@ def main() -> int:
     print(json.dumps({"encdec": encdec}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"mla": mla}))
+    print(json.dumps({"vlm": vlm}))
     print(json.dumps({"train_zoo": train_zoo}))
     print(json.dumps({"examples": examples}))
     print(card)

@@ -9,13 +9,14 @@ family (``zamba2-2.7b``: Mamba2 with Zamba2's shared attention;
 (``whisper-medium``), the MoE family (``arctic-480b``: top-2 of 128
 experts beside a dense residual FFN) and the MLA family
 (``deepseek-v3-671b``: multi-head latent attention, three dense prefix
-layers, then top-8 of 256 experts beside a shared one, MTP depth 1). The
-rest of the zoo (the VLM family) raises.
+layers, then top-8 of 256 experts beside a shared one, MTP depth 1) and
+the VLM family (``qwen2-vl-72b``: M-RoPE over (t, h, w) position ids, a
+prefix of projected patch embeddings). That is the whole of the JAX zoo.
 """
 
 from repro_torch.configs import (
     arctic_480b, command_r_plus_104b, deepseek_v3_671b, dfm_dit, gemma3_1b, minitron_4b,
-    starcoder2_3b, whisper_medium, xlstm_1_3b, zamba2_2_7b,
+    qwen2_vl_72b, starcoder2_3b, whisper_medium, xlstm_1_3b, zamba2_2_7b,
 )
 from repro_torch.configs.base import ModelConfig, RunConfig
 
@@ -30,18 +31,18 @@ _MODULES = {
     "whisper-medium": whisper_medium,
     "arctic-480b": arctic_480b,
     "deepseek-v3-671b": deepseek_v3_671b,
+    "qwen2-vl-72b": qwen2_vl_72b,
 }
 
-# the JAX registry's other ids, by the family the port still lacks
-_NOT_PORTED = {"qwen2-vl-72b": "VLM"}
+# the JAX registry's other ids, by the family the port still lacks (none since the VLM)
+_NOT_PORTED: dict = {}
 
 
 def _module(arch: str):
     if arch in _NOT_PORTED:
         raise NotImplementedError(
             f"arch {arch!r} is not ported to repro_torch yet: its {_NOT_PORTED[arch]} "
-            f"layers are missing (the VLM family); "
-            f"available: {list_archs()}")
+            f"layers are missing; available: {list_archs()}")
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     return _MODULES[arch]

@@ -15,6 +15,16 @@ here it runs through the ``flash_attn`` kernel (its plain version on the
 CPU), which the tests hold against ``_sdpa``. The mask (JAX ``attn_mask``)
 lives in the kernel and in ``kernels/flash_attn/ref.py::attention_mask``.
 
+Given position ids (``q_pos``: a VLM batch's temporal stream, where 256
+patches share id 0 and the text starts at 16), JAX's masks compare ids, not
+indices: an uncached causal query sees every key whose id is at most its
+own (``k_pos = q_pos``), a window keeps ids within ``window``. That is not
+index-causal, so such a forward (causal, or with a window) runs in plain
+torch under the mask built from the ids (:func:`position_mask`), as the
+cached path does; a bidirectional forward without a window masks nothing
+and keeps the kernel. The serve's refine and training are bidirectional
+without a window: the causal forward with ids is off the main path.
+
 With a cache (``forward_cached``, the AR decode/prefill path) the chunk's
 k/v are written into the cache buffers at the cache's cursor and the
 queries attend over the whole buffer under the causal and cache-validity
@@ -71,6 +81,37 @@ def _cache_mask(q_pos: torch.Tensor, start: torch.Tensor, s: int, t: int,
     return mask
 
 
+def position_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, mode: str,
+                  window: Optional[int]) -> torch.Tensor:
+    """(B, S, T) boolean, True where the query at id ``q_pos`` (B, S) sees
+    the key at id ``k_pos`` (B, T) (JAX ``attn_mask`` without ``k_valid``):
+    causal ``k <= q``; a window keeps ``q - window < k <= q`` (causal) or
+    ``|k - q| < window`` (bidirectional)."""
+    q, k = q_pos[:, :, None], k_pos[:, None, :]
+    mask = torch.ones(torch.broadcast_shapes(q.shape, k.shape), dtype=torch.bool,
+                      device=q_pos.device)
+    if mode == "causal":
+        mask = mask & (k <= q)
+    if window is not None:
+        mask = (mask & (k > q - window) & (k <= q) if mode != "bidir"
+                else mask & ((k - q).abs() < window))
+    return mask
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Plain GQA attention (JAX ``_sdpa``): q (B, S, H, D), k and v (B, T, KH,
+    D), mask (B, S, T) -> (B, S, H * D); scores in float32, a masked score
+    NEG_INF."""
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    qh = q.reshape(b, s, kh, h // kh, d)
+    scores = torch.einsum("bskgd,btkd->bkgst", qh, k).float() * scale
+    scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(b, s, h * v.shape[-1])
+
+
 def _write_at_cursor(start: torch.Tensor, *pairs) -> None:
     """Each ``(buf (B, T, ...), x (B, S, ...))`` of ``pairs``: ``x`` into
     ``buf`` at rows ``start..start+S-1``, in place. The cursor stays a tensor
@@ -121,12 +162,18 @@ class GQAAttention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, *, sin: Optional[torch.Tensor],
-                cos: Optional[torch.Tensor], mode: str,
-                window: Optional[int] = None) -> torch.Tensor:
+                cos: Optional[torch.Tensor], mode: str, window: Optional[int] = None,
+                q_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Without a cache. ``q_pos`` (B, S), a VLM batch's temporal ids: a
+        causal or windowed forward masks by them in plain torch (see the
+        module docstring); otherwise the ``flash_attn`` kernel."""
         b, s, _ = x.shape
         q, k, v = self._qkv(x, sin, cos)
-        out = flash_attention(q, k, v, causal=mode == "causal", window=window,
-                              scale=1.0 / math.sqrt(self.hd))
+        scale = 1.0 / math.sqrt(self.hd)
+        if q_pos is not None and (mode == "causal" or window is not None):
+            out = masked_attention(q, k, v, position_mask(q_pos, q_pos, mode, window), scale)
+            return self.wo(out)
+        out = flash_attention(q, k, v, causal=mode == "causal", window=window, scale=scale)
         return self.wo(out.reshape(b, s, self.h * self.hd))
 
     def forward_cached(self, x: torch.Tensor, cache: dict, *, sin: Optional[torch.Tensor],
@@ -143,13 +190,8 @@ class GQAAttention(nn.Module):
         start = cache["pos"]
         _write_at_cursor(start, (kbuf, k), (vbuf, v))
         mask = _cache_mask(q_pos, start, s, kbuf.shape[1], window)
-        g = self.h // self.kh
-        qh = q.reshape(b, s, self.kh, g, self.hd)
-        kf, vf = kbuf.to(x.dtype), vbuf.to(x.dtype)
-        scores = torch.einsum("bskgd,btkd->bkgst", qh, kf).float() * (1.0 / math.sqrt(self.hd))
-        scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(vf.dtype)
-        out = torch.einsum("bkgst,btkd->bskgd", probs, vf).reshape(b, s, self.h * self.hd)
+        out = masked_attention(q, kbuf.to(x.dtype), vbuf.to(x.dtype), mask,
+                               1.0 / math.sqrt(self.hd))
         new_cache = {"k": kbuf, "v": vbuf, "pos": cache["pos"] + s}
         return self.wo(out), new_cache
 

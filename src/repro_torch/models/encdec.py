@@ -284,8 +284,9 @@ class Conditioned:
     """A model's ``dfm_apply`` with its extras bound: ``dfm_apply(tokens, t)``
     calls ``model.dfm_apply(tokens, t, extras=extras)``, so a caller that
     takes the unconditioned signature (``WarmStartServer``) serves an
-    :class:`EncDecModel` on a fixed batch of frames. A CUDA graph captured
-    through it reads the frames' storage: change them in place (``copy_``),
+    :class:`EncDecModel` on a fixed batch of frames, or a VLM ``Model`` on a
+    fixed batch of ``{"patches", "positions"}``. A CUDA graph captured
+    through it reads the extras' storage: change them in place (``copy_``),
     never by rebinding."""
 
     def __init__(self, model, extras: dict):

@@ -5,7 +5,8 @@ RoPE, qk-norm, post-norms and scaled embeddings, for the recurrent
 family: Mamba2 and Zamba2's shared attention, mLSTM and sLSTM, for the
 MoE family: the ``moe``/``moe_res`` layers of ``models/moe.py``, and for
 DeepSeek-V3's MLA: the ``mla``/``mla_moe`` layers, dense prefix layers
-ahead of the MoE pattern, the shared expert), in
+ahead of the MoE pattern, the shared expert, and for Qwen2-VL: M-RoPE and
+the patch prefix), in
 DFM-denoiser and causal modes, with the AR serving entry points
 ``init_cache``, ``prefill`` and ``decode_step``.
 
@@ -31,6 +32,17 @@ and the shared rotary key a token), ``{"conv", "ssm", "pos"}`` for
 place; every other leaf of the cache a step returns is a new tensor.
 ``cfg.mla_absorb`` takes MLA's absorbed decode in ``prefill`` and
 ``decode_step``.
+
+A VLM config (``family="vlm"``, Qwen2-VL) holds ``patch_proj``, a
+``Dense(VISION_DIM, d_model)``. Its batches may carry ``patches`` (B, P,
+1280), the ViT's outputs (a stub: given inputs, as in JAX), projected and
+put **before** the token embeddings (the time embedding is then added at
+every position, patches included), and ``positions`` (3, B, P + S), the
+M-RoPE ids (``models/rope.py``); ``forward`` and ``prefill`` take both,
+``decode_step`` takes them as ``batch_extras``, ``dfm_apply`` as
+``extras``. As in JAX, ``patches`` count only for a VLM config and
+``positions`` only under ``rope_type="mrope"``; without ``positions`` an
+mrope config rotates by standard RoPE at the token indices.
 """
 
 from __future__ import annotations
@@ -56,6 +68,8 @@ from repro_torch.models.xlstm import init_mlstm_cache, init_slstm_cache
 
 # the cache leaves written in place (the KV and latent buffers); the others are replaced
 IN_PLACE_LEAVES = ("k", "v", "c_kv", "k_pe")
+VISION_DIM = 1280           # Qwen2-VL's ViT output width (the stub frontend's patches)
+BATCH_EXTRAS = ("patches", "positions")     # what a decoder-only batch may add to tokens
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtype,
@@ -76,18 +90,19 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int, dtyp
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless ``cfg`` is a config this port runs: the dense, ssm,
-    hybrid or MoE family with ``attn``, ``local``, ``moe``, ``moe_res``,
+    hybrid, MoE or VLM family with ``attn``, ``local``, ``moe``, ``moe_res``,
     ``mla``, ``mla_moe``, ``mamba``, ``mlstm``, ``slstm`` and ``zshared``
-    layers, layernorm or rmsnorm, standard, dual or no RoPE, qk-norm,
+    layers, layernorm or rmsnorm, standard, dual, M-RoPE (its sections
+    summing to ``head_dim / 2``) or no RoPE, qk-norm,
     post-norms and scaled embeddings allowed, float32. The MoE family and
     its kinds (``mla_moe`` included) need ``cfg.moe.num_experts > 0``; the
     MLA kinds need ``cfg.mla``; neither takes post-norms, for which JAX's
     MoE and MLA blocks hold no weights. The MoE ``shardmap`` dispatch,
-    encoder-decoder and VLM configs, the logit softcap and other dtypes
-    raise (an encoder-decoder config is ``EncDecModel``'s)."""
+    encoder-decoder configs, the logit softcap and other dtypes raise (an
+    encoder-decoder config is ``EncDecModel``'s)."""
     unsupported = []
     kinds = set(cfg.prefix + cfg.pattern)
-    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid", "moe"):
+    if cfg.is_encoder_decoder or cfg.family not in ("dense", "ssm", "hybrid", "moe", "vlm"):
         unsupported.append(f"family={cfg.family}")
     if not kinds <= set(KINDS):
         unsupported.append(f"layers={cfg.prefix + cfg.pattern}")
@@ -104,8 +119,10 @@ def check_supported(cfg: ModelConfig) -> None:
             unsupported.append("post_norms with MLA layers")
     if cfg.norm not in ("layernorm", "rmsnorm"):
         unsupported.append(f"norm={cfg.norm}")
-    if cfg.rope_type not in ("default", "none", "dual"):
+    if cfg.rope_type not in ("default", "none", "dual", "mrope"):
         unsupported.append(f"rope_type={cfg.rope_type}")
+    elif cfg.rope_type == "mrope" and sum(cfg.mrope_sections) != cfg.head_dim // 2:
+        unsupported.append(f"mrope_sections={cfg.mrope_sections} for head_dim {cfg.head_dim}")
     if cfg.act not in ("gelu", "silu", "relu"):
         unsupported.append(f"act={cfg.act}")
     if cfg.attn_logit_softcap:
@@ -133,10 +150,24 @@ class Model(nn.Module):
         # tied: the head is the embedding table, transposed (JAX ``unembed``)
         self.head = (None if cfg.tie_embeddings
                      else Dense(cfg.d_model, cfg.vocab_size, gen, dev))
+        # the VLM's projection of the ViT's patches (JAX ``patch_proj``)
+        self.patch_proj = (Dense(VISION_DIM, cfg.d_model, gen, dev) if cfg.family == "vlm"
+                           else None)
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
+
+    def _embed_inputs(self, tokens: torch.Tensor, t: Optional[torch.Tensor],
+                      patches: Optional[torch.Tensor]) -> torch.Tensor:
+        """The embedded tokens, a VLM's projected patches before them, plus
+        the time embedding at every position (JAX ``_embed_inputs``)."""
+        x = self.embed(tokens)
+        if self.patch_proj is not None and patches is not None:
+            x = torch.cat([self.patch_proj(patches.to(x.dtype)), x], dim=1)
+        if t is not None:
+            x = x + self.time(t)[:, None, :]
+        return x
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         x = self.final_norm(x)
@@ -157,6 +188,8 @@ class Model(nn.Module):
         return x, aux
 
     def forward(self, tokens: torch.Tensor, t: Optional[torch.Tensor] = None, *,
+                patches: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
                 global_window: Optional[int] = None, remat: bool = False,
                 return_aux: bool = False):
         """tokens (B, S) -> logits (B, S, V), or with ``return_aux`` (logits,
@@ -164,6 +197,10 @@ class Model(nn.Module):
         float32 zero without MoE layers), as JAX's ``forward`` returns. With
         ``t`` (B,) the model is the DFM denoiser (bidirectional attention,
         time-conditioned; recurrent layers stay causal); without, a causal LM.
+        A VLM's ``patches`` (B, P, 1280) make the logits (B, P + S, V), the
+        patches' rows first; ``positions`` (3, B, P + S) are its M-RoPE ids
+        (a causal forward then masks by their temporal stream, in plain
+        torch: ``models/attention.py``).
 
         ``remat`` checkpoints what JAX's scan checkpoints: each group of
         ``len(cfg.pattern)`` layers (``cfg.scan_split``), its activations
@@ -171,12 +208,24 @@ class Model(nn.Module):
         prefix and remainder layers are not checkpointed. ``x0`` and the
         shared block's weights enter every group, so their gradients sum
         over all of them."""
-        x = self.embed(tokens)
-        if t is not None:
-            x = x + self.time(t)[:, None, :]
+        x, auxes = self._trunk(tokens, t, patches, positions, global_window, remat)
+        logits = self._head(x)
+        if not return_aux:
+            return logits
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for aux in auxes:
+            if aux is not None:
+                total = total + aux
+        return logits, total
+
+    def _trunk(self, tokens, t, patches, positions, global_window, remat
+               ) -> Tuple[torch.Tensor, list]:
+        """(the final hidden states (B, P + S, D), the auxiliary losses of the
+        prefix, each scanned group and the remainder, None where no MoE)."""
+        x = self._embed_inputs(tokens, t, patches)
         mode = "bidir" if t is not None else "causal"
-        pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        rope = rope_context(self.cfg, pos)
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=tokens.device)
+        rope = rope_context(self.cfg, pos, mrope_positions=positions)
         ctx = (rope, mode, global_window)
         x0 = x
         npre, p = len(self.cfg.prefix), len(self.cfg.pattern)
@@ -190,23 +239,22 @@ class Model(nn.Module):
                 x, aux = self._layers(lo, lo + p, x, x0, *ctx)
             auxes.append(aux)
         x, aux = self._layers(end, len(self.blocks), x, x0, *ctx)
-        logits = self._head(x)
-        if not return_aux:
-            return logits
-        total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for aux in auxes + [aux]:
-            if aux is not None:
-                total = total + aux
-        return logits, total
+        return x, auxes + [aux]
 
     def dfm_apply(self, tokens: torch.Tensor, t: torch.Tensor, *,
                   extras: Optional[dict] = None) -> torch.Tensor:
-        """(tokens (B, N), t (B,)) -> logits: the v_theta signature the
-        sampler expects. A decoder-only config takes no batch extras."""
-        if extras:
-            raise NotImplementedError(f"{self.cfg.name}: batch extras {sorted(extras)} are "
-                                      f"not ported for decoder-only configs")
-        return self.forward(tokens, t)
+        """(tokens (B, N), t (B,)) -> logits (B, N, V): the v_theta signature
+        the sampler expects. ``extras`` may hold a VLM's ``patches`` and
+        ``positions`` (see :meth:`forward`); the patches' rows are dropped,
+        as JAX drops their logits. Here the head runs on the text rows only:
+        a row's logits are the same function of its hidden state either way,
+        and at 8 x (256 + 256) tokens and vocab 152 064 the patch rows' logits
+        alone would be 1.25 GB."""
+        kw = check_batch_extras(extras)
+        x, _ = self._trunk(tokens, t, kw.get("patches"), kw.get("positions"), None, False)
+        if self.patch_proj is not None and kw.get("patches") is not None:
+            x = x[:, kw["patches"].shape[1]:]
+        return self._head(x)
 
     # -- AR serving with a KV cache ------------------------------------------
 
@@ -250,14 +298,18 @@ class Model(nn.Module):
         leaves = cache[group][name]
         return leaves if idx is None else {k: v[idx] for k, v in leaves.items()}
 
-    def _forward_cached(self, tokens, cache, offset, global_window):
+    def _forward_cached(self, tokens, cache, offset, global_window, extras=None):
         absorb = self.cfg.mla_absorb
-        b, s = tokens.shape
-        x = self.embed(tokens)
+        kw = check_batch_extras(extras)
+        x = self._embed_inputs(tokens, None, kw.get("patches"))
+        b, s, _ = x.shape
         # offset added as it comes (an int: no copy to the card)
         q_pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
                  + offset).expand(b, s)
-        rope = rope_context(self.cfg, q_pos)
+        rope = rope_context(self.cfg, q_pos, mrope_positions=kw.get("positions"))
+        # under M-RoPE ids the masks compare their temporal stream with the
+        # buffer's indices, as JAX's do (reference fault R10)
+        q_pos = rope.get("q_pos", q_pos)
         new: dict = {"blocks": {}, "rem": {}, "pre": {}}
         stacked: dict = {}
         x0 = x
@@ -282,16 +334,37 @@ class Model(nn.Module):
                 global_window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
         """``batch["tokens"]`` (B, P) at positions 0..P-1 -> (logits of the
         last position (B, 1, V), new cache). Writes the cache buffers in
-        place (the JAX engine donates them)."""
-        x, cache = self._forward_cached(batch["tokens"], cache, 0, global_window)
+        place (the JAX engine donates them). A VLM batch's ``patches`` go
+        into the cache ahead of the tokens; its ``positions`` rotate by
+        M-RoPE, and the causal mask then compares their temporal ids with
+        the buffer's indices, as JAX's does (reference fault R10:
+        ``ROADMAP.md``)."""
+        extras = {k: batch[k] for k in BATCH_EXTRAS if k in batch}
+        x, cache = self._forward_cached(batch["tokens"], cache, 0, global_window, extras)
         return self._head(x[:, -1:]), cache
 
     def decode_step(self, tokens: torch.Tensor, cache: dict, pos, *,
+                    batch_extras: Optional[dict] = None,
                     global_window: Optional[int] = None) -> Tuple[torch.Tensor, dict]:
         """tokens (B, 1) at position ``pos`` (the current length) ->
-        (logits (B, 1, V), new cache); cache buffers written in place."""
-        x, cache = self._forward_cached(tokens, cache, pos, global_window)
+        (logits (B, 1, V), new cache); cache buffers written in place. With
+        ``batch_extras`` ``{"positions": (3, B, 1)}`` an mrope config rotates
+        by those ids (and masks by their temporal one); without, by standard
+        RoPE at ``pos``: the text-only fallback, as JAX's ``decode_step``."""
+        x, cache = self._forward_cached(tokens, cache, pos, global_window, batch_extras)
         return self._head(x), cache
+
+
+def check_batch_extras(extras: Optional[dict]) -> dict:
+    """``extras`` as a dict, checked against BATCH_EXTRAS: a decoder-only
+    model takes no other input than its tokens and these (an
+    encoder-decoder's ``frames`` raise, by name)."""
+    extras = dict(extras or {})
+    if set(extras) - set(BATCH_EXTRAS):
+        raise NotImplementedError(
+            f"batch extras {sorted(set(extras) - set(BATCH_EXTRAS))} are not ported for a "
+            f"decoder-only model: it takes only {list(BATCH_EXTRAS)}")
+    return extras
 
 
 def layer_kinds(cfg: ModelConfig) -> Tuple[str, ...]:

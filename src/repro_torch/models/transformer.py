@@ -30,6 +30,10 @@ on the ``"mla"`` angles of the rope context (``qk_rope_head_dim``, from
 the query positions) within ``global_window``; ``mla_moe``'s FFN is the
 same :class:`MoE` under the same dispatch rule.
 
+A VLM batch's position ids reach a GQA attention as the rope context's
+``"q_pos"`` (their temporal stream), which its masks compare (see
+``models/attention.py``).
+
 A block returns ``(x, aux)``: ``aux`` its MoE's auxiliary loss (None for
 the kinds without an MoE), which the model sums over the layers as JAX's
 ``apply_stack`` does.
@@ -141,10 +145,12 @@ class Block(nn.Module):
         sin, cos, window = self._attn_args(rope, global_window)
         if self.kind == "zshared":
             h = self.fuse(torch.cat([x, x0], dim=-1))
-            x = x + shared.attn(shared.ln1(h), sin=sin, cos=cos, mode=mode, window=window)
+            x = x + shared.attn(shared.ln1(h), sin=sin, cos=cos, mode=mode, window=window,
+                                q_pos=rope.get("q_pos"))
             return x + shared.mlp(shared.ln2(x)), None
+        kw = {} if self.kind in MLA_KINDS else {"q_pos": rope.get("q_pos")}
         return self._finish(x, self.attn(self.ln1(x), sin=sin, cos=cos, mode=mode,
-                                         window=window), cached=False)
+                                         window=window, **kw), cached=False)
 
     def forward_cached(self, x: torch.Tensor, cache: dict, *, rope: dict, q_pos: torch.Tensor,
                        global_window: Optional[int] = None, x0: Optional[torch.Tensor] = None,

@@ -31,6 +31,7 @@ from repro_torch.core.sampler import make_euler_one_step, refine_loop_inputs, sc
 from repro_torch.device import resolve_device
 from repro_torch.graphs import GraphCache
 from repro_torch.kernels.ws_fused import make_ws_fused_fn
+from repro_torch.models.model import check_batch_extras
 
 
 class DispatchFailure(RuntimeError):
@@ -190,10 +191,9 @@ def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, 
     cross cache, and discards its logits; then it decodes BOS again at
     position 1 and steps over positions 1..seq_len-1, so it returns
     ``seq_len - 1`` tokens, as JAX's does (reference fault R8): ask for
-    ``N + 1`` to get N."""
-    if extras and not cfg.is_encoder_decoder:
-        raise NotImplementedError("ar_generate: extra inputs of a decoder-only config are "
-                                  "not ported")
+    ``N + 1`` to get N. A decoder-only config's extras (a VLM's ``patches``
+    and ``positions``) are dropped, as JAX's ``ar_generate`` drops them:
+    the draft is text only (reference fault R11)."""
     cache = model.init_cache(batch_size, seq_len + 1, dtype)
     serve_step = make_serve_step(model, cfg, temperature=temperature)
     tok = torch.full((batch_size, 1), bos, dtype=torch.int32, device=model.device)
@@ -215,10 +215,11 @@ def make_refine_step_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
     """One DFM Euler refine step over the full sequence, the flow stage's
     unit: ``refine_step(rng, x_t (B,N), t (B,), h) -> x_next``. ``model``
     holds its weights, so the step takes no ``params``; ``extras`` (an
-    encoder-decoder's ``{"frames": ...}``) go to every ``dfm_apply``."""
-    if extras and not cfg.is_encoder_decoder:
-        raise NotImplementedError("make_refine_step_fn: extra inputs of a decoder-only "
-                                  "config are not ported")
+    encoder-decoder's ``{"frames": ...}``, a VLM's ``{"patches": ...,
+    "positions": ...}``) go to every ``dfm_apply``; a decoder-only config
+    refuses any other key here, by name."""
+    if not cfg.is_encoder_decoder:
+        check_batch_extras(extras)
     one_step = make_euler_one_step(path, temperature=temperature, step_fn=step_fn)
 
     def refine_step(rng, x_t, t, h):

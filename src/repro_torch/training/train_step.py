@@ -5,7 +5,9 @@ encoder-decoder, MoE): torch port of the JAX package's ``training/train_step.py`
 batch dict:
   x_src:  (B, N) int32: draft samples x_{t0} (or noise for cold start)
   x_tgt:  (B, N) int32: refined/data samples x_1
-  + ``frames`` (B, F, d_model) for the encoder-decoder family.
+  + ``frames`` (B, F, d_model) for the encoder-decoder family;
+  + ``patches`` (B, P, 1280) and ``positions`` (3, B, P + N) for the VLM
+    family (the loss is over the text logits only, as JAX's).
 
 The same step with ``path.t0 = 0`` is the cold-start DFM baseline (paper
 Fig. 2 left). The step runs eagerly: gradients by ``torch.autograd.grad``
@@ -25,33 +27,29 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.convert import jax_leaves
 from repro_torch.core.losses import dfm_cross_entropy
 from repro_torch.core.paths import WarmStartPath
+from repro_torch.models.model import check_batch_extras
 from repro_torch.optim.schedule import clip_by_global_norm
 from repro_torch.training.state import TrainState
 
 EXTRA_KEYS = ("frames", "patches", "positions")
 
 
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet ({where})")
-
-
 def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
                  z_loss: float = 1e-4, mtp_weight: float = 0.1, remat: bool = False):
     """Returns loss_fn(model, batch, rng) -> (loss, metrics); ``rng`` is a
     host key (``prng.key``). Each of ``EXTRA_KEYS`` present in the batch
-    reaches the model as a keyword (``EncDecModel`` takes ``frames``; a
-    decoder-only ``Model`` refuses extras), and ``remat`` too (JAX
-    ``fwd_batch`` and ``model.forward(..., remat=remat)``). With MoE
+    reaches the model as a keyword (``EncDecModel`` takes ``frames``, a
+    decoder-only ``Model`` ``patches`` and ``positions``), and ``remat`` too
+    (JAX ``fwd_batch`` and ``model.forward(..., remat=remat)``). A VLM's
+    logits lose the patches' rows before the loss. With MoE
     layers the loss adds ``router_aux_weight`` times their auxiliary loss,
     reported as ``moe_aux``."""
     moe = bool(cfg.moe.num_experts)
 
     def loss_fn(model, batch, rng):
         extras = {k: batch[k] for k in EXTRA_KEYS if k in batch}
-        if extras and not (cfg.is_encoder_decoder and set(extras) == {"frames"}):
-            raise _not_ported(f"batch extras {sorted(extras)} for {cfg.name}",
-                              "only the encoder-decoder family's frames are; patches and "
-                              "positions are the zoo's VLM family's")
+        if not cfg.is_encoder_decoder:
+            check_batch_extras(extras)
         x_src, x_tgt = batch["x_src"], batch["x_tgt"]
         rng_t, rng_xt = prng.split(rng, 2)
         t = path.sample_t(rng_t, (x_src.shape[0],), device=x_src.device)
@@ -60,6 +58,10 @@ def make_loss_fn(model, cfg: ModelConfig, path: WarmStartPath, *,
             logits, aux = model(x_t, t, remat=remat, return_aux=True, **extras)
         else:
             logits = model(x_t, t, remat=remat, **extras)
+
+        # vlm: logits cover [vision prefix + text]; loss only on the text part
+        if cfg.family == "vlm" and "patches" in extras:
+            logits = logits[:, extras["patches"].shape[1]:]
 
         loss = dfm_cross_entropy(logits, x_tgt, z_loss=z_loss)
         metrics = {"ce": loss, "t_mean": torch.mean(t)}

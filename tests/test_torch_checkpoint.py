@@ -39,6 +39,17 @@ RUNS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pairs(seed=0):
     rng = np.random.default_rng(seed)
     return (rng.integers(0, 27, (32, 16)).astype(np.int32),

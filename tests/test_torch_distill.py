@@ -36,6 +36,17 @@ PKG_OBS = {J: JO, T: TO}
 REQS = [dict(seq_len=8, num_samples=2, seed=i) for i in range(6)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class JaxToyFlow:
     def dfm_apply(self, params, x, t, extras=None):
         return jnp.zeros(x.shape + (V,)).at[..., 2].set(30.0)

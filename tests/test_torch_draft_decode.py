@@ -30,6 +30,17 @@ TOL = 1e-5
 SMALL = dict(num_layers=2, d_model=32, num_heads=2, num_kv_heads=2, d_ff=64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(tree):
     """A JAX parameter dict as the same dict of torch tensors."""
     if isinstance(tree, dict):

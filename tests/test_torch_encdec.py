@@ -37,6 +37,17 @@ ACT_TOL = 1e-5                  # activations: encoder states, cross k/v, attent
 LOGIT_TOL = 1e-4                # logits (x max(1, max |logit|) through the tied head)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(seed=0):
     """(JAX model, its params, the port's model on the same weights)."""

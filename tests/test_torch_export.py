@@ -8,10 +8,22 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import repro.obs as JO
 import repro_torch.obs as TO
 from repro_torch.launch import serve
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def records(O, seed=0):

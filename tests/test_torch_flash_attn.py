@@ -27,6 +27,17 @@ CASES = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _qkv(seed, b, s, h, kh, d):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, s, h, d)).astype(np.float32)

@@ -51,7 +51,8 @@ def card():
 
 
 @pytest.mark.parametrize("r,v,temperature", [(8192, 27, 1.0), (64, 50257, 0.7), (5, 262144, 1.0),
-                                           (2048, 51865, 1.0)])   # whisper-medium's refine
+                                           (2048, 51865, 1.0),    # whisper-medium's refine
+                                           (2048, 152064, 1.0)])  # qwen2-vl-72b's refine
 def test_ws_step_kernel_matches_plain(card, r, v, temperature):
     rng = np.random.default_rng(r + v)
     logits = torch.from_numpy((3 * rng.standard_normal((r, v))).astype(np.float32)).to(card)
@@ -128,6 +129,7 @@ def test_ws_step_group_sizes_agree_bitwise(card, r, v, temperature):
     (8, 256, 1500, 16, 16, 64, False, None),   # whisper-medium's cross attention
     (8, 1, 1500, 16, 16, 64, False, None),     # its decode: one query row, 1500 keys
     (8, 1500, 1500, 16, 16, 64, False, None),  # its encoder: a 28-key tail after 23 tiles
+    (8, 512, 512, 64, 8, 128, False, None),    # qwen2-vl-72b's refine: 256 patches + 256 text
 ])
 def test_flash_attention_kernel_matches_plain(card, b, s, t, h, kh, d, causal, window):
     g = torch.Generator(device=card).manual_seed(s)
@@ -1480,3 +1482,91 @@ def test_mla_graphs_equal_eager_bitwise(card, absorb):
         got = eng.generate_rows(keys, 12, prompt=prompt)
         assert torch.equal(got, eng._generate_rows_eager(keys, 12, prompt=prompt)), seed
     assert eng.graphs.captures == 1
+
+
+def _vlm_smoke_inputs(rows=2, text=32):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.rope import vlm_positions
+
+    cfg = get_smoke_config("qwen2-vl-72b")
+    g = torch.Generator().manual_seed(0)
+    patches = 0.1 * torch.randn((rows, cfg.num_vision_tokens, 1280), generator=g)
+    tokens = torch.randint(0, cfg.vocab_size, (rows, text), generator=g, dtype=torch.int32)
+    return cfg, tokens, patches, vlm_positions(rows, (2, 4), text)
+
+
+def test_vlm_smoke_model_on_card_equals_cpu(card):
+    """qwen2-vl-72b's smoke config on the card against the CPU, same weights,
+    8 patches + 32 tokens at Qwen2-VL's ids: ``dfm_apply`` (the kernel, 2
+    flash_attn launches) and the causal forward (masked by the temporal ids
+    in plain torch, no launch) within 1e-4; a prefill with the patches and a
+    decode step with and without ``batch_extras`` within 1e-4."""
+    cfg, tokens, patches, pos = _vlm_smoke_inputs()
+    t = torch.tensor([0.7, 0.9])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, device="cpu", seed=3).to(dev)
+        extras = {"patches": patches.to(dev), "positions": pos.to(dev)}
+        cache = model.init_cache(2, 48, torch.float32)
+        with torch.no_grad():
+            before = launches["flash_attn"]
+            dfm = model.dfm_apply(tokens.to(dev), t.to(dev), extras=extras)
+            n_dfm = launches["flash_attn"] - before
+            causal = model(tokens.to(dev), **extras)
+            pre, cache = model.prefill({"tokens": tokens[:, :30].to(dev),
+                                        "patches": extras["patches"],
+                                        "positions": extras["positions"][:, :, :38]}, cache)
+            step, cache = model.decode_step(
+                tokens[:, 30:31].to(dev), cache, 38,
+                batch_extras={"positions": extras["positions"][:, :, 38:39]})
+            plain, _ = model.decode_step(tokens[:, 31:].to(dev), cache, 39)
+            n_all = launches["flash_attn"] - before
+        out[dev] = [z.cpu() for z in (dfm, causal, pre, step, plain)]
+        if dev == "cuda":
+            assert (n_dfm, n_all) == (cfg.num_layers, cfg.num_layers)
+    assert out["cuda"][0].shape == (2, 32, cfg.vocab_size)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_vlm_serve_graph_reads_the_patches_in_place(card):
+    """qwen2-vl-72b's smoke config served through ``Conditioned(model,
+    {"patches", "positions"})`` on the card: one capture of the refine, whose
+    replay equals the eager loop bitwise (2 flash_attn launches and 1
+    ws_step a NFE); the patches changed in place are what the next replay
+    reads (== the eager loop on the new patches, != the old tokens); the
+    card's serve equals the CPU's."""
+    from repro_torch.models import Conditioned
+
+    cfg, _, patches, pos = _vlm_smoke_inputs(rows=4)
+    g = torch.Generator().manual_seed(1)
+    path = WarmStartPath(t0=0.75)
+    x0 = torch.randint(0, cfg.vocab_size, (4, 32), generator=g, dtype=torch.int32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = Model(cfg, device="cpu", seed=3).to(dev)
+        server = WarmStartServer(
+            flow_model=Conditioned(model, {"patches": patches.to(dev), "positions": pos.to(dev)}),
+            flow_cfg=cfg, path=path, cold_nfe=16, step_fn=make_ws_step_fn(path, device=dev),
+            device=dev, draft_generate=lambda rng, num, dev=dev: x0.to(dev))
+        out[dev] = server.serve(prng.key(1), 4)[0].cpu()
+    assert torch.equal(out["cuda"], out["cpu"])
+    model = Model(cfg, device="cpu", seed=3).to(card)
+    pt = patches.to(card)
+    server = WarmStartServer(
+        flow_model=Conditioned(model, {"patches": pt, "positions": pos.to(card)}), flow_cfg=cfg,
+        path=path, cold_nfe=16, step_fn=make_ws_step_fn(path), device=card, draft_generate=None)
+    x = x0.to(card)
+    keys, ts, hs = refine_loop_inputs(prng.key(5), 0.75, 1 / 16, 4)
+    with torch.inference_mode():
+        first = server._refine_loop(keys, x, ts, hs)
+        got, n_got = _grew(lambda: server._refine_loop(keys, x, ts, hs))
+        want, n_want = _grew(lambda: server._refine_loop_eager(keys, x, ts, hs))
+        assert torch.equal(got, want) and torch.equal(got, first) and n_got == n_want
+        assert n_got == {"flash_attn": 4 * cfg.num_layers, "ws_step": 4}
+    pt.copy_(10.0 * torch.flip(pt, dims=[0]))
+    with torch.inference_mode():
+        moved = server._refine_loop(keys, x, ts, hs)
+        assert torch.equal(moved, server._refine_loop_eager(keys, x, ts, hs))
+    assert not torch.equal(moved, first)
+    assert server.graphs.captures == 1

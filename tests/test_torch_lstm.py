@@ -28,6 +28,17 @@ VOCAB, HIDDEN, EMBED = 27, 32, 16
 TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _models(layers=2, seed=1):
     jcfg = JaxConfig(vocab_size=VOCAB, hidden=HIDDEN, num_layers=layers, embed_dim=EMBED)
     jmodel = JaxLSTM(jcfg)

@@ -29,6 +29,17 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _converted(name, seed=0):
     jax_cfg_fn, cfg_fn = CONFIGS[name]
     jm = jax_build_model(jax_cfg_fn())

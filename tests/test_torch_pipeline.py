@@ -47,6 +47,17 @@ from repro_torch.serving import make_refine_step_fn
 V, SEQ, NUM, COLD_NFE = 27, 16, 4, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def models():
     jm = jax_build_model(jax_tiny_config())

@@ -29,6 +29,17 @@ from repro_torch.models.model import check_supported, layer_kinds
 ARCHS = ("zamba2-2.7b", "xlstm-1.3b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("which", ["full", "smoke"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_config_fields_equal_jax(arch, which):

@@ -38,6 +38,17 @@ T0_SETS = [[0.8], [0.8, 0.8, 0.8], [0.5, 0.8, 0.9, 0.8], [0.0, 0.99, 0.55],
            [0.75, 0.8125, 0.9375]]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("t0_rows", T0_SETS)
 @pytest.mark.parametrize("cold_nfe", [16, 20])
 def test_refine_schedule_rows_array_equal(t0_rows, cold_nfe):

@@ -41,6 +41,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEQ, NUM, COLD_NFE, T0 = 32, 4, 16, 0.8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("t0,cold_nfe", [(0.8, 16), (0.8, 64), (0.0, 7), (0.55, 10),
                                          (1 - 1e-12, 32), (0.9375, 16)])
 def test_refine_schedule_array_equal(t0, cold_nfe):

@@ -40,6 +40,17 @@ HOST_TIMING = {"draft_time_s", "flow_time_s", "wall_time_s", "overlap_efficiency
 PKG = {J: JD, T: TD}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class JaxGatherFlow:
     def dfm_apply(self, params, x, t, extras=None):
         return jnp.asarray(W)[x] * (1.0 + t)[:, None, None]

@@ -59,6 +59,17 @@ ARCH = "dfm-dit"
 B, N = 4, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_params(seed=0):
     return jax_build_model(jax_smoke_config(ARCH)).init(jax.random.key(seed))
 
@@ -454,7 +465,10 @@ def test_trainer_fit_matches_jax_for_10_steps(optimizer):
 
 
 def test_make_train_step_refuses_what_the_port_does_not_run():
-    """The VLM's ``patches`` stay refused, by name, and so does the VLM arch;
+    """Nothing of the zoo is refused any more. Since the VLM family a batch's
+    ``patches`` and ``positions`` train qwen2-vl-72b's smoke config (a
+    finite loss over the text logits; against JAX's in ``test_torch_vlm``)
+    and ``get_config("qwen2-vl-72b")`` builds;
     ``RunConfig(remat="block")`` builds (remat is ported), since the MoE
     family the router's auxiliary loss is ported: arctic-480b builds and its
     loss adds ``router_aux_weight · moe_aux`` (against JAX's in
@@ -466,9 +480,14 @@ def test_make_train_step_refuses_what_the_port_does_not_run():
     assert callable(make_train_step(model, cfg, RunConfig(remat="block"), AdamW()))
     loss_fn = make_loss_fn(model, cfg, WarmStartPath(0.8))
     xs, xt = _batch(0)
-    with pytest.raises(NotImplementedError, match="patches"):
-        loss_fn(model, {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt),
-                        "patches": torch.zeros(1)}, prng.key(0))
+    vlm = build_model(get_smoke_config("qwen2-vl-72b"), device="cpu")
+    p = vlm.cfg.num_vision_tokens
+    pos = torch.arange(p + N, dtype=torch.int32)[None, None].expand(3, B, p + N)
+    with torch.no_grad():
+        loss, metrics = make_loss_fn(vlm, vlm.cfg, WarmStartPath(0.8))(
+            vlm, {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt),
+                  "patches": torch.zeros(B, p, 1280), "positions": pos}, prng.key(0))
+    assert bool(torch.isfinite(loss)) and float(loss) == float(metrics["ce"])
     moe = build_model(get_smoke_config("arctic-480b"), device="cpu")
     batch = {"x_src": torch.from_numpy(xs), "x_tgt": torch.from_numpy(xt)}
     with torch.no_grad():
@@ -477,8 +496,7 @@ def test_make_train_step_refuses_what_the_port_does_not_run():
     assert float(loss) == float(metrics["ce"] + moe.cfg.moe.router_aux_weight
                                 * metrics["moe_aux"])
     assert get_config("arctic-480b").moe.num_experts == 128
-    with pytest.raises(NotImplementedError, match="VLM"):
-        get_config("qwen2-vl-72b")
+    assert get_config("qwen2-vl-72b").family == "vlm"
     mla = build_model(get_smoke_config("deepseek-v3-671b"), device="cpu")
     with torch.no_grad():
         loss, metrics = make_loss_fn(mla, mla.cfg, WarmStartPath(0.8))(mla, batch, prng.key(0))

@@ -28,6 +28,17 @@ from repro_torch.kernels.ws_step import ws_step
 TIE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _case(layout, k, b, n, v, seed):
     """numpy inputs and both packages' keys: single key per step, or per
     (step, request row) keys with an inactive row and one entering

@@ -32,6 +32,17 @@ from repro_torch.kernels.ws_step import ops as ws_ops
 TIE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, b, n, v, scale=3.0):
     rng = np.random.default_rng(seed)
     logits = (scale * rng.standard_normal((b, n, v))).astype(np.float32)

@@ -28,6 +28,17 @@ from repro_torch.kernels.ws_step import (
 TIE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_equal_up_to_ties(want, got, tie_rows):
     want, got = np.asarray(want).reshape(-1), np.asarray(got).reshape(-1)
     mismatch = want != got

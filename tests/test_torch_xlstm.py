@@ -23,6 +23,17 @@ ARCH = "xlstm-1.3b"
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(**kw):
     return jax_get_smoke_config(ARCH).replace(**kw), get_smoke_config(ARCH).replace(**kw)
 

@@ -39,6 +39,17 @@ V = 512                       # the smoke configs' vocabulary
 TIE_TOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """One intra-op thread for these smoke-size models: the suite runs in
+    several worker processes at once, where torch's default of a thread a
+    core makes each small op wait on the others' threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @functools.lru_cache(maxsize=None)
 def _jitted(arch):
     """JAX's entry points for ``arch``'s smoke model, jitted once."""
@@ -196,7 +207,8 @@ def _drop(feature, model, monkeypatch):
             blk.window = None
     elif feature == "dual_rope":
         monkeypatch.setattr(model_mod, "rope_context",
-                            lambda cfg, pos: rope_context(cfg.replace(rope_type="default"), pos))
+                            lambda cfg, pos, **kw: rope_context(cfg.replace(rope_type="default"),
+                                                                pos, **kw))
     elif feature == "qk_norm":
         for blk in model.blocks:
             blk.attn.qnorm = blk.attn.knorm = None
