@@ -52,6 +52,16 @@ graph per call shape, == its eager launches. A capture that a
 synchronisation broke must leave the default CUDA generator drawing and a
 fresh capture working.
 
+The training phase trains the same backbone through ``launch/train.main``
+(32 x 256, AMSGrad, 30 steps): the train step is one CUDA graph
+(``jit_train_step``, as JAX jits it), captured at the first step, whose one
+step is the capture's warm-up, and replayed at the 29 others, with exactly 12
+``flash_attn`` launches a step; 3 graphed steps are held against 3 eager
+steps from one init (losses, grad norms, every weight and AMSGrad moment,
+bit for bit where two eager runs agree, else within 2 x the summed learning
+rates), a step is profiled by phase (eager) and three steps' busy share is
+taken eager and graphed; the two-moons study trains through the same graphs.
+
 After the training phase, the drafting policies run on the trained DiT and
 the AR engine over the 16 scheduler requests: ``AdaptiveT0Policy`` on a
 calibration fitted to the text corpus (single- and multi-time probe),
@@ -65,7 +75,8 @@ card == the CPU.
 The distilled phase then serves the distilled tier behind the trained DiT
 on the same probe and calibration: the 16 requests served guaranteed with a
 ``PairBuffer`` attached (70 pairs, their refined rows == the served
-tokens), ``train_distilled`` on them (finite loss, the checkpoint round
+tokens), ``train_distilled`` on them (one graph a batch shape, each step
+held against its eager launches as the DiT's; finite loss, the checkpoint round
 trip bitwise), the floor at the median of the minimum scores of the
 requests routed distilled (the odd ones), then the mix through
 ``serve_requests`` (twice) and ``serve_stream`` with a ``SpanTracer``:
@@ -182,14 +193,20 @@ leaves zero (zamba2-2.7b's ``zshared`` positions' ``ln1``), two backwards
 without remat against each other and remat against no remat (bitwise where
 the two agree), with exact ``flash_attn`` launches (9, 0 and 72 a forward,
 twice that with remat); then 1 + 3 steps at 8 x 256 with remat and AdamW,
-zamba2-2.7b and xlstm-1.3b through ``Trainer.fit``, whisper-medium through
-``make_train_step`` with its frames (the reference's R9: ``fit`` builds no
-frames), with finite losses and grad norms, moved weights and exact
-launches a step, and one more step profiled for the device's busy share;
-each smoke config trained 3 steps on the card == the CPU; and ``python -m
+each one CUDA graph replay after the capturing first, zamba2-2.7b and
+xlstm-1.3b through ``Trainer.fit``, whisper-medium through
+``jit_train_step(make_train_step(...))`` with its frames (the reference's
+R9: ``fit`` builds no frames), with finite losses and grad norms, moved
+weights, exact launches a step and one capture, one more replay profiled
+for the device's busy share, an eager step timed beside it, and 3
+graphed steps against 3 eager ones from one init at 2 x 256 (zamba2-2.7b
+and xlstm-1.3b cut to one pattern group, whisper-medium at full depth);
+each smoke config (the MoE, MLA and VLM ones in their phases) trained 3
+steps on the card eager and graphed, each == the CPU, and the graph == the
+eager steps; and ``python -m
 repro_torch.launch.train --smoke --steps 3`` for zamba2-2.7b and xlstm-1.3b
 (exit 0). Last it runs the README's torch quickstart snippet and the four
-``examples/*_torch.py`` on the card as subprocesses (each exit 0, its NFEs
+``examples/*_torch.py`` on the card as subprocesses, all at once (each exit 0, its NFEs
 equal to ``warm_nfe``, its headline numbers read from its report).
 
 It prints the card, ``{"serve": ...}``, ``{"scheduler": ...}``,
@@ -2408,6 +2425,7 @@ def main_path(engine):
 # -- training ------------------------------------------------------------------
 
 TRAIN_STEPS = 30
+TRAIN_GATE_STEPS = 3   # graphed against eager steps from one init
 GRAD_TOL = 1e-3      # x max |g| of the parameter: kernel path vs autograd through the plain
 MOONS_GRID, MOONS_STEPS, MOONS_COLD_NFE = 128, 300, 20
 
@@ -2493,6 +2511,134 @@ def check_train_gradients(cfg, batch, key):
             "flash_attn_launches": n_kernel}
 
 
+def train_leaves(state) -> dict:
+    """Copies of every weight and optimizer moment (AMSGrad's running max
+    too) of a train state, by name."""
+    out = {("param", n): p.detach().clone() for n, p in state.params.named_parameters()}
+    for f in ("mu", "nu", "nu_max"):
+        out.update({(f, k): v.clone() for k, v in (getattr(state.opt_state, f, None) or {}).items()})
+    return out
+
+
+def run_to_run(eager, eager2):
+    """What two eager runs of the same steps give differently: (the steps
+    whose metrics differ, the leaves that differ)."""
+    (me, le), (me2, le2) = eager, eager2
+    steps = [i for i in range(me.shape[0]) if not torch.equal(me[i], me2[i])]
+    return steps, {k for k, x in le.items() if not torch.equal(x, le2[k])}
+
+
+def check_graph_equals_eager(what, graph, eager, nondet, bound):
+    """The graph == eager gate, as remat against no remat: ``graph`` and
+    ``eager`` are (metrics (steps, 2): loss and grad norm, {leaf: tensor})
+    of the same steps from one init, graphed and eager; ``nondet`` is
+    :func:`run_to_run` of two eager runs. A leaf the two eager runs give bit
+    for bit must come out of the graph bit for bit, any other within
+    ``bound`` (2 x the summed learning rates: the smoke card == CPU gate's).
+    The losses and grad norms are bitwise where the eager step is (no leaf
+    and no metric varied between the two eager runs), else within
+    SMOKE_LOSS_RTOL / SMOKE_GNORM_RTOL relative: a loss or a norm is one
+    reduction's result, whose last bit two runs of a step that varies can
+    round alike by chance."""
+    (mg, lg), (me, le) = graph, eager
+    steps, leaves = nondet
+    varies = bool(steps or leaves)
+    mg, me = mg.cpu(), me.cpu()
+    for i in range(me.shape[0]):
+        if not varies:
+            if not torch.equal(mg[i], me[i]):
+                fail(f"{what}: step {i + 1}'s (loss, grad norm) {mg[i].tolist()} graphed, "
+                     f"{me[i].tolist()} eager (bitwise run to run)")
+        else:
+            rel = ((mg[i] - me[i]).abs() / me[i].abs()).tolist()
+            if rel[0] > SMOKE_LOSS_RTOL or rel[-1] > SMOKE_GNORM_RTOL:
+                fail(f"{what}: step {i + 1}'s (loss, grad norm) off by {rel} relative")
+    if set(lg) != set(le):
+        fail(f"{what}: the graphed run's leaves differ from the eager run's")
+    worst, worst_leaf = 0.0, None
+    for k, x in le.items():
+        diff = float((lg[k].float() - x.float()).abs().max())
+        if k not in leaves:
+            if not torch.equal(lg[k], x):
+                fail(f"{what}: {k} graphed differs from eager (bitwise run to run) by {diff:.3e}")
+            continue
+        if diff > worst:
+            worst, worst_leaf = diff, k
+        if diff > bound:
+            fail(f"{what}: {k} graphed off by {diff:.3e} (bound {bound:.3e})")
+    res = {"steps": me.shape[0], "leaves": len(le), "bitwise_leaves": len(le) - len(leaves),
+           "nondeterministic_leaves": sorted(str(k) for k in leaves),
+           "nondeterministic_steps": steps, "worst_nondet_diff": worst,
+           "worst_nondet_leaf": str(worst_leaf), "bound": bound}
+    print(f"{what}: graph == eager over {res['steps']} steps: {res['bitwise_leaves']} of "
+          f"{res['leaves']} weights and moments bitwise, and the losses and grad norms"
+          + ("" if not leaves and not steps else
+             f"; varying run to run: {len(leaves)} leaves (worst {worst:.3e} of {bound:.3e}), "
+             f"steps {steps}"))
+    return res
+
+
+def train_graph_gate(what, model, run, batches):
+    """``len(batches)`` steps (batches on the card, keys 0, 1, ...) of copies
+    of ``model`` from a fresh optimizer state: eager, eager again, then
+    through ``jit_train_step``; :func:`check_graph_equals_eager` on weights,
+    moments, losses and grad norms, one capture and a replay a later step,
+    the graphed run's launches the eager run's. Returns the gate's record
+    with each run's step ms (the graphed run's first step captures)."""
+    import copy
+
+    from repro_torch import prng
+    from repro_torch.kernels import launches
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training import TrainState, jit_train_step, make_train_step
+
+    def one_run(jit):
+        m = copy.deepcopy(model)
+        opt = build_optimizer(run)
+        step = make_train_step(m, m.cfg, run, opt)
+        step = jit_train_step(step) if jit else step
+        state = TrainState.create(m, opt)
+        torch.cuda.synchronize()
+        launches.clear()
+        events, metrics = [], []
+        for i, b in enumerate(batches):
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+            state, mt = step(state, b, prng.key(i))
+            metrics.append(torch.stack([mt["loss"], mt["grad_norm"]]))
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        events[-1].synchronize()
+        rec = {"step_ms": [a.elapsed_time(b) for a, b in zip(events, events[1:])],
+               "launches": dict(launches), "step": int(state.step),
+               "optimizer_step": int(state.opt_state.step)}
+        if jit:
+            rec["graphs"] = step.graphs.stats()
+        out = (torch.stack(metrics), train_leaves(state))
+        del m, state, step
+        gc_collect()
+        return out, rec
+
+    eager, rec_e = one_run(False)
+    eager2, _ = one_run(False)
+    nondet = run_to_run(eager, eager2)
+    del eager2
+    graph, rec_g = one_run(True)
+    sched = build_optimizer(run).learning_rate
+    bound = 2 * sum(sched(i) for i in range(1, len(batches) + 1))
+    res = check_graph_equals_eager(what, graph, eager, nondet, bound)
+    del graph, eager
+    gc_collect()
+    n = len(batches)
+    if rec_g["graphs"]["captures"] != 1 or rec_g["graphs"]["replays"] != n - 1 \
+            or rec_g["launches"] != rec_e["launches"] or rec_g["step"] != n \
+            or rec_g["optimizer_step"] != n:
+        fail(f"{what}: the graphed run {rec_g}, the eager run {rec_e}: expected one capture, "
+             f"{n - 1} replays, the eager launches and {n} steps")
+    res.update({"eager": rec_e, "graphed": rec_g})
+    return res
+
+
 def _train_category(name: str) -> str:
     if "flash_attn_kernel" in name:
         return "flash_attn"
@@ -2541,7 +2687,9 @@ def _phase_profile(run, what):
 def profile_train_step(trainer, state, batch, key):
     """One more step, phase by phase under the profiler (forward: the loss;
     backward: ``torch.autograd.grad``; optimizer: clipping and the AdamW
-    update), then three whole steps for the device's busy share."""
+    update), eager launches; then three whole steps for the device's busy
+    share, eager (the un-jitted step) and graphed (the trainer's: three
+    replays of the graph ``fit`` captured)."""
     from repro_torch.convert import jax_leaves
     from repro_torch.training.train_step import apply_gradients, grads_of, make_loss_fn
 
@@ -2568,13 +2716,21 @@ def profile_train_step(trainer, state, batch, key):
         bwd["attn_backward_matmul_ms"] = bwd["bmm_ms"]
         bwd["backbone_gemm_ms"] = bwd["by_kind_ms"].get("gemm", 0.0) - bwd["bmm_ms"]
     st = held["state"]
+    replays = trainer._step_fn.graphs.replays
 
-    def three_steps():
-        nonlocal st
-        for _ in range(3):
-            st, _ = trainer._step_fn(st, batch, key)
+    def three_steps(step_fn):
+        def run():
+            nonlocal st
+            for _ in range(3):
+                st, _ = step_fn(st, batch, key)
+        return run
 
-    phases["steps_busy"] = busy_share(three_steps, "three train steps")
+    phases["steps_busy"] = busy_share(three_steps(trainer._step_fn.step),
+                                      "three train steps (eager)")
+    phases["steps_busy_graphed"] = busy_share(three_steps(trainer._step_fn),
+                                              "three train steps (graph replays)")
+    if trainer._step_fn.graphs.replays != replays + 3:
+        fail("the trainer's graphed steps did not replay the graph fit captured")
     return phases
 
 
@@ -2680,6 +2836,10 @@ def train_path():
     batch, key = train_batch(cfg)
     grad_gate = check_train_gradients(cfg, batch, key)
     torch.cuda.empty_cache()
+    graph_gate = train_graph_gate(
+        "the DiT's train step (32 x 256)", build_model(cfg, device="cuda", seed=0),
+        RunConfig(arch=cfg.name, t0=T0, batch_size=NUM, total_steps=TRAIN_STEPS),
+        [batch] * TRAIN_GATE_STEPS)
 
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
@@ -2693,8 +2853,10 @@ def train_path():
         counts = dict(launches)
         peak = torch.cuda.max_memory_allocated()
         want = {"flash_attn": cfg.num_layers * TRAIN_STEPS}
-        if counts != want:
-            fail(f"training: launches {counts}, expected {want}")
+        graphs = trainer._step_fn.graphs.stats()
+        if counts != want or (graphs["captures"], graphs["replays"]) != (1, TRAIN_STEPS - 1):
+            fail(f"training: launches {counts}, expected {want}; graphs {graphs}, expected one "
+                 f"capture and {TRAIN_STEPS - 1} replays")
         losses = torch.stack(trainer.step_losses).cpu()
         gnorms = torch.stack(trainer.step_grad_norms).cpu()
         if len(losses) != TRAIN_STEPS or not bool(torch.isfinite(losses).all()) \
@@ -2730,6 +2892,8 @@ def train_path():
         "config": cfg.name, "params": n_params, "batch": NUM, "seq_len": SEQ, "t0": T0,
         "optimizer": "adamw, amsgrad, float32 moments", "steps": TRAIN_STEPS,
         "lr_schedule": "warmup_cosine(3e-4, 100, steps)", "grad_clip": 1.0,
+        "step": "one CUDA graph replay a step (jit_train_step); the first step captures",
+        "graphs": graphs, "capture_step_ms": step_ms[0],
         "first_step_ms": step_ms[0], "median_step_ms": median_ms, "step_ms": step_ms,
         "tokens_per_s": tokens / median_ms * 1e3,
         "model_flop_share": model_flops / (median_ms / 1e3) / F32_OPS_PER_S,
@@ -2739,11 +2903,14 @@ def train_path():
         "launches_per_step": {"flash_attn": cfg.num_layers},
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
         "grad_norm_first": float(gnorms[0]), "grad_norm_last": float(gnorms[-1]),
-        "launch_train_main_s": main_s, "grad_gate": grad_gate, "phases": phases,
+        "launch_train_main_s": main_s, "grad_gate": grad_gate, "graph_gate": graph_gate,
+        "phases": phases,
     }
     print(f"training: dfm_dit CONFIG ({n_params / 1e6:.1f}M params), {NUM} x {SEQ}, "
-          f"{TRAIN_STEPS} steps through launch.train.main: first step {step_ms[0]:.1f} ms, "
-          f"median {median_ms:.2f} ms ({train['tokens_per_s']:.0f} tokens/s, model-FLOP "
+          f"{TRAIN_STEPS} steps through launch.train.main, one graph capture and "
+          f"{TRAIN_STEPS - 1} replays: the capturing step {step_ms[0]:.1f} ms, a replay's "
+          f"median {median_ms:.2f} ms (eager {statistics.median(graph_gate['eager']['step_ms'][1:]):.2f} ms "
+          f"in the graph gate; {train['tokens_per_s']:.0f} tokens/s, model-FLOP "
           f"share {train['model_flop_share']:.1%} of 67 TFLOP/s), peak memory "
           f"{peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB above the "
           f"{base / 2**30:.2f} GiB held before), loss {train['loss_first']:.4f} -> {train['loss_last']:.4f}, "
@@ -3179,6 +3346,62 @@ def one_micro_batch(tier, t0, k=DISTILL_NFE, seed=5000):
     return mb
 
 
+def distilled_train_runs(head, buffer):
+    """``train_distilled`` as the phase calls it, through its graphs (one
+    capture a batch shape), then twice with its step un-jitted
+    (``jit_distill_step`` patched to the identity: eager launches), each
+    step's outputs recorded: :func:`check_graph_equals_eager` on each step's
+    loss and agreement, the head's weights and AdamW's moments; one capture
+    a batch shape and a replay every other step. Returns the graphed run's
+    (params, report, ms) and the gate's record."""
+    from repro_torch.drafting import distill
+
+    real = distill.jit_distill_step
+    runs = {}
+    for name in ("graph", "eager", "eager_again"):
+        log, made = [], []
+
+        def wrap(step, graphed=name == "graph"):
+            inner = real(step) if graphed else step
+            made.append(inner)
+
+            def recording(opt_state, draft, refined, t0):
+                out = inner(opt_state, draft, refined, t0)
+                log.append(out)
+                return out
+            return recording
+
+        distill.jit_distill_step = wrap
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, rep = distill.train_distilled(head, buffer, key=13, epochs=DISTILL_EPOCHS,
+                                                  device="cuda")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            distill.jit_distill_step = real
+        leaves = {("param", k): v.clone() for k, v in params.items()}
+        leaves.update({(f, k): v.clone() for f in ("mu", "nu")
+                       for k, v in getattr(log[-1][0], f).items()})
+        metrics = torch.stack([torch.stack([loss.float(), agree.float()]) for _, loss, agree in log])
+        runs[name] = (params, rep, ms, (metrics, leaves), made[0])
+    params, rep, ms, graph, jitted = runs["graph"]
+    bound = 2 * 3e-2 * rep.steps       # train_distilled's constant learning rate
+    res = check_graph_equals_eager("the distilled head's train step", graph, runs["eager"][3],
+                                   run_to_run(runs["eager"][3], runs["eager_again"][3]), bound)
+    stats = jitted.graphs.stats()
+    res.update({"graphs": stats, "graphed_ms": ms, "eager_ms": runs["eager"][2],
+                "eager_again_ms": runs["eager_again"][2]})
+    if stats["captures"] != stats["graphs"] or stats["captures"] + stats["replays"] != rep.steps:
+        fail(f"distilled training: graphs {stats} for {rep.steps} steps: expected one capture "
+             f"a batch shape and a replay every other step")
+    print(f"distilled training: {rep.steps} steps, {stats['captures']} captures (one a batch "
+          f"shape) and {stats['replays']} replays in {ms:.1f} ms; eager "
+          f"{runs['eager'][2]:.1f} ms and {runs['eager_again'][2]:.1f} ms")
+    return params, rep, ms, res
+
+
 def distilled_path(model, engine, probe, cal):
     """The distilled tier at full width behind the trained DiT (the teacher),
     drafted by the full-width AR engine, on the policy phase's probe and
@@ -3269,13 +3492,10 @@ def distilled_path(model, engine, probe, cal):
     if any(not np.array_equal(res_g[i].tokens, res_g2[i].tokens) for i in res_g):
         fail("the all-guaranteed run is not deterministic")
 
-    # 2. train the head on the card; the checkpoint round trip bitwise
+    # 2. train the head on the card (one graph a batch shape, held against its eager
+    # steps); the checkpoint round trip bitwise
     head = DistilledRefiner(vocab_size=VOCAB)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    dparams, drep = train_distilled(head, buf.buf, key=13, epochs=DISTILL_EPOCHS, device="cuda")
-    torch.cuda.synchronize()
-    train_ms = (time.perf_counter() - t) * 1e3
+    dparams, drep, train_ms, distill_graph = distilled_train_runs(head, buf.buf)
     with tempfile.TemporaryDirectory() as d:
         save_distilled(d, dparams, step=drep.steps)
         back = restore_distilled(d, head, device="cuda")
@@ -3466,7 +3686,8 @@ def distilled_path(model, engine, probe, cal):
         "head": dataclasses.asdict(head), "k": DISTILL_NFE, "requests": len(reqs),
         "routed_distilled": sorted(routed), "pairs": pairs,
         "harvest_add_ms_each": buf.add_ms, "harvest_copy_ms_32x256": copy_ms,
-        "train": {**drep.as_dict(), "ms": train_ms, "ms_a_step": train_ms / max(drep.steps, 1)},
+        "train": {**drep.as_dict(), "ms": train_ms, "ms_a_step": train_ms / max(drep.steps, 1),
+                  "graph_gate": distill_graph},
         "checkpoint_bitwise": ckpt_equal, "floor": floor, "request_min_scores": mins,
         "served": {"batch": rep_b2["distilled"]["served"], "stream": rep_s["distilled"]["served"]},
         "fallbacks": {"batch": rep_b2["distilled"]["fallbacks"],
@@ -5340,7 +5561,12 @@ TRAIN_ZOO_ARCHS = (REC_ARCH, XLSTM_ARCH, ENCDEC_ARCH)   # at published widths an
 TRAIN_ZOO_T0 = 0.8
 TRAIN_ZOO_GATE_ROWS = 2            # the gradient gates: 2 x 256 (whisper over 2 x 1500 frames)
 TRAIN_ZOO_ROWS = 8                 # the training steps: 8 x 256, remat on
-TRAIN_ZOO_STEPS = 3                # timed steps, after one warm-up step
+TRAIN_ZOO_STEPS = 3                # timed steps (graph replays), after the capturing step
+TRAIN_ZOO_GATE_STEPS = 3           # graph == eager: steps at TRAIN_ZOO_GATE_ROWS rows
+# the graph == eager gate's depth: one pattern group of the two 2B models (three copies
+# with AMSGrad's three moments, ~42 GB each at full depth, do not fit one card);
+# whisper-medium (~15 GB a copy) at its full depth
+TRAIN_ZOO_GATE_LAYERS = {REC_ARCH: 6, XLSTM_ARCH: 8}
 # the key projection's bias moves every score of a row by one constant, which the
 # softmax cancels: its gradient is zero in exact arithmetic, and each path gives
 # rounding noise there (~1e-9 of the model's largest |g| on the CPU); held under
@@ -5525,16 +5751,18 @@ def _snapshot(model):
 
 
 def train_zoo_steps(model, cfg, key_seed=1):
-    """1 warm-up + TRAIN_ZOO_STEPS timed steps at TRAIN_ZOO_ROWS x SEQ,
-    ``RunConfig(remat="block")``, AdamW: the decoder-only archs through
-    ``Trainer.fit``, whisper through ``make_train_step`` with its frames (R9:
-    ``fit`` has none). Gates finite losses and grad norms, moved weights and
-    exact flash_attn launches a step."""
+    """1 capturing + TRAIN_ZOO_STEPS timed steps at TRAIN_ZOO_ROWS x SEQ,
+    ``RunConfig(remat="block")``, AdamW, each one CUDA graph replay: the
+    decoder-only archs through ``Trainer.fit``, whisper through
+    ``jit_train_step(make_train_step(...))`` with its frames (R9: ``fit`` has
+    none). Gates finite losses and grad norms, moved weights, exact
+    flash_attn launches a step and one capture. Returns the record, the
+    state and the jitted step (whose graph a later replay reuses)."""
     from repro_torch import prng
     from repro_torch.core.paths import WarmStartPath
     from repro_torch.kernels import launches
     from repro_torch.optim import build_optimizer
-    from repro_torch.training import Trainer, TrainState, make_train_step
+    from repro_torch.training import Trainer, TrainState, jit_train_step, make_train_step
 
     steps = TRAIN_ZOO_STEPS + 1
     run = _zoo_run(cfg, total_steps=steps, log_every=steps, seed=key_seed)
@@ -5546,7 +5774,7 @@ def train_zoo_steps(model, cfg, key_seed=1):
     t = time.perf_counter()
     if cfg.is_encoder_decoder:
         opt = build_optimizer(run)
-        step = make_train_step(model, cfg, run, opt, WarmStartPath(TRAIN_ZOO_T0))
+        step = jit_train_step(make_train_step(model, cfg, run, opt, WarmStartPath(TRAIN_ZOO_T0)))
         state = TrainState.create(model, opt)
         events, losses, gnorms = [], [], []
         rng = prng.key(key_seed)
@@ -5563,7 +5791,7 @@ def train_zoo_steps(model, cfg, key_seed=1):
         events[-1].record()
         events[-1].synchronize()
         step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        how = "make_train_step"
+        how = "jit_train_step"
     else:
         trainer = Trainer(model, cfg, run, path=WarmStartPath(TRAIN_ZOO_T0))
         batches = ((b["x_src"].numpy(), b["x_tgt"].numpy())
@@ -5572,6 +5800,7 @@ def train_zoo_steps(model, cfg, key_seed=1):
         state = trainer.fit(trainer.init_state(), batches, steps=steps)
         step_ms = trainer.step_ms()
         losses, gnorms = trainer.step_losses, trainer.step_grad_norms
+        step = trainer._step_fn
         how = "Trainer.fit"
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
@@ -5581,8 +5810,10 @@ def train_zoo_steps(model, cfg, key_seed=1):
     gnorms = torch.stack(gnorms).cpu()
     per_step = train_zoo_launches(cfg, True)
     want = {k: v * steps for k, v in per_step.items()}
-    if counts != want:
-        fail(f"{cfg.name} training: launches {counts}, expected {want}")
+    graphs = step.graphs.stats()
+    if counts != want or (graphs["captures"], graphs["replays"]) != (1, steps - 1):
+        fail(f"{cfg.name} training: launches {counts}, expected {want}; graphs {graphs}, "
+             f"expected one capture and {steps - 1} replays")
     if int(state.step) != steps or not bool(torch.isfinite(losses).all()) \
             or not bool(torch.isfinite(gnorms).all()):
         fail(f"{cfg.name} training: step {int(state.step)}, losses {losses.tolist()}, grad "
@@ -5592,9 +5823,21 @@ def train_zoo_steps(model, cfg, key_seed=1):
     if still:
         fail(f"{cfg.name} training: {still} did not move")
     return {"how": how, "steps": steps, "step_ms": step_ms, "wall_s": wall_s,
+            "capture_step_ms": step_ms[0], "graphs": graphs,
             "losses": losses.tolist(), "grad_norms": gnorms.tolist(), "launches": counts,
             "launches_per_step": per_step, "peak_bytes": peak, "allocated_before_bytes": base,
-            "state": state}
+            "state": state, "step_fn": step}
+
+
+def events_ms(fn) -> float:
+    """``fn``'s time on the card's clock (CUDA events around it)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def gc_collect():
@@ -5606,12 +5849,15 @@ def gc_collect():
 
 def train_zoo_family(arch):
     """One family at its published widths and depth (float32, seed 0): the
-    gradient gates at 2 rows, the training steps at 8, a step's busy share."""
+    gradient gates at 2 rows, the graphed training steps at 8, the busy
+    share of a graph replay, an eager step's ms, then the graph == eager
+    gate (TRAIN_ZOO_GATE_STEPS steps at 2 rows; zamba2-2.7b and xlstm-1.3b
+    cut to TRAIN_ZOO_GATE_LAYERS, one pattern group each, since three
+    full-depth copies with AMSGrad moments do not fit one card; whisper-medium
+    at full depth)."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.optim import build_optimizer
-    from repro_torch.training.train_step import make_train_step
 
     t_family = time.perf_counter()
     cfg = get_config(arch).replace(dtype="float32")     # the configs compute in bfloat16
@@ -5625,6 +5871,7 @@ def train_zoo_family(arch):
     gc_collect()
     tr = train_zoo_steps(model, cfg)
     state = tr.pop("state")
+    step_fn = tr.pop("step_fn")
     timed = tr["step_ms"][1:]
     median_ms = statistics.median(timed)
     tokens = TRAIN_ZOO_ROWS * SEQ
@@ -5642,26 +5889,63 @@ def train_zoo_family(arch):
                     "model_flops_with_frames": with_frames,
                     "model_flop_share_with_frames":
                         with_frames / (median_ms / 1e3) / F32_OPS_PER_S})
-    # one more step under the profiler: the device's busy share and its kernels
-    step = make_train_step(model, cfg, _zoo_run(cfg), build_optimizer(_zoo_run(cfg)))
+    # one more step under the profiler, a replay of the training's graph: the device's
+    # busy share; then (the graph's pool released) an eager step on CUDA events, its
+    # yardstick (under the profiler xlstm-1.3b's 192k eager kernels took 26 s to trace)
     batch = train_zoo_batch(cfg, TRAIN_ZOO_ROWS, 200)
     held = {"state": state}
 
-    def one_step():
-        held["state"], _ = step(held["state"], batch, prng.key(7))
+    def one_step(step):
+        def run():
+            held["state"], _ = step(held["state"], batch, prng.key(7))
+        return run
 
     t = time.perf_counter()
-    res["busy"] = trace_busy_share(one_step, f"{cfg.name}'s train step")
-    res["busy"]["profile_s"] = time.perf_counter() - t
-    del held, state, step, batch, model
+    res["busy_graphed"] = trace_busy_share(one_step(step_fn), f"{cfg.name}'s train step "
+                                           "(a graph replay)")
+    res["busy_graphed"]["profile_s"] = time.perf_counter() - t
+    if step_fn.graphs.replays != TRAIN_ZOO_STEPS + 1:
+        fail(f"{cfg.name}: the profiled step did not replay the training's graph")
+    eager = step_fn.step
+    del step_fn
     gc_collect()
+    res["eager_step_ms"] = events_ms(one_step(eager))
+    del held, state, eager, batch, model
+    gc_collect()
+    res["graph_gate"] = train_zoo_graph_gate(cfg)
     res["seconds"] = time.perf_counter() - t_family
     print(f"{cfg.name} training ({n_params / 1e9:.3f}B params, {TRAIN_ZOO_ROWS} x {SEQ}, remat, "
-          f"{res['how']}): first step {res['first_step_ms']:.1f} ms, median {median_ms:.1f} ms "
+          f"{res['how']}, one graph replay a step): capturing step {res['first_step_ms']:.1f} "
+          f"ms, a replay's median {median_ms:.1f} ms (an eager step {res['eager_step_ms']:.1f} "
+          f"ms; under the profiler a replay {res['busy_graphed']['wall_ms']:.1f} ms, "
+          f"{res['busy_graphed']['busy_share']} busy; the "
+          f"gate's steps at {TRAIN_ZOO_GATE_ROWS} rows, {res['graph_gate']['layers']} layers: "
+          f"eager {res['graph_gate']['eager']['step_ms']} ms, graphed "
+          f"{res['graph_gate']['graphed']['step_ms']} ms) "
           f"({res['tokens_per_s']:.0f} tokens/s, model-FLOP share {res['model_flop_share']:.1%} "
           f"of 67 TFLOP/s), peak {res['peak_bytes'] / 2**30:.2f} GiB; losses "
           f"{[round(x, 4) for x in res['losses']]}; launches {res['launches']}; "
           f"{res['seconds']:.1f} s")
+    return res
+
+
+def train_zoo_graph_gate(cfg):
+    """:func:`train_graph_gate` at the family's published widths:
+    TRAIN_ZOO_GATE_STEPS steps of TRAIN_ZOO_GATE_ROWS x SEQ with remat and
+    the families' AdamW, zamba2-2.7b and xlstm-1.3b at TRAIN_ZOO_GATE_LAYERS
+    layers, whisper-medium at its full depth."""
+    from repro_torch.models import build_model
+
+    layers = TRAIN_ZOO_GATE_LAYERS.get(cfg.name)
+    gcfg = cfg.replace(num_layers=layers) if layers else cfg
+    model = build_model(gcfg, device="cuda", seed=0)
+    batches = [train_zoo_batch(gcfg, TRAIN_ZOO_GATE_ROWS, 300 + i)
+               for i in range(TRAIN_ZOO_GATE_STEPS)]
+    res = train_graph_gate(f"{cfg.name} ({gcfg.num_layers} layers) train step", model,
+                           _zoo_run(gcfg, total_steps=TRAIN_ZOO_GATE_STEPS), batches)
+    del model, batches
+    gc_collect()
+    res["layers"] = gcfg.num_layers
     return res
 
 
@@ -5676,10 +5960,13 @@ def _zoo_run(cfg, **kw):
 
 def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
     """Each family's smoke config (seed 0, remat, AdamW, lr 1e-3 after one
-    warm-up step) trained 3 steps at 2 x 24 on the card and on the CPU from
-    the same weights, batches (and frames) and keys: losses, grad norms and
-    parameters within the SMOKE_* tolerances (an MoE config's loss with its
-    router's auxiliary term)."""
+    warm-up step) trained 3 steps at 2 x 24 on the card, eager and graphed
+    (``jit_train_step``: one capture, two replays), and on the CPU from the
+    same weights, batches (and frames) and keys: each card run's losses,
+    grad norms and parameters against the CPU's within the SMOKE_*
+    tolerances (an MoE config's loss with its router's auxiliary term), and
+    the graphed run against the eager one by :func:`check_graph_equals_eager`
+    (a second eager run says what varies run to run)."""
     import copy
 
     import numpy as np
@@ -5688,7 +5975,7 @@ def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
     from repro_torch.configs.base import RunConfig
     from repro_torch.models import build_model
     from repro_torch.optim import build_optimizer
-    from repro_torch.training import TrainState, make_train_step
+    from repro_torch.training import TrainState, jit_train_step, make_train_step
 
     res = {}
     for arch in archs:
@@ -5696,7 +5983,6 @@ def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
         run = RunConfig(arch=arch, t0=TRAIN_ZOO_T0, learning_rate=1e-3, warmup_steps=1,
                         total_steps=3, remat="block")
         host = build_model(cfg, device="cpu", seed=0)
-        card = copy.deepcopy(host).to("cuda")
         rng = np.random.default_rng(3)
         batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))
                                         .astype(np.int32)) for k in ("x_src", "x_tgt")}
@@ -5710,43 +5996,65 @@ def check_train_zoo_smoke_against_cpu(archs=TRAIN_ZOO_ARCHS):
             for b in batches:
                 b["patches"] = vlm_patches(cfg, 2, device="cpu")
                 b["positions"] = vlm_positions(2, VLM_SMOKE_GRID, 24)
-        out = {}
-        for dev, model in (("cuda", card), ("cpu", host)):
+        out, graphs = {}, None
+        for name in ("cuda", "cuda_again", "graph", "cpu"):
+            dev = "cpu" if name == "cpu" else "cuda"
+            model = host if name == "cpu" else copy.deepcopy(host).to("cuda")
             opt = build_optimizer(run)
             step = make_train_step(model, cfg, run, opt)
+            if name == "graph":
+                step = jit_train_step(step)
             state = TrainState.create(model, opt)
             metrics = []
             for i, b in enumerate(batches):
                 state, m = step(state, {k: v.to(dev) for k, v in b.items()}, prng.key(i))
-                metrics.append((float(m["loss"]), float(m["grad_norm"])))
-            out[dev] = (metrics, {n: p.detach().cpu() for n, p in model.named_parameters()})
+                metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+            if name == "graph":
+                graphs = step.graphs.stats()
+            out[name] = (torch.stack(metrics).cpu(),
+                         {k: v.cpu() for k, v in train_leaves(state).items()})
         sched = build_optimizer(run).learning_rate
         bound = 2 * sum(sched(i) for i in (1, 2, 3))
-        # per step: (loss, grad norm) relative errors
-        errs = [tuple(abs(a - b) / abs(b) for a, b in zip(ma, mb))
-                for ma, mb in zip(out["cuda"][0], out["cpu"][0])]
-        worst_share, worst_diff, within, total = 1.0, 0.0, 0, 0
-        for n, p in out["cpu"][1].items():
-            diff = (out["cuda"][1][n] - p).abs()
-            worst_diff = max(worst_diff, float(diff.max()))
-            close = int((diff <= 1e-4 * float(p.abs().max())).sum())
-            within, total = within + close, total + p.numel()
-            worst_share = min(worst_share, close / p.numel())
-        share = within / total
-        res[arch] = {"rel_errs_loss_grad_norm": errs, "param_max_abs_diff": worst_diff,
-                     "param_bound": bound, "param_share_within_1e-4": share,
-                     "param_worst_leaf_share_within_1e-4": worst_share,
-                     "losses_card": [m[0] for m in out["cuda"][0]],
-                     "losses_cpu": [m[0] for m in out["cpu"][0]]}
-        steps_txt = [tuple(f"{e:.2e}" for e in st) for st in errs]
-        print(f"{cfg.name} trained 3 steps on the card vs the CPU: (loss, grad norm) relative "
-              f"errors a step {steps_txt}; parameters max |diff| {worst_diff:.2e} (bound "
-              f"{bound:.2e}), {share:.6f} of the elements within 1e-4 of their leaf's max "
-              f"(worst leaf {worst_share:.4f})")
-        if max(errs[0]) > SMOKE_STEP1_RTOL or any(
-                le > SMOKE_LOSS_RTOL or ge > SMOKE_GNORM_RTOL for le, ge in errs[1:]) \
-                or worst_diff > bound or share < SMOKE_TRAIN_SHARE:
-            fail(f"{cfg.name}: 3 steps on the card disagree with the CPU: {res[arch]}")
+
+        def vs_cpu(name):
+            # per step: (loss, grad norm) relative errors
+            errs = [tuple(abs(float(a) - float(b)) / abs(float(b)) for a, b in zip(ma, mb))
+                    for ma, mb in zip(out[name][0], out["cpu"][0])]
+            worst_share, worst_diff, within, total = 1.0, 0.0, 0, 0
+            for (kind, n), p in out["cpu"][1].items():
+                if kind != "param":
+                    continue
+                diff = (out[name][1][(kind, n)] - p).abs()
+                worst_diff = max(worst_diff, float(diff.max()))
+                close = int((diff <= 1e-4 * float(p.abs().max())).sum())
+                within, total = within + close, total + p.numel()
+                worst_share = min(worst_share, close / p.numel())
+            share = within / total
+            rec = {"rel_errs_loss_grad_norm": errs, "param_max_abs_diff": worst_diff,
+                   "param_bound": bound, "param_share_within_1e-4": share,
+                   "param_worst_leaf_share_within_1e-4": worst_share,
+                   "losses_card": [float(m[0]) for m in out[name][0]],
+                   "losses_cpu": [float(m[0]) for m in out["cpu"][0]]}
+            steps_txt = [tuple(f"{e:.2e}" for e in st) for st in errs]
+            print(f"{cfg.name} trained 3 steps on the card ({'graphed' if name == 'graph' else 'eager'}) "
+                  f"vs the CPU: (loss, grad norm) relative errors a step {steps_txt}; parameters "
+                  f"max |diff| {worst_diff:.2e} (bound {bound:.2e}), {share:.6f} of the elements "
+                  f"within 1e-4 of their leaf's max (worst leaf {worst_share:.4f})")
+            if max(errs[0]) > SMOKE_STEP1_RTOL or any(
+                    le > SMOKE_LOSS_RTOL or ge > SMOKE_GNORM_RTOL for le, ge in errs[1:]) \
+                    or worst_diff > bound or share < SMOKE_TRAIN_SHARE:
+                fail(f"{cfg.name}: 3 steps on the card ({name}) disagree with the CPU: {rec}")
+            return rec
+
+        res[arch] = vs_cpu("cuda")
+        res[arch]["graph_vs_cpu"] = vs_cpu("graph")
+        res[arch]["graph_gate"] = check_graph_equals_eager(
+            f"{cfg.name} train step", out["graph"], out["cuda"],
+            run_to_run(out["cuda"], out["cuda_again"]), bound)
+        res[arch]["graphs"] = graphs
+        if (graphs["captures"], graphs["replays"]) != (1, 2):
+            fail(f"{cfg.name}: 3 graphed train steps made {graphs}, expected one capture and "
+                 f"two replays")
     return res
 
 
@@ -5863,12 +6171,14 @@ def readme_torch_snippet() -> str:
 def examples_path():
     """The README's torch quickstart and the four ``examples/*_torch.py`` on
     the card (``--device cuda``, their defaults but EXAMPLE_ARGS), one
-    subprocess each, one after the other: each must exit 0, print its
-    headline lines and the NFEs ``warm_nfe`` guarantees. Returns the
-    {"examples": ...} record."""
+    subprocess each, all five at once (as ``check_launch_train_smoke`` runs
+    its two: the phase took 74.5-87.7 s one after the other): each must exit
+    0, print its headline lines and the NFEs ``warm_nfe`` guarantees. Returns
+    the {"examples": ...} record; each one's seconds ran beside the others."""
     import os
     import re
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.core.guarantees import warm_nfe
 
@@ -5880,12 +6190,18 @@ def examples_path():
         snippet.write_text(readme_torch_snippet(), encoding="utf-8")
         runs = [("readme_quickstart_torch", snippet)] + [
             (name, ROOT / "examples" / f"{name}.py") for name in EXAMPLES]
-        for name, path in runs:
+
+        def run(name_path):
+            name, path = name_path
             t = time.perf_counter()
             p = subprocess.run([sys.executable, str(path), *EXAMPLE_ARGS.get(name, [])],
                                cwd=ROOT, env=env, text=True,
                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, timeout=600)
-            seconds = time.perf_counter() - t
+            return p, time.perf_counter() - t
+
+        with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+            done = list(pool.map(run, runs))
+        for (name, _), (p, seconds) in zip(runs, done):
             if p.returncode != 0:
                 fail(f"{name} exited {p.returncode}:\n{p.stdout[-3000:]}")
             heads = {}

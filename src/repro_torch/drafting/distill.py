@@ -14,7 +14,9 @@ distilled against the serving pipeline itself:
     :func:`repro_torch.core.losses.distill_map_loss`). Its params are a
     flat dict of tensors with the JAX leaf names and shapes;
   * :func:`train_distilled` -- the self-distillation loop over the buffer
-    (the port's AdamW, the loss through autograd, one eager step a batch);
+    (the port's AdamW, the loss through autograd): one step a batch, on the
+    card one CUDA graph replay (:func:`jit_distill_step`, one graph a batch
+    shape, as JAX jits its step once a length);
   * :func:`save_distilled` / :func:`restore_distilled` -- checkpoints
     through ``repro_torch.checkpoint`` in the JAX package's layout, so a
     head saved by either package restores in the other.
@@ -40,7 +42,8 @@ from repro_torch.checkpoint.io import latest_step, restore_checkpoint, save_chec
 from repro_torch.convert import DISTILLED_LEAVES
 from repro_torch.core.losses import distill_map_loss
 from repro_torch.device import resolve_device
-from repro_torch.optim.adamw import AdamW
+from repro_torch.graphs import GraphCache, compile_key
+from repro_torch.optim.adamw import AdamW, device_scalars, next_step
 
 
 class PairBuffer:
@@ -208,6 +211,54 @@ class DistillReport:
         return dataclasses.asdict(self)
 
 
+def make_distill_step(model: DistilledRefiner, params: Params, opt: AdamW, *,
+                      z_loss: float = 0.0):
+    """The head's un-jitted train step (JAX's ``train_step`` inside
+    ``train_distilled``): ``step(opt_state, draft, refined, t0) ->
+    (opt_state, loss, agreement)``, the distillation loss through autograd
+    and one AdamW step on ``params`` (tensors that require grad) in place.
+    ``hyper``, a keyword, takes AdamW's step values as a tensor on the
+    card."""
+    leaves = {k: [params[k]] for k in DISTILLED_LEAVES}
+
+    def step(opt_state, draft, refined, t0, *, hyper=None):
+        loss, aux = distill_map_loss(lambda x, t: model.dfm_apply(params, x, t),
+                                     draft, refined, t0, z_loss=z_loss)
+        grads = torch.autograd.grad(loss, [params[k] for k in DISTILLED_LEAVES])
+        if hyper is None:
+            hyper = device_scalars(opt.hyper(opt_state), draft.device)
+        opt.apply({k: [g] for k, g in zip(DISTILLED_LEAVES, grads)}, opt_state, leaves, hyper)
+        return next_step(opt_state), loss.detach(), aux["agreement"]
+
+    step.optimizer = opt
+    return step
+
+
+def jit_distill_step(step):
+    """``jax.jit`` of :func:`make_distill_step`'s step, with its contract:
+    on the card one CUDA graph a batch shape (``GraphCache(stateful=True)``:
+    the shape's first call is the capture's warm-up, its one step; each
+    later call fills the batch and AdamW's step values and replays), the
+    weights and moments of the first call's state written in place; off
+    the card the step itself. ``jitted.graphs`` is the cache."""
+    graphs = GraphCache("the distilled head's train step", stateful=True)
+
+    def jitted(opt_state, draft, refined, t0):
+        if draft.device.type != "cuda":
+            return step(opt_state, draft, refined, t0)
+
+        def body(draft, refined, t0, hyper):
+            return step(opt_state, draft, refined, t0, hyper=hyper)[1:]
+
+        key = compile_key({"draft": draft, "refined": refined, "t0": t0})
+        hyper = torch.from_numpy(step.optimizer.hyper(opt_state))
+        loss, agreement = graphs(key, body, draft, refined, t0, hyper)
+        return next_step(opt_state), loss, agreement
+
+    jitted.graphs = graphs
+    return jitted
+
+
 def train_distilled(
     model: DistilledRefiner,
     buffer: PairBuffer,
@@ -222,9 +273,11 @@ def train_distilled(
     seed: int = 0,
     device="cuda",
 ) -> Tuple[Params, DistillReport]:
-    """Self-distillation loop over a harvested pair buffer: one eager AdamW
-    step a rectangular batch, in the batch order of ``buffer.batches(...,
-    rng=np.random.default_rng(seed))``, as JAX's. ``key`` seeds
+    """Self-distillation loop over a harvested pair buffer: one AdamW step a
+    rectangular batch (:func:`jit_distill_step`: on the card a graph replay,
+    one capture a batch shape), in the batch order of ``buffer.batches(...,
+    rng=np.random.default_rng(seed))``, as JAX's; each step's loss and
+    agreement are read on the host, outside the graph. ``key`` seeds
     ``model.init`` when ``params`` is None; given ``params`` are copied, not
     changed. Returns ``(new params, DistillReport)``; the params are new
     tensors that need no gradient."""
@@ -236,8 +289,8 @@ def train_distilled(
     if params is None:
         params = model.init(key, device=dev)
     params = {k: v.detach().to(dev).clone().requires_grad_(True) for k, v in params.items()}
-    leaves = {k: [params[k]] for k in DISTILLED_LEAVES}
-    opt_state = opt.init(leaves)
+    opt_state = opt.init({k: [params[k]] for k in DISTILLED_LEAVES})
+    step = jit_distill_step(make_distill_step(model, params, opt, z_loss=z_loss))
 
     rng = np.random.default_rng(seed)
     steps = 0
@@ -247,13 +300,9 @@ def train_distilled(
             draft = torch.from_numpy(np.asarray(draft, np.int32)).to(dev)
             refined = torch.from_numpy(np.asarray(refined, np.int32)).to(dev)
             t0 = torch.from_numpy(np.asarray(t0, np.float32)).to(dev)
-            loss, aux = distill_map_loss(lambda x, t: model.dfm_apply(params, x, t),
-                                         draft, refined, t0, z_loss=z_loss)
-            grads = torch.autograd.grad(loss, [params[k] for k in DISTILLED_LEAVES])
-            grads = {k: [g] for k, g in zip(DISTILLED_LEAVES, grads)}
-            _, opt_state = opt.update(grads, opt_state, leaves)
-            final_loss = float(loss.detach())
-            final_agreement = float(aux["agreement"])
+            opt_state, loss, agreement = step(opt_state, draft, refined, t0)
+            final_loss = float(loss)
+            final_agreement = float(agreement)
             if steps == 0:
                 first_loss = final_loss
             steps += 1

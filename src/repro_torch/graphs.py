@@ -28,12 +28,23 @@ capture state, the half-built graph); nothing falls back to eager
 launches. Captures take a process-wide lock: one at a time, whichever
 thread asks.
 
+A stateful ``fn`` (``GraphCache(..., stateful=True)``: a train step,
+which updates weights and moments in place) must run once a call. Its
+warm-up is the capturing call's one step: the cache releases the blocks
+the warm-up freed (``torch.cuda.empty_cache()``, so that the graph's pool
+takes the step's memory without doubling the peak), captures, and returns
+the warm-up's outputs with no replay; every later call is one replay. A
+capture of a stateful ``fn`` that fails raises :class:`GraphCaptureError`
+all the same, after its warm-up step was applied.
+
 Launch counts (:mod:`repro_torch.counts`) count what ran: the warm-up's
 launches reach ``launches`` as they happen; during the capture, which
 launches nothing, the kernels' wrappers count into the graph's tally
-(``counts.counting_into``), and each replay adds the tally to
+(``counts.counting_into``; also from autograd's threads, which launch a
+backward onto the captured stream), and each replay adds the tally to
 ``launches``. A call that captures thus counts the loop twice, a replay
-once. ``captures`` and ``replays`` are the jit cache's misses and hits;
+once; a stateful call that captures counts its one step once, from the
+warm-up. ``captures`` and ``replays`` are the jit cache's misses and hits;
 ``capture_s`` holds each key's warm-up and capture wall time, apart from
 its replays; ``last_warmup`` holds the output of the latest capture's
 warm-up, that key's eager launches on the inputs of its first call (the
@@ -55,6 +66,12 @@ import torch
 from repro_torch import counts
 
 _TORCH_DIR = os.path.dirname(torch.__file__)
+
+
+def compile_key(arrays: Dict[str, torch.Tensor]) -> Tuple:
+    """What ``jax.jit`` retraces on for a dict of arrays: its keys, each
+    entry's shape and dtype."""
+    return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in arrays.items())
 
 
 class GraphCaptureError(RuntimeError):
@@ -124,11 +141,14 @@ class GraphCache:
     Args:
       what: the name a failed capture reports.
       hint: appended to a failed capture's message (what to do instead).
+      stateful: ``fn`` changes what it reads (a train step): a call that
+        captures returns its warm-up's outputs and replays nothing.
     """
 
-    def __init__(self, what: str, hint: str = ""):
+    def __init__(self, what: str, hint: str = "", stateful: bool = False):
         self.what = what
         self.hint = hint
+        self.stateful = stateful
         self._graphs: Dict[Hashable, _Graph] = {}
         self._stream = None
         self.captures = 0
@@ -146,6 +166,8 @@ class GraphCache:
         if entry is None:
             entry = self._capture(key, fn, inputs)
             self._graphs[key] = entry
+            if self.stateful:
+                return self.last_warmup
         for dst, src in zip(entry.inputs, inputs):
             _fill(dst, src)
         entry.graph.replay()
@@ -166,15 +188,23 @@ class GraphCache:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             warm = fn(*static)
+        if self.stateful:
+            # the caller's stream owns the step's outputs; the blocks the
+            # step freed go back to the card for the graph's pool
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warm = _clone(warm)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            torch.cuda.empty_cache()
         graph = torch.cuda.CUDAGraph()
         pool = torch.cuda.graph_pool_handle()      # private to this graph
         tally: collections.Counter = collections.Counter()
         raised = []
         # one capture at a time in the process: the scheduler's draft worker
         # and its refine thread would otherwise capture at once
+        capturing = torch.cuda.is_current_stream_capturing
         with _CAPTURE_LOCK:
             try:
-                with counts.counting_into(tally), torch.cuda.graph(
+                with counts.counting_into(tally, capturing), torch.cuda.graph(
                         graph, pool=pool, stream=side, capture_error_mode="thread_local"):
                     try:
                         out = fn(*static)
@@ -186,6 +216,7 @@ class GraphCache:
                 cause = raised[0] if raised else err
                 raise GraphCaptureError(
                     f"capturing {self.what} (key {key}) failed at {_where(cause)}: {cause}"
+                    + ("; its warm-up step was applied" if self.stateful else "")
                     + (f"; {self.hint}" if self.hint else "")) from cause
         torch.cuda.current_stream(dev).wait_stream(side)
         self.last_warmup = warm

@@ -151,10 +151,12 @@ class EncDecModel(nn.Module):
 
     def encode(self, frames: torch.Tensor, *, remat: bool = False) -> torch.Tensor:
         """frames (B, F, d_model) stub embeddings -> encoder states. With
-        ``remat`` each block is checkpointed (JAX checkpoints its scan body)."""
+        ``remat`` each block is checkpointed (JAX checkpoints its scan body;
+        no RNG state is kept: the port draws none in a forward)."""
         x = frames.float() + _sinusoids(frames.shape[1], self.cfg.d_model, frames.device)[None]
         for block in self.enc_blocks:
-            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
+            x = (checkpoint(block, x, use_reentrant=False, preserve_rng_state=False) if remat
+                 else block(x))
         return self.enc_norm(x)
 
     def _layer_kvs(self, enc_out: torch.Tensor) -> List[dict]:
@@ -189,7 +191,7 @@ class EncDecModel(nn.Module):
             lc = None if self_cache is None else {k: v[i] for k, v in self_cache.items()}
             if remat and lc is None:
                 x, lc = checkpoint(block, x, kvs[i], mode=mode, q_pos=q_pos,
-                                   use_reentrant=False)
+                                   use_reentrant=False, preserve_rng_state=False)
             else:
                 x, lc = block(x, kvs[i], mode=mode, q_pos=q_pos, cache=lc)
             new.append(lc)

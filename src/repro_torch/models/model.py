@@ -207,7 +207,9 @@ class Model(nn.Module):
         recomputed in the backward, the group's auxiliary loss with it; the
         prefix and remainder layers are not checkpointed. ``x0`` and the
         shared block's weights enter every group, so their gradients sum
-        over all of them."""
+        over all of them. The forward draws nothing from torch's generators
+        (threefry keys only), so the checkpoint keeps no RNG state: reading
+        it would touch the default generator inside a CUDA graph capture."""
         x, auxes = self._trunk(tokens, t, patches, positions, global_window, remat)
         logits = self._head(x)
         if not return_aux:
@@ -234,7 +236,8 @@ class Model(nn.Module):
         auxes = [aux]
         for lo in range(npre, end, p):
             if remat:
-                x, aux = checkpoint(self._layers, lo, lo + p, x, x0, *ctx, use_reentrant=False)
+                x, aux = checkpoint(self._layers, lo, lo + p, x, x0, *ctx, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
                 x, aux = self._layers(lo, lo + p, x, x0, *ctx)
             auxes.append(aux)

@@ -10,6 +10,11 @@ optimizer works on the JAX leaves: it stacks the gradients and parameters
 of the layers that form one leaf (``repro_torch.convert.jax_leaves``),
 updates the stacked leaf and writes each layer back in place. A
 per-parameter Adafactor would compute a different optimizer.
+
+As AdamW's, ``update`` is a host prologue (:meth:`Adafactor.hyper`: the
+step's ``beta`` and learning rate in float32) and a device body
+(:meth:`Adafactor.apply`) that reads them from a float32 tensor, a CUDA
+graph's input, or from Python floats, with the same bits.
 """
 
 from __future__ import annotations
@@ -20,7 +25,9 @@ from typing import Callable, Dict, List, NamedTuple, Union
 import numpy as np
 import torch
 
-from repro_torch.optim.adamw import Leaves, is_stacked, leaf_shape, lr_at
+from repro_torch.optim.adamw import (
+    Leaves, device_scalars, is_stacked, leaf_shape, lr_at, next_step,
+)
 
 
 class AdafactorState(NamedTuple):
@@ -56,8 +63,10 @@ class Adafactor:
         return AdafactorState(step=torch.zeros((), dtype=torch.int32), vr=vr, vc=vc)
 
     def update_leaf(self, g: torch.Tensor, vr: torch.Tensor, vc: torch.Tensor,
-                    p: torch.Tensor, beta: float, lr: float):
-        """The JAX ``upd`` on one (stacked) leaf: returns (new p, vr, vc)."""
+                    p: torch.Tensor, beta, lr):
+        """The JAX ``upd`` on one (stacked) leaf: returns (new p, vr, vc).
+        ``beta`` and ``lr`` are Python floats or float32 0-d tensors on the
+        leaf's device (``1 - beta`` rounds to the same float32 either way)."""
         gf = g.float()
         g2 = torch.square(gf) + self.eps
         if p.ndim >= 2:
@@ -76,13 +85,26 @@ class Adafactor:
             u = u + self.weight_decay * p.float()
         return (p.float() - lr * u).to(p.dtype), vr_new, vc_new
 
-    @torch.no_grad()
-    def update(self, grads: Leaves, state: AdafactorState, params: Leaves):
-        """One step on ``params`` in place; returns ``(params, new state)``."""
+    def hyper(self, state: AdafactorState) -> np.ndarray:
+        """The host prologue of the step after ``state``'s: (beta, lr) in
+        float32."""
         step = int(state.step) + 1
         f32 = np.float32
-        beta = float(f32(1.0) - f32(step) ** f32(-self.decay))
-        lr = lr_at(self.learning_rate, step)
+        return np.array([f32(1.0) - f32(step) ** f32(-self.decay),
+                         lr_at(self.learning_rate, step)], np.float32)
+
+    def update(self, grads: Leaves, state: AdafactorState, params: Leaves):
+        """One step on ``params`` in place; returns ``(params, new state)``."""
+        device = next(iter(params.values()))[0].device
+        self.apply(grads, state, params, device_scalars(self.hyper(state), device))
+        return params, next_step(state)
+
+    @torch.no_grad()
+    def apply(self, grads: Leaves, state: AdafactorState, params: Leaves, hyper) -> None:
+        """The device body of one step, in place on ``params`` and the
+        factors: ``hyper`` is :meth:`hyper`'s (beta, lr) as a float32 tensor
+        on the parameters' device, or as Python floats."""
+        beta, lr = hyper
         for name, ps in params.items():
             p_new, vr, vc = self.update_leaf(stack_leaf(name, grads[name]), state.vr[name],
                                              state.vc[name], stack_leaf(name, ps), beta, lr)
@@ -92,4 +114,3 @@ class Adafactor:
                 torch._foreach_copy_(ps, list(p_new.unbind(0)))
             else:
                 ps[0].copy_(p_new)
-        return params, state._replace(step=torch.tensor(step, dtype=torch.int32))

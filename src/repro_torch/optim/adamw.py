@@ -11,9 +11,18 @@ and runs on each layer's view of them. Parameters and moments are updated
 in place (the JAX optimizer returns new trees).
 
 ``update`` computes the JAX ``upd`` term for term in float32 with
-multi-tensor ``torch._foreach_*`` ops, each of which keeps that order. The
-step, learning rate and bias corrections are host values (float32,
-computed on the host from the host step), so nothing reads the card.
+multi-tensor ``torch._foreach_*`` ops, each of which keeps that order. It
+is two parts, so that a CUDA graph of a train step can replay it: the host
+prologue :meth:`AdamW.hyper` gives the step's learning rate and bias
+corrections (float32, computed on the host from the host step, so nothing
+reads the card), and the device body :meth:`AdamW.apply` reads them from a
+small float32 tensor, the graph's input, filled before each replay. Given
+as Python floats instead, the body gives the same bits: PyTorch divides a
+CUDA tensor by a host scalar as a product with the scalar's float32
+reciprocal, and a CPU tensor by division, so the prologue gives the bias
+corrections' reciprocals too and the body multiplies by them on the card
+(:func:`_div`). The constant hyperparameters (``b1``, ``b2``, ``eps``,
+``weight_decay``) stay Python floats.
 """
 
 from __future__ import annotations
@@ -55,6 +64,31 @@ def lr_at(learning_rate, step: int) -> float:
     return float(np.float32(learning_rate))
 
 
+def device_scalars(values: np.ndarray, device) -> torch.Tensor:
+    """A host prologue's float32 values as a tensor on ``device``: on the
+    card through pinned memory and a non-blocking copy, so the host does
+    not wait for the stream."""
+    t = torch.from_numpy(np.asarray(values, np.float32))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _div(xs: List[torch.Tensor], d, inv) -> List[torch.Tensor]:
+    """``torch._foreach_div(xs, d)`` for ``d`` a host float, and its bits for
+    ``d`` a 0-d float32 tensor: on the card PyTorch divides by a host scalar
+    as a product with the scalar's float32 reciprocal (``inv``, the host's
+    ``float32(1) / float32(d)``), on the CPU it divides."""
+    if isinstance(d, torch.Tensor) and d.device.type == "cuda":
+        return torch._foreach_mul(xs, inv)
+    return torch._foreach_div(xs, d)
+
+
+def next_step(state):
+    """``state`` (an optimizer's, with a host int32 ``step``) one step on."""
+    return state._replace(step=torch.tensor(int(state.step) + 1, dtype=torch.int32))
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor                          # () int32, on the host
     mu: Dict[str, torch.Tensor]
@@ -82,14 +116,30 @@ class AdamW:
         return AdamWState(step=torch.zeros((), dtype=torch.int32), mu=zeros(), nu=zeros(),
                           nu_max=zeros() if self.amsgrad else None)
 
-    @torch.no_grad()
-    def update(self, grads: Leaves, state: AdamWState, params: Leaves):
-        """One step on ``params`` in place; returns ``(params, new state)``."""
+    def hyper(self, state: AdamWState) -> np.ndarray:
+        """The host prologue of the step after ``state``'s: (lr, bc1, bc2),
+        float32 as the JAX expressions compute them, and 1 / bc1, 1 / bc2
+        in float32 (:func:`_div`)."""
         step = int(state.step) + 1
         f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(step))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(step))
-        lr = lr_at(self.learning_rate, step)
+        bc1 = f32(1.0) - f32(self.b1) ** f32(step)
+        bc2 = f32(1.0) - f32(self.b2) ** f32(step)
+        return np.array([lr_at(self.learning_rate, step), bc1, bc2,
+                         f32(1.0) / bc1, f32(1.0) / bc2], np.float32)
+
+    def update(self, grads: Leaves, state: AdamWState, params: Leaves):
+        """One step on ``params`` in place; returns ``(params, new state)``."""
+        device = next(iter(params.values()))[0].device
+        self.apply(grads, state, params, device_scalars(self.hyper(state), device))
+        return params, next_step(state)
+
+    @torch.no_grad()
+    def apply(self, grads: Leaves, state: AdamWState, params: Leaves, hyper) -> None:
+        """The device body of one step, in place on ``params`` and the
+        moments (``state.step`` stays): ``hyper`` is :meth:`hyper`'s values
+        as a float32 tensor on the parameters' device, or as Python
+        floats."""
+        lr, bc1, bc2, inv_bc1, inv_bc2 = hyper
         b1, b2 = self.b1, self.b2
 
         g, p, m, v, vmax = [], [], [], [], []
@@ -117,13 +167,13 @@ class AdamW:
         # denom = sqrt(max(vmax, v_new) / bc2) + eps  (AMSGrad) or sqrt(v_new / bc2) + eps
         if self.amsgrad:
             torch._foreach_maximum_(vmax32, v32)
-            denom = torch._foreach_div(vmax32, bc2)
+            denom = _div(vmax32, bc2, inv_bc2)
         else:
-            denom = torch._foreach_div(v32, bc2)
+            denom = _div(v32, bc2, inv_bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         # upd = (m_new / bc1) / denom (+ wd * p);  p = p - lr * upd
-        upd = torch._foreach_div(m32, bc1)
+        upd = _div(m32, bc1, inv_bc1)
         torch._foreach_div_(upd, denom)
         del denom
         if self.weight_decay:
@@ -135,4 +185,3 @@ class AdamW:
             lowp = [(d, s) for d, s in zip(dst, src) if d is not s]
             if lowp:
                 torch._foreach_copy_([d for d, _ in lowp], [s for _, s in lowp])
-        return params, state._replace(step=torch.tensor(step, dtype=torch.int32))

@@ -4,11 +4,14 @@ Used by ``launch/train.py``. It trains every decoder-only config; an
 encoder-decoder one trains through ``make_train_step`` with its frames in
 the batch (``check_fit_batches``).
 
-The JAX trainer jits its step; here the step runs as eager launches on the
-model's device. Every step's loss and grad norm stay on the device
-(``step_losses``, ``step_grad_norms``) and, on the card, a CUDA event marks
-each step's start (``step_ms`` reads them after ``fit``); the host reads
-the card only at the ``log_every`` steps, as the JAX trainer does.
+The JAX trainer jits its step; here the step is ``jit_train_step``'s: on
+the card one CUDA graph a batch shape, captured at its first step (that
+step runs once, as the capture's warm-up) and replayed at every later one;
+on the CPU eager launches. Every step's loss and grad norm stay on the
+device (``step_losses``, ``step_grad_norms``) and, on the card, a CUDA
+event marks each step's start (``step_ms`` reads them after ``fit``); the
+host reads the card only at the ``log_every`` steps, as the JAX trainer
+does.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.convert import jax_params_to_torch
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.optim import build_optimizer
 from repro_torch.training.state import TrainState
-from repro_torch.training.train_step import make_train_step
+from repro_torch.training.train_step import jit_train_step, make_train_step
 
 
 def check_fit_batches(cfg: ModelConfig) -> None:
@@ -58,8 +61,8 @@ class Trainer:
     def __post_init__(self):
         self.optimizer = build_optimizer(self.run)
         self.path = self.path or WarmStartPath(t0=self.run.t0)
-        self._step_fn = make_train_step(self.model, self.cfg, self.run, self.optimizer,
-                                        self.path)
+        self._step_fn = jit_train_step(make_train_step(self.model, self.cfg, self.run,
+                                                       self.optimizer, self.path))
 
     def init_state(self, params: Optional[Mapping[str, np.ndarray]] = None) -> TrainState:
         """A fresh state on the model's weights: its seeded init, or

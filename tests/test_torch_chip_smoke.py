@@ -218,3 +218,39 @@ def test_examples_phase_runs_the_readme_torch_snippet_and_every_torch_example(sm
         p.stem for p in (ROOT / "examples").glob("*_torch.py"))
     assert set(smoke.EXAMPLE_HEADLINES) == set(smoke.EXAMPLE_NFES) == {
         "readme_quickstart_torch", *smoke.EXAMPLES}
+
+
+def test_graph_equals_eager_gate_holds_bitwise_where_eager_runs_agree(smoke, monkeypatch):
+    """``check_graph_equals_eager``: a leaf that two eager runs give bitwise
+    must come out of the graph bitwise; a leaf that varies run to run may
+    differ within the bound, not beyond it; the losses and grad norms are
+    bitwise where nothing varies run to run, else within the relative
+    tolerances."""
+    import torch
+
+    failed = []
+    monkeypatch.setattr(smoke, "fail", failed.append)
+    metrics = torch.tensor([[3.0, 1.0], [2.5, 0.5]])
+    leaves = {("param", "w"): torch.ones(4), ("mu", "w"): torch.zeros(4)}
+    eager = (metrics, leaves)
+    again = (metrics.clone(), {**leaves, ("mu", "w"): torch.full((4,), 1e-6)})
+    nondet = smoke.run_to_run(eager, again)
+    assert nondet == ([], {("mu", "w")})
+    graph = (metrics.clone(), {("param", "w"): torch.ones(4), ("mu", "w"): torch.full((4,), 2e-6)})
+    res = smoke.check_graph_equals_eager("x", graph, eager, nondet, 1e-5)
+    assert not failed and res["bitwise_leaves"] == 1
+    assert res["worst_nondet_diff"] == float(torch.tensor(2e-6))
+    smoke.check_graph_equals_eager("x", (metrics, {**graph[1], ("mu", "w"): torch.ones(4)}),
+                                   eager, nondet, 1e-5)
+    assert len(failed) == 1 and "bound" in failed[0]
+    off = torch.ones(4)
+    off[2] = torch.nextafter(torch.tensor(1.0), torch.tensor(2.0))
+    smoke.check_graph_equals_eager("x", (metrics, {**graph[1], ("param", "w"): off}), eager,
+                                   nondet, 1e-5)
+    assert len(failed) == 2 and "bitwise run to run" in failed[1]
+    smoke.check_graph_equals_eager("x", (metrics * (1 + 1e-6), graph[1]), eager, nondet, 1e-5)
+    assert len(failed) == 2                        # the step varies: within 1e-4 relative
+    smoke.check_graph_equals_eager("x", (metrics * (1 + 1e-3), graph[1]), eager, nondet, 1e-5)
+    assert len(failed) == 4 and "step 1" in failed[2]
+    smoke.check_graph_equals_eager("x", (metrics + 1e-7, leaves), eager, ([], set()), 1e-5)
+    assert len(failed) == 6 and "bitwise run to run" in failed[4]

@@ -1570,3 +1570,182 @@ def test_vlm_serve_graph_reads_the_patches_in_place(card):
         assert torch.equal(moved, server._refine_loop_eager(keys, x, ts, hs))
     assert not torch.equal(moved, first)
     assert server.graphs.captures == 1
+
+
+# -- the train step as one CUDA graph a compile key ------------------------------------------
+
+def _train_steps(card, model, run, jit, steps=3, rows=2, seq=24):
+    """``steps`` AdamW steps of ``model`` (AMSGrad, ``run``'s schedule) on
+    batches from numpy seed 3 and keys 0, 1, ...: through ``jit_train_step``
+    or the un-jitted step. Returns ((loss, grad norm) a step, {leaf: copy}
+    of every weight and moment, the state, the step)."""
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training import TrainState, jit_train_step, make_train_step
+
+    cfg = model.cfg
+    opt = build_optimizer(run)
+    step = make_train_step(model, cfg, run, opt)
+    step = jit_train_step(step) if jit else step
+    state = TrainState.create(model, opt)
+    rng = np.random.default_rng(3)
+    metrics = []
+    for i in range(steps):
+        batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, seq))
+                                     .astype(np.int32)).to(card) for k in ("x_src", "x_tgt")}
+        state, m = step(state, batch, prng.key(i))
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+    leaves = {("param", n): p.detach().clone() for n, p in model.named_parameters()}
+    for f in ("mu", "nu", "nu_max"):
+        leaves.update({(f, k): v.clone() for k, v in getattr(state.opt_state, f).items()})
+    return torch.stack(metrics), leaves, state, step
+
+
+def _assert_graph_equals_eager(card, graph, eager, eager2, bound):
+    """The rule: bitwise wherever the two eager runs agree bitwise; elsewhere
+    within ``bound`` (2 x the summed learning rates) for a weight or moment
+    and 1e-4 relative for a loss or grad norm."""
+    (mg, lg), (me, le), (me2, le2) = graph[:2], eager[:2], eager2[:2]
+    for i in range(len(me)):
+        if torch.equal(me[i], me2[i]):
+            assert torch.equal(mg[i], me[i]), (i, mg[i].tolist(), me[i].tolist())
+        else:
+            assert torch.allclose(mg[i], me[i], rtol=1e-4, atol=0), (i, mg[i], me[i])
+    assert set(lg) == set(le)
+    for k, x in le.items():
+        if torch.equal(x, le2[k]):
+            assert torch.equal(lg[k], x), k
+        else:
+            assert float((lg[k].float() - x.float()).abs().max()) <= bound, k
+
+
+@pytest.mark.parametrize("arch", ["dfm-dit", "xlstm-1.3b"])
+def test_train_step_graph_equals_eager(card, arch):
+    """The smoke config trained 3 steps through ``jit_train_step`` against 3
+    eager steps from one init (copies of one seeded model), by the rule of
+    ``_assert_graph_equals_eager``: losses, grad norms, every weight and
+    every AMSGrad moment. One capture and two replays; the flash_attn
+    launches are the eager run's, a step's each."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import warmup_cosine
+
+    cfg = get_smoke_config(arch)
+    run = RunConfig(arch=arch, t0=0.8, learning_rate=1e-3, warmup_steps=1, total_steps=3,
+                    remat="block")
+    base = build_model(cfg, device=card, seed=0)
+    runs = {}
+    for name, jit in (("eager", False), ("eager2", False), ("graph", True)):
+        launches.clear()
+        runs[name] = _train_steps(card, copy.deepcopy(base), run, jit)
+        runs[name] += (dict(launches),)
+    sched = warmup_cosine(1e-3, 1, 3)
+    _assert_graph_equals_eager(card, runs["graph"], runs["eager"], runs["eager2"],
+                               2 * sum(sched(i) for i in (1, 2, 3)))
+    step = runs["graph"][3]
+    assert (step.graphs.captures, step.graphs.replays, len(step.graphs)) == (1, 2, 1)
+    assert runs["graph"][4] == runs["eager"][4]
+    assert int(runs["graph"][2].step) == int(runs["graph"][2].opt_state.step) == 3
+
+
+def test_capturing_train_step_applies_exactly_one_step(card):
+    """The call that captures runs the step once, as its warm-up, and
+    replays nothing: the step counters read 1 and the weights and moments
+    equal one eager step's bitwise; its launches count once. A capture that
+    a host read breaks raises ``GraphCaptureError`` saying the warm-up step
+    was applied, with no eager fallback; the weights then are one step on."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import build_optimizer
+    from repro_torch.training import TrainState, jit_train_step, make_train_step
+
+    cfg = get_smoke_config("dfm-dit")
+    run = RunConfig(t0=0.8, learning_rate=1e-3, warmup_steps=1, total_steps=3)
+    base = build_model(cfg, device=card, seed=0)
+    launches.clear()
+    eager = _train_steps(card, copy.deepcopy(base), run, False, steps=1)
+    assert dict(launches) == {"flash_attn": cfg.num_layers}
+    launches.clear()
+    graph = _train_steps(card, copy.deepcopy(base), run, True, steps=1)
+    assert dict(launches) == {"flash_attn": cfg.num_layers}
+    assert (graph[3].graphs.captures, graph[3].graphs.replays) == (1, 0)
+    assert int(graph[2].step) == int(graph[2].opt_state.step) == 1
+    assert torch.equal(graph[0], eager[0])
+    for k, x in eager[1].items():
+        assert torch.equal(graph[1][k], x), k
+
+    model = copy.deepcopy(base)
+    opt = build_optimizer(run)
+    inner = make_train_step(model, cfg, run, opt)
+
+    def syncing(state, batch, rng, *, hyper=None):
+        state, m = inner(state, batch, rng, hyper=hyper)
+        if float(m["loss"]) < 0:        # a host read: a synchronisation
+            raise ValueError("negative loss")
+        return state, m
+
+    syncing.model, syncing.optimizer = model, opt
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(np.int32))
+             .to(card) for k in ("x_src", "x_tgt")}
+    with pytest.raises(GraphCaptureError, match="(?s)float.*warm-up step was applied"):
+        jit_train_step(syncing)(TrainState.create(model, opt), batch, prng.key(0))
+    for (n, p), q in zip(model.named_parameters(), eager[2].params.parameters()):
+        assert torch.equal(p, q), n
+    assert torch.randn(4, device=card).shape == (4,)
+
+
+@pytest.mark.parametrize("name", ["adamw", "adamw_bf16", "adafactor"])
+def test_optimizer_device_body_is_the_host_float_form_on_card(card, name):
+    """The optimizers' device body fed each step's values as a float32
+    tensor on the card (what a graph replay reads) equals the body fed them
+    as Python floats, bit for bit, over 5 ``warmup_cosine`` steps on stacked
+    and plain leaves; ``update`` (prologue + body) equals both."""
+    from repro_torch.optim import Adafactor, AdamW, warmup_cosine
+    from repro_torch.optim.adamw import device_scalars, next_step
+
+    opt = {"adamw": AdamW(learning_rate=warmup_cosine(3e-4, 2, 10), weight_decay=0.1,
+                          amsgrad=True),
+           "adamw_bf16": AdamW(learning_rate=warmup_cosine(3e-4, 2, 10), amsgrad=True,
+                               moments_dtype="bfloat16"),
+           "adafactor": Adafactor(learning_rate=warmup_cosine(1e-3, 2, 10),
+                                  weight_decay=0.1)}[name]
+    shapes = {"embed": (64, 32), "stack|blocks|p0|w": (2, 32, 48), "stack|blocks|p0|b": (2, 48),
+              "head|b": (64,)}
+    g = torch.Generator(device=card).manual_seed(0)
+    init = {k: torch.randn(s, generator=g, device=card) for k, s in shapes.items()}
+
+    def leaves():
+        return {k: [x.clone() for x in v] if k.startswith("stack|") else [v.clone()]
+                for k, v in init.items()}
+
+    forms = [[leaves()] for _ in range(3)]
+    for f in forms:
+        f.append(opt.init(f[0]))
+    for _ in range(5):
+        grads = {k: [torch.randn(x.shape, generator=g, device=card) * 1e-2 for x in v]
+                 for k, v in forms[0][0].items()}
+        for i, f in enumerate(forms):
+            h = opt.hyper(f[1])
+            if i == 0:
+                opt.apply(grads, f[1], f[0], device_scalars(h, card))
+                f[1] = next_step(f[1])
+            elif i == 1:
+                opt.apply(grads, f[1], f[0], tuple(float(x) for x in h))
+                f[1] = next_step(f[1])
+            else:
+                _, f[1] = opt.update(grads, f[1], f[0])
+    (la, sa), (lb, sb), (lc, sc) = forms
+    for k in shapes:
+        for a, b, c in zip(la[k], lb[k], lc[k]):
+            assert torch.equal(a, b) and torch.equal(a, c), k
+    for field in sa._fields[1:]:
+        for k, a in (getattr(sa, field) or {}).items():
+            assert torch.equal(a, getattr(sb, field)[k]), (field, k)
+            assert torch.equal(a, getattr(sc, field)[k]), (field, k)
+    assert int(sa.step) == int(sb.step) == int(sc.step) == 5
