@@ -126,11 +126,14 @@ published widths, 4 of its 24 encoder and 4 of its 24 decoder layers
 from a seed) served 8 x 256, 13 NFE, through ``WarmStartServer`` on a
 ``Conditioned`` model (the frames bound to ``dfm_apply``), drafted by
 ``ar_generate`` on the same config (seed 1) with the frames at seq_len 257
-(the JAX engine's reference fault R8: 256 tokens): two serves with exact
-launch counts (12 ``flash_attn`` and 1 ``ws_step`` a NFE; the draft 8 at
-its prefill and 4 a decode step), one capture, the second serve's replay
-== its eager launches bitwise, the logits at 1 x 64 against the CPU, an
-NFE's encoder and cross k/v shares and the flow stage profiled; the smoke
+(the JAX engine's reference fault R8: 256 tokens), one CUDA graph replay a
+draft: two serves with exact launch counts (12 ``flash_attn`` and 1
+``ws_step`` a NFE; the draft 8 at its prefill and 4 a decode step; the
+first serve twice both, the captures' warm-ups), one capture of the refine
+and one of the draft, the second serve's refine replay == its eager
+launches and its draft replay == the eager draft on the same key, bitwise,
+the logits at 1 x 64 against the CPU, an NFE's encoder and cross k/v
+shares, the flow stage and one whole draft replay profiled; the smoke
 config served on the card == the CPU.
 
 Then the MoE family: ``flash_attn`` at arctic-480b's refine (8 x 256, 56
@@ -4214,7 +4217,6 @@ ENCDEC_ROWS = 8
 ENCDEC_LAYERS = ENCDEC_ENCODER_LAYERS = 4
 ENCDEC_FRAMES_SEED = 7               # the frames: 0.1 N(0, 1) from numpy, copied to the card
 ENCDEC_SMOKE_SEQ = 24                # the smoke config served 2 x 24 on the card and the CPU
-ENCDEC_PROFILE_STEPS = 32            # decode steps of the profiled draft
 
 
 def encdec_launches(cfg, nfe, seq=SEQ):
@@ -4229,6 +4231,14 @@ def encdec_launches(cfg, nfe, seq=SEQ):
     refine = {"flash_attn": nfe * per_nfe, "ws_step": nfe}
     draft = {"flash_attn": cfg.num_encoder_layers + cfg.num_layers * (1 + seq)}
     return refine, draft
+
+
+def encdec_serve_launches(refine, draft, first):
+    """A whisper serve's launches: its refine's and its draft's, each one
+    graph replay, and each twice on the first serve (the capture's warm-up,
+    then the replay)."""
+    k = 2 if first else 1
+    return {n: k * (refine.get(n, 0) + draft.get(n, 0)) for n in sorted({*refine, *draft})}
 
 
 def encdec_frames(cfg, rows, device="cuda"):
@@ -4381,17 +4391,21 @@ def encdec_serve():
     served through ``WarmStartServer`` on ``Conditioned(model, {"frames":
     frames})``, ENCDEC_ROWS x SEQ tokens over 1500 frames each, t0 = 0.8,
     cold_nfe = 64 (13 NFE), drafted by ``ar_generate`` on the same config
-    (seed 1) with the same frames at seq_len SEQ + 1 (R8). Two serves. Gates:
-    the NFE guarantee, exact launches a serve (the refine encoder + 2 x
-    decoder layers flash_attn and 1 ws_step a NFE, the first serve twice
-    that; the draft encoder + decoder layers at its prefill and decoder
-    layers in each of its SEQ decode steps), one capture, the second serve's replay ==
-    its eager launches on its draft bitwise, the draft's length, the logits
-    at 1 x 64 against the host. Reports draft, flow and per-NFE time,
-    samples/s, the draft cost ratio, peak memory, the busy shares of the
-    flow stage (a serve with its draft given, profiled) and of a short
-    draft (its prefill and 32 decode steps, profiled), and an NFE's encoder
-    and cross k/v shares."""
+    (seed 1) with the same frames at seq_len SEQ + 1 (R8), one CUDA graph
+    replay a draft. Two serves. Gates: the NFE guarantee, exact launches a
+    serve (the refine encoder + 2 x decoder layers flash_attn and 1 ws_step
+    a NFE; the draft encoder + decoder layers at its prefill and decoder
+    layers in each of its SEQ decode steps; the first serve twice both, the
+    captures' warm-ups), one capture of the refine and one of the draft,
+    the second serve's refine replay == its eager launches on its draft and
+    its draft's replay == the eager draft (``_ar_generate_eager``, the key
+    split on the host) on the same key, bitwise with the same launches, the
+    draft's length, the logits at 1 x 64 against the host. Reports draft,
+    flow and per-NFE time, samples/s, the draft cost ratio, the eager
+    draft's ms, the captures' ms, the draft graph's pool, peak memory, the
+    busy shares of the flow stage (a serve with its draft given, profiled)
+    and of one whole draft replay (profiled), and an NFE's encoder and
+    cross k/v shares."""
     from repro_torch import prng
     from repro_torch.configs import get_config
     from repro_torch.core.guarantees import warm_nfe
@@ -4401,6 +4415,7 @@ def encdec_serve():
     from repro_torch.kernels.ws_step import make_ws_step_fn
     from repro_torch.models import Conditioned, EncDecModel
     from repro_torch.serving import WarmStartServer, ar_generate
+    from repro_torch.serving.engine import _ar_generate_eager, ar_graphs
 
     t_start = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -4419,6 +4434,7 @@ def encdec_serve():
         path=path, cold_nfe=COLD_NFE, step_fn=make_ws_step_fn(path), device="cuda")
     nfe = warm_nfe(COLD_NFE, T0)
     refine, per_draft = encdec_launches(cfg, nfe)
+    draft_graphs = ar_graphs(drafter)
 
     launches.clear()
     reports = []
@@ -4427,8 +4443,7 @@ def encdec_serve():
         rng = prng.key(500 + i)
         served, rep = server.serve(rng, rows)
         grew = grown(before)
-        want = {k: (2 if i == 0 else 1) * n + per_draft.get(k, 0)    # the capture's warm-up
-                for k, n in refine.items()}
+        want = encdec_serve_launches(refine, per_draft, first=i == 0)
         if grew != want:
             fail(f"{cfg.name} serve {i}: launches {grew}, expected {want}")
         if not (rep["nfe"] == rep["backbone_evals"] == nfe):
@@ -4439,14 +4454,34 @@ def encdec_serve():
                  f"gives {SEQ}), tokens {tuple(served.shape)} in [0, {cfg.vocab_size})")
         reports.append(rep)
     counts = dict(launches)
-    if server.graphs.captures != 1:
-        fail(f"{cfg.name}: two serves must capture the refine once: {server.graphs.captures}")
+    if server.graphs.captures != 1 or draft_graphs.captures != 1:
+        fail(f"{cfg.name}: two serves must capture the refine and the draft once each: "
+             f"{server.graphs.captures}, {draft_graphs.captures}")
     print(f"encdec path: {cfg.name} ({n_params / 1e9:.3f}B params, float32) x 2 serves of "
           f"{rows} x {SEQ} over {cfg.num_audio_frames} frames, drafted by ar_generate on "
           f"{cfg.name} (seed {DRAFT_SEED}, seq_len {SEQ + 1}: R8), t0={T0}, cold_nfe={COLD_NFE}: "
           f"nfe {nfe} per serve, guarantee gate passed, launches {counts} (the refine {refine}, "
-          f"the first serve twice that; the draft {per_draft}); refine capture ms (warm-up and "
-          f"capture) {server.graphs.stats()['capture_ms']}")
+          f"the draft {per_draft}, the first serve twice both); capture ms (warm-up and "
+          f"capture): refine {server.graphs.stats()['capture_ms']}, draft "
+          f"{draft_graphs.stats()['capture_ms']}")
+
+    # the second serve's draft (a replay) against the eager draft on the same key
+    k_draft = prng.split(rng, 2)[0]
+    before = dict(launches)
+    t_eager = time.perf_counter()
+    eager_draft = _ar_generate_eager(drafter, cfg, k_draft, batch_size=rows, seq_len=SEQ + 1,
+                                     extras={"frames": frames})
+    torch.cuda.synchronize()
+    draft_vs_eager = {"differ": int((draft.last != eager_draft).sum()),
+                      "eager_draft_ms": (time.perf_counter() - t_eager) * 1e3,
+                      "launches": grown(before), "captures": draft_graphs.captures,
+                      "replays": draft_graphs.replays}
+    print(f"{cfg.name} second serve's draft (graph) vs the eager draft (bitwise): "
+          f"{draft_vs_eager}")
+    if draft_vs_eager["differ"] or draft_vs_eager["launches"] != per_draft \
+            or (draft_graphs.captures, draft_graphs.replays) != (1, 2):
+        fail(f"{cfg.name}: the draft's graph disagrees with its eager launches: "
+             f"{draft_vs_eager}, expected launches {per_draft}")
 
     # the second serve's replay against its eager launches on the same draft and keys
     k_flow = prng.split(rng, 2)[1]
@@ -4474,12 +4509,12 @@ def encdec_serve():
 
     prof = _profile(run, f"{cfg.name} serve with its draft given (the flow stage)")
     prof["flow_ms"] = holder["rep"]["flow_time_s"] * 1e3
-    # the draft: its prefill and ENCDEC_PROFILE_STEPS decode steps (a trace of the
-    # whole draft's 256 steps of eager launches is not worth reading)
     draft_prof = _profile(lambda: (ar_generate(
-        drafter, cfg, prng.key(522), batch_size=rows, seq_len=ENCDEC_PROFILE_STEPS + 1,
+        drafter, cfg, prng.key(522), batch_size=rows, seq_len=SEQ + 1,
         extras={"frames": frames}), torch.cuda.synchronize()),
-        f"{cfg.name} draft, prefill and {ENCDEC_PROFILE_STEPS} decode steps")
+        f"{cfg.name} draft, one graph replay (prefill and {SEQ} decode steps)")
+    if draft_graphs.captures != 1:
+        fail(f"{cfg.name}: the profiled draft captured again: {draft_graphs.captures}")
     steady = reports[1]
     res = {
         "config": cfg.name, "dtype": cfg.dtype, "params": n_params, "rows": rows,
@@ -4500,11 +4535,21 @@ def encdec_serve():
         "nfe_shares": shares, "launches_per_refine": refine, "launches_per_draft": per_draft,
         "vs_eager": vs_eager, "logits_vs_cpu": logits,
         "capture_ms": server.graphs.stats()["capture_ms"],
+        "draft_graph": {**draft_vs_eager, "capture_ms": draft_graphs.stats()["capture_ms"]},
     }
-    del model, drafter, server, draft, frames
+    # the draft graph's pool: what the card keeps reserved for it, released with it
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    draft_graphs.clear()
+    torch.cuda.empty_cache()
+    res["draft_graph"]["pool_gib"] = (held - torch.cuda.memory_reserved()) / 2 ** 30
+    del model, drafter, server, draft, frames, draft_graphs
     torch.cuda.empty_cache()
     res["seconds"] = time.perf_counter() - t_start
-    print(f"{cfg.name} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms, "
+    print(f"{cfg.name} serve ({rows} x {SEQ}, {nfe} NFE): draft {res['draft_ms']:.1f} ms "
+          f"(one graph replay; eager {draft_vs_eager['eager_draft_ms']:.1f} ms, busy "
+          f"{res['draft_busy_share']}, its pool {res['draft_graph']['pool_gib']:.3f} GiB), "
           f"flow {res['flow_ms']:.1f} ms ({res['per_nfe_ms']:.1f} ms an NFE), "
           f"{res['samples_per_s']:.3f} samples/s, draft cost ratio "
           f"{res['draft_cost_ratio']:.3f}, peak memory {res['peak_memory_gb']:.1f} GiB; "

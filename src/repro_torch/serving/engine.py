@@ -12,13 +12,16 @@ backbone evaluation runs its attention through the ``flash_attn`` kernel; with `
 evaluation feeds K draws in one ``ws_fused`` launch. On the card the whole
 refine loop is one CUDA graph replay a serve (:mod:`repro_torch.graphs`),
 captured once per ``(num, seq_len, n_steps, fused_block)`` as the JAX
-engine jits its loop once per shape; on the CPU it runs eagerly.
+engine jits its loop once per shape, and so is a whole ``ar_generate``
+(the AR baseline, whisper's draft), once per :func:`ar_compile_key`, as
+JAX runs it as one ``lax.scan``; on the CPU both run eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -29,7 +32,7 @@ from repro_torch.core import guarantees
 from repro_torch.core.paths import WarmStartPath
 from repro_torch.core.sampler import make_euler_one_step, refine_loop_inputs, scan_refine_loop
 from repro_torch.device import resolve_device
-from repro_torch.graphs import GraphCache
+from repro_torch.graphs import GraphCache, compile_key
 from repro_torch.kernels.ws_fused import make_ws_fused_fn
 from repro_torch.models.model import check_batch_extras
 
@@ -179,6 +182,60 @@ def make_prefill_fn(model, cfg: ModelConfig, *, global_window: Optional[int] = N
     return prefill
 
 
+def _ar_extras(cfg: ModelConfig, extras: Optional[dict]) -> dict:
+    """The extras ``ar_generate`` reads, by name: an encoder-decoder's, none
+    of a decoder-only config's (JAX drops them: reference fault R11)."""
+    if not cfg.is_encoder_decoder:
+        return {}
+    return {n: extras[n] for n in sorted(extras or {})}
+
+
+def ar_compile_key(cfg: ModelConfig, *, batch_size: int, seq_len: int, bos: int = 0,
+                   temperature: float = 1.0, extras: Optional[dict] = None,
+                   dtype=torch.float32) -> Tuple:
+    """What JAX's ``lax.scan`` of ``ar_generate`` recompiles on: the rows,
+    ``seq_len``, ``temperature``, ``bos``, the cache's dtype and, for an
+    encoder-decoder config, each extra's name, shape and dtype. Not the
+    key's or the extras' values, and nothing of a decoder-only config's
+    extras."""
+    return ((int(batch_size), int(seq_len), float(temperature), int(bos), str(dtype))
+            + compile_key(_ar_extras(cfg, extras)))
+
+
+_AR_GRAPHS: "weakref.WeakKeyDictionary[Any, GraphCache]" = weakref.WeakKeyDictionary()
+
+
+def ar_graphs(model) -> GraphCache:
+    """``ar_generate``'s CUDA graphs on ``model``, one per
+    :func:`ar_compile_key`. The map holds the model weakly: its graphs and
+    their memory pools go with it."""
+    graphs = _AR_GRAPHS.get(model)
+    if graphs is None:
+        graphs = _AR_GRAPHS[model] = GraphCache(
+            "ar_generate", hint="a decode step reads nothing back to the host")
+    return graphs
+
+
+def _ar_loop(model, cfg: ModelConfig, rng: torch.Tensor, extras: dict, *, batch_size: int,
+             seq_len: int, bos: int, temperature: float, dtype) -> torch.Tensor:
+    """The loop of ``ar_generate`` as launches: a new zeroed cache, the
+    encoder-decoder's prefill, a key split and a draw a step. It reads
+    nothing back to the host, so a CUDA graph can hold it whole."""
+    cache = model.init_cache(batch_size, seq_len + 1, dtype)
+    serve_step = make_serve_step(model, cfg, temperature=temperature)
+    tok = torch.full((batch_size, 1), bos, dtype=torch.int32, device=model.device)
+    start = 0
+    if cfg.is_encoder_decoder:
+        _, cache = model.prefill({"tokens": tok, **extras}, cache)
+        start = 1
+    out = []
+    for i in range(start, seq_len):
+        rng, sub = prng.split(rng, 2)
+        tok, _, cache = serve_step(sub, tok, cache, i)
+        out.append(tok[:, 0])
+    return torch.stack(out, dim=1)
+
+
 @torch.no_grad()
 def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, seq_len: int,
                 bos: int = 0, temperature: float = 1.0, extras: Optional[dict] = None,
@@ -193,20 +250,34 @@ def ar_generate(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int, 
     ``seq_len - 1`` tokens, as JAX's does (reference fault R8): ask for
     ``N + 1`` to get N. A decoder-only config's extras (a VLM's ``patches``
     and ``positions``) are dropped, as JAX's ``ar_generate`` drops them:
-    the draft is text only (reference fault R11)."""
-    cache = model.init_cache(batch_size, seq_len + 1, dtype)
-    serve_step = make_serve_step(model, cfg, temperature=temperature)
-    tok = torch.full((batch_size, 1), bos, dtype=torch.int32, device=model.device)
-    start = 0
-    if cfg.is_encoder_decoder:
-        _, cache = model.prefill({"tokens": tok, **(extras or {})}, cache)
-        start = 1
-    out = []
-    for i in range(start, seq_len):
-        rng, sub = prng.split(rng, 2)
-        tok, _, cache = serve_step(sub, tok, cache, i)
-        out.append(tok[:, 0])
-    return torch.stack(out, dim=1)
+    the draft is text only (reference fault R11).
+
+    On the card a call is one CUDA graph replay (:func:`ar_graphs`),
+    captured once per :func:`ar_compile_key` as JAX's one ``lax.scan``
+    dispatch: the cache, the prefill and every step's split and draw are
+    inside it, the key (moved to the card) and the extras' values are its
+    inputs, copied in at each call. On the CPU the loop runs eagerly."""
+    ex = _ar_extras(cfg, extras)
+    kw = dict(batch_size=batch_size, seq_len=seq_len, bos=bos, temperature=temperature,
+              dtype=dtype)
+    key = ar_compile_key(cfg, extras=ex, **kw)
+    if model.device.type == "cuda" and rng.device.type == "cpu":
+        rng = rng.pin_memory().to(model.device, non_blocking=True)   # no wait for the stream
+
+    def run(k, *values):
+        return _ar_loop(model, cfg, k, dict(zip(ex, values)), **kw)
+
+    return ar_graphs(model)(key, run, rng, *ex.values())
+
+
+@torch.no_grad()
+def _ar_generate_eager(model, cfg: ModelConfig, rng: torch.Tensor, *, batch_size: int,
+                       seq_len: int, bos: int = 0, temperature: float = 1.0,
+                       extras: Optional[dict] = None, dtype=torch.float32) -> torch.Tensor:
+    """:func:`ar_generate` as eager launches on the card too, the key split
+    on the host: the graph's yardstick."""
+    return _ar_loop(model, cfg, rng, _ar_extras(cfg, extras), batch_size=batch_size,
+                    seq_len=seq_len, bos=bos, temperature=temperature, dtype=dtype)
 
 
 def make_refine_step_fn(model, cfg: ModelConfig, path: WarmStartPath, *,

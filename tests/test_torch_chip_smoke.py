@@ -180,6 +180,19 @@ def test_encdec_launches_count_every_attention_and_the_draft_after_r8(smoke):
     assert draft == {"flash_attn": 4 + 2 * 24}
 
 
+def test_encdec_serve_launches_count_the_first_serve_twice(smoke):
+    """A whisper serve is one replay of the refine's graph and one of the
+    draft's; the first serve also runs each capture's warm-up, so it counts
+    both twice."""
+    from repro_torch.configs import get_config
+
+    refine, draft = smoke.encdec_launches(get_config("whisper-medium"), 13)
+    one = {"flash_attn": 13 * 72 + 48 + 24 * 256, "ws_step": 13}
+    assert smoke.encdec_serve_launches(refine, draft, first=False) == one
+    assert smoke.encdec_serve_launches(refine, draft, first=True) == {
+        k: 2 * n for k, n in one.items()}
+
+
 @pytest.mark.parametrize("arch,per_forward", [("zamba2-2.7b", 9), ("xlstm-1.3b", 0),
                                               ("whisper-medium", 72)])
 def test_train_zoo_launches_count_every_attention_once_a_forward(smoke, arch, per_forward):

@@ -1749,3 +1749,81 @@ def test_optimizer_device_body_is_the_host_float_form_on_card(card, name):
             assert torch.equal(a, getattr(sb, field)[k]), (field, k)
             assert torch.equal(a, getattr(sc, field)[k]), (field, k)
     assert int(sa.step) == int(sb.step) == int(sc.step) == 5
+
+
+# -- ar_generate as one CUDA graph a compile key -----------------------------------------------
+
+
+def _ar_scores(model, key, tokens, seq_len, extras, temperature):
+    """Each draw's ``gumbel + logits / T`` of ``ar_generate`` on ``model``, the
+    loop fed ``tokens`` (B, n): what it draws from along that path."""
+    b = tokens.shape[0]
+    cache = model.init_cache(b, seq_len + 1, torch.float32)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=model.device)
+    start, out = 0, []
+    with torch.no_grad():
+        if model.cfg.is_encoder_decoder:
+            _, cache = model.prefill({"tokens": tok, **extras}, cache)
+            start = 1
+        for j, i in enumerate(range(start, seq_len)):
+            key, sub = prng.split(key, 2)
+            logits, cache = model.decode_step(tok, cache, i)
+            last = logits[:, -1].float() / temperature
+            out.append(prng.gumbel(sub, last.shape) + last)
+            tok = tokens[:, j:j + 1].to(model.device)
+    return out
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "zamba2-2.7b", "xlstm-1.3b", "arctic-480b",
+                                  "deepseek-v3-671b", "qwen2-vl-72b", "whisper-medium"])
+def test_ar_generate_graph_equals_eager_and_the_cpu(card, arch):
+    """``ar_generate`` at each served family's smoke config (dense,
+    recurrent, MoE, MLA, VLM, encoder-decoder), 2 x 12 tokens: two calls,
+    one capture; the second call's replay, under another key than the
+    capture's, == the eager loop (the key split on the host) bitwise with
+    the same launches, and the first call's launches twice those (the
+    capture's warm-up); the VLM's first call gives its patches and
+    positions, its second drops them (R11: one key); the tokens == the
+    CPU's off near ties (at a row's first differing draw the card's two
+    best scores lie within TIE_TOL)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.rope import vlm_positions
+    from repro_torch.serving.engine import _ar_generate_eager, ar_generate, ar_graphs
+
+    cfg = get_smoke_config(arch)
+    g = torch.Generator().manual_seed(0)
+    if cfg.is_encoder_decoder:
+        extras = {"frames": torch.randn((2, cfg.num_audio_frames, cfg.d_model), generator=g)}
+    elif arch == "qwen2-vl-72b":
+        extras = {"patches": 0.1 * torch.randn((2, cfg.num_vision_tokens, 1280), generator=g),
+                  "positions": vlm_positions(2, (2, 4), 12)}
+    else:
+        extras = {}
+    seq_len = 13 if cfg.is_encoder_decoder else 12             # R8: 12 tokens each
+    kw = dict(batch_size=2, seq_len=seq_len, temperature=0.9)
+    model = build_model(cfg, device="cpu", seed=3).to(card)
+    on_card = {k: v.to(card) for k, v in extras.items()}
+    second_extras = None if arch == "qwen2-vl-72b" else on_card
+    first, n_first = _grew(lambda: ar_generate(model, cfg, prng.key(1), extras=on_card, **kw))
+    got, n_got = _grew(lambda: ar_generate(model, cfg, prng.key(2), extras=second_extras, **kw))
+    want, n_want = _grew(lambda: _ar_generate_eager(model, cfg, prng.key(2), extras=on_card,
+                                                    **kw))
+    graphs = ar_graphs(model)
+    assert (graphs.captures, graphs.replays, len(graphs)) == (1, 2, 1)
+    assert got.shape == (2, 12) and got.device.type == "cuda"
+    assert torch.equal(got, want) and not torch.equal(got, first)
+    assert torch.equal(first, _ar_generate_eager(model, cfg, prng.key(1), extras=on_card, **kw))
+    assert n_got == n_want and n_first == {k: 2 * n for k, n in n_want.items()}
+    if cfg.is_encoder_decoder:
+        assert n_want == {"flash_attn": cfg.num_encoder_layers + cfg.num_layers * 13}
+
+    cpu_model = build_model(cfg, device="cpu", seed=3)
+    cpu = ar_generate(cpu_model, cfg, prng.key(2), extras=extras, **kw)
+    rows = torch.nonzero((cpu != got.cpu()).any(dim=1)).flatten().tolist()
+    if rows:
+        scores = _ar_scores(model, prng.key(2), cpu, seq_len, on_card, kw["temperature"])
+        for r in rows:
+            i = int(torch.nonzero(cpu[r] != got[r].cpu())[0])
+            top2 = scores[i][r].topk(2).values
+            assert float(top2[0] - top2[1]) <= TIE_TOL, f"row {r} step {i} is no near tie"
